@@ -12,12 +12,17 @@ non-zero and prints no result. Without CUDA it exits 2 at once.
 Phases, in order:
 
 1. device  — the card's name and power limit (nvidia-smi).
-2. build   — g++ and nvcc builds, started together; their seconds.
+2. build   — g++ and nvcc builds, started together; their seconds, each
+             kernel instantiation's registers and spill bytes (ptxas) and
+             HGMMA count (cuobjdump -sass). Fails if the D=64 bf16 wgmma
+             kernel spills or a wgmma kernel has no HGMMA instruction.
 3. kernels — every kernel of the port against its plain PyTorch version
-             on the card at the main path's shape and at ragged shapes,
-             with the kernel's time, the plain version's, one PyTorch
-             library call's as a yardstick, and the least time the card
-             could take for the same work.
+             on the card at the main path's shape and at ragged and
+             strided shapes, on the route each input takes, a bitwise
+             repeat check, and the tensor-core kernel's time beside the
+             simt kernel's, the plain version's, one PyTorch library
+             call's as a yardstick, and the least time the card could take
+             for the same work.
 4. train   — the flagship transformer at its full default width trains
              5 Adam steps on the card; the attention forward must run
              the flash kernel n_layers x steps times.
@@ -26,8 +31,9 @@ Phases, in order:
              one more step from both giving bitwise-equal losses.
 6. bulk    — take and restore of 4 GiB of CUDA tensors (32 x 128 MiB).
 
-Launch counts are set to 0 just before the train phase and read after
-the snapshot phase: the kernels phase's comparison launches do not count.
+Launch counts (in all and by route) are set to 0 just before the train
+phase and read after the snapshot phase: the kernels phase's comparison
+launches do not count. Every main-path launch must take the wgmma route.
 """
 
 from __future__ import annotations
@@ -69,20 +75,30 @@ def nvidia_smi_line() -> str:
 
 
 def time_ms(fn, reps: int, warmup: int = 3) -> float:
-    """Median device time of ``fn`` over ``reps`` runs, CUDA events."""
+    """Device time of one call of ``fn``: ``reps`` calls captured in one
+    CUDA graph and replayed between two CUDA events, so the host's enqueue
+    time between calls is not counted; the median of 5 replays over
+    ``reps``."""
     import torch
 
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
     times = []
-    for _ in range(reps):
+    for _ in range(5):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        graph.replay()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
+    del graph
     return statistics.median(times)
 
 
@@ -94,11 +110,64 @@ def attention_bound(shape, dtype: str, causal: bool):
     b, s, h, d = shape
     itemsize = {"bfloat16": 2, "float16": 2, "float32": 4}[dtype]
     nbytes = 4 * b * s * h * d * itemsize
-    pairs = s * (s + 1) // 2 if causal else s * s
-    flops = 4 * b * h * d * pairs  # QK^T and PV, 2 FLOPs per multiply-add
     bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
-    ops_ms = 1e3 * flops / PEAK_FLOPS[dtype]
+    ops_ms = 1e3 * attention_flops(shape, causal) / PEAK_FLOPS[dtype]
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def attention_flops(shape, causal: bool) -> int:
+    """FLOPs of QK^T and PV over the pairs the mask keeps (2 per
+    multiply-add)."""
+    b, s, h, d = shape
+    pairs = s * (s + 1) // 2 if causal else s * s
+    return 4 * b * h * d * pairs
+
+
+def _kernel_label(mangled: str) -> str:
+    """``wgmma<bf16,64>``-style label of a mangled flash kernel name."""
+    import re
+
+    kind = "wgmma" if "flash_fwd_wgmma" in mangled else "simt"
+    dtype = ("bf16" if "__nv_bfloat16" in mangled else "f16" if "6__half" in mangled
+             else "f32")
+    dim = re.search(r"Li(\d+)E", mangled)
+    return f"{kind}<{dtype},{dim.group(1) if dim else '?'}>"
+
+
+def _ptxas_table(report: str) -> dict:
+    """{label: {"registers", "spill_stores", "spill_loads"}} from ``-Xptxas -v``."""
+    import re
+
+    table, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = _kernel_label(m.group(1))
+            table[name] = {}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            table[name].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            table[name]["registers"] = int(m.group(1))
+    return table
+
+
+def _hgmma_counts(so_path: str, nvcc: str) -> dict:
+    """{label: number of HGMMA instructions} from ``cuobjdump -sass``."""
+    out = subprocess.run(
+        [os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass", so_path],
+        capture_output=True, text=True, timeout=300, check=True,
+    ).stdout
+    counts, name = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            name = _kernel_label(line.split("Function :", 1)[1].strip())
+            counts[name] = 0
+        elif name and "HGMMA" in line:
+            counts[name] += 1
+    return counts
 
 
 def phase_build() -> dict:
@@ -109,23 +178,47 @@ def phase_build() -> dict:
     with ThreadPoolExecutor(max_workers=2) as pool:
         native = pool.submit(_native.available)
         kernels = pool.submit(fa.build_library)
-        ptxas = kernels.result()
+        ptxas = _ptxas_table(kernels.result())
         if not native.result():
             raise RuntimeError("native helper failed to build (g++)")
+    seconds = time.perf_counter() - t0
     if _native.checksum_algorithm() != "crc32c":
         raise RuntimeError("native build missing: checksums would not be crc32c")
-    info = [ln.split(":", 1)[-1].strip() for ln in ptxas.splitlines() if "registers" in ln]
-    return {"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": info}
+    hgmma = _hgmma_counts(fa._SO, fa._nvcc())
+    flagship = ptxas.get("wgmma<bf16,64>")
+    if not flagship or flagship.get("spill_stores", 1) or flagship.get("spill_loads", 1):
+        raise AssertionError(f"the D=64 bf16 wgmma kernel spills or is missing: {flagship}")
+    wgmma = {k: n for k, n in hgmma.items() if k.startswith("wgmma")}
+    if not wgmma or not all(wgmma.values()):
+        raise AssertionError(f"a tensor-core kernel has no HGMMA instruction: {hgmma}")
+    for label, row in ptxas.items():
+        row["hgmma"] = hgmma.get(label)
+    return {"phase": "build", "seconds": seconds, "kernels": ptxas}
 
 
-def _qkv_views(shape, dtype, gen):
+def _qkv_views(shape, dtype, gen, misalign: bool = False):
     """q, k, v as the model hands them over: head-split views of one
-    fused qkv projection (v is not contiguous)."""
+    fused qkv projection (v is not contiguous). ``misalign`` starts them
+    one element past a 16-byte boundary, a layout TMA cannot describe."""
     import torch
 
     b, s, h, d = shape
-    qkv = torch.randn((b, s, 3 * h * d), generator=gen, device="cuda").to(dtype)
+    n = b * s * 3 * h * d
+    flat = torch.randn((n + 1,), generator=gen, device="cuda").to(dtype)
+    qkv = (flat[1:] if misalign else flat[:n]).view(b, s, 3 * h * d)
     return tuple(t.reshape(b, s, h, d) for t in qkv.split(h * d, dim=-1))
+
+
+def _launch_on(route, fn):
+    """Run ``fn`` (one flash launch) and check that it took ``route``."""
+    from tpusnap_torch.ops import flash_attention as fa
+
+    before = dict(fa.route_launches)
+    out = fn()
+    moved = {r: fa.route_launches[r] - before[r] for r in before}
+    if moved != {r: int(r == route) for r in before}:
+        raise AssertionError(f"expected one launch on the {route} route, got {moved}")
+    return out
 
 
 def phase_kernels() -> dict:
@@ -135,49 +228,63 @@ def phase_kernels() -> dict:
     from tpusnap_torch.ops.flash_attention import (
         flash_attention,
         flash_attention_reference,
+        rounding_bound,
     )
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    # Each element must satisfy |out - ref| <= atol + rtol * |ref|.
-    # bf16: both sides round an f32 value to bf16 (8 significant bits), and
-    # f32 sums taken in another order than the reference's can move a value
-    # across a rounding boundary: one bf16 ulp is at most 2**-7 * |x|, so
-    # rtol 2**-6 allows two ulps; atol 1e-5 covers values near 0, where
-    # the f32 order difference (~1e-6) exceeds the ulp. f32: the order
-    # difference over <= 1024 keys stays near 1e-6; atol 2e-5 is the
-    # repo's own f32 tolerance for this kernel.
+    # bf16/f16 (wgmma route): the kernel rounds P to the input type before
+    # P V, as FlashAttention does, so each element must satisfy
+    # |out - ref| <= u (P |V|) + 2 ulps |ref| + 1e-5 (``rounding_bound``:
+    # u = 2**-8 and 2 ulps = 2**-6 for bf16, 2**-11 and 2**-9 for f16; the
+    # 1e-5 covers the f32 summation order). f32 (simt route): only the
+    # order differs; atol 2e-5 is the repo's f32 tolerance for this kernel.
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
     cases = [
-        (SLICE_SHAPE, torch.bfloat16, True, 1e-5, 2**-6),
-        ((1, 200, 4, 64), torch.float32, True, 2e-5, 0.0),
-        ((1, 200, 4, 64), torch.float32, False, 2e-5, 0.0),
-        ((2, 16, 2, 8), torch.float32, True, 2e-5, 0.0),
-        ((2, 16, 2, 8), torch.float32, False, 2e-5, 0.0),
+        # shape, dtype, causal, misaligned base (-> simt), route
+        (SLICE_SHAPE, bf16, True, False, "wgmma"),
+        ((2, 1000, 4, 64), bf16, False, False, "wgmma"),
+        ((1, 200, 4, 40), bf16, True, False, "wgmma"),
+        ((2, 130, 2, 128), f16, True, False, "wgmma"),
+        ((1, 333, 2, 256), f16, False, False, "wgmma"),
+        ((2, 1, 2, 8), bf16, True, False, "wgmma"),
+        ((1, 200, 4, 64), bf16, True, True, "simt"),
+        ((1, 200, 4, 64), f32, True, False, "simt"),
+        ((1, 200, 4, 64), f32, False, False, "simt"),
+        ((2, 16, 2, 8), f32, True, False, "simt"),
+        ((2, 16, 2, 8), f32, False, False, "simt"),
     ]
     checks = []
     with torch.no_grad():
-        for shape, dtype, causal, atol, rtol in cases:
-            q, k, v = _qkv_views(shape, dtype, gen)
-            out = flash_attention(q, k, v, causal=causal)
-            ref = flash_attention_reference(q, k, v, causal)
+        for shape, dtype, causal, misalign, route in cases:
+            q, k, v = _qkv_views(shape, dtype, gen, misalign)
+            out = _launch_on(route, lambda: flash_attention(q, k, v, causal=causal))
+            ref = flash_attention_reference(q, k, v, causal).float()
+            diff = (out.float() - ref).abs()
+            if dtype == f32:
+                allowed, rule = torch.full_like(diff, 2e-5), "atol 2e-5"
+            else:
+                allowed, rule = rounding_bound(q, k, v, causal), "u*(P|V|) + 2ulp*|ref| + 1e-5"
             torch.cuda.synchronize()
-            diff = (out.float() - ref.float()).abs()
-            allowed = atol + rtol * ref.float().abs()
             err = diff.max().item()
             worst = (diff / allowed).max().item()  # <= 1 passes
             if not worst <= 1.0:
                 raise AssertionError(
-                    f"flash kernel disagrees with its plain version at {shape} "
-                    f"{dtype} causal={causal}: max |err| {err}, "
-                    f"{worst}x the allowed atol {atol} + rtol {rtol} * |ref|"
+                    f"flash kernel ({route}) disagrees with its plain version at "
+                    f"{shape} {dtype} causal={causal}: max |err| {err}, {worst}x "
+                    f"the allowed {rule}"
                 )
             checks.append(
                 {"shape": list(shape), "dtype": str(dtype).split(".")[-1],
-                 "causal": causal, "max_abs_err": err, "atol": atol,
-                 "rtol": rtol, "worst_err_over_allowed": worst}
+                 "causal": causal, "route": route, "max_abs_err": err,
+                 "bound": rule, "worst_err_over_bound": worst}
             )
-        q, k, v = _qkv_views(SLICE_SHAPE, torch.bfloat16, gen)
+        q, k, v = _qkv_views(SLICE_SHAPE, bf16, gen)
+        first = flash_attention(q, k, v, causal=True)
+        second = flash_attention(q, k, v, causal=True)
+        if not torch.equal(first, second):
+            raise AssertionError("two launches on the same inputs differ")
         reps = 30
         ms = time_ms(lambda: flash_attention(q, k, v, causal=True), reps)
         plain_ms = time_ms(lambda: flash_attention_reference(q, k, v, True), 20)
@@ -185,14 +292,22 @@ def phase_kernels() -> dict:
         library_ms = time_ms(
             lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), reps
         )
+        qm, km, vm = _qkv_views(SLICE_SHAPE, bf16, gen, misalign=True)
+        _launch_on("simt", lambda: flash_attention(qm, km, vm, causal=True))
+        simt_ms = time_ms(lambda: flash_attention(qm, km, vm, causal=True), reps)
     bound_ms, bound_by = attention_bound(SLICE_SHAPE, "bfloat16", True)
+    flops = attention_flops(SLICE_SHAPE, True)
     return {
         "phase": "kernels",
         "checks": checks,
+        "bitwise_repeat": True,
         "flash_attention_fwd": {
             "shape": list(SLICE_SHAPE), "dtype": "bfloat16", "causal": True,
-            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "route": "wgmma", "ms": ms, "tflops": flops / ms / 1e9,
+            "bound_share": bound_ms / ms, "simt_ms": simt_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
             "library": "torch.nn.functional.scaled_dot_product_attention",
+            "library_tflops": flops / library_ms / 1e9,
             "bound_ms": bound_ms, "bound_by": bound_by, "timed_launches": reps,
             "max_abs_err": checks[0]["max_abs_err"],
         },
@@ -389,18 +504,27 @@ def main() -> int:
         kernel_row = result["flash_attention_fwd"]
         emit(result)
         fa.launches = 0  # the main path starts here
+        fa.route_launches = dict.fromkeys(fa.route_launches, 0)
         emit(phase_train(ctx))
         emit(phase_snapshot(ctx, workdir))
         main_path_launches = fa.launches
+        main_path_routes = dict(fa.route_launches)
         emit(phase_bulk(ctx, workdir))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     if main_path_launches == 0:
         raise AssertionError("the main path launched no flash kernel")
+    if main_path_routes != {"wgmma": main_path_launches, "simt": 0}:
+        raise AssertionError(
+            f"main-path flash launches by route {main_path_routes}: all "
+            f"{main_path_launches} must take the wgmma route"
+        )
     emit({"kernels": [{
         "name": "flash_attention_fwd",
         "route": "cuda",
-        "source": "tpusnap_torch/csrc/flash_attention.cu",
+        "kernel_route": "wgmma",
+        "route_launches": main_path_routes,
+        "source": "tpusnap_torch/csrc/flash_attention_wgmma.cu",
         "replaces": "tpusnap/ops/flash_attention.py:41",
         "launches": main_path_launches,
         "max_abs_err": kernel_row["max_abs_err"],
@@ -410,6 +534,9 @@ def main() -> int:
         "bound_ms": kernel_row["bound_ms"],
         "bound_by": kernel_row["bound_by"],
         "library_ms": kernel_row["library_ms"],
+        "tflops": kernel_row["tflops"],
+        "bound_share": kernel_row["bound_share"],
+        "simt_ms": kernel_row["simt_ms"],
     }]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,14 @@
-"""tpusnap_torch on the card: the Hopper flash kernel against its plain
+"""tpusnap_torch on the card: the Hopper flash kernels against their plain
 version, and a snapshot round trip of CUDA tensors.
 
 Every test here carries the ``cuda`` marker and skips without a card (the
-kernel has no CPU mode). The file imports neither JAX nor ``tpusnap``, so
-it runs on a machine that has only PyTorch; from the repo root:
+kernels have no CPU mode). The file imports neither JAX nor ``tpusnap``,
+so it runs on a machine that has only PyTorch; from the repo root:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py -q
 """
+
+import itertools
 
 import pytest
 import torch
@@ -20,21 +22,46 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def gen():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the Hopper kernel has no CPU mode")
+        pytest.skip("needs an NVIDIA GPU: the Hopper kernels have no CPU mode")
     return torch.Generator(device="cuda").manual_seed(0)
 
 
-# f32: only the summation order differs from the plain version (2e-5 is
-# the repo's f32 tolerance for this kernel). bf16/f16: the output is
-# rounded to the input type, one ulp of a value in [1, 2) being 7.8e-3
-# (bf16) and 9.8e-4 (f16), so a rounding flip costs at most that.
+def _launch(q, k, v, causal, route):
+    """One kernel launch; asserts it took ``route``."""
+    before = dict(fa.route_launches)
+    out = fa.flash_attention(q, k, v, causal=causal)
+    after = fa.route_launches
+    assert after[route] == before[route] + 1 and sum(after.values()) == sum(before.values()) + 1
+    assert out.dtype == q.dtype and out.shape == q.shape
+    return out
+
+
+def _assert_within_rounding_bound(out, q, k, v, causal):
+    """16-bit: |out - ref| <= u·(P·|V|) + 2 ulps·|ref| + 1e-5 per element
+    (``fa.rounding_bound``: the kernel rounds P to the input type)."""
+    ref = fa.flash_attention_reference(q, k, v, causal).float()
+    ratio = ((out.float() - ref).abs() / fa.rounding_bound(q, k, v, causal)).max().item()
+    assert ratio <= 1.0, f"worst element {ratio}x its bound"
+
+
+def _fused_views(shape, dtype, gen):
+    """q, k, v as the model passes them: head-split views of one fused qkv
+    projection (none is contiguous)."""
+    b, s, h, d = shape
+    qkv = torch.randn((b, s, 3 * h * d), generator=gen, device="cuda").to(dtype)
+    return tuple(t.reshape(b, s, h, d) for t in qkv.split(h * d, dim=-1))
+
+
+# f32 (the simt route): only the summation order differs from the plain
+# version; 2e-5 is the repo's f32 tolerance for this kernel. bf16/f16 (the
+# wgmma route): the per-element rounding bound.
 _CASES = [
     ((1, 200, 4, 64), torch.float32, True, 2e-5),
     ((1, 200, 4, 64), torch.float32, False, 2e-5),
     ((2, 16, 2, 8), torch.float32, False, 2e-5),
-    ((2, 130, 2, 128), torch.float16, True, 2e-3),
-    ((1, 96, 2, 256), torch.bfloat16, True, 1.6e-2),
-    ((2, 64, 3, 40), torch.bfloat16, False, 1.6e-2),
+    ((2, 130, 2, 128), torch.float16, True, None),
+    ((1, 96, 2, 256), torch.bfloat16, True, None),
+    ((2, 64, 3, 40), torch.bfloat16, False, None),
 ]
 
 
@@ -45,22 +72,72 @@ def test_kernel_matches_plain(gen, shape, dtype, causal, atol):
     q, k, v = (
         torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(3)
     )
-    before = fa.launches
-    out = fa.flash_attention(q, k, v, causal=causal)
-    assert fa.launches == before + 1
-    ref = fa.flash_attention_reference(q, k, v, causal)
-    assert out.dtype == dtype and out.shape == q.shape
-    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
+    out = _launch(q, k, v, causal, "simt" if dtype == torch.float32 else "wgmma")
+    if atol is None:
+        _assert_within_rounding_bound(out, q, k, v, causal)
+    else:
+        ref = fa.flash_attention_reference(q, k, v, causal)
+        torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize(
+    "dtype,causal,s,d",
+    list(itertools.product((torch.bfloat16, torch.float16), (True, False),
+                           (1, 130, 200, 1000), (8, 40, 64, 128, 256))),
+    ids=lambda x: str(x).replace("torch.", ""),
+)
+def test_wgmma_ragged_shapes(gen, dtype, causal, s, d):
+    """s not a multiple of 64 or 128, d not a multiple of 64: TMA's zero
+    fill and the kernel's mask handle both edges."""
+    q, k, v = (
+        torch.randn((2, s, 3, d), generator=gen, device="cuda").to(dtype) for _ in range(3)
+    )
+    out = _launch(q, k, v, causal, "wgmma")
+    _assert_within_rounding_bound(out, q, k, v, causal)
+
+
+@pytest.mark.parametrize(
+    "dtype,causal,d",
+    list(itertools.product((torch.bfloat16, torch.float16), (True, False), (40, 64, 128))),
+    ids=lambda x: str(x).replace("torch.", ""),
+)
+def test_wgmma_reads_fused_qkv_views(gen, dtype, causal, d):
+    q, k, v = _fused_views((2, 333, 4, d), dtype, gen)
+    assert not v.is_contiguous()
+    out = _launch(q, k, v, causal, "wgmma")
+    _assert_within_rounding_bound(out, q, k, v, causal)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+def test_wgmma_is_bitwise_repeatable(gen, dtype):
+    """A fixed reduction order: two launches on the same inputs agree bit
+    for bit (the post-restore train step relies on it)."""
+    q, k, v = _fused_views((2, 1024, 8, 64), dtype, gen)
+    first = _launch(q, k, v, True, "wgmma")
+    second = _launch(q, k, v, True, "wgmma")
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("layout", ["d4", "misaligned_base"])
+def test_16bit_layouts_tma_cannot_describe_take_simt(gen, layout):
+    if layout == "d4":
+        q, k, v = (
+            torch.randn((2, 70, 2, 4), generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(3)
+        )
+    else:  # one element past a 16-byte boundary
+        flat = torch.randn((3, 1 + 70 * 2 * 64), generator=gen, device="cuda").to(torch.bfloat16)
+        q, k, v = (row[1:].view(1, 70, 2, 64) for row in flat)
+    out = _launch(q, k, v, True, "simt")
+    _assert_within_rounding_bound(out, q, k, v, True)
 
 
 def test_kernel_reads_strided_views(gen):
     """q, k, v as head-split views of one fused projection, as the model
     passes them: no copy, the kernel walks the strides."""
-    b, s, h, d = 2, 100, 4, 32
-    qkv = torch.randn((b, s, 3 * h * d), generator=gen, device="cuda")
-    q, k, v = (t.reshape(b, s, h, d) for t in qkv.split(h * d, dim=-1))
+    q, k, v = _fused_views((2, 100, 4, 32), torch.float32, gen)
     assert not q.is_contiguous()
-    out = fa.flash_attention(q, k, v)
+    out = _launch(q, k, v, True, "simt")
     ref = fa.flash_attention_reference(q, k, v, True)
     torch.testing.assert_close(out, ref, atol=2e-5, rtol=0)
 

@@ -3,9 +3,12 @@
 The same numpy inputs go through tpusnap's ``flash_attention`` (Pallas
 interpret mode on the CPU, as tests/test_models.py runs it), tpusnap's
 ``_attention_reference``, and the port's plain version / CPU wrapper.
-f32 throughout, atol 2e-5 — the tolerance tests/test_models.py uses for
-the kernel against its reference. The Hopper kernel itself runs only on
-the card: tests/test_torch_cuda.py holds it against the plain version.
+f32 there, atol 2e-5 — the tolerance tests/test_models.py uses for the
+kernel against its reference. The Hopper kernels themselves run only on
+the card: tests/test_torch_cuda.py holds them against the plain version.
+Here the CPU reaches what surrounds them: the route choice, and the
+per-element bound the 16-bit kernel is held to, shown to be neither
+broken by the kernel's rounding nor loose enough to hide a lost k-tile.
 """
 
 import jax
@@ -69,9 +72,9 @@ def test_gradients_match_jax_grad():
 
 def test_cpu_wrapper_does_not_count_launches():
     q, k, v = (torch.from_numpy(x) for x in _inputs((1, 8, 1, 4), seed=3))
-    before = fa.launches
+    before, before_routes = fa.launches, dict(fa.route_launches)
     flash_attention(q, k, v)
-    assert fa.launches == before
+    assert fa.launches == before and fa.route_launches == before_routes
 
 
 @pytest.mark.parametrize(
@@ -94,3 +97,94 @@ def test_wrapper_rejects_unsupported_input(case):
     with pytest.raises(ValueError):
         flash_attention(q, k, v)
 
+
+
+def _fused_views(shape, dtype):
+    """q, k, v as the model passes them: head-split views of one fused
+    qkv projection."""
+    b, s, h, d = shape
+    qkv = torch.zeros((b, s, 3 * h * d), dtype=dtype)
+    return tuple(t.reshape(b, s, h, d) for t in qkv.split(h * d, dim=-1))
+
+
+@pytest.mark.parametrize(
+    "case,want",
+    [
+        ("flagship_bf16_views", "wgmma"),
+        ("flagship_f16_views", "wgmma"),
+        ("f32", "simt"),
+        ("bf16_d4", "simt"),
+        ("bf16_seq_stride_not_16_bytes", "simt"),
+        ("bf16_misaligned_base", "simt"),
+        ("bf16_size1_dims_any_stride", "wgmma"),
+    ],
+)
+def test_route_follows_dtype_and_strides(case, want):
+    """``_route`` reads only dtype, shape and strides (plus whether the
+    bases are 16-byte aligned): plain CPU tensors of the shapes and
+    strides the card would see."""
+    aligned = True
+    if case == "flagship_bf16_views":
+        q, k, v = _fused_views((8, 1024, 8, 64), torch.bfloat16)
+        assert not v.is_contiguous()
+    elif case == "flagship_f16_views":
+        q, k, v = _fused_views((8, 1024, 8, 64), torch.float16)
+    elif case == "f32":
+        q, k, v = _fused_views((2, 16, 2, 64), torch.float32)
+    elif case == "bf16_d4":
+        q, k, v = _fused_views((2, 16, 2, 4), torch.bfloat16)
+    elif case == "bf16_seq_stride_not_16_bytes":
+        base = torch.zeros((2, 16, 2 * 8 + 4), dtype=torch.bfloat16)
+        q = k = v = base[..., :16].reshape(2, 16, 2, 8)  # s stride 20 elements = 40 bytes
+    elif case == "bf16_misaligned_base":
+        q, k, v = _fused_views((2, 16, 2, 64), torch.bfloat16)
+        aligned = False
+    else:  # b = 1 and h = 1: their strides are never followed
+        q = k = v = torch.zeros((1, 16, 1, 64), dtype=torch.bfloat16).as_strided(
+            (1, 16, 1, 64), (3, 64, 5, 1)
+        )
+    assert fa._route(q, k, v, base_aligned=aligned) == want
+
+
+def _modelled_kernel(q, k, v, causal, drop_keys_from=None):
+    """The 16-bit kernel's arithmetic in torch: f32 scores and softmax, P
+    rounded to the input type before P V, l from the unrounded P, the
+    output rounded once. ``drop_keys_from`` masks every key from there on,
+    as a kernel that lost its last k-tile would."""
+    b, s, h, d = q.shape
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (d**-0.5)
+    keep = torch.ones((s, s), dtype=torch.bool)
+    if causal:
+        keep = torch.tril(keep)
+    if drop_keys_from is not None:
+        keep[:, drop_keys_from:] = False
+    scores = scores.masked_fill(~keep, float("-inf"))
+    p = torch.exp(scores - scores.amax(-1, keepdim=True))
+    l = p.sum(-1, keepdim=True)
+    out = torch.einsum("bhqk,bkhd->bqhd", p.to(q.dtype).float() / l, v.float())
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_rounding_bound_holds_the_kernel_and_catches_a_lost_tile(dtype, causal):
+    """The bound ``u·(P·|V|) + 2 ulps·|ref| + 1e-5`` (``rounding_bound``)
+    around tpusnap's interpret-mode kernel on the same inputs: (1) the
+    modelled 16-bit kernel lies inside it; (2) the same model without its
+    last k-tile (keys 128..199 of 200) lies outside it."""
+    shape = (1, 200, 2, 64)
+    q, k, v = _inputs(shape, seed=4)
+    want = np.asarray(
+        jax_flash_attention(
+            *(jnp.asarray(x).astype(dtype) for x in (q, k, v)),
+            causal=causal, block_q=128, block_k=128,
+        ).astype(jnp.float32)
+    )
+    tq, tk, tv = (torch.from_numpy(x).to(getattr(torch, dtype)) for x in (q, k, v))
+    bound = fa.rounding_bound(tq, tk, tv, causal).numpy()
+
+    def worst(got):
+        return float((np.abs(got.float().numpy() - want) / bound).max())
+
+    assert worst(_modelled_kernel(tq, tk, tv, causal)) <= 1.0
+    assert worst(_modelled_kernel(tq, tk, tv, causal, drop_keys_from=128)) > 1.0

@@ -1,10 +1,21 @@
-// Flash attention forward for Hopper (sm_90a), plain C interface.
+// Flash attention forward for Hopper (sm_90a): the SIMT kernel and the C
+// entry point that picks a route, plain C interface.
 //
 // Replaces tpusnap/ops/flash_attention.py::_flash_fwd_kernel (the Pallas TPU
-// kernel launched by _flash_forward). It computes exactly what
+// kernel launched by _flash_forward). Two kernels compute what
 // _flash_forward returns — softmax(Q K^T * d^-1/2) V per (batch, head),
-// causal or not, with an online softmax in f32 — and is not carried over
-// block by block:
+// causal or not, with an online softmax in f32:
+//
+// * the wgmma route (flash_attention_wgmma.cu): bf16/f16 inputs that a TMA
+//   tensor map can describe (wgmma_route in flash_attention.cuh), products
+//   on the tensor cores;
+// * the simt route (this file): f32 inputs, which have no tensor-core type
+//   that keeps the f32 tolerance, and 16-bit layouts TMA cannot describe.
+//
+// The entry point takes the route the caller chose and refuses it
+// (cudaErrorInvalidValue) unless wgmma_route agrees: a dispatch, not a knob.
+//
+// The SIMT kernel:
 //
 // * One CUDA block per (64-row q tile, head, batch). Blocks run in parallel
 //   in no order, so the TPU grid's sequential k axis becomes a loop inside
@@ -18,23 +29,23 @@
 // * bf16, f16 and f32 inputs; products and the softmax in f32; output in the
 //   input dtype. head_dim <= 256, bucketed to 32/64/128/256 at compile time.
 //
-// What bounds it on this card: at the flagship shape (b=8, s=1024, h=8,
-// d=64, bf16, causal) the least time is the 33.5 MB of q, k, v and o over
-// HBM (10.0 us at 3.35 TB/s), just above the 8.6 GFLOP over the bf16 tensor
-// cores (8.7 us). This first version does its products as f32 FMAs from
-// shared memory, not on the tensor cores, so it runs far from that bound;
-// the design keeps the HBM traffic at the minimum (each of q, k, v read by
-// a block once per tile it needs, o written once) and leaves wgmma/TMA for
-// a later change. Tiles are staged in shared memory as f32: Q row-major
-// (float4 broadcast reads), K transposed with a padded stride (conflict-free
-// column reads), V row-major, and P (the softmax numerators) per warp.
+// Its products are f32 FMAs from shared memory, on the CUDA cores: at the
+// flagship shape (b=8, s=1024, h=8, d=64, causal) the 8.6 GFLOP alone need
+// 0.128 ms at the 67 TFLOP/s f32 peak, so bf16/f16 inputs take the wgmma
+// route. Tiles are staged in shared memory as f32: Q row-major (float4
+// broadcast reads), K transposed with a padded stride (conflict-free column
+// reads), V row-major, and P (the softmax numerators) per warp.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_attention.cuh"
+
 namespace {
+
+using tpusnap_flash::Params;
 
 constexpr int kBlockQ = 64;
 constexpr int kBlockK = 64;
@@ -44,21 +55,6 @@ constexpr int kRowsPerWarp = kBlockQ / kWarps;  // 8
 constexpr int kKtStride = kBlockK + 1;           // padded: conflict-free
 constexpr int kPStride = kBlockK + 4;            // float4-aligned rows
 constexpr float kNegInf = -1e30f;                // the TPU kernel's mask value
-
-struct Params {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* o;
-  // Element strides of the b, s and h dims (d is contiguous).
-  int64_t q_b, q_s, q_h;
-  int64_t k_b, k_s, k_h;
-  int64_t v_b, v_s, v_h;
-  int64_t o_b, o_s, o_h;
-  int s, d;
-  float scale;
-  int causal;
-};
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
@@ -237,13 +233,15 @@ cudaError_t launch_bucket(const Params& p, int b, int h, cudaStream_t stream) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = float16, 2 = bfloat16. strides: 12 element
-// strides, (b, s, h) of q, k, v and o in that order. Returns the CUDA error
-// code of the launch (0 on success); the kernel runs on `stream` and is not
+// strides, (b, s, h) of q, k, v and o in that order. route: 0 = simt,
+// 1 = wgmma; it must be the one wgmma_route gives, or the call returns
+// cudaErrorInvalidValue without launching. Returns the CUDA error code of
+// the launch (0 on success); the kernel runs on `stream` and is not
 // synchronised.
 extern "C" int tpusnap_flash_attention_fwd(const void* q, const void* k, const void* v,
                                            void* o, const int64_t* strides, int b, int s,
                                            int h, int d, float scale, int causal,
-                                           int dtype, void* stream) {
+                                           int dtype, int route, void* stream) {
   if (d < 1 || d > 256 || s < 1 || b < 1 || h < 1) return int(cudaErrorInvalidValue);
   Params p;
   p.q = q;
@@ -267,11 +265,13 @@ extern "C" int tpusnap_flash_attention_fwd(const void* q, const void* k, const v
   p.scale = scale;
   p.causal = causal;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (route != int(tpusnap_flash::wgmma_route(p, b, h, dtype))) return int(cudaErrorInvalidValue);
+  if (route == 1) return int(tpusnap_flash::launch_wgmma(p, b, h, dtype, st));
   cudaError_t err;
   switch (dtype) {
-    case 0: err = launch_bucket<float>(p, b, h, st); break;
-    case 1: err = launch_bucket<__half>(p, b, h, st); break;
-    case 2: err = launch_bucket<__nv_bfloat16>(p, b, h, st); break;
+    case tpusnap_flash::kFloat32: err = launch_bucket<float>(p, b, h, st); break;
+    case tpusnap_flash::kFloat16: err = launch_bucket<__half>(p, b, h, st); break;
+    case tpusnap_flash::kBFloat16: err = launch_bucket<__nv_bfloat16>(p, b, h, st); break;
     default: err = cudaErrorInvalidValue;
   }
   return int(err);

@@ -1,15 +1,26 @@
-"""Flash attention forward: a hand-written Hopper kernel and its plain
+"""Flash attention forward: hand-written Hopper kernels and their plain
 PyTorch version.
 
-Counterpart of tpusnap/ops/flash_attention.py. The kernel
-(``tpusnap_torch/csrc/flash_attention.cu``) replaces the Pallas TPU kernel
-``tpusnap/ops/flash_attention.py::_flash_fwd_kernel``: it computes what
+Counterpart of tpusnap/ops/flash_attention.py. The kernels
+(``tpusnap_torch/csrc/``) replace the Pallas TPU kernel
+``tpusnap/ops/flash_attention.py::_flash_fwd_kernel``: they compute what
 ``_flash_forward`` returns, reading ``[b, s, h, d]`` inputs through their
-strides with no transpose and no padding (the source's header says what
-bounds it on an H100 and how the design answers that).
+strides with no transpose and no padding. Two routes, chosen by
+``_route`` from the dtype and the strides (a dispatch, not a knob; the C
+entry point checks the choice again):
+
+- ``wgmma`` (``flash_attention_wgmma.cu``): bf16/f16 whose rows and b/s/h
+  strides are multiples of 16 bytes from 16-byte aligned bases, what a TMA
+  tensor map can describe. Products on the tensor cores; P is rounded to
+  the input type before P V, as FlashAttention does.
+- ``simt`` (``flash_attention.cu``): f32 inputs (no tensor-core type keeps
+  the f32 tolerance) and 16-bit layouts TMA cannot describe.
+
+The sources' headers say what bounds each on an H100 and how the design
+answers that.
 
 - ``flash_attention(q, k, v, causal=True)`` keeps the JAX signature and
-  layout. On a CUDA tensor it launches the kernel or raises — there is no
+  layout. On a CUDA tensor it launches a kernel or raises — there is no
   fallback. On a CPU tensor it runs ``flash_attention_reference``.
 - ``flash_attention_reference`` is the counterpart of
   ``_attention_reference``: an einsum in f32, a ``tril`` mask at -1e30,
@@ -18,12 +29,14 @@ bounds it on an H100 and how the design answers that).
 - The gradient is a ``torch.autograd.Function`` whose backward
   differentiates the plain version, as ``_flash_bwd`` does in JAX — the
   JAX package has no backward kernel, so neither does the port.
-- ``launches`` counts kernel launches (never CPU calls), so a run can show
-  that its main path went through the kernel.
+- ``launches`` counts kernel launches (never CPU calls), and
+  ``route_launches`` splits them by route, so a run can show that its main
+  path went through the tensor-core kernel.
 
 The kernel library is built with ``nvcc`` for ``sm_90a`` at first use into
-``tpusnap_torch/_build/`` (rebuilt when the source is newer than the
-library) and bound with ``ctypes``.
+``tpusnap_torch/_build/`` (one ``nvcc`` per source, started together, then
+one link; rebuilt when a file in ``csrc/`` is newer than the library) and
+bound with ``ctypes``.
 """
 
 from __future__ import annotations
@@ -42,12 +55,17 @@ _MAX_HEAD_DIM = 256
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG_DIR, "csrc", "flash_attention.cu")
+_CSRC = os.path.join(_PKG_DIR, "csrc")
+_SRCS = [os.path.join(_CSRC, f) for f in ("flash_attention.cu", "flash_attention_wgmma.cu")]
 _BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 _SO = os.path.join(_BUILD_DIR, "libtpusnap_flash_attention.so")
+_PTXAS_REPORT = os.path.join(_BUILD_DIR, "ptxas.txt")
+_ROUTE_CODES = {"simt": 0, "wgmma": 1}
 
-# Kernel launches made through ``flash_attention`` in this process.
+# Kernel launches made through ``flash_attention`` in this process, in all
+# and by route.
 launches = 0
+route_launches = {"wgmma": 0, "simt": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
@@ -68,41 +86,50 @@ def _nvcc() -> str:
 
 
 def build_library() -> str:
-    """Compile the kernel library if it is missing or older than its
-    source; returns ``ptxas``' per-kernel resource report (empty when the
-    library was already current)."""
+    """Compile the kernel library if it is missing or older than a file in
+    ``csrc/``; returns ``ptxas``' per-kernel resource report of the build
+    that made the library."""
     with _lock:
-        return _build_locked()
+        _build_locked()
+        with open(_PTXAS_REPORT) as f:
+            return f.read()
 
 
-def _build_locked() -> str:
-    if os.path.exists(_SO) and os.path.getmtime(_SO) >= os.path.getmtime(_SRC):
-        return ""
+def _build_locked() -> None:
+    newest = max(os.path.getmtime(os.path.join(_CSRC, f)) for f in os.listdir(_CSRC))
+    if os.path.exists(_SO) and os.path.getmtime(_SO) >= newest:
+        return
     os.makedirs(_BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
+    flags = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"]
+    objs = [os.path.join(_BUILD_DIR, os.path.basename(s) + f".{os.getpid()}.o") for s in _SRCS]
+    procs = [
+        subprocess.Popen(
+            [nvcc, *flags, "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-c", "-o", obj, src],
+            stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE,
+            text=True,
+        )
+        for src, obj in zip(_SRCS, objs)
+    ]
+    report = []
+    for src, proc in zip(_SRCS, procs):
+        _, err = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}) building {src}:\n{err}")
+        report.append(err)
     # Link to a temp path and rename: a mapped .so must never be truncated.
     tmp = f"{_SO}.tmp.{os.getpid()}"
-    cmd = [
-        _nvcc(),
-        "-gencode",
-        "arch=compute_90a,code=sm_90a",
-        "-std=c++17",
-        "-O3",
-        "-shared",
-        "-Xcompiler",
-        "-fPIC",
-        "-Xptxas",
-        "-v",
-        "-o",
-        tmp,
-        _SRC,
-    ]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    proc = subprocess.run(
+        [nvcc, *flags, "-shared", "-o", tmp, *objs], capture_output=True, text=True, timeout=600
+    )
     if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) building {_SRC}:\n{proc.stderr}"
-        )
+        raise RuntimeError(f"nvcc failed ({proc.returncode}) linking {_SO}:\n{proc.stderr}")
+    for obj in objs:
+        os.remove(obj)
+    with open(_PTXAS_REPORT, "w") as f:
+        f.write("".join(report))
     os.replace(tmp, _SO)
-    return proc.stderr
 
 
 def _load() -> ctypes.CDLL:
@@ -125,6 +152,7 @@ def _load() -> ctypes.CDLL:
                 ctypes.c_float,  # scale
                 ctypes.c_int,  # causal
                 ctypes.c_int,  # dtype code
+                ctypes.c_int,  # route code
                 ctypes.c_void_p,  # stream
             ]
             fn.restype = ctypes.c_int
@@ -172,16 +200,55 @@ def flash_attention_reference(
     return out.to(q.dtype)
 
 
+def _route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, base_aligned: bool = True) -> str:
+    """``"wgmma"`` or ``"simt"``: the tensor-core kernel takes bf16/f16
+    inputs whose head_dim rows and every b/s/h stride of q, k and v are
+    whole positive multiples of 16 bytes (strides of dims of size 1 are never used),
+    from 16-byte aligned bases (``base_aligned``): what a TMA tensor map can
+    describe. Reads only dtype, shape and strides; mirrors
+    ``wgmma_route`` in ``csrc/flash_attention.cuh``."""
+    if q.dtype not in (torch.bfloat16, torch.float16) or not base_aligned:
+        return "simt"
+    itemsize = q.element_size()
+    if (q.shape[-1] * itemsize) % 16:
+        return "simt"
+    for t in (q, k, v):
+        for dim in range(3):
+            if t.shape[dim] > 1 and (t.stride(dim) <= 0 or (t.stride(dim) * itemsize) % 16):
+                return "simt"
+    return "wgmma"
+
+
+# Unit roundoff u of P's rounding before P V, and two ulps of the output.
+_ROUNDING = {torch.bfloat16: (2**-8, 2**-6), torch.float16: (2**-11, 2**-9)}
+
+
+def rounding_bound(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True
+) -> torch.Tensor:
+    """Per-element bound on |out - flash_attention_reference(q, k, v)| for
+    a 16-bit kernel that rounds P to the input type before P V:
+    u·(P·|V|) + 2 ulps·|ref| + 1e-5, in f32. Rounding each p to u costs at
+    most u·Σ p|v|/l; both sides round the output once; 1e-5 covers the f32
+    summation order."""
+    u, two_ulps = _ROUNDING[q.dtype]
+    p_abs_v = flash_attention_reference(q.float(), k.float(), v.float().abs(), causal)
+    ref = flash_attention_reference(q, k, v, causal).float()
+    return u * p_abs_v + two_ulps * ref.abs() + 1e-5
+
+
 def _kernel_forward(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool
 ) -> torch.Tensor:
-    """Launch the Hopper kernel on the current stream (not synchronised)."""
+    """Launch the route's Hopper kernel on the current stream (not
+    synchronised)."""
     global launches
     lib = _load()
     b, s, h, d = q.shape
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
+    route = _route(q, k, v, base_aligned=all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
     strides = (ctypes.c_int64 * 12)(
         *(t.stride(i) for t in (q, k, v, out) for i in range(3))
     )
@@ -200,14 +267,16 @@ def _kernel_forward(
             float(d**-0.5),
             1 if causal else 0,
             _DTYPE_CODES[q.dtype],
+            _ROUTE_CODES[route],
             stream,
         )
     if err != 0:
         raise RuntimeError(
             f"flash attention kernel launch failed: CUDA error {err} "
-            f"(shape {tuple(q.shape)}, {q.dtype})"
+            f"(route {route}, shape {tuple(q.shape)}, {q.dtype})"
         )
     launches += 1
+    route_launches[route] += 1
     return out
 
 
