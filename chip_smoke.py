@@ -30,10 +30,24 @@ Phases, in order:
              model (bit-exact, Parameter identity kept), read_object, and
              one more step from both giving bitwise-equal losses.
 6. bulk    — take and restore of 4 GiB of CUDA tensors (32 x 128 MiB).
+7. async_train — Snapshot.async_take of the train state, then at once two
+             train steps on the same model (in-place Adam updates) while
+             the take drains, then wait(); the restore into a fresh model
+             must equal a device clone of the state taken before the call,
+             bit for bit, and one step from each must give the same loss.
+8. async_bulk — async_take of the 4 GiB state (larger than the 2 GiB
+             staging window, so residual windows drain from device
+             copies), add_(1) on every tensor right after the return,
+             wait(); the restore must equal the values before the add_.
+9. chunked — two 1.25 GiB CUDA tensors (f32, bf16) above the 512 MiB
+             chunk size with a ragged last chunk: take, manifest check,
+             restore in place, read_object under a 64 MiB budget into a
+             CUDA target, async_restore into zeroed targets.
 
-Launch counts (in all and by route) are set to 0 just before the train
-phase and read after the snapshot phase: the kernels phase's comparison
-launches do not count. Every main-path launch must take the wgmma route.
+Launch counts (in all and by route) are set to 0 just before each path
+that runs the model — train + snapshot, and async_train — and read just
+after it: the kernels phase's comparison launches do not count. Every
+main-path launch must take the wgmma route.
 """
 
 from __future__ import annotations
@@ -349,7 +363,7 @@ def phase_train(ctx: dict) -> dict:
             f"flash kernel launched {launched} times, expected "
             f"{cfg.n_layers * TRAIN_STEPS}"
         )
-    ctx.update(cfg=cfg, model=model)
+    ctx.update(cfg=cfg, model=model, tokens=tokens)
     n_params = sum(p.numel() for p in model.parameters())
     return {
         "phase": "train", "config": {
@@ -433,6 +447,7 @@ def phase_snapshot(ctx: dict, workdir: str) -> dict:
     if fa.launches - launches_before != 2 * cfg.n_layers:
         raise AssertionError("post-restore steps did not run the flash kernel")
     shutil.rmtree(path)
+    ctx["take_s"] = take_s
     return {
         "phase": "snapshot", "bytes": nbytes, "tensors": len(list(_leaves(state))),
         "take_s": take_s, "restore_s": restore_s,
@@ -448,19 +463,27 @@ def _nest_cpu(tree):
     return tree.detach().cpu()
 
 
-def phase_bulk(ctx: dict, workdir: str) -> dict:
+def _bulk_tensors(n_tensors: int = 32, tensor_bytes: int = 128 << 20) -> dict:
+    """32 CUDA tensors of 128 MiB, f32 and bf16 alternating (4 GiB)."""
     import torch
 
-    from tpusnap_torch import Snapshot, StateDict
-
-    n_tensors, tensor_bytes = 32, 128 << 20
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     tensors = {}
     for i in range(n_tensors):
         dtype = torch.float32 if i % 2 == 0 else torch.bfloat16
         n = tensor_bytes // (4 if dtype == torch.float32 else 2)
         tensors[f"t{i:02d}"] = torch.randn(n, generator=gen, device="cuda").to(dtype)
-    nbytes = n_tensors * tensor_bytes
+    return tensors
+
+
+def phase_bulk(ctx: dict, workdir: str) -> dict:
+    import torch
+
+    from tpusnap_torch import Snapshot, StateDict
+
+    tensors = _bulk_tensors()
+    n_tensors = len(tensors)
+    nbytes = sum(t.numel() * t.element_size() for t in tensors.values())
     path = os.path.join(workdir, "bulk")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -484,6 +507,200 @@ def phase_bulk(ctx: dict, workdir: str) -> dict:
     }
 
 
+def phase_async_train(ctx: dict, workdir: str) -> dict:
+    import torch
+
+    from tpusnap_torch import Snapshot, StateDict
+    from tpusnap_torch.models import Transformer
+    from tpusnap_torch.ops import flash_attention as fa
+
+    cfg, model, tokens = ctx["cfg"], ctx["model"], ctx["tokens"]
+    # The witness: a device clone of the state as of the call, for the
+    # checks only.
+    witness = Transformer(cfg, device="cuda", seed=SEED + 2)
+    with torch.no_grad():
+        for (_, src), (_, dst) in zip(_leaves(model.train_state()), _leaves(witness.train_state())):
+            dst.copy_(src)
+    state = StateDict(**model.train_state())
+    nbytes = sum(t.numel() * t.element_size() for _, t in _leaves(state))
+    path = os.path.join(workdir, "async_train")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pending = Snapshot.async_take(path, {"train": state, "progress": StateDict(step=TRAIN_STEPS)})
+    blocked_s = time.perf_counter() - t0
+    staged_at_return = pending.staged()
+    before = fa.launches
+    losses = [model.train_step(tokens, learning_rate=1e-3) for _ in range(2)]
+    launched = fa.launches - before
+    snap = pending.wait()
+    wait_s = time.perf_counter() - t0
+    losses = [x.item() for x in losses]
+    if launched != 2 * cfg.n_layers:
+        raise AssertionError(f"the in-flight steps launched the flash kernel {launched} times")
+    if torch.equal(model.ln_f, witness.ln_f):
+        raise AssertionError("the in-flight steps did not update the model")
+
+    fresh = Transformer(cfg, device="cuda", seed=SEED + 3)
+    target = StateDict(**fresh.train_state())
+    before_ids = {p: id(t) for p, t in _leaves(target)}
+    snap.restore({"train": target, "progress": StateDict(step=0)})
+    for (p, want), (_, got) in zip(_leaves(witness.train_state()), _leaves(fresh.train_state())):
+        if not torch.equal(want, got):
+            raise AssertionError(f"async snapshot of {p} differs from the state at the call")
+    for p, got in _leaves(target):
+        if id(got) != before_ids[p]:
+            raise AssertionError(f"restore replaced the tensor object at {p}")
+    if {id(p) for p in fresh.parameters()} != {
+        before_ids[f"params/{p}"] for p, _ in _leaves(fresh.params())
+    }:
+        raise AssertionError("the module's parameters are not the restored objects")
+    step_tokens = _tokens(cfg, 8, SEED + 4)
+    loss_restored = fresh.train_step(step_tokens)
+    loss_witness = witness.train_step(step_tokens)
+    if not torch.equal(loss_restored, loss_witness):
+        raise AssertionError(
+            f"post-restore step differs: {loss_restored.item()!r} vs {loss_witness.item()!r}"
+        )
+    shutil.rmtree(path)
+    return {
+        "phase": "async_train", "bytes": nbytes, "async_blocked_s": blocked_s,
+        "wait_s": wait_s, "sync_take_s": ctx["take_s"], "staged_at_return": staged_at_return,
+        "in_flight_losses": losses, "in_flight_flash_launches": launched,
+        "post_restore_loss": loss_restored.item(), "bit_exact": True,
+        "parameter_identity": True, "card": ctx["card"],
+    }
+
+
+def phase_async_bulk(ctx: dict, workdir: str) -> dict:
+    import torch
+
+    from tpusnap_torch import Snapshot, StateDict
+
+    tensors = _bulk_tensors()
+    witness = {k: v.clone() for k, v in tensors.items()}
+    nbytes = sum(t.numel() * t.element_size() for t in tensors.values())
+    path = os.path.join(workdir, "async_bulk")
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    pending = Snapshot.async_take(path, {"bulk": StateDict(tensors)})
+    blocked_s = time.perf_counter() - t0
+    staged_at_return = pending.staged()
+    device_copy_bytes = torch.cuda.memory_allocated() - allocated
+    for v in tensors.values():
+        v.add_(1)
+    pending.wait()
+    wait_s = time.perf_counter() - t0
+    if not staged_at_return:
+        raise AssertionError("async_take of CUDA state returned with staged() False")
+    targets = StateDict({k: torch.zeros_like(v) for k, v in tensors.items()})
+    Snapshot(path).restore({"bulk": targets})
+    for k, v in witness.items():
+        if not torch.equal(v, targets[k]):
+            raise AssertionError(f"async bulk tensor {k} differs from its value at the call")
+        if torch.equal(v, tensors[k]):
+            raise AssertionError(f"the add_ on {k} did not land")
+    shutil.rmtree(path)
+    return {
+        "phase": "async_bulk", "bytes": nbytes, "tensors": len(tensors),
+        "async_blocked_s": blocked_s, "wait_s": wait_s, "staged_at_return": True,
+        "device_copy_bytes_at_return": device_copy_bytes,
+        "wait_gb_s": nbytes / wait_s / 1e9, "card": ctx["card"],
+    }
+
+
+def phase_chunked(ctx: dict, workdir: str) -> dict:
+    import torch
+
+    from tpusnap_torch import Snapshot, StateDict
+    from tpusnap_torch.io_preparers.chunked import chunk_row_ranges
+    from tpusnap_torch.knobs import get_max_chunk_size_bytes
+    from tpusnap_torch.manifest import ChunkedTensorEntry
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    # 1.25 GiB each; 2.5 chunks of the default 512 MiB: the last is ragged.
+    tensors = {
+        "f32": torch.randn((81920, 4096), generator=gen, device="cuda"),
+        "bf16": torch.randn((163840, 4096), generator=gen, device="cuda").to(torch.bfloat16),
+    }
+    nbytes = sum(t.numel() * t.element_size() for t in tensors.values())
+    path = os.path.join(workdir, "chunked")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    snap = Snapshot.take(path, {"c": StateDict(tensors)})
+    take_s = time.perf_counter() - t0
+    # The same take again, as a checkpoint loop repeats it: pinned blocks
+    # of the chunk size are now in PyTorch's host cache.
+    t0 = time.perf_counter()
+    Snapshot.take(os.path.join(workdir, "chunked_again"), {"c": StateDict(tensors)})
+    second_take_s = time.perf_counter() - t0
+    shutil.rmtree(os.path.join(workdir, "chunked_again"))
+    chunk_rows = {}
+    for k, t in tensors.items():
+        entry = snap.metadata.manifest[f"0/c/{k}"]
+        want = [r1 - r0 for r0, r1 in chunk_row_ranges(
+            list(t.shape), entry.dtype, get_max_chunk_size_bytes())]
+        if not isinstance(entry, ChunkedTensorEntry) or [c.sizes[0] for c in entry.chunks] != want:
+            raise AssertionError(f"{k}: expected chunks of {want} rows, got {entry}")
+        chunk_rows[k] = want
+
+    targets = {k: torch.zeros_like(v) for k, v in tensors.items()}
+    ids = {k: id(v) for k, v in targets.items()}
+    restored = StateDict(dict(targets))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    Snapshot(path).restore({"c": restored})
+    restore_s = time.perf_counter() - t0
+    for k, v in tensors.items():
+        if id(restored[k]) != ids[k] or not torch.equal(restored[k], v):
+            raise AssertionError(f"chunked {k} not restored in place, bit-exact")
+
+    out = torch.empty_like(tensors["f32"])
+    t0 = time.perf_counter()
+    got = Snapshot(path).read_object("0/c/f32", obj_out=out, memory_budget_bytes=64 << 20)
+    read_s = time.perf_counter() - t0
+    if got is not out or not torch.equal(out, tensors["f32"]):
+        raise AssertionError("read_object of a chunked entry under 64 MiB differs")
+    del out, got
+
+    for t in targets.values():
+        t.zero_()
+    t0 = time.perf_counter()
+    pending = Snapshot(path).async_restore({"c": StateDict(dict(targets))})
+    pending.wait()
+    async_restore_s = time.perf_counter() - t0
+    for k, v in tensors.items():
+        if not torch.equal(targets[k], v):
+            raise AssertionError(f"async_restore of chunked {k} differs")
+    shutil.rmtree(path)
+    return {
+        "phase": "chunked", "bytes": nbytes, "chunk_rows": chunk_rows,
+        "take_s": take_s, "restore_s": restore_s, "take_gb_s": nbytes / take_s / 1e9,
+        "second_take_gb_s": nbytes / second_take_s / 1e9,
+        "restore_gb_s": nbytes / restore_s / 1e9,
+        "read_object_64mib_gb_s": tensors["f32"].numel() * 4 / read_s / 1e9,
+        "async_restore_s": async_restore_s, "bit_exact": True, "in_place": True,
+        "card": ctx["card"],
+    }
+
+
+def _reset_launches() -> None:
+    from tpusnap_torch.ops import flash_attention as fa
+
+    fa.launches = 0
+    fa.route_launches = dict.fromkeys(fa.route_launches, 0)
+
+
+def _check_routes(path: str, launches: int, routes: dict) -> None:
+    if launches == 0:
+        raise AssertionError(f"the {path} path launched no flash kernel")
+    if routes != {"wgmma": launches, "simt": 0}:
+        raise AssertionError(
+            f"{path} flash launches by route {routes}: all {launches} must take "
+            "the wgmma route"
+        )
+
+
 def main() -> int:
     import torch
 
@@ -503,22 +720,24 @@ def main() -> int:
         result = phase_kernels()
         kernel_row = result["flash_attention_fwd"]
         emit(result)
-        fa.launches = 0  # the main path starts here
-        fa.route_launches = dict.fromkeys(fa.route_launches, 0)
+        _reset_launches()  # the main path starts here
         emit(phase_train(ctx))
         emit(phase_snapshot(ctx, workdir))
-        main_path_launches = fa.launches
-        main_path_routes = dict(fa.route_launches)
+        paths = {"train+snapshot": (fa.launches, dict(fa.route_launches))}
         emit(phase_bulk(ctx, workdir))
+        _reset_launches()
+        emit(phase_async_train(ctx, workdir))
+        paths["async_train"] = (fa.launches, dict(fa.route_launches))
+        emit(phase_async_bulk(ctx, workdir))
+        emit(phase_chunked(ctx, workdir))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    if main_path_launches == 0:
-        raise AssertionError("the main path launched no flash kernel")
-    if main_path_routes != {"wgmma": main_path_launches, "simt": 0}:
-        raise AssertionError(
-            f"main-path flash launches by route {main_path_routes}: all "
-            f"{main_path_launches} must take the wgmma route"
-        )
+    for path, (launches, routes) in paths.items():
+        _check_routes(path, launches, routes)
+    main_path_launches = sum(n for n, _ in paths.values())
+    main_path_routes = {
+        r: sum(routes[r] for _, routes in paths.values()) for r in ("wgmma", "simt")
+    }
     emit({"kernels": [{
         "name": "flash_attention_fwd",
         "route": "cuda",
@@ -527,6 +746,7 @@ def main() -> int:
         "source": "tpusnap_torch/csrc/flash_attention_wgmma.cu",
         "replaces": "tpusnap/ops/flash_attention.py:41",
         "launches": main_path_launches,
+        "launches_by_path": {p: n for p, (n, _) in paths.items()},
         "max_abs_err": kernel_row["max_abs_err"],
         "max_err": kernel_row["max_abs_err"],
         "ms": kernel_row["ms"],

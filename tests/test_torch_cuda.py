@@ -1,5 +1,6 @@
 """tpusnap_torch on the card: the Hopper flash kernels against their plain
-version, and a snapshot round trip of CUDA tensors.
+version, snapshot round trips of CUDA tensors (chunked ones too), async
+takes followed at once by in-place updates, and async restores.
 
 Every test here carries the ``cuda`` marker and skips without a card (the
 kernels have no CPU mode). The file imports neither JAX nor ``tpusnap``,
@@ -14,6 +15,8 @@ import pytest
 import torch
 
 from tpusnap_torch import Snapshot, StateDict
+from tpusnap_torch.io_preparers import array as array_preparer
+from tpusnap_torch.knobs import override_async_stage_window_bytes, override_max_chunk_size_bytes
 from tpusnap_torch.ops import flash_attention as fa
 
 pytestmark = pytest.mark.cuda
@@ -186,3 +189,81 @@ def test_cuda_target_of_another_shape_stays_on_card(gen, tmp_path, budget):
     restored = StateDict(w=torch.zeros((8,), device="cuda"))
     Snapshot(path).restore({"s": restored})
     assert restored["w"].is_cuda and torch.equal(restored["w"], w)
+
+
+def _busy(stream, gen):
+    """Queue a few ms of work on ``stream``, so that copies ordered only
+    after what was queued before would race what is queued after."""
+    with torch.cuda.stream(stream):
+        x = torch.randn((2048, 2048), generator=gen, device="cuda")
+        for _ in range(20):
+            x = x @ x / 2048.0
+    return x
+
+
+@pytest.mark.parametrize(
+    "mode", ["state_inside_window", "state_larger_than_window", "no_room_for_copies"]
+)
+def test_async_take_then_in_place_updates(gen, tmp_path, monkeypatch, mode):
+    """The snapshot holds the state as of async_take although the caller
+    updates every tensor in place on its stream right after the return:
+    whole-window staging, device copies of the residual windows, or (no
+    free memory for them) everything staged before the return."""
+    state = {f"t{i}": torch.randn((256, 1024), generator=gen, device="cuda") for i in range(8)}
+    state["half"] = torch.randn((512, 512), generator=gen, device="cuda").to(torch.bfloat16)
+    state["small_a"] = torch.arange(100, dtype=torch.int32, device="cuda")  # device slab
+    state["small_b"] = torch.randn((33,), generator=gen, device="cuda")
+    state["big"] = torch.randn((1000, 700), generator=gen, device="cuda")  # chunked
+    witness = {k: v.clone() for k, v in state.items()}
+    # Only the two small tensors share a (device) slab.
+    monkeypatch.setenv("TPUSNAP_SLAB_SIZE_THRESHOLD_BYTES", str(64 << 10))
+    if mode == "no_room_for_copies":
+        monkeypatch.setattr(array_preparer, "_room_for_device_copies", lambda device: 0)
+    window = 1 << 30 if mode == "state_inside_window" else 2 << 20
+    stream = torch.cuda.Stream()
+    path = str(tmp_path / "snap")
+    with override_async_stage_window_bytes(window), override_max_chunk_size_bytes(1 << 20):
+        _busy(stream, gen)
+        with torch.cuda.stream(stream):
+            pending = Snapshot.async_take(path, {"s": StateDict(state)})
+            assert pending.staged()  # CUDA state is frozen at the return
+            for v in state.values():
+                v.add_(1)
+        snap = pending.wait()
+    assert snap.metadata.manifest["0/s/big"].type == "ChunkedTensor"
+    targets = StateDict({k: torch.zeros_like(v) for k, v in state.items()})
+    Snapshot(path).restore({"s": targets})
+    for k, v in witness.items():
+        assert torch.equal(targets[k], v), k
+        assert not torch.equal(state[k], v), k  # the updates did land
+
+
+def test_chunked_cuda_tensor_restores_in_place(gen, tmp_path):
+    w = torch.randn((1000, 700), generator=gen, device="cuda")  # 3 chunks, ragged
+    path = str(tmp_path / "snap")
+    with override_max_chunk_size_bytes(1 << 20):
+        snap = Snapshot.take(path, {"s": StateDict(w=w, h=w.to(torch.float16))})
+    assert [c.sizes[0] for c in snap.metadata.manifest["0/s/w"].chunks] == [374, 374, 252]
+    targets = {"w": torch.zeros_like(w), "h": torch.zeros_like(w, dtype=torch.float16)}
+    ids = {k: id(v) for k, v in targets.items()}
+    restored = StateDict(dict(targets))
+    Snapshot(path).restore({"s": restored})
+    assert {k: id(v) for k, v in restored.items()} == ids
+    assert torch.equal(restored["w"], w) and torch.equal(restored["h"], w.to(torch.float16))
+    out = torch.zeros_like(w)
+    got = Snapshot(path).read_object("0/s/w", obj_out=out, memory_budget_bytes=256 << 10)
+    assert got is out and torch.equal(out, w)
+
+
+def test_async_restore_onto_card_is_ordered_before_callers_stream(gen, tmp_path):
+    w = torch.randn((1024, 1024), generator=gen, device="cuda")
+    path = str(tmp_path / "snap")
+    Snapshot.take(path, {"s": StateDict(w=w)})
+    target = torch.zeros_like(w)
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        pending = Snapshot(path).async_restore({"s": StateDict(w=target)})
+        pending.wait()
+        seen = target * 1  # the caller's next kernel on its own stream
+    stream.synchronize()
+    assert torch.equal(seen, w)

@@ -247,18 +247,13 @@ def test_slab_layout_matches_tpusnap_byte_for_byte(tmp_path):
 
 @pytest.mark.parametrize(
     "call",
-    ["incremental_from", "async_take", "async_restore", "stream", "s3_url", "comm", "compress"],
+    ["incremental_from", "stream", "s3_url", "comm", "compress"],
 )
 def test_unported_features_raise(tmp_path, monkeypatch, call):
     path = str(tmp_path / "snap")
     state = {"s": StateDict(x=torch.ones(2))}
     if call == "incremental_from":
         fn = lambda: Snapshot.take(path, state, incremental_from=path + "_base")  # noqa: E731
-    elif call == "async_take":
-        fn = lambda: Snapshot.async_take(path, state)  # noqa: E731
-    elif call == "async_restore":
-        Snapshot.take(path, state)
-        fn = lambda: Snapshot(path).async_restore(state)  # noqa: E731
     elif call == "stream":
         fn = lambda: Snapshot.stream(path, state)  # noqa: E731
     elif call == "s3_url":
@@ -277,10 +272,4 @@ def test_unported_features_raise(tmp_path, monkeypatch, call):
         fn = lambda: Snapshot.take(path, state)  # noqa: E731
     with pytest.raises(NotImplementedError):
         fn()
-    assert not os.path.exists(os.path.join(path, ".snapshot_metadata")) or call == "async_restore"
-
-
-def test_oversized_tensor_raises_until_chunking_lands(tmp_path, monkeypatch):
-    monkeypatch.setenv("TPUSNAP_MAX_CHUNK_SIZE_BYTES", "64")
-    with pytest.raises(NotImplementedError, match="chunk"):
-        Snapshot.take(str(tmp_path / "s"), {"s": StateDict(x=torch.zeros(8, 8))})
+    assert not os.path.exists(os.path.join(path, ".snapshot_metadata"))

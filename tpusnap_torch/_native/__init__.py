@@ -157,6 +157,32 @@ def _bind(lib: ctypes.CDLL) -> None:
         ctypes.POINTER(ctypes.c_uint32),
     ]
     lib.ts_read_range_into_crc.restype = ctypes.c_int64
+    lib.ts_memcpy_par.argtypes = [
+        ctypes.c_void_p,
+        ctypes.c_void_p,
+        ctypes.c_size_t,
+        ctypes.c_int,
+    ]
+    lib.ts_memcpy_par.restype = None
+    lib.ts_memcpy_crc_tiles.argtypes = [
+        ctypes.c_void_p,
+        ctypes.c_void_p,
+        ctypes.c_size_t,
+        ctypes.c_size_t,
+        ctypes.POINTER(ctypes.c_uint32),
+        ctypes.c_int,
+    ]
+    lib.ts_memcpy_crc_tiles.restype = None
+    lib.ts_memcpy_crc_xxh_tiles.argtypes = [
+        ctypes.c_void_p,
+        ctypes.c_void_p,
+        ctypes.c_size_t,
+        ctypes.c_size_t,
+        ctypes.POINTER(ctypes.c_uint32),
+        ctypes.POINTER(ctypes.c_uint64),
+        ctypes.c_int,
+    ]
+    lib.ts_memcpy_crc_xxh_tiles.restype = None
     lib.ts_crc32c.argtypes = [ctypes.c_void_p, ctypes.c_size_t, ctypes.c_uint32]
     lib.ts_crc32c.restype = ctypes.c_uint32
     lib.ts_xxh64.argtypes = [ctypes.c_void_p, ctypes.c_size_t, ctypes.c_uint64]
@@ -367,6 +393,86 @@ def read_range_into(
     if got < 0:
         raise OSError(-got, os.strerror(-got), path)
     return got, crc_val, "crc32c"
+
+
+def _copy_views(dst, src) -> Tuple[memoryview, memoryview]:
+    dst_mv = memoryview(dst).cast("B")
+    src_mv = memoryview(src).cast("B")
+    if dst_mv.readonly:
+        raise ValueError("dst must be writable")
+    if dst_mv.nbytes != src_mv.nbytes:
+        raise ValueError(f"size mismatch: {dst_mv.nbytes} != {src_mv.nbytes}")
+    return dst_mv, src_mv
+
+
+def memcpy(dst, src, nthreads: int = 4) -> None:
+    """GIL-released (and multi-threaded for large buffers) memcpy — the
+    defensive clone of an async take."""
+    dst_mv, src_mv = _copy_views(dst, src)
+    lib = _load()
+    if lib is None or dst_mv.nbytes < (1 << 20):
+        dst_mv[:] = src_mv
+        return
+    dst_ptr, dst_keep = _ptr(dst_mv)
+    src_ptr, src_keep = _ptr(src_mv)
+    lib.ts_memcpy_par(dst_ptr, src_ptr, dst_mv.nbytes, nthreads)
+    del dst_keep, src_keep
+
+
+def memcpy_crc_tiles(dst, src, tile_nbytes: int, nthreads: int = 4) -> list:
+    """Copy ``src`` into ``dst`` while computing a seed-0 checksum per
+    ``tile_nbytes`` bytes — one memory pass for the clone and the hash.
+    Returns the per-tile values (one, the whole-buffer value, when
+    ``tile_nbytes`` >= the buffer size); fold them with ``crc_combine``."""
+    dst_mv, src_mv = _copy_views(dst, src)
+    n = src_mv.nbytes
+    if n == 0:
+        return [crc32c(b"")]
+    if tile_nbytes <= 0 or tile_nbytes > n:
+        tile_nbytes = n
+    n_tiles = (n + tile_nbytes - 1) // tile_nbytes
+    lib = _load()
+    if lib is None:
+        out = []
+        for i in range(n_tiles):
+            sub = src_mv[i * tile_nbytes : min((i + 1) * tile_nbytes, n)]
+            out.append(crc32c(sub))
+            dst_mv[i * tile_nbytes : i * tile_nbytes + sub.nbytes] = sub
+        return out
+    crcs = (ctypes.c_uint32 * n_tiles)()
+    dst_ptr, dst_keep = _ptr(dst_mv)
+    src_ptr, src_keep = _ptr(src_mv)
+    lib.ts_memcpy_crc_tiles(dst_ptr, src_ptr, n, tile_nbytes, crcs, nthreads)
+    del dst_keep, src_keep
+    return list(crcs)
+
+
+def memcpy_crc_xxh_tiles(dst, src, tile_nbytes: int, nthreads: int = 4):
+    """Copy ``src`` into ``dst`` while computing per-tile (CRC32C, XXH64)
+    in the same pass. Returns ``(crcs, xxhs)``."""
+    dst_mv, src_mv = _copy_views(dst, src)
+    n = src_mv.nbytes
+    if n == 0:
+        return [crc32c(b"")], [xxh64(b"")]
+    if tile_nbytes <= 0 or tile_nbytes > n:
+        tile_nbytes = n
+    n_tiles = (n + tile_nbytes - 1) // tile_nbytes
+    lib = _load()
+    if lib is None:
+        crcs, xxhs = [], []
+        for i in range(n_tiles):
+            sub = src_mv[i * tile_nbytes : min((i + 1) * tile_nbytes, n)]
+            crcs.append(crc32c(sub))
+            xxhs.append(_sha256_64(sub))
+            dst_mv[i * tile_nbytes : i * tile_nbytes + sub.nbytes] = sub
+        return crcs, xxhs
+    crcs = (ctypes.c_uint32 * n_tiles)()
+    xxhs = (ctypes.c_uint64 * n_tiles)()
+    dst_ptr, dst_keep = _ptr(dst_mv)
+    src_ptr, src_keep = _ptr(src_mv)
+    lib.ts_memcpy_crc_xxh_tiles(dst_ptr, src_ptr, n, tile_nbytes, crcs, xxhs, nthreads)
+    del dst_keep, src_keep
+    return list(crcs), list(xxhs)
 
 
 def xxh64(buf, seed: int = 0) -> int:

@@ -11,13 +11,21 @@ Same-device CUDA members are packed ON THE CARD — ``_pack_members``
 concatenates their ``uint8`` views in one ``torch.cat`` — and the whole
 slab crosses to the host in ONE device→host copy, the counterpart of
 tpusnap's jitted XLA pack (``tpusnap/batcher.py::_pack_members``). CPU
-members are packed on the host. On read, byte-ranged requests against
+members are packed on the host. Chunks of chunked tensors are slab
+candidates too, as in tpusnap. On read, byte-ranged requests against
 the same location are merged into one spanning read and sliced back out.
+
+Async takes: a device slab outside the first window is packed when the
+take freezes its CUDA sources — the pack is already a device copy, so
+the packed slab is the frozen state. A host slab copies its members'
+live bytes at staging time; COW members are verified against that copy
+at once, since the write pipeline only sees the slab.
 """
 
 from __future__ import annotations
 
 import asyncio
+import threading
 import uuid
 from concurrent.futures import Executor
 from typing import Dict, List, Optional, Tuple
@@ -26,10 +34,12 @@ import numpy as np
 import torch
 
 from . import _native
+from ._staging_pool import release
 from .io_preparers.array import (
     ArrayBufferStager,
     _record_checksums,
     enqueue_dtoh,
+    event_on,
 )
 from .io_types import BufferConsumer, BufferStager, BufferType, ReadReq, WriteReq
 from .knobs import (
@@ -37,7 +47,7 @@ from .knobs import (
     is_batching_disabled,
     is_checksum_disabled,
 )
-from .manifest import Entry, TensorEntry
+from .manifest import ChunkedTensorEntry, Entry, TensorEntry
 from .serialization import tensor_nbytes
 
 
@@ -53,12 +63,21 @@ class BatchedBufferStager(BufferStager):
         slab = _native.aligned_empty(self.total)
 
         async def fill(offset: int, nbytes: int, stager: BufferStager) -> None:
-            mv = memoryview(await stager.stage_buffer(executor)).cast("B")
+            buf = await stager.stage_buffer(executor)
+            mv = memoryview(buf).cast("B")
             if mv.nbytes != nbytes:
                 raise RuntimeError(
                     f"Batched member staged {mv.nbytes} bytes, expected {nbytes}"
                 )
             slab[offset : offset + nbytes] = np.frombuffer(mv, dtype=np.uint8)
+            del mv
+            if getattr(stager, "cow_pending", False):
+                # A COW member staged the live bytes and the slab copy is
+                # its clone: verify that copy against the hash taken from
+                # the live tensor now.
+                stager.verify_cow_after_write(slab[offset : offset + nbytes])
+                stager.cow_pending = False
+            release(buf)  # a member's clone goes back to the pool
 
         await asyncio.gather(*(fill(o, n, s) for o, n, s in self.members))
         return slab
@@ -84,12 +103,19 @@ def _pack_members(arrs: List[torch.Tensor]) -> torch.Tensor:
 class DeviceBatchedBufferStager(BufferStager):
     """Packs same-device CUDA members into one ``uint8`` tensor on the
     card, then makes ONE device→host copy of the whole slab into pinned
-    memory. The pack runs on the copy's side stream after every member's
-    ready event, so it reads the state as of ``take``."""
+    memory. The pack runs on a side stream after every member's ready
+    event, so it reads the state as of ``take``; an async take packs the
+    slabs it has not staged when it freezes its CUDA sources."""
 
     def __init__(self, members: List[Tuple[int, int, ArrayBufferStager]]) -> None:
         self.members = members
         self.total = sum(n for _, n, _ in members)
+        self.cuda_device = members[0][2].arr.device
+        # As in ArrayBufferStager: the pack and the DtoH enqueue happen
+        # under the lock, exclusive with freeze().
+        self._lock = threading.Lock()
+        self._packed: Optional[Tuple[torch.Tensor, "torch.cuda.Event"]] = None
+        self._dtoh_done: Optional["torch.cuda.Event"] = None
 
     async def stage_buffer(self, executor: Optional[Executor] = None) -> BufferType:
         if executor is not None:
@@ -97,16 +123,36 @@ class DeviceBatchedBufferStager(BufferStager):
             return await loop.run_in_executor(executor, self._stage_blocking)
         return self._stage_blocking()
 
-    def _stage_blocking(self) -> BufferType:
+    def _pack_on(self, stream: "torch.cuda.Stream") -> Tuple[torch.Tensor, "torch.cuda.Event"]:
         stagers = [s for _, _, s in self.members]
-        device = stagers[0].arr.device
-        stream = torch.cuda.Stream(device=device)
         with torch.cuda.stream(stream):
             for s in stagers:
                 stream.wait_event(s.ready)
             packed = _pack_members([s.arr for s in stagers])
-        host, done = enqueue_dtoh(packed, _event_on(stream))
+        return packed, event_on(stream)
+
+    def pending_device_bytes(self) -> int:
+        """Device bytes ``freeze`` would pack."""
+        return 0 if self.frozen or self._dtoh_done is not None else self.total
+
+    def freeze(self, stream: "torch.cuda.Stream") -> None:
+        """Pack on ``stream`` now (a slab has at least two members, so the
+        pack is a copy), or wait there for the DtoH already enqueued."""
+        with self._lock:
+            if self._dtoh_done is not None:
+                stream.wait_event(self._dtoh_done)
+            else:
+                self._packed = self._pack_on(stream)
+            self.frozen = True
+
+    def _stage_blocking(self) -> BufferType:
+        with self._lock:
+            if self._packed is None:
+                self._packed = self._pack_on(torch.cuda.Stream(device=self.cuda_device))
+            host, done = enqueue_dtoh(*self._packed)
+            self._dtoh_done = done
         done.synchronize()
+        self._packed = None
         if host.numel() != self.total:
             raise RuntimeError(
                 f"device-packed slab is {host.numel()} bytes, expected {self.total}"
@@ -124,18 +170,24 @@ class DeviceBatchedBufferStager(BufferStager):
         return self.total
 
 
-def _event_on(stream: "torch.cuda.Stream") -> "torch.cuda.Event":
-    event = torch.cuda.Event()
-    event.record(stream)
-    return event
-
-
 def _device_group_key(stager: BufferStager) -> Optional[str]:
     """CUDA tensor members share a key per device (device packing);
     ``None`` → host packing."""
     if isinstance(stager, ArrayBufferStager) and stager.arr.is_cuda:
         return str(stager.arr.device)
     return None
+
+
+def _batchable_tensor_entries(entries: List[Entry]) -> Dict[str, TensorEntry]:
+    """location → TensorEntry of every dense tensor blob, chunks included."""
+    out: Dict[str, TensorEntry] = {}
+    for entry in entries:
+        if isinstance(entry, TensorEntry):
+            out[entry.location] = entry
+        elif isinstance(entry, ChunkedTensorEntry):
+            for chunk in entry.chunks:
+                out[chunk.tensor.location] = chunk.tensor
+    return out
 
 
 def batch_write_requests(
@@ -146,9 +198,7 @@ def batch_write_requests(
     if is_batching_disabled():
         return entries, write_reqs
 
-    entry_by_location: Dict[str, TensorEntry] = {
-        e.location: e for e in entries if isinstance(e, TensorEntry)
-    }
+    entry_by_location = _batchable_tensor_entries(entries)
     candidates: List[WriteReq] = []
     passthrough: List[WriteReq] = []
     for wr in write_reqs:

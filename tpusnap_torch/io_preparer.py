@@ -5,8 +5,7 @@ tpusnap routes on ``jax.Array``:
 
 - int/float/bool/str/bytes          → inlined PrimitiveEntry (no I/O)
 - DTensor / sharded tensor          → NotImplementedError (ROADMAP.md A5)
-- dense tensor above max_chunk_size → NotImplementedError (ROADMAP.md A2:
-                                      the chunked preparer is not ported)
+- dense tensor above max_chunk_size → ChunkedArrayIOPreparer
 - dense tensor, supported dtype     → ArrayIOPreparer
 - anything else                     → ObjectIOPreparer (pickle)
 
@@ -20,14 +19,10 @@ from typing import Any, List, Optional, Tuple
 
 import torch
 
-from .io_preparers.array import (
-    ArrayIOPreparer,
-    array_nbytes,
-    is_supported_array_dtype,
-)
+from .io_preparers.array import ArrayIOPreparer, is_supported_array_dtype
+from .io_preparers.chunked import ChunkedArrayIOPreparer, should_chunk
 from .io_preparers.object import ObjectIOPreparer
 from .io_types import Future, ReadReq, WriteReq
-from .knobs import get_max_chunk_size_bytes
 from .manifest import (
     ChunkedTensorEntry,
     Entry,
@@ -58,6 +53,7 @@ def prepare_write(
     logical_path: str,
     rank: int,
     replicated: bool = False,
+    is_async_snapshot: bool = False,
 ) -> Tuple[Entry, List[WriteReq]]:
     if PrimitiveEntry.supported(obj):
         return PrimitiveEntry.from_object(obj, replicated=replicated), []
@@ -70,17 +66,8 @@ def prepare_write(
 
     storage_path = get_storage_path(logical_path, rank, replicated)
     if isinstance(obj, torch.Tensor) and is_supported_array_dtype(obj):
-        if (
-            obj.dim() > 0
-            and obj.shape[0] > 1
-            and array_nbytes(obj) > get_max_chunk_size_bytes()
-        ):
-            raise NotImplementedError(
-                f"{logical_path!r} is {array_nbytes(obj)} bytes, above the "
-                f"{get_max_chunk_size_bytes()}-byte chunk size; the chunked "
-                "preparer is not ported yet (ROADMAP.md item A2)"
-            )
-        return ArrayIOPreparer.prepare_write(storage_path, obj, replicated)
+        preparer = ChunkedArrayIOPreparer if should_chunk(obj) else ArrayIOPreparer
+        return preparer.prepare_write(storage_path, obj, replicated, is_async_snapshot)
 
     return ObjectIOPreparer.prepare_write(storage_path, obj, replicated)
 
@@ -95,10 +82,14 @@ def prepare_read(
     manifest path (slab locations are opaque uuids)."""
     if isinstance(entry, PrimitiveEntry):
         return [], Future(obj=entry.get_value())
-    if isinstance(entry, (ShardedEntry, ChunkedTensorEntry)):
+    if isinstance(entry, ShardedEntry):
         raise NotImplementedError(
-            f"{logical_path!r} is a {entry.type} entry; sharded and chunked "
-            "reads are not ported yet (ROADMAP.md items A2 and A5)"
+            f"{logical_path!r} is a {entry.type} entry; sharded reads are "
+            "not ported yet (ROADMAP.md item A5)"
+        )
+    if isinstance(entry, ChunkedTensorEntry):
+        return ChunkedArrayIOPreparer.prepare_read(
+            entry, obj_out, buffer_size_limit_bytes, logical_path=logical_path
         )
     if isinstance(entry, TensorEntry):
         return ArrayIOPreparer.prepare_read(

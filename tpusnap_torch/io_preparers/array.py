@@ -14,6 +14,17 @@ staging. What differs from tpusnap and why:
   not landed yet. The copy is enqueued when staging starts, so pinned
   memory in use stays under the scheduler's memory budget. CPU tensors
   stage as a zero-copy ``.numpy()`` view, as tpusnap stages numpy arrays.
+- **Async takes.** tpusnap relies on JAX arrays being immutable; torch
+  tensors are updated in place. A CPU tensor's staged bytes are the
+  caller's memory and take tpusnap's path exactly: COW (hash inside the
+  blocked window, re-verify after the write) or, with
+  ``TPUSNAP_ASYNC_COW=0``, a defensive clone from the staging pool. A
+  CUDA tensor stages through a pinned copy, so only its *source* must
+  not change before the copy: ``freeze_device_sources`` copies every
+  CUDA source the blocked window did not stage into HBM on a side
+  stream and orders the caller's current stream after those copies, so
+  the state stays as of ``async_take`` while the drain copies device→host
+  from the copies.
 - **Restore.** tpusnap ``device_put``s a fresh array. Torch tensors are
   mutable, so the bytes land IN PLACE: a CPU target of the stored dtype
   and shape receives the read directly in its own memory; a CUDA target
@@ -33,9 +44,11 @@ staging. What differs from tpusnap and why:
 from __future__ import annotations
 
 import asyncio
+import logging
 import math
+import threading
 from concurrent.futures import Executor
-from typing import Callable, List, Optional, Tuple, Union
+from typing import Callable, Dict, Iterable, List, Optional, Tuple, Union
 
 import torch
 
@@ -48,7 +61,12 @@ from ..io_types import (
     ReadReq,
     WriteReq,
 )
-from ..knobs import get_tile_checksum_bytes, is_checksum_disabled
+from ..knobs import (
+    get_native_copy_threads,
+    get_tile_checksum_bytes,
+    is_async_cow_enabled,
+    is_checksum_disabled,
+)
 from ..manifest import TensorEntry
 from ..serialization import (
     Serializer,
@@ -59,6 +77,8 @@ from ..serialization import (
     tensor_from_memoryview,
     tensor_nbytes,
 )
+
+logger = logging.getLogger(__name__)
 
 _HASH_THREADS = 4
 
@@ -100,32 +120,64 @@ def enqueue_dtoh(
         # A non-contiguous source is compacted here, on the side stream,
         # after the ready event.
         host.copy_(tensor_as_bytes(t), non_blocking=True)
-        done = torch.cuda.Event()
-        done.record(stream)
+        # The caching allocator must not hand ``t``'s memory out again
+        # before this copy has read it, even if the caller drops ``t``.
+        t.record_stream(stream)
+        done = event_on(stream)
     return host, done
 
 
-def stage_to_host(t: torch.Tensor, ready: Optional["torch.cuda.Event"]) -> memoryview:
-    """The bytes of ``t`` in host memory, safe to hash and write."""
-    if array_nbytes(t) == 0:
-        return memoryview(b"")
-    if not t.is_cuda:
-        return tensor_as_memoryview(t)
-    host, done = enqueue_dtoh(t, ready)
-    done.synchronize()
-    return memoryview(host.numpy())
+def event_on(stream: "torch.cuda.Stream") -> "torch.cuda.Event":
+    event = torch.cuda.Event()
+    event.record(stream)
+    return event
+
+
+def _may_alias_live_memory(t: torch.Tensor) -> bool:
+    """Whether ``t``'s staged host bytes are memory the caller may change
+    in place after an async take returns. A CPU tensor stages as a view
+    of itself. A CUDA tensor stages through a pinned copy, from a frozen
+    device copy when the blocked window did not stage it, so it never
+    does."""
+    return not t.is_cuda
+
+
+def _acquire_clone_buffer(nbytes: int):
+    """Aligned buffer for a defensive clone, from the staging pool (warm
+    pages in a checkpoint loop); the write pipeline releases it."""
+    from .._staging_pool import acquire
+
+    return acquire(nbytes)
 
 
 class ArrayBufferStager(BufferStager):
-    def __init__(self, arr: torch.Tensor, entry: Optional[TensorEntry] = None) -> None:
+    def __init__(
+        self,
+        arr: torch.Tensor,
+        entry: Optional[TensorEntry] = None,
+        is_async_snapshot: bool = False,
+    ) -> None:
         self.arr = arr
+        self.is_async_snapshot = is_async_snapshot
         # Manifest entry annotated with the checksums; the metadata is
         # encoded after every write has landed, so the values reach it.
         self.entry = entry
         # Set by the take after batching: hash on the write path
         # (``late_checksum``) instead of inside the staging window.
         self.defer_checksums = False
+        # Per-take override of COW: defensive clones for CPU sources.
+        self.force_clone = False
+        # Set when an async take stages the LIVE bytes of a CPU tensor
+        # (COW): the write pipeline then calls verify_cow_after_write.
+        self.cow_pending = False
         self.ready = _record_ready(arr)
+        self.cuda_device = arr.device if arr.is_cuda else None
+        # CUDA sources: freeze() and the DtoH enqueue exclude each other,
+        # so each source is read either by the DtoH ordered before the
+        # caller's next work, or by a device copy that is.
+        self._lock = threading.Lock()
+        self._frozen: Optional[Tuple[torch.Tensor, "torch.cuda.Event"]] = None
+        self._dtoh_done: Optional["torch.cuda.Event"] = None
 
     async def stage_buffer(self, executor: Optional[Executor] = None) -> BufferType:
         if executor is not None:
@@ -134,14 +186,74 @@ class ArrayBufferStager(BufferStager):
         return self._stage_blocking()
 
     def _stage_blocking(self) -> BufferType:
-        mv = stage_to_host(self.arr, self.ready)
-        if (
-            self.entry is not None
-            and not is_checksum_disabled()
-            and not self.defer_checksums
-        ):
+        if self.arr.is_cuda:
+            mv = self._stage_device()
+        elif array_nbytes(self.arr) == 0:
+            mv = memoryview(b"")
+        else:
+            mv = tensor_as_memoryview(self.arr)
+        want_crc = self.entry is not None and not is_checksum_disabled()
+        if self.is_async_snapshot and _may_alias_live_memory(self.arr):
+            return self._stage_live(mv, want_crc)
+        if want_crc and not self.defer_checksums:
             _record_checksums(self.entry, mv)
         return mv
+
+    def _stage_device(self) -> memoryview:
+        """The source's bytes in pinned host memory, from the frozen copy
+        when there is one. The copy is dropped once its DtoH has landed."""
+        if array_nbytes(self.arr) == 0:
+            return memoryview(b"")
+        with self._lock:
+            src, ready = self._frozen or (self.arr, self.ready)
+            host, done = enqueue_dtoh(src, ready)
+            self._dtoh_done = done
+        done.synchronize()
+        self._frozen = None
+        return memoryview(host.numpy())
+
+    def pending_device_bytes(self) -> int:
+        """Device bytes ``freeze`` would copy."""
+        if self.cuda_device is None or self.frozen or self._dtoh_done is not None:
+            return 0
+        return array_nbytes(self.arr)
+
+    def freeze(self, stream: "torch.cuda.Stream") -> None:
+        """Make the bytes this CUDA source stages independent of the
+        caller's later in-place updates, with work on ``stream`` (which
+        the caller's stream then waits on): a DtoH already enqueued is
+        waited for; otherwise the tensor is copied on the card after its
+        ready event, and the DtoH reads the copy later."""
+        with self._lock:
+            if self._dtoh_done is not None:
+                stream.wait_event(self._dtoh_done)
+            elif array_nbytes(self.arr):
+                with torch.cuda.stream(stream):
+                    stream.wait_event(self.ready)
+                    copy = torch.empty(
+                        self.arr.shape, dtype=self.arr.dtype, device=self.arr.device
+                    )
+                    copy.copy_(self.arr.detach())
+                    self._frozen = (copy, event_on(stream))
+            self.frozen = True
+
+    def _stage_live(self, mv: memoryview, want_crc: bool) -> BufferType:
+        """Async take of a CPU tensor, whose staged bytes are the caller's
+        memory. COW (the default) hashes them now — overriding a deferral:
+        this value is what the write path re-verifies — and stages them as
+        they are; otherwise they are cloned into a pool buffer, hashed in
+        the same pass unless the hash is deferred."""
+        if self.uses_cow():
+            _record_checksums(self.entry, mv)
+            self.cow_pending = True
+            return mv
+        out = _acquire_clone_buffer(mv.nbytes)
+        threads = get_native_copy_threads()
+        if want_crc and not self.defer_checksums:
+            _clone_and_record_checksums(self.entry, out, mv, threads)
+        else:
+            _native.memcpy(out, mv, nthreads=threads)
+        return out
 
     def late_checksum(self, buf) -> None:
         """Record checksums from the STAGED buffer (write path)."""
@@ -149,8 +261,122 @@ class ArrayBufferStager(BufferStager):
             return
         _record_checksums(self.entry, memoryview(buf).cast("B"))
 
+    def verify_cow_after_write(self, buf) -> None:
+        """COW staging: re-hash the live bytes after the storage write and
+        compare them with the checksum recorded inside the blocked window.
+        A mismatch means the caller changed the tensor while the take was
+        in flight, so the blob may be torn: the take fails here and its
+        metadata is never written."""
+        if self.entry is None or self.entry.checksum is None:
+            return
+        try:
+            mv = memoryview(buf).cast("B")
+            _native.verify_checksum(mv, self.entry.checksum, self.entry.location)
+            self._verify_cow_xxh_lane(mv)
+        except _native.ChecksumError as e:
+            raise RuntimeError(
+                f"async COW take detected a concurrent mutation of "
+                f"{self.entry.location!r}: the tensor changed between staging "
+                "and its storage write. Under TPUSNAP_ASYNC_COW a CPU tensor's "
+                "live bytes are read until its write completes — mutate it only "
+                "after PendingSnapshot.wait_staged()/wait() returns, or set "
+                "TPUSNAP_ASYNC_COW=0 for defensive clones."
+            ) from e
+
+    def _verify_cow_xxh_lane(self, mv: memoryview) -> None:
+        """Re-verify the 64-bit XXH64 lane too where one was recorded, so
+        the mutation check carries more than the CRC's 32 bits. A lane
+        recorded by another build's algorithm is skipped, as
+        verify_checksum skips a foreign CRC."""
+        entry = self.entry
+        dalgo = _native.dedup_hash_algorithm()
+        if entry.dedup_hash is not None:
+            algo, _, val = entry.dedup_hash.partition(":")
+            if algo == dalgo and int(val, 16) != _native.xxh64(mv):
+                raise _native.ChecksumError(f"XXH64 lane mismatch for {entry.location!r}")
+            return
+        if not entry.tile_dedup_hashes:
+            return
+        tile_rows, row_nbytes = _tile_geometry(entry, mv.nbytes)
+        if not tile_rows:
+            return
+        tile_nbytes = tile_rows * row_nbytes
+        for i, recorded in enumerate(entry.tile_dedup_hashes):
+            algo, _, val = recorded.partition(":")
+            if algo != dalgo:
+                return
+            if int(val, 16) != _native.xxh64(mv[i * tile_nbytes : (i + 1) * tile_nbytes]):
+                raise _native.ChecksumError(
+                    f"XXH64 tile {i} mismatch for {entry.location!r}"
+                )
+
+    def uses_cow(self) -> bool:
+        """Whether an async take stages this tensor's live bytes and
+        verifies them after the write (instead of cloning them)."""
+        return (
+            self.is_async_snapshot
+            and _may_alias_live_memory(self.arr)
+            and is_async_cow_enabled()
+            and not self.force_clone
+            and self.entry is not None
+            and not is_checksum_disabled()
+        )
+
     def get_staging_cost_bytes(self) -> int:
-        return array_nbytes(self.arr)
+        n = array_nbytes(self.arr)
+        if self.is_async_snapshot and _may_alias_live_memory(self.arr) and not self.uses_cow():
+            return 2 * n  # the defensive clone: a second host copy in flight
+        return n
+
+
+def freeze_device_sources(stagers: Iterable[BufferStager]) -> bool:
+    """Freeze every CUDA source among ``stagers`` (``freeze``), one side
+    stream per device, and make the caller's current stream wait for the
+    copies: in-place updates the caller queues after this returns cannot
+    overtake them, and the host does not wait. Returns False when the
+    card has too little free memory for the copies (or a copy runs out
+    of it): the caller must then stage everything before it returns."""
+    groups: Dict[torch.device, List[BufferStager]] = {}
+    for s in stagers:
+        if getattr(s, "cuda_device", None) is not None and not s.frozen:
+            groups.setdefault(s.cuda_device, []).append(s)
+    for device, group in groups.items():
+        need = sum(s.pending_device_bytes() for s in group)
+        room = _room_for_device_copies(device)
+        if need > room:
+            logger.warning(
+                "async_take: %d bytes of CUDA state outside the first staging "
+                "window, room for %d on %s; staging all of it before returning",
+                need,
+                room,
+                device,
+            )
+            return False
+    try:
+        for device, group in groups.items():
+            stream = torch.cuda.Stream(device=device)
+            for s in group:
+                s.freeze(stream)
+            torch.cuda.current_stream(device).wait_event(event_on(stream))
+    except torch.cuda.OutOfMemoryError:
+        logger.warning(
+            "async_take: out of device memory while freezing CUDA state; "
+            "staging all of it before returning"
+        )
+        return False
+    return True
+
+
+def _room_for_device_copies(device: torch.device) -> int:
+    """Device memory the freeze copies may take: free memory on the card
+    plus the blocks PyTorch's allocator caches unused, less the headroom
+    the program's own peak has needed beyond what it holds now (the train
+    steps that run while the take drains need it again)."""
+    free, _ = torch.cuda.mem_get_info(device)
+    allocated = torch.cuda.memory_allocated(device)
+    cached = torch.cuda.memory_reserved(device) - allocated
+    headroom = torch.cuda.max_memory_allocated(device) - allocated
+    return free + cached - headroom
 
 
 # ------------------------------------------------------------- checksums
@@ -245,6 +471,29 @@ def _record_checksums(entry: TensorEntry, mv: memoryview) -> None:
         _annotate_checksums(entry, crcs, 0, row_nbytes, whole_xxh=xxhs[0])
         return
     _annotate_checksums(entry, [_native.crc32c(mv)], 0, row_nbytes)
+
+
+def _clone_and_record_checksums(
+    entry: TensorEntry, out, mv: memoryview, nthreads: int
+) -> None:
+    """The defensive clone fused with the stage-time hash: one read of the
+    live bytes, recording exactly what ``_record_checksums`` would."""
+    tile_rows, row_nbytes = _tile_geometry(entry, mv.nbytes)
+    if tile_rows:
+        crcs = _native.memcpy_crc_tiles(
+            out, mv, tile_rows * row_nbytes, nthreads=nthreads
+        )
+        _annotate_checksums(entry, crcs, tile_rows, row_nbytes)
+    elif mv.nbytes <= _DEDUP_HASH_EAGER_MAX:
+        crcs, xxhs = _native.memcpy_crc_xxh_tiles(out, mv, mv.nbytes)
+        _annotate_checksums(entry, crcs, 0, row_nbytes, whole_xxh=xxhs[0])
+    else:
+        # Sub-tiles let the copy run on several threads; their values fold
+        # into the one whole-blob CRC.
+        sub = 16 << 20
+        crcs = _native.memcpy_crc_tiles(out, mv, sub, nthreads=nthreads)
+        whole = _fold_crcs(crcs, _tile_lengths(mv.nbytes, sub, len(crcs)))
+        _annotate_checksums(entry, [whole], 0, row_nbytes)
 
 
 def combined_tile_checksum(
@@ -434,7 +683,10 @@ class ArrayIOPreparer:
 
     @staticmethod
     def prepare_write(
-        storage_path: str, arr: torch.Tensor, replicated: bool = False
+        storage_path: str,
+        arr: torch.Tensor,
+        replicated: bool = False,
+        is_async_snapshot: bool = False,
     ) -> Tuple[TensorEntry, List[WriteReq]]:
         entry = TensorEntry(
             location=storage_path,
@@ -443,7 +695,7 @@ class ArrayIOPreparer:
             shape=list(arr.shape),
             replicated=replicated,
         )
-        stager = ArrayBufferStager(arr, entry=entry)
+        stager = ArrayBufferStager(arr, entry=entry, is_async_snapshot=is_async_snapshot)
         return entry, [WriteReq(path=storage_path, buffer_stager=stager)]
 
     @staticmethod

@@ -28,6 +28,10 @@ from ..serialization import Serializer, pickle_as_bytes, pickle_from_bytes
 
 
 class ObjectBufferStager(BufferStager):
+    # Pickled at prepare time: an async take's caller may change the
+    # object as soon as control returns.
+    frozen = True
+
     def __init__(self, buf: bytes) -> None:
         self.buf = buf
 

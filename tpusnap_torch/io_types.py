@@ -59,6 +59,10 @@ class ReadIO:
 
 
 class BufferStager(abc.ABC):
+    # Whether the bytes this stager will stage no longer depend on memory
+    # the caller may change in place after an async take returns.
+    frozen = False
+
     @abc.abstractmethod
     async def stage_buffer(self, executor: Optional[Executor] = None) -> BufferType:
         """Produce the bytes to persist (may run device→host copies in

@@ -3,7 +3,8 @@ single-process take/restore path consults.
 
 Counterpart of tpusnap/knobs.py. The names stay ``TPUSNAP_*`` so one
 environment configures either package; the defaults are tpusnap's
-(512 MB max chunk, 128 MB slab threshold, 16 MiB checksum tiles).
+(512 MB max chunk, 128 MB slab threshold, 16 MiB checksum tiles, 2 GiB
+async staging window, COW async staging on, 4 GiB staging pool).
 """
 
 import contextlib
@@ -27,12 +28,17 @@ _TILE_CHECKSUM_ENV_VAR = "TPUSNAP_TILE_CHECKSUM_BYTES"
 _STAGE_THREADS_ENV_VAR = "TPUSNAP_STAGE_THREADS"
 _COMPRESS_ENV_VAR = "TPUSNAP_COMPRESS"
 _CAS_DIR_ENV_VAR = "TPUSNAP_CAS_DIR"
+_ASYNC_STAGE_WINDOW_ENV_VAR = "TPUSNAP_ASYNC_STAGE_WINDOW_BYTES"
+_ASYNC_COW_ENV_VAR = "TPUSNAP_ASYNC_COW"
+_STAGING_POOL_ENV_VAR = "TPUSNAP_STAGING_POOL_BYTES"
 
 _DEFAULT_MAX_CHUNK_SIZE_BYTES = 512 * 1024 * 1024
 _DEFAULT_SLAB_SIZE_THRESHOLD_BYTES = 128 * 1024 * 1024
 _DEFAULT_DIRECT_IO_QD = 2
 _DEFAULT_DIRECT_IO_CHUNK_BYTES = 32 * 1024 * 1024
 _DEFAULT_TILE_CHECKSUM_BYTES = 16 * 1024 * 1024
+_DEFAULT_ASYNC_STAGE_WINDOW_BYTES = 2 * 1024 * 1024 * 1024
+_DEFAULT_STAGING_POOL_BYTES = 4 * 1024 * 1024 * 1024
 
 
 def _get_int_env(name: str, default: int) -> int:
@@ -93,7 +99,40 @@ def get_tile_checksum_bytes() -> int:
 
 
 def get_stage_threads() -> int:
-    return max(1, _get_int_env(_STAGE_THREADS_ENV_VAR, 1))
+    """Worker threads of the write scheduler's staging executor (default
+    1, clamped to [1, 16])."""
+    return max(1, min(16, _get_int_env(_STAGE_THREADS_ENV_VAR, 1)))
+
+
+def get_native_copy_threads() -> int:
+    """Internal threads of one native copy/hash pass, so that stage
+    threads x this stays about 4: past that the memory system is
+    saturated and more copy threads only contend."""
+    return max(1, 4 // get_stage_threads())
+
+
+def get_async_stage_window_bytes() -> Optional[int]:
+    """Staging window of a pipelined ``async_take``: control returns once
+    the first window of write requests is staged, and the background
+    drain stages the rest under this in-flight bound. ``0`` (returned
+    as None) is strict mode: the whole state stages before the return."""
+    val = _get_int_env(_ASYNC_STAGE_WINDOW_ENV_VAR, _DEFAULT_ASYNC_STAGE_WINDOW_BYTES)
+    return val if val > 0 else None
+
+
+def is_async_cow_enabled() -> bool:
+    """Copy-on-write async staging of host-aliasing tensors (CPU tensors),
+    on by default: the blocked window hashes the live bytes instead of
+    cloning them, and the write path re-hashes after the storage write; a
+    mismatch (the caller mutated the tensor mid-take) fails the take.
+    ``TPUSNAP_ASYNC_COW=0`` restores the defensive clone."""
+    return os.environ.get(_ASYNC_COW_ENV_VAR, "1") != "0"
+
+
+def get_staging_pool_bytes() -> int:
+    """Cap on the reusable clone-buffer pool (``_staging_pool``); 0
+    disables it."""
+    return max(0, _get_int_env(_STAGING_POOL_ENV_VAR, _DEFAULT_STAGING_POOL_BYTES))
 
 
 def get_memory_budget_override_bytes() -> Optional[int]:
@@ -130,3 +169,24 @@ def _override_env(name: str, value: Optional[str]) -> Generator[None, None, None
 
 def override_batching_disabled(disabled: bool):
     return _override_env(_DISABLE_BATCHING_ENV_VAR, "1" if disabled else "0")
+
+
+def override_max_chunk_size_bytes(nbytes: int):
+    return _override_env(_MAX_CHUNK_SIZE_ENV_VAR, str(nbytes))
+
+
+def override_memory_budget_bytes(nbytes: int):
+    return _override_env(_MEMORY_BUDGET_ENV_VAR, str(nbytes))
+
+
+def override_stage_threads(n: int):
+    return _override_env(_STAGE_THREADS_ENV_VAR, str(n))
+
+
+def override_async_stage_window_bytes(nbytes: int):
+    """0 disables pipelined async staging (strict stage-all semantics)."""
+    return _override_env(_ASYNC_STAGE_WINDOW_ENV_VAR, str(nbytes))
+
+
+def override_async_cow(enabled: bool):
+    return _override_env(_ASYNC_COW_ENV_VAR, "1" if enabled else "0")

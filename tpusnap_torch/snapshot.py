@@ -17,9 +17,18 @@ names of the functions carried over are tpusnap's:
 - ``read_object``: one value by manifest path, optionally under a memory
   budget (tiled reads).
 
+- ``async_take``: the same take, returning a ``PendingSnapshot`` once the
+  blocked window closes (the first ``TPUSNAP_ASYNC_STAGE_WINDOW_BYTES`` of
+  staging, or all of it in strict mode); a background thread drains the
+  rest and commits. CUDA tensors are frozen at the return: the caller may
+  update them in place at once (``io_preparers/array.py`` says how). CPU
+  tensors follow tpusnap: COW until ``wait_staged()``, or clones.
+- ``async_restore``: the restore on a background thread
+  (``PendingRestore``).
+
 Left out of this slice, each raising ``NotImplementedError`` when asked
-for rather than being ignored (ROADMAP.md lists them): ``incremental_from``
-and compression (A3), ``async_take``/``async_restore`` (A3), multi-process
+for rather than being ignored (ROADMAP.md lists them): ``incremental_from``,
+compression and save-time transforms (item 3), multi-process
 communicators (A4), sharded/DTensor state (A5), tiering, CAS, cloud
 storage and the delta stream (A8). tpusnap's journal, progress, flight,
 SLO, telemetry and tuner hooks are observability the port adds later
@@ -33,15 +42,17 @@ import fnmatch
 import logging
 import threading
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
 
 from .batcher import batch_read_requests, batch_write_requests
 from .comm import Communicator, get_communicator
 from .flatten import flatten, inflate
 from .io_preparer import prepare_read, prepare_write
-from .io_preparers.array import ArrayBufferStager
-from .io_types import ReadIO, StoragePlugin, WriteIO
-from .knobs import is_compression_forced
+from .io_preparers.array import ArrayBufferStager, event_on, freeze_device_sources
+from .io_types import ReadIO, StoragePlugin, WriteIO, run_on_loop
+from .knobs import get_async_stage_window_bytes, is_compression_forced
 from .manifest import (
     Manifest,
     MetadataError,
@@ -51,7 +62,9 @@ from .manifest import (
     is_container_entry,
 )
 from .manifest_ops import get_manifest_for_rank
+from .rng_state import RNGState
 from .scheduler import (
+    PendingIOWork,
     get_process_memory_budget_bytes,
     sync_execute_read_reqs,
     sync_execute_write_reqs,
@@ -69,6 +82,15 @@ def _not_ported(feature: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{feature} is not ported to tpusnap_torch yet (ROADMAP.md item {item})"
     )
+
+
+def _check_unported(incremental_from, custom_array_prepare_func) -> None:
+    if incremental_from is not None:
+        raise _not_ported("incremental_from", "3")
+    if custom_array_prepare_func is not None:
+        raise _not_ported("_custom_array_prepare_func (save-time transforms)", "3")
+    if is_compression_forced():
+        raise _not_ported("TPUSNAP_COMPRESS compression", "3")
 
 
 class Snapshot:
@@ -130,24 +152,27 @@ class Snapshot:
         replicated: Optional[List[str]] = None,
         storage_options: Optional[Dict[str, Any]] = None,
         comm: Optional[Communicator] = None,
+        per_key_barrier: bool = False,
         incremental_from: Optional[str] = None,
+        _custom_array_prepare_func: Optional[Any] = None,
     ) -> "Snapshot":
         """Write every stateful in ``app_state`` to ``path``. CUDA tensors
         are copied through pinned host memory; the state captured is the
         state as of this call (device work already queued on the
         caller's stream included). ``replicated`` globs mark host values
-        as replicated, as in tpusnap."""
-        if incremental_from is not None:
-            raise _not_ported("incremental_from", "A3")
-        if is_compression_forced():
-            raise _not_ported("TPUSNAP_COMPRESS compression", "A3")
+        as replicated, as in tpusnap. ``per_key_barrier`` orders the
+        ``state_dict()`` calls of several processes; one process has no
+        barrier to add."""
+        _check_unported(incremental_from, _custom_array_prepare_func)
         comm = get_communicator(comm)
         event_loop = asyncio.new_event_loop()
         try:
-            metadata, storage = _take_impl(
-                path, app_state, storage_options, comm, replicated or [], event_loop
+            pending, metadata, storage, _ = _take_impl(
+                path, app_state, storage_options, comm, replicated or [], event_loop,
+                is_async_snapshot=False,
             )
             try:
+                pending.sync_complete(event_loop)
                 comm.barrier()
                 if comm.rank == 0:
                     _write_metadata(storage, metadata, event_loop)
@@ -161,8 +186,42 @@ class Snapshot:
         return snapshot
 
     @classmethod
-    def async_take(cls, *args, **kwargs) -> "Snapshot":
-        raise _not_ported("async_take", "A3")
+    def async_take(
+        cls,
+        path: str,
+        app_state: AppState,
+        replicated: Optional[List[str]] = None,
+        storage_options: Optional[Dict[str, Any]] = None,
+        comm: Optional[Communicator] = None,
+        per_key_barrier: bool = False,
+        incremental_from: Optional[str] = None,
+        _custom_array_prepare_func: Optional[Any] = None,
+    ) -> "PendingSnapshot":
+        """``take`` that returns once the blocked window closes. The
+        snapshot holds the state as of this call even if the caller then
+        updates every CUDA tensor in place on its current stream. For CPU
+        tensors the contract is tpusnap's: under COW (the default) mutate
+        them only after ``wait_staged()``; with ``TPUSNAP_ASYNC_COW=0``
+        they are cloned before the return. ``wait()`` gives the committed
+        snapshot or re-raises the failure; a failed take leaves no
+        ``.snapshot_metadata``."""
+        _check_unported(incremental_from, _custom_array_prepare_func)
+        comm = get_communicator(comm)
+        event_loop = asyncio.new_event_loop()
+        try:
+            pending, metadata, storage, live_until_drained = _take_impl(
+                path, app_state, storage_options, comm, replicated or [], event_loop,
+                is_async_snapshot=True,
+            )
+        except BaseException:
+            event_loop.close()
+            raise
+        # From here the event loop belongs to the drain thread, which
+        # closes it.
+        return PendingSnapshot(
+            path, pending, metadata, storage, comm, event_loop, storage_options,
+            live_until_drained,
+        )
 
     @classmethod
     def stream(cls, *args, **kwargs):
@@ -180,7 +239,10 @@ class Snapshot:
             event_loop, storage = self._resources()
             metadata = self._get_metadata(storage, event_loop)
             memory_budget = get_process_memory_budget_bytes()
-            for key in sorted(app_state.keys()):
+            # RNG state loads last, so that loading other statefuls cannot
+            # disturb it.
+            keys = sorted(app_state, key=lambda k: isinstance(app_state[k], RNGState))
+            for key in keys:
                 _load_stateful(
                     stateful=app_state[key],
                     key=key,
@@ -191,8 +253,26 @@ class Snapshot:
                     event_loop=event_loop,
                 )
 
-    def async_restore(self, app_state: AppState):
-        raise _not_ported("async_restore", "A3")
+    def async_restore(self, app_state: AppState) -> "PendingRestore":
+        """``restore`` on a background thread; ``app_state`` must not be
+        touched until ``wait()`` returns. A stateful whose
+        ``load_state_dict`` runs collectives declares
+        ``load_requires_collectives = True`` and is refused: collectives
+        must not run off the calling thread."""
+        _validate_app_state(app_state)
+        offenders = sorted(
+            key
+            for key, stateful in app_state.items()
+            if getattr(stateful, "load_requires_collectives", False)
+        )
+        if offenders:
+            raise ValueError(
+                f"async_restore cannot restore {offenders}: their "
+                "load_state_dict declares load_requires_collectives=True, and "
+                "collectives must not run on the background restore thread. "
+                "Use restore() for these statefuls."
+            )
+        return PendingRestore(self, app_state)
 
     # ----------------------------------------------------------- random access
 
@@ -289,17 +369,28 @@ def _take_impl(
     comm: Communicator,
     replicated: List[str],
     event_loop: asyncio.AbstractEventLoop,
-):
-    """Flatten, prepare, batch and execute every write; returns the
-    metadata to commit and the open storage plugin."""
+    is_async_snapshot: bool,
+) -> Tuple[PendingIOWork, SnapshotMetadata, StoragePlugin, bool]:
+    """Flatten, prepare and batch every write and run the write engine to
+    the blocked-window boundary. Returns the work left, the metadata to
+    commit once it is done, the open storage plugin, and whether live
+    CPU bytes are read until the writes drain (COW)."""
     _validate_app_state(app_state)
     rank = comm.rank
+    # Other statefuls' state_dict() may draw from the RNGs, and a take
+    # must leave them as it found them.
+    rng_captured = {
+        k: v.state_dict() for k, v in app_state.items() if isinstance(v, RNGState)
+    }
     manifest: Manifest = {}
     flattened_all: Dict[str, Any] = {}
     for key in sorted(app_state.keys()):
-        mft, flat = flatten(app_state[key].state_dict(), prefix=key)
+        state_dict = rng_captured.get(key) or app_state[key].state_dict()
+        mft, flat = flatten(state_dict, prefix=key)
         manifest.update(mft)
         flattened_all.update(flat)
+    for key, captured in rng_captured.items():
+        app_state[key].load_state_dict(captured)
 
     globs = sorted(set(replicated))
     replicated_paths = {
@@ -316,6 +407,7 @@ def _take_impl(
                 logical_path=logical_path,
                 rank=rank,
                 replicated=logical_path in replicated_paths,
+                is_async_snapshot=is_async_snapshot,
             )
             entries[logical_path] = entry
             write_reqs.extend(reqs)
@@ -331,10 +423,28 @@ def _take_impl(
         for wr in write_reqs:
             if isinstance(wr.buffer_stager, ArrayBufferStager):
                 wr.buffer_stager.defer_checksums = True
-
-        sync_execute_write_reqs(
-            write_reqs, storage, get_process_memory_budget_bytes(), event_loop
+        live_until_drained = any(
+            isinstance(wr.buffer_stager, ArrayBufferStager) and wr.buffer_stager.uses_cow()
+            for wr in write_reqs
         )
+
+        # An async take pipelines its staging unless the window knob is 0
+        # (strict mode: everything stages before the return).
+        pipelined = is_async_snapshot and get_async_stage_window_bytes() is not None
+        pending = sync_execute_write_reqs(
+            write_reqs,
+            storage,
+            get_process_memory_budget_bytes(),
+            event_loop,
+            prioritize_staging=is_async_snapshot and not pipelined,
+            pipelined_staging=pipelined,
+        )
+        if pipelined and not pending.staging_complete():
+            # The freeze: CUDA state outside the first window is copied
+            # on the card before the return, or, without room for the
+            # copies, staged now.
+            if not freeze_device_sources(pending.scheduler.unstaged_stagers()):
+                run_on_loop(event_loop, pending.scheduler.stage_all())
     except BaseException:
         storage.sync_close(event_loop)
         raise
@@ -344,7 +454,7 @@ def _take_impl(
         manifest=_gather_manifest(entries, comm),
         created_at=time.time(),
     )
-    return metadata, storage
+    return pending, metadata, storage, live_until_drained
 
 
 def _gather_manifest(entries: Manifest, comm: Communicator) -> Manifest:
@@ -457,3 +567,176 @@ def _load_stateful(
         key, local_manifest, target_flattened, storage, memory_budget, event_loop
     )
     stateful.load_state_dict(restored)
+
+
+# ------------------------------------------------------------- async work
+
+
+class _BackgroundWork:
+    """Daemon thread with exception capture and join-and-reraise, behind
+    ``PendingSnapshot`` and ``PendingRestore``. Subclasses implement
+    ``_body`` and may implement ``_cleanup``; both run on the thread."""
+
+    _thread_name = "tpusnap-torch-bg"
+
+    def _start(self) -> None:
+        self._exc: Optional[BaseException] = None
+        self._done = threading.Event()
+        self._thread = threading.Thread(
+            target=self._trampoline, name=self._thread_name, daemon=True
+        )
+        self._thread.start()
+
+    def _trampoline(self) -> None:
+        try:
+            self._body()
+        except BaseException as e:  # noqa: B902 - re-raised from wait()
+            self._exc = e
+        finally:
+            try:
+                self._cleanup()
+            except Exception:
+                logger.warning("cleanup of %s failed", self._thread_name, exc_info=True)
+            self._done.set()
+
+    def _body(self) -> None:
+        raise NotImplementedError
+
+    def _cleanup(self) -> None:
+        pass
+
+    def _join_and_reraise(self) -> None:
+        self._thread.join()
+        if self._exc is not None:
+            raise self._exc
+
+    def done(self) -> bool:
+        return self._done.is_set()
+
+
+class PendingSnapshot(_BackgroundWork):
+    """Handle on an in-flight ``async_take``. A background thread drains
+    the residual staging windows and the writes, then writes
+    ``.snapshot_metadata`` (one process: no commit barrier). A failure
+    anywhere leaves no metadata, and ``wait()`` re-raises it.
+    ``staged()``/``wait_staged()`` report when the caller may change its
+    state in place; ``wait()`` returns the committed ``Snapshot``."""
+
+    _thread_name = "tpusnap-torch-commit"
+
+    def __init__(
+        self,
+        path: str,
+        pending_io_work: PendingIOWork,
+        metadata: SnapshotMetadata,
+        storage: StoragePlugin,
+        comm: Communicator,
+        event_loop: asyncio.AbstractEventLoop,
+        storage_options: Optional[Dict[str, Any]],
+        live_until_drained: bool,
+    ) -> None:
+        self.path = path
+        self._pending_io_work = pending_io_work
+        self._metadata = metadata
+        self._storage = storage
+        self._comm = comm
+        self._event_loop = event_loop
+        self._storage_options = storage_options
+        self._snapshot: Optional[Snapshot] = None
+        # Under COW the live bytes of CPU tensors are read until their
+        # writes and verifies drain; otherwise the state is safe to change
+        # once nothing left to stage reads it: CUDA sources were frozen
+        # before the return, CPU clones wait for staging to complete.
+        self._live_until_drained = live_until_drained
+        self._frozen_at_return = pending_io_work.staging_complete() or all(
+            s.frozen for s in pending_io_work.scheduler.unstaged_stagers()
+        )
+        self._start()
+
+    def _body(self) -> None:
+        self._pending_io_work.sync_complete(self._event_loop)
+        _write_metadata(self._storage, self._metadata, self._event_loop)
+        snapshot = Snapshot(self.path, self._storage_options, self._comm)
+        snapshot._metadata = self._metadata
+        self._snapshot = snapshot
+
+    def _cleanup(self) -> None:
+        try:
+            self._storage.sync_close(self._event_loop)
+        finally:
+            self._event_loop.close()
+
+    def staged(self) -> bool:
+        """Whether the caller may now change the snapshotted state in
+        place. True at the return for CUDA state; for CPU tensors under
+        COW, once the writes have drained; for cloned CPU tensors, once
+        staging is complete."""
+        if self._live_until_drained:
+            return self._pending_io_work.drained()
+        return self._frozen_at_return or self._pending_io_work.staging_complete()
+
+    def wait_staged(self, timeout: Optional[float] = None) -> bool:
+        """Block until ``staged()`` (or ``timeout`` seconds; returns
+        ``staged()``). Re-raises the background failure if the drain died
+        first, instead of waiting forever."""
+        deadline = None if timeout is None else time.monotonic() + timeout
+        while not self.staged():
+            if self.done():
+                self._join_and_reraise()
+                return self.staged()
+            step = 0.05
+            if deadline is not None:
+                step = min(step, deadline - time.monotonic())
+                if step <= 0:
+                    return False
+            if self._live_until_drained:
+                self._pending_io_work.wait_drained(step)
+            else:
+                self._pending_io_work.wait_staged(step)
+        return True
+
+    def wait(self) -> Snapshot:
+        self._join_and_reraise()
+        assert self._snapshot is not None
+        return self._snapshot
+
+
+class PendingRestore(_BackgroundWork):
+    """Handle on an in-flight ``async_restore``. ``wait()`` joins the
+    thread and re-raises its failure.
+
+    On the card the thread runs on the caller's current device, on a
+    stream ordered after the work the caller had queued when it called
+    ``async_restore``; the copies into the targets run on side streams
+    after it. ``wait()`` orders the caller's current stream after them,
+    so the restored values are what the caller's next kernels read."""
+
+    _thread_name = "tpusnap-torch-restore"
+
+    def __init__(self, snapshot: Snapshot, app_state: AppState) -> None:
+        self._snapshot = snapshot
+        self._app_state = app_state
+        self._device: Optional[int] = None
+        self._caller_ready: Optional["torch.cuda.Event"] = None
+        self._copied: Optional["torch.cuda.Event"] = None
+        if torch.cuda.is_available() and torch.cuda.is_initialized():
+            self._device = torch.cuda.current_device()
+            self._caller_ready = event_on(torch.cuda.current_stream())
+        self._start()
+
+    def _body(self) -> None:
+        if self._device is None:
+            self._snapshot.restore(self._app_state)
+            return
+        # The current device and stream are per thread.
+        torch.cuda.set_device(self._device)
+        stream = torch.cuda.Stream()
+        stream.wait_event(self._caller_ready)
+        with torch.cuda.stream(stream):
+            self._snapshot.restore(self._app_state)
+            self._copied = event_on(stream)
+
+    def wait(self) -> None:
+        self._join_and_reraise()
+        if self._copied is not None:
+            torch.cuda.current_stream(self._device).wait_event(self._copied)
