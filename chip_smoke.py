@@ -43,11 +43,33 @@ Phases, in order:
              chunk size with a ragged last chunk: take, manifest check,
              restore in place, read_object under a 64 MiB budget into a
              CUDA target, async_restore into zeroed targets.
+10. incremental — incremental takes of the train state: a full base
+             recording tile dedup hashes; inc1 unchanged (writes nothing);
+             inc2 after one embedding row changed (writes one 16 MiB
+             tile); an async increment staged at its return, with a train
+             step at once; inc3 after two Adam steps. Each restores into a
+             fresh model bit-exact (Parameter identity kept) and one step
+             from it equals one from a witness; verify() is clean;
+             apply_retention(keep_last=2) materializes and deletes, and
+             the survivors still restore and verify. Then the 4 GiB bulk:
+             an increment after add_(1) on 1 of 32 tensors writes 128 MiB.
+             Bytes written come from the files on disk, references from
+             the manifest (``../`` locations and byte ranges).
+11. compress — TPUSNAP_COMPRESS=on: the train state and two 1.25 GiB
+             chunked tensors, restored in place bit-exact, a read_object
+             under a 64 MiB budget into a CUDA target; ratio and GB/s; the
+             ``auto`` decision of the bulk take.
+12. transforms — cast_on_save of the f32 parameters to bf16: half-size
+             blobs, restore into the f32 params equal to the bf16 round
+             trip; then an async take of the 4 GiB bulk with its f32 half
+             cast and add_(1) on every tensor right after the return.
 
 Launch counts (in all and by route) are set to 0 just before each path
-that runs the model — train + snapshot, and async_train — and read just
-after it: the kernels phase's comparison launches do not count. Every
-main-path launch must take the wgmma route.
+that runs the model — train + snapshot, async_train and incremental — and
+read just after it: the kernels phase's comparison launches do not count.
+Every main-path launch must take the wgmma route. The incremental and
+transforms phases run with compression off, so their byte counts are the
+tensors' own.
 """
 
 from __future__ import annotations
@@ -489,6 +511,7 @@ def phase_bulk(ctx: dict, workdir: str) -> dict:
     t0 = time.perf_counter()
     Snapshot.take(path, {"bulk": StateDict(tensors)})
     take_s = time.perf_counter() - t0
+    ctx["bulk_compress_decision"] = _decision()
     targets = StateDict({k: torch.zeros_like(v) for k, v in tensors.items()})
     t0 = time.perf_counter()
     Snapshot(path).restore({"bulk": targets})
@@ -503,7 +526,7 @@ def phase_bulk(ctx: dict, workdir: str) -> dict:
         "take_gb_s": nbytes / take_s / 1e9, "restore_gb_s": nbytes / restore_s / 1e9,
         "note": "the reference's single-accelerator take to local FS (20 GB) "
         "cut to 4 GiB for the smoke's time; no claim is made from it",
-        "card": ctx["card"],
+        "compress_decision": ctx["bulk_compress_decision"], "card": ctx["card"],
     }
 
 
@@ -684,6 +707,355 @@ def phase_chunked(ctx: dict, workdir: str) -> dict:
     }
 
 
+def _decision() -> dict:
+    """The compress policy's decision for the last take."""
+    from tpusnap_torch import compress
+
+    d = compress.LAST_DECISION
+    return {"reason": d.reason, "compress": d.compress, "codec_gbps": d.codec_gbps,
+            "pipe_gbps": d.pipe_gbps, "eligible_bytes": d.eligible_bytes}
+
+
+def _snapshot_bytes(path: str):
+    """(bytes written into the snapshot's own files, bytes it references
+    in base snapshots through ``../`` locations)."""
+    from tpusnap_torch import Snapshot
+    from tpusnap_torch.inspect import iter_blobs
+
+    written = sum(
+        os.path.getsize(os.path.join(d, f))
+        for d, _, files in os.walk(path) for f in files if f != ".snapshot_metadata"
+    )
+    referenced = sum(
+        b.byte_range[1] - b.byte_range[0]
+        for b in iter_blobs(Snapshot(path).metadata.manifest)
+        if b.location.startswith("../")
+    )
+    return written, referenced
+
+
+def _tensor_locations(manifest: dict):
+    """(logical path, location, byte length) of every tensor blob, chunks
+    included."""
+    from tpusnap_torch.manifest import ChunkedTensorEntry, TensorEntry
+    from tpusnap_torch.serialization import tensor_nbytes
+
+    for p, e in manifest.items():
+        parts = [c.tensor for c in e.chunks] if isinstance(e, ChunkedTensorEntry) else [e]
+        for t in parts:
+            if isinstance(t, TensorEntry):
+                yield p, t.location, tensor_nbytes(t.dtype, t.shape)
+
+
+def _clone_state(model) -> dict:
+    return {p: t.detach().clone() for p, t in _leaves(model.train_state())}
+
+
+def _check_restore(path: str, want: dict, fresh, witness, tokens) -> float:
+    """Restore ``path`` into ``fresh`` (in place, bit-exact against
+    ``want``, Parameter identity kept), load ``want`` into ``witness``, and
+    require one step of each to give bitwise-equal losses."""
+    import torch
+
+    from tpusnap_torch import Snapshot, StateDict
+
+    target = StateDict(**fresh.train_state())
+    before_ids = {p: id(t) for p, t in _leaves(target)}
+    Snapshot(path).restore({"train": target})
+    for p, got in _leaves(fresh.train_state()):
+        if not got.is_cuda or not torch.equal(got, want[p]):
+            raise AssertionError(f"{path}: restored {p} differs from the state it holds")
+    for p, got in _leaves(target):
+        if id(got) != before_ids[p]:
+            raise AssertionError(f"{path}: restore replaced the tensor object at {p}")
+    with torch.no_grad():
+        for p, t in _leaves(witness.train_state()):
+            t.copy_(want[p])
+    loss_a, loss_b = fresh.train_step(tokens), witness.train_step(tokens)
+    if not torch.equal(loss_a, loss_b):
+        raise AssertionError(f"{path}: post-restore step {loss_a.item()!r} vs {loss_b.item()!r}")
+    return loss_a.item()
+
+
+def phase_incremental(ctx: dict, workdir: str) -> dict:
+    import torch
+
+    from tpusnap_torch import Snapshot, StateDict, apply_retention
+    from tpusnap_torch.knobs import override_compress
+    from tpusnap_torch.models import Transformer
+
+    t_phase = time.perf_counter()
+    cfg, model, tokens = ctx["cfg"], ctx["model"], ctx["tokens"]
+    root = os.path.join(workdir, "incremental")
+    paths = {n: os.path.join(root, n) for n in ("base", "inc1", "inc2", "async_inc", "inc3")}
+    state_bytes = sum(t.numel() * t.element_size() for _, t in _leaves(model.train_state()))
+    takes, wants = {}, {}
+
+    def take(name, **kw):
+        wants[name] = _clone_state(model)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        Snapshot.take(paths[name], {"train": StateDict(**model.train_state())}, **kw)
+        seconds = time.perf_counter() - t0
+        written, referenced = _snapshot_bytes(paths[name])
+        takes[name] = {"seconds": seconds, "bytes_written": written, "bytes_referenced": referenced}
+
+    with override_compress(mode="off"):
+        take("base", _record_dedup_hashes=True)
+        take("inc1", incremental_from=paths["base"])
+        manifest = Snapshot(paths["inc1"]).metadata.manifest
+        if takes["inc1"]["bytes_written"] or not all(
+            loc.startswith("../base/") for _, loc, _ in _tensor_locations(manifest)
+        ):
+            raise AssertionError(f"unchanged increment wrote data or kept a local blob: {takes['inc1']}")
+        row = 12345
+        with torch.no_grad():
+            model.embed[row].add_(1.0)  # one row, in place, on the card
+        take("inc2", incremental_from=paths["inc1"])
+        tile = 16 << 20
+        local = [(p, loc, n) for p, loc, n in _tensor_locations(Snapshot(paths["inc2"]).metadata.manifest)
+                 if not loc.startswith("../base/")]
+        if takes["inc2"]["bytes_written"] != tile or [(p, n) for p, _, n in local] != [
+            ("0/train/params/embed", tile)
+        ]:
+            raise AssertionError(f"one changed row: expected one 16 MiB tile written, got "
+                                 f"{takes['inc2']} and local blobs {local}")
+
+        # The async increment: staged at its return, then a step at once.
+        wants["async_inc"] = _clone_state(model)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pending = Snapshot.async_take(
+            paths["async_inc"], {"train": StateDict(**model.train_state())},
+            incremental_from=paths["inc2"],
+        )
+        blocked_s = time.perf_counter() - t0
+        staged_at_return = pending.staged()
+        model.train_step(tokens, learning_rate=1e-3)
+        pending.wait()
+        wait_s = time.perf_counter() - t0
+        if not staged_at_return:
+            raise AssertionError("async incremental take returned with staged() False")
+        written, referenced = _snapshot_bytes(paths["async_inc"])
+        takes["async_inc"] = {"seconds": wait_s, "async_blocked_s": blocked_s,
+                              "bytes_written": written, "bytes_referenced": referenced}
+        if written:
+            raise AssertionError(f"unchanged async increment wrote {written} bytes")
+
+        model.train_step(tokens, learning_rate=1e-3)  # two Adam steps since inc2
+        take("inc3", incremental_from=paths["async_inc"])
+        local = {p for p, loc, _ in _tensor_locations(Snapshot(paths["inc3"]).metadata.manifest)
+                 if not loc.startswith("../")}
+        stale = [p for p, _ in _leaves(model.train_state())
+                 if p.startswith(("params/", "opt/mu/", "opt/nu/")) and f"0/train/{p}" not in local]
+        if stale:
+            raise AssertionError(f"after two Adam steps inc3 did not rewrite {stale}")
+
+        fresh = Transformer(cfg, device="cuda", seed=SEED + 5)
+        witness = Transformer(cfg, device="cuda", seed=SEED + 6)
+        step_tokens = _tokens(cfg, 8, SEED + 7)
+        losses = {}
+        for name, path in paths.items():
+            losses[name] = _check_restore(path, wants[name], fresh, witness, step_tokens)
+            report = Snapshot(path).verify()
+            if not report.clean:
+                raise AssertionError(f"verify({name}): {report.summary()}")
+        plan = apply_retention(root, keep_last=2)
+        kept = sorted(os.path.basename(p) for p in plan.keep)
+        if kept != ["async_inc", "inc3"] or not plan.materialize or sorted(os.listdir(root)) != kept:
+            raise AssertionError(f"retention: {plan.summary()}, left {os.listdir(root)}")
+        for name in kept:
+            if not Snapshot(paths[name]).verify().clean:
+                raise AssertionError(f"{name} does not verify after retention")
+            _check_restore(paths[name], wants[name], fresh, witness, step_tokens)
+        retention = {"summary": plan.summary(), "bytes_copied": plan.bytes_copied,
+                     "materialized": sorted(os.path.basename(p) for p in plan.materialize)}
+        del fresh, witness, wants
+        shutil.rmtree(root)
+
+        # The 4 GiB bulk: one of 32 tensors changed.
+        tensors = _bulk_tensors()
+        bulk = {}
+        for name, kw in (("base", {"_record_dedup_hashes": True}), ("inc", None)):
+            if kw is None:
+                tensors["t05"].add_(1)
+                kw = {"incremental_from": os.path.join(workdir, "bulk_base")}
+            path = os.path.join(workdir, f"bulk_{name}")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            Snapshot.take(path, {"bulk": StateDict(tensors)}, **kw)
+            seconds = time.perf_counter() - t0
+            written, referenced = _snapshot_bytes(path)
+            bulk[name] = {"seconds": seconds, "bytes_written": written, "bytes_referenced": referenced}
+        if bulk["inc"]["bytes_written"] != 128 << 20:
+            raise AssertionError(f"bulk increment after one add_: {bulk['inc']}")
+        targets = StateDict({k: torch.zeros_like(v) for k, v in tensors.items()})
+        Snapshot(os.path.join(workdir, "bulk_inc")).restore({"bulk": targets})
+        for k, v in tensors.items():
+            if not torch.equal(targets[k], v):
+                raise AssertionError(f"bulk increment restore of {k} differs")
+        del tensors, targets
+        shutil.rmtree(os.path.join(workdir, "bulk_base"))
+        shutil.rmtree(os.path.join(workdir, "bulk_inc"))
+    return {
+        "phase": "incremental", "state_bytes": state_bytes, "takes": takes,
+        "changed_row": row, "post_restore_losses": losses, "retention": retention,
+        "bulk": bulk, "bit_exact": True, "parameter_identity": True, "verify_clean": True,
+        "seconds": time.perf_counter() - t_phase, "card": ctx["card"],
+    }
+
+
+def phase_compress(ctx: dict, workdir: str) -> dict:
+    import torch
+
+    from tpusnap_torch import Snapshot, StateDict
+    from tpusnap_torch.knobs import override_compress
+    from tpusnap_torch.models import Transformer
+
+    t_phase = time.perf_counter()
+    cfg, model = ctx["cfg"], ctx["model"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    chunked = {
+        "f32": torch.randn((81920, 4096), generator=gen, device="cuda"),
+        "bf16": torch.randn((163840, 4096), generator=gen, device="cuda").to(torch.bfloat16),
+    }
+    want = _clone_state(model)
+    nbytes = sum(t.numel() * t.element_size() for t in want.values()) + sum(
+        t.numel() * t.element_size() for t in chunked.values())
+    path = os.path.join(workdir, "compress")
+    with override_compress(mode="on"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        snap = Snapshot.take(path, {"train": StateDict(**model.train_state()), "c": StateDict(chunked)})
+        take_s = time.perf_counter() - t0
+        decision = _decision()
+    stored, _ = _snapshot_bytes(path)
+    codecs = sorted({c.tensor.codec or "none" for k in ("0/c/f32", "0/c/bf16")
+                     for c in snap.metadata.manifest[k].chunks})
+    if not decision["compress"] or codecs != ["shuf2+lz4", "shuf4+lz4"]:
+        raise AssertionError(f"TPUSNAP_COMPRESS=on did not compress the chunks: {decision}, {codecs}")
+    fresh = Transformer(cfg, device="cuda", seed=SEED + 8)
+    targets = {k: torch.zeros_like(v) for k, v in chunked.items()}
+    ids = {k: id(v) for k, v in targets.items()}
+    restored = StateDict(dict(targets))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    Snapshot(path).restore({"train": StateDict(**fresh.train_state()), "c": restored})
+    restore_s = time.perf_counter() - t0
+    for p, got in _leaves(fresh.train_state()):
+        if not torch.equal(got, want[p]):
+            raise AssertionError(f"compressed restore of train/{p} differs")
+    for k, v in chunked.items():
+        if id(restored[k]) != ids[k] or not torch.equal(restored[k], v):
+            raise AssertionError(f"compressed chunked {k} not restored in place, bit-exact")
+    out = torch.empty_like(chunked["f32"])
+    t0 = time.perf_counter()
+    got = Snapshot(path).read_object("0/c/f32", obj_out=out, memory_budget_bytes=64 << 20)
+    read_s = time.perf_counter() - t0
+    if got is not out or not out.is_cuda or not torch.equal(out, chunked["f32"]):
+        raise AssertionError("compressed read_object under 64 MiB did not land in place on the card")
+    del fresh, targets, restored, out, got, chunked
+    shutil.rmtree(path)
+    return {
+        "phase": "compress", "bytes": nbytes, "stored_bytes": stored, "ratio": stored / nbytes,
+        "take_s": take_s, "take_gb_s": nbytes / take_s / 1e9, "restore_s": restore_s,
+        "restore_gb_s": nbytes / restore_s / 1e9,
+        "read_object_64mib_gb_s": 81920 * 4096 * 4 / read_s / 1e9,
+        "decision_on": decision, "auto_decision_bulk": ctx["bulk_compress_decision"],
+        "bit_exact": True, "in_place": True, "seconds": time.perf_counter() - t_phase,
+        "card": ctx["card"],
+    }
+
+
+def phase_transforms(ctx: dict, workdir: str) -> dict:
+    import fnmatch
+
+    import torch
+
+    from tpusnap_torch import Snapshot, StateDict, cast_on_save
+    from tpusnap_torch.flatten import flatten
+    from tpusnap_torch.knobs import override_compress
+    from tpusnap_torch.models import Transformer
+
+    t_phase = time.perf_counter()
+    cfg, model = ctx["cfg"], ctx["model"]
+    glob = "train/params/*"
+    _, flat = flatten(model.train_state(), prefix="train")
+    cast_paths = sorted(p for p in flat if fnmatch.fnmatch(p, glob))
+    if cast_paths != sorted(f"train/params/{p}" for p, _ in _leaves(model.params())):
+        raise AssertionError(f"{glob} does not select exactly the parameters: {cast_paths}")
+    want = _clone_state(model)
+    path = os.path.join(workdir, "cast")
+    with override_compress(mode="off"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        snap = Snapshot.take(path, {"train": StateDict(**model.train_state())},
+                             _custom_array_prepare_func=cast_on_save({glob: torch.bfloat16}))
+        take_s = time.perf_counter() - t0
+    params_f32 = sum(t.numel() * 4 for _, t in _leaves(model.params()))
+    stored_params = sum(n for p, _, n in _tensor_locations(snap.metadata.manifest)
+                        if p.startswith("0/train/params/"))
+    dtypes = {snap.metadata.manifest[f"0/{p}"].dtype for p in cast_paths}
+    if dtypes != {"bfloat16"} or 2 * stored_params != params_f32:
+        raise AssertionError(f"cast params stored as {dtypes}, {stored_params} of {params_f32} bytes")
+    written, _ = _snapshot_bytes(path)
+    fresh = Transformer(cfg, device="cuda", seed=SEED + 9)
+    before = {id(p) for p in fresh.parameters()}
+    Snapshot(path).restore({"train": StateDict(**fresh.train_state())})
+    if {id(p) for p in fresh.parameters()} != before:
+        raise AssertionError("the cast restore replaced Parameter objects")
+    for p, got in _leaves(fresh.train_state()):
+        expect = want[p].to(torch.bfloat16).to(torch.float32) if p.startswith("params/") else want[p]
+        if not got.is_cuda or not torch.equal(got, expect):
+            raise AssertionError(f"cast restore of {p} is not the bf16 round trip of the saved value")
+    del fresh
+    shutil.rmtree(path)
+
+    # The 4 GiB bulk, f32 half cast, async: the cast runs at stage time on
+    # the frozen copies while the caller updates every tensor at once.
+    tensors = _bulk_tensors()
+    witness = {k: v.clone() for k, v in tensors.items()}
+    f32 = sorted(k for k, v in tensors.items() if v.dtype == torch.float32)
+    path = os.path.join(workdir, "cast_bulk")
+    with override_compress(mode="off"):
+        torch.cuda.synchronize()
+        allocated = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        pending = Snapshot.async_take(
+            path, {"bulk": StateDict(tensors)},
+            _custom_array_prepare_func=cast_on_save({f"bulk/{k}": torch.bfloat16 for k in f32}),
+        )
+        blocked_s = time.perf_counter() - t0
+        staged_at_return = pending.staged()
+        device_copy_bytes = torch.cuda.memory_allocated() - allocated
+        for v in tensors.values():
+            v.add_(1)
+        pending.wait()
+        wait_s = time.perf_counter() - t0
+    if not staged_at_return or device_copy_bytes <= 0:
+        raise AssertionError(f"async cast take: staged {staged_at_return}, "
+                             f"{device_copy_bytes} bytes frozen on the card")
+    targets = StateDict({k: torch.zeros_like(v) for k, v in tensors.items()})
+    Snapshot(path).restore({"bulk": targets})
+    for k, v in witness.items():
+        expect = v.to(torch.bfloat16).float() if k in f32 else v
+        if not torch.equal(targets[k], expect):
+            raise AssertionError(f"async cast bulk {k} is not the cast of its value at the call")
+    bulk_written, _ = _snapshot_bytes(path)
+    del tensors, witness, targets
+    shutil.rmtree(path)
+    return {
+        "phase": "transforms", "glob": glob, "cast_tensors": len(cast_paths),
+        "params_f32_bytes": params_f32, "params_stored_bytes": stored_params,
+        "take_s": take_s, "bytes_written": written,
+        "bulk_async": {"async_blocked_s": blocked_s, "wait_s": wait_s,
+                       "device_copy_bytes_at_return": device_copy_bytes,
+                       "bytes_written": bulk_written, "staged_at_return": True},
+        "bit_exact_round_trip": True, "parameter_identity": True,
+        "seconds": time.perf_counter() - t_phase, "card": ctx["card"],
+    }
+
+
 def _reset_launches() -> None:
     from tpusnap_torch.ops import flash_attention as fa
 
@@ -730,6 +1102,11 @@ def main() -> int:
         paths["async_train"] = (fa.launches, dict(fa.route_launches))
         emit(phase_async_bulk(ctx, workdir))
         emit(phase_chunked(ctx, workdir))
+        _reset_launches()
+        emit(phase_incremental(ctx, workdir))
+        paths["incremental"] = (fa.launches, dict(fa.route_launches))
+        emit(phase_compress(ctx, workdir))
+        emit(phase_transforms(ctx, workdir))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     for path, (launches, routes) in paths.items():

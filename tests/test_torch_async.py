@@ -533,12 +533,30 @@ def test_failed_async_take_leaves_no_metadata(tmp_path, monkeypatch):
 @pytest.mark.parametrize(
     "option", ["incremental_from", "_custom_array_prepare_func"]
 )
-def test_async_take_unported_options_raise(tmp_path, option):
-    kwargs = {option: str(tmp_path / "base") if option == "incremental_from" else (lambda p, a, t: a)}
+def test_async_take_with_item3_options(tmp_path, option):
+    """Formerly "not ported" cases. An async incremental take stages
+    everything before it returns and writes only the changed tensor; an
+    async take with a save-time transform stores the transformed bytes."""
+    state = _state(n=3)
     path = str(tmp_path / "snap")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        Snapshot.async_take(path, {"m": StateDict(x=torch.ones(2))}, **kwargs)
-    assert not os.path.exists(os.path.join(path, ".snapshot_metadata"))
+    with override_batching_disabled(True):
+        if option == "incremental_from":
+            base = str(tmp_path / "base")
+            Snapshot.take(base, {"m": StateDict(state)})
+            state["w1"] = state["w1"] + 1.0
+            pending = Snapshot.async_take(path, {"m": StateDict(state)}, incremental_from=base)
+            assert pending._pending_io_work.staging_complete()
+            pending.wait()
+            assert [os.path.relpath(f, path) for f in _blob_files(path)] == ["0/m/w1"]
+            want = state
+        else:
+            fn = lambda p, a, tracing: a.to(torch.float16)  # noqa: E731
+            Snapshot.async_take(path, {"m": StateDict(state)}, _custom_array_prepare_func=fn).wait()
+            want = {k: v.to(torch.float16).float() for k, v in state.items()}
+    targets = StateDict({k: torch.zeros_like(v) for k, v in state.items()})
+    Snapshot(path).restore({"m": targets})
+    for k, v in want.items():
+        assert _bytes(targets[k]) == _bytes(v), k
 
 
 def test_async_restore_round_trip(tmp_path):

@@ -238,16 +238,44 @@ def test_corrupt_chunk_fails_its_checksum(tmp_path):
         Snapshot(path).restore({"s": StateDict(t=torch.zeros_like(src))})
 
 
-def test_incremental_and_compressed_chunk_paths_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 3"):
-        port_chunked.tile_prev_map(None, "float32", [4, 4])
-    src = _tensor(torch.float32, (20, 4))
-    path = str(tmp_path / "snap")
-    with override_max_chunk_size_bytes(_CHUNK), override_batching_disabled(True):
-        snap = Snapshot.take(path, {"s": StateDict(t=src)})
-    entry = snap.metadata.manifest["0/s/t"]
-    entry.chunks[0].tensor.codec = "lz4"
-    from tpusnap_torch.io_preparer import prepare_read
+def test_tile_prev_map_and_compressed_chunks(tmp_path):
+    """Formerly "not ported": ``tile_prev_map`` gives tpusnap's tile view
+    of a base entry (None without tile dedup hashes), and a compressed
+    chunk reads back into its rows."""
+    import tpusnap.io_preparers.chunked as jax_chunked
+    from tpusnap.manifest import TensorEntry as JaxTensorEntry
+    from tpusnap.manifest import _entry_to_dict as jax_entry_to_dict
 
-    with pytest.raises(NotImplementedError, match="compressed"):
-        prepare_read(entry, torch.zeros_like(src))
+    from tpusnap_torch.manifest import TensorEntry, _entry_to_dict
+
+    assert port_chunked.tile_prev_map(None, "float32", [4, 4]) is None
+    fields = dict(
+        location="0/s/t", serializer="buffer_protocol", dtype="float32", shape=[5, 4],
+        replicated=False, tile_rows=2, checksum="crc32c:00000009",
+        tile_checksums=["crc32c:01", "crc32c:02", "crc32c:03"],
+        tile_dedup_hashes=["xxh64:0a", "xxh64:0b", "xxh64:0c"],
+    )
+    rows, tiles = port_chunked.tile_prev_map(TensorEntry(**fields), "float32", [5, 4])
+    jrows, jtiles = jax_chunked.tile_prev_map(JaxTensorEntry(**fields), "float32", [5, 4])
+    assert rows == jrows == 2
+    assert {k: _entry_to_dict(v) for k, v in tiles.items()} == {
+        k: jax_entry_to_dict(v) for k, v in jtiles.items()
+    }
+    assert port_chunked.tile_prev_map(
+        TensorEntry(**dict(fields, tile_dedup_hashes=None)), "float32", [5, 4]
+    ) is None
+
+    rng = np.random.default_rng(4)
+    src = torch.from_numpy(rng.integers(-2, 2, (8200, 4)).astype(np.float32))
+    path = str(tmp_path / "snap")
+    with override_max_chunk_size_bytes(1 << 16), override_batching_disabled(True):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv("TPUSNAP_COMPRESS", "on")
+            mp.setenv("TPUSNAP_COMPRESS_MIN_BLOB_BYTES", "65536")
+            snap = Snapshot.take(path, {"s": StateDict(t=src)})
+    entry = snap.metadata.manifest["0/s/t"]
+    # Two full chunks compress; the ragged 128-byte one is under the floor.
+    assert [c.tensor.codec for c in entry.chunks] == ["shuf4+lz4", "shuf4+lz4", None]
+    out = torch.zeros_like(src)
+    Snapshot(path).restore({"s": StateDict(t=out)})
+    assert torch.equal(out, src)

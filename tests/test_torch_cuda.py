@@ -10,6 +10,7 @@ so it runs on a machine that has only PyTorch; from the repo root:
 """
 
 import itertools
+import os
 
 import pytest
 import torch
@@ -267,3 +268,117 @@ def test_async_restore_onto_card_is_ordered_before_callers_stream(gen, tmp_path)
         seen = target * 1  # the caller's next kernel on its own stream
     stream.synchronize()
     assert torch.equal(seen, w)
+
+
+def _written_blobs(root):
+    return sorted(
+        os.path.relpath(os.path.join(d, f), root)
+        for d, _, fs in os.walk(root) for f in fs if f != ".snapshot_metadata"
+    )
+
+
+def test_device_slab_member_dedup_compacts(gen, tmp_path, monkeypatch):
+    """Small CUDA tensors are packed into one slab on the card; in an
+    increment the unchanged members are dropped and the slab compacted to
+    the changed one, hashed from the pinned slab."""
+    from tpusnap_torch import batcher
+
+    state = {f"p{i}": torch.randn((256,), generator=gen, device="cuda") for i in range(6)}
+    base, inc = str(tmp_path / "s0"), str(tmp_path / "s1")
+    staged = []
+    real = batcher.DeviceBatchedBufferStager._stage_blocking
+    monkeypatch.setattr(
+        batcher.DeviceBatchedBufferStager, "_stage_blocking",
+        lambda self: staged.append(self) or real(self),
+    )
+    Snapshot.take(base, {"app": StateDict(state)})
+    state["p3"].add_(1.0)
+    Snapshot.take(inc, {"app": StateDict(state)}, incremental_from=base)
+    assert len(staged) == 2  # both takes packed their slab on the card
+    assert staged[1].get_staging_cost_bytes() == 2 * staged[1].total
+    m = Snapshot(inc).metadata.manifest
+    assert m["0/app/p3"].byte_range == [0, 1024]
+    assert sum(m[k].location.startswith("../") for k in m if k.startswith("0/app/p")) == 5
+    targets = StateDict({k: torch.zeros_like(v) for k, v in state.items()})
+    Snapshot(inc).restore({"app": targets})
+    for k, v in state.items():
+        assert targets[k].is_cuda and torch.equal(targets[k], v), k
+    assert Snapshot(inc).verify().clean
+
+
+@pytest.mark.parametrize("shape", [(4, 4), None], ids=["other_shape", "same_shape"])
+def test_compressed_budget_tiled_restore_into_cuda_target(gen, tmp_path, monkeypatch, shape):
+    """A compressed blob read under a budget into a CUDA target: each tile
+    group is decompressed into a pinned buffer and copied into the
+    target's rows on the card; a target of another shape gets a new
+    tensor on the card. Never a CPU tensor."""
+    monkeypatch.setenv("TPUSNAP_COMPRESS", "on")
+    monkeypatch.setenv("TPUSNAP_COMPRESS_MIN_BLOB_BYTES", "65536")
+    monkeypatch.setenv("TPUSNAP_TILE_CHECKSUM_BYTES", str(1 << 18))
+    w = torch.randn((2048, 512), generator=gen, device="cuda").to(torch.bfloat16)
+    path = str(tmp_path / "snap")
+    snap = Snapshot.take(path, {"s": StateDict(w=w)})
+    entry = snap.metadata.manifest["0/s/w"]
+    assert entry.codec == "shuf2+lz4" and len(entry.comp_tile_sizes) == 8
+    target = torch.zeros(shape or w.shape, dtype=w.dtype, device="cuda")
+    got = Snapshot(path).read_object("0/s/w", obj_out=target, memory_budget_bytes=1 << 19)
+    assert got.is_cuda and torch.equal(got, w)
+    assert (got is target) == (shape is None)
+    upcast = torch.zeros(w.shape, device="cuda")  # f32 target of the bf16 blob
+    Snapshot(path).restore({"s": StateDict(w=upcast)})
+    assert torch.equal(upcast, w.float())
+
+
+def test_cast_on_save_of_cuda_sources_under_async_take(gen, tmp_path, monkeypatch):
+    """cast_on_save on CUDA tensors under an async take larger than its
+    window: the freeze copies the raw sources, the cast runs on the card
+    at stage time, and the caller's in-place updates after the return do
+    not reach the snapshot."""
+    from tpusnap_torch import cast_on_save
+
+    state = {f"t{i}": torch.randn((512, 1024), generator=gen, device="cuda") for i in range(6)}
+    state["small_a"] = torch.randn((64,), generator=gen, device="cuda")
+    state["small_b"] = torch.randn((64,), generator=gen, device="cuda")
+    witness = {k: v.to(torch.bfloat16) for k, v in state.items()}
+    # The two small tensors share a host slab (a transform keeps them out
+    # of the device pack); the large ones stage and freeze one by one.
+    monkeypatch.setenv("TPUSNAP_SLAB_SIZE_THRESHOLD_BYTES", str(64 << 10))
+    path = str(tmp_path / "snap")
+    with override_async_stage_window_bytes(4 << 20):
+        pending = Snapshot.async_take(
+            path, {"s": StateDict(state)},
+            _custom_array_prepare_func=cast_on_save({"s/*": torch.bfloat16}),
+        )
+        assert pending.staged()
+        for v in state.values():
+            v.add_(1)
+        snap = pending.wait()
+    assert snap.metadata.manifest["0/s/small_a"].location.startswith("batched/")
+    targets = StateDict({k: torch.zeros_like(v) for k, v in state.items()})
+    Snapshot(path).restore({"s": targets})
+    for k, v in witness.items():
+        assert snap.metadata.manifest[f"0/s/{k}"].dtype == "bfloat16"
+        assert targets[k].is_cuda and torch.equal(targets[k], v.float()), k
+
+
+def test_async_incremental_take_is_staged_at_return(gen, tmp_path):
+    """An async incremental take stages everything before it returns: the
+    caller may update its CUDA state in place at once, and only the
+    changed tensor is written."""
+    state = {f"t{i}": torch.randn((256, 1024), generator=gen, device="cuda") for i in range(4)}
+    base, inc = str(tmp_path / "s0"), str(tmp_path / "s1")
+    with override_async_stage_window_bytes(1 << 20):
+        Snapshot.take(base, {"s": StateDict(state)})
+        state["t2"].mul_(2)
+        witness = {k: v.clone() for k, v in state.items()}
+        pending = Snapshot.async_take(inc, {"s": StateDict(state)}, incremental_from=base)
+        assert pending.staged()
+        for v in state.values():
+            v.add_(1)
+        pending.wait()
+    blobs = _written_blobs(inc)  # the device slab, compacted to t2
+    assert len(blobs) == 1 and os.path.getsize(os.path.join(inc, blobs[0])) == 256 * 1024 * 4
+    targets = StateDict({k: torch.zeros_like(v) for k, v in state.items()})
+    Snapshot(inc).restore({"s": targets})
+    for k, v in witness.items():
+        assert torch.equal(targets[k], v), k

@@ -34,6 +34,8 @@ def test_every_module_imports_without_jax_or_tpusnap():
     modules = _port_modules()
     assert "tpusnap_torch.ops.flash_attention" in modules
     assert "tpusnap_torch.models.transformer" in modules
+    for name in ("compress", "inspect", "retention", "transforms"):
+        assert f"tpusnap_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
         "for name in ('jax', 'jaxlib', 'tpusnap'):\n"

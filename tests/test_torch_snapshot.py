@@ -247,18 +247,21 @@ def test_slab_layout_matches_tpusnap_byte_for_byte(tmp_path):
 
 @pytest.mark.parametrize(
     "call",
-    ["incremental_from", "stream", "s3_url", "comm", "compress"],
+    ["tier_incremental_from", "stream", "s3_url", "comm"],
 )
 def test_unported_features_raise(tmp_path, monkeypatch, call):
     path = str(tmp_path / "snap")
     state = {"s": StateDict(x=torch.ones(2))}
-    if call == "incremental_from":
-        fn = lambda: Snapshot.take(path, state, incremental_from=path + "_base")  # noqa: E731
+    match = None
+    if call == "tier_incremental_from":
+        base = "tier+local=" + str(tmp_path / "base") + "+remote=s3://bucket/base"
+        fn = lambda: Snapshot.take(path, state, incremental_from=base)  # noqa: E731
+        match = "A8"
     elif call == "stream":
         fn = lambda: Snapshot.stream(path, state)  # noqa: E731
     elif call == "s3_url":
         fn = lambda: Snapshot.take("s3://bucket/snap", state)  # noqa: E731
-    elif call == "comm":
+    else:
         from tpusnap_torch.comm import Communicator
 
         class TwoRanks(Communicator):
@@ -267,9 +270,49 @@ def test_unported_features_raise(tmp_path, monkeypatch, call):
                 return 2
 
         fn = lambda: Snapshot.take(path, state, comm=TwoRanks())  # noqa: E731
-    else:
-        monkeypatch.setenv("TPUSNAP_COMPRESS", "on")
-        fn = lambda: Snapshot.take(path, state)  # noqa: E731
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match=match):
         fn()
     assert not os.path.exists(os.path.join(path, ".snapshot_metadata"))
+
+
+def test_incremental_from_writes_only_changed_blobs(tmp_path):
+    """Formerly a "not ported" case: an increment of the flagship train
+    state after one optimizer moment changed writes that tensor alone."""
+    model = _port_train_state_from(_jax_train_state())
+    base, inc = str(tmp_path / "base"), str(tmp_path / "inc")
+    with override_batching_disabled(True):
+        Snapshot.take(base, {"train": StateDict(**model.train_state())})
+        with torch.no_grad():
+            model.opt_state["mu"]["ln_f"].add_(1.0)
+        snap = Snapshot.take(
+            inc, {"train": StateDict(**model.train_state())}, incremental_from=base
+        )
+    written = sorted(
+        os.path.relpath(os.path.join(d, f), inc)
+        for d, _, fs in os.walk(inc) for f in fs if f != ".snapshot_metadata"
+    )
+    assert written == ["0/train/opt/mu/ln_f"]
+    assert snap.metadata.base_roots == ["../base"]
+    fresh = Transformer(TransformerConfig(**_TINY), device="cpu", seed=5)
+    Snapshot(inc).restore({"train": StateDict(**fresh.train_state())})
+    for (p, want), (_, got) in zip(_leaves(model.train_state()), _leaves(fresh.train_state())):
+        assert _same_bits(want.detach(), got.detach()), p
+
+
+def test_compress_on_round_trips_through_both_packages(tmp_path, monkeypatch):
+    """Formerly a "not ported" case: ``TPUSNAP_COMPRESS=on`` compresses
+    the eligible blobs, and both packages restore them bit-exact."""
+    monkeypatch.setenv("TPUSNAP_COMPRESS", "on")
+    monkeypatch.setenv("TPUSNAP_COMPRESS_MIN_BLOB_BYTES", "65536")
+    rng = np.random.default_rng(8)
+    big = torch.from_numpy(rng.integers(-3, 3, (512, 256)).astype(np.float32))
+    path = str(tmp_path / "snap")
+    with override_batching_disabled(True):
+        snap = Snapshot.take(path, {"s": StateDict(big=big, small=torch.ones(4))})
+    entry = snap.metadata.manifest["0/s/big"]
+    assert entry.codec == "shuf4+lz4" and sum(entry.comp_tile_sizes) < big.numel() * 4
+    assert snap.metadata.manifest["0/s/small"].codec is None  # under the floor
+    out = torch.zeros_like(big)
+    Snapshot(path).restore({"s": StateDict(big=out, small=torch.zeros(4))})
+    assert torch.equal(out, big)
+    assert np.asarray(tpusnap.Snapshot(path).read_object("0/s/big")).tobytes() == big.numpy().tobytes()

@@ -8,8 +8,12 @@ taken by either package restores through the other.
 It carries the single-process ``Snapshot.take`` → ``restore`` path to a
 local filesystem with chunked tensors, ``async_take`` (``PendingSnapshot``)
 and ``async_restore`` (``PendingRestore``), ``read_object``,
-``load_snapshot`` and ``RNGState``, and the flagship transformer (``tpusnap_torch.models``) whose attention
-forward runs a hand-written Hopper kernel (``tpusnap_torch.ops``). The
+``load_snapshot`` and ``RNGState``; incremental takes
+(``incremental_from``), fused tile compression (``TPUSNAP_COMPRESS``),
+save-time transforms (``cast_on_save``), ``Snapshot.verify``/``materialize``
+(``verify_snapshot``, ``ScrubReport``) and ``apply_retention``; and the
+flagship transformer (``tpusnap_torch.models``) whose attention forward
+runs a hand-written Hopper kernel (``tpusnap_torch.ops``). The
 package imports torch, numpy and the standard library only — never JAX
 and never ``tpusnap``. ROADMAP.md lists what is still to port.
 """
@@ -24,6 +28,9 @@ from .snapshot import (  # noqa: F401
     Snapshot,
     load_snapshot,
 )
+from .inspect import ScrubReport, verify_snapshot  # noqa: F401
+from .retention import apply_retention  # noqa: F401
+from .transforms import cast_on_save  # noqa: F401
 
 __all__ = [
     "__version__",
@@ -31,8 +38,12 @@ __all__ = [
     "PendingRestore",
     "PendingSnapshot",
     "RNGState",
+    "ScrubReport",
     "Snapshot",
     "StateDict",
     "Stateful",
+    "apply_retention",
+    "cast_on_save",
     "load_snapshot",
+    "verify_snapshot",
 ]

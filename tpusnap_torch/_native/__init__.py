@@ -1,7 +1,7 @@
 """ctypes bindings for tpusnap_torch's native C++ helpers, compiled on demand.
 
 Counterpart of tpusnap/_native/__init__.py, reduced to the entry points
-the port calls. The .so is built from src/tpusnap_native.cpp (a copy of
+the port calls (the tile codec included). The .so is built from src/tpusnap_native.cpp (a copy of
 tpusnap's source) with g++ the first time it is needed, or when the
 source is newer than the binary. Every entry point has a pure-Python
 fallback, and ``TPUSNAP_DISABLE_NATIVE=1`` forces the fallbacks.
@@ -202,6 +202,50 @@ def _bind(lib: ctypes.CDLL) -> None:
         ctypes.c_uint64,
     ]
     lib.ts_crc32c_combine.restype = ctypes.c_uint32
+    lib.ts_lz4_compress.argtypes = [
+        ctypes.c_void_p,
+        ctypes.c_size_t,
+        ctypes.c_void_p,
+        ctypes.c_size_t,
+        ctypes.c_int,
+    ]
+    lib.ts_lz4_compress.restype = ctypes.c_int64
+    lib.ts_lz4_decompress.argtypes = [
+        ctypes.c_void_p,
+        ctypes.c_size_t,
+        ctypes.c_void_p,
+        ctypes.c_size_t,
+        ctypes.c_int,
+    ]
+    lib.ts_lz4_decompress.restype = ctypes.c_int64
+    lib.ts_compress_bound.argtypes = [ctypes.c_size_t, ctypes.c_size_t]
+    lib.ts_compress_bound.restype = ctypes.c_int64
+    lib.ts_compress_tiles.argtypes = [
+        ctypes.c_void_p,
+        ctypes.c_size_t,
+        ctypes.c_size_t,
+        ctypes.c_int,
+        ctypes.c_void_p,
+        ctypes.c_size_t,
+        ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.c_uint32),
+        ctypes.POINTER(ctypes.c_uint64),
+        ctypes.c_int,
+        ctypes.c_int,
+    ]
+    lib.ts_compress_tiles.restype = ctypes.c_int64
+    lib.ts_decompress_tiles.argtypes = [
+        ctypes.c_void_p,
+        ctypes.c_size_t,
+        ctypes.POINTER(ctypes.c_int64),
+        ctypes.c_size_t,
+        ctypes.c_size_t,
+        ctypes.c_size_t,
+        ctypes.c_void_p,
+        ctypes.c_int,
+        ctypes.c_int,
+    ]
+    lib.ts_decompress_tiles.restype = ctypes.c_int64
 
 
 def available() -> bool:
@@ -671,3 +715,205 @@ def verify_checksum(buf, recorded: str, location: str) -> None:
         verify_checksum_value(0, algo, recorded, location)
         return
     verify_checksum_value(crc32c(buf), algo, recorded, location)
+
+
+# ------------------------------------------------------------ tile codec
+#
+# The byte-shuffle filter and LZ4 block codec of the C++ source, bound as
+# tpusnap binds them: both packages run the same code, so equal input
+# bytes and tile geometry give equal compressed blobs. Compression needs
+# the native library (the policy bypasses without it); decompression has
+# a pure-Python fallback, slow but bit-exact.
+
+
+class CompressionError(IOError):
+    """A compressed tile failed to decode: the stored bytes are malformed
+    (normally caught earlier by the CRC over the stored bytes)."""
+
+
+def compression_available() -> bool:
+    return _load() is not None
+
+
+def compress_tiles(buf, tile_nbytes: int, elem: int, want_xxh: bool, nthreads: int = 4):
+    """Fused shuffle+LZ4+dual-hash of ``buf`` per ``tile_nbytes`` tile.
+
+    Returns ``(out, comp_sizes, crcs, xxhs)``: ``out`` is an aligned
+    uint8 array of the concatenated stored tiles (a tile that does not
+    shrink is stored raw, at its uncompressed size), ``comp_sizes`` the
+    per-tile stored sizes, ``crcs``/``xxhs`` the hashes of each tile's
+    STORED bytes (``xxhs`` is None unless ``want_xxh``). Deterministic."""
+    mv = memoryview(buf).cast("B")
+    n = mv.nbytes
+    if n == 0:
+        raise ValueError("cannot compress an empty buffer")
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("native library unavailable: cannot compress")
+    if tile_nbytes <= 0 or tile_nbytes > n:
+        tile_nbytes = n
+    n_tiles = (n + tile_nbytes - 1) // tile_nbytes
+    cap = int(lib.ts_compress_bound(n, tile_nbytes))
+    out = aligned_empty(cap)
+    comp_sizes = (ctypes.c_int64 * n_tiles)()
+    crcs = (ctypes.c_uint32 * n_tiles)()
+    xxhs = (ctypes.c_uint64 * n_tiles)()
+    src_ptr, src_keep = _ptr(mv)
+    total = lib.ts_compress_tiles(
+        src_ptr, n, tile_nbytes, elem, out.ctypes.data, cap,
+        comp_sizes, crcs, xxhs, 1 if want_xxh else 0, nthreads,
+    )
+    del src_keep
+    if total < 0:
+        raise RuntimeError("native tile compression failed (capacity)")
+    return out[:total], list(comp_sizes), list(crcs), list(xxhs) if want_xxh else None
+
+
+def decompress_tiles(
+    src, comp_sizes, tile_raw: int, total_raw: int, elem: int, out, nthreads: int = 4
+) -> None:
+    """Decode concatenated compressed tiles into ``out`` (writable,
+    exactly ``total_raw`` bytes). Raises :class:`CompressionError` on
+    malformed input."""
+    src_mv = memoryview(src).cast("B")
+    out_mv = memoryview(out).cast("B")
+    if out_mv.readonly:
+        raise ValueError("out buffer must be writable")
+    if out_mv.nbytes != total_raw:
+        raise ValueError(f"out buffer size {out_mv.nbytes} != total_raw {total_raw}")
+    if total_raw == 0:
+        if src_mv.nbytes != 0:
+            raise CompressionError("trailing bytes after empty payload")
+        return
+    n_tiles = len(comp_sizes)
+    lib = _load()
+    if lib is None:
+        _py_decompress_tiles(src_mv, comp_sizes, tile_raw, total_raw, elem, out_mv)
+        return
+    sizes = (ctypes.c_int64 * n_tiles)(*comp_sizes)
+    src_ptr, src_keep = _ptr(src_mv)
+    out_ptr, out_keep = _ptr(out_mv)
+    got = lib.ts_decompress_tiles(
+        src_ptr, src_mv.nbytes, sizes, n_tiles, tile_raw, total_raw, out_ptr, elem, nthreads
+    )
+    del src_keep, out_keep
+    if got != total_raw:
+        raise CompressionError(
+            f"compressed tile payload failed to decode ({got} of {total_raw} "
+            "bytes) — the stored bytes are malformed"
+        )
+
+
+def lz4_compress(buf, elem: int = 1) -> Optional[bytes]:
+    """One shuffle+LZ4 block; None when the input does not shrink (or the
+    native library is absent)."""
+    mv = memoryview(buf).cast("B")
+    lib = _load()
+    if lib is None or mv.nbytes == 0:
+        return None
+    out = np.empty(mv.nbytes, dtype=np.uint8)  # must be strictly smaller
+    ptr, keep = _ptr(mv)
+    got = lib.ts_lz4_compress(ptr, mv.nbytes, out.ctypes.data, mv.nbytes - 1, elem)
+    del keep
+    if got < 0:
+        return None
+    return out[:got].tobytes()
+
+
+def lz4_decompress(buf, raw_nbytes: int, elem: int = 1) -> bytes:
+    """Decode one shuffle+LZ4 block of known decoded size."""
+    mv = memoryview(buf).cast("B")
+    lib = _load()
+    if lib is None:
+        return _py_unshuffle(_py_lz4_decompress_block(mv, raw_nbytes), elem)
+    out = np.empty(raw_nbytes, dtype=np.uint8)
+    ptr, keep = _ptr(mv)
+    got = lib.ts_lz4_decompress(ptr, mv.nbytes, out.ctypes.data, raw_nbytes, elem)
+    del keep
+    if got != raw_nbytes:
+        raise CompressionError("LZ4 block failed to decode")
+    return out.tobytes()
+
+
+def _py_lz4_decompress_block(mv: memoryview, raw_nbytes: int) -> bytes:
+    """Bounds-checked LZ4 block decode in Python (the fallback)."""
+    src = bytes(mv)
+    n = len(src)
+    out = bytearray()
+    ip = 0
+    while ip < n:
+        token = src[ip]
+        ip += 1
+        litlen = token >> 4
+        if litlen == 15:
+            while True:
+                if ip >= n:
+                    raise CompressionError("truncated literal length")
+                b = src[ip]
+                ip += 1
+                litlen += b
+                if b != 255:
+                    break
+        if ip + litlen > n or len(out) + litlen > raw_nbytes:
+            raise CompressionError("literal run out of bounds")
+        out += src[ip : ip + litlen]
+        ip += litlen
+        if ip >= n:
+            break
+        if ip + 2 > n:
+            raise CompressionError("truncated match offset")
+        offset = src[ip] | (src[ip + 1] << 8)
+        ip += 2
+        if offset == 0 or offset > len(out):
+            raise CompressionError("match offset out of bounds")
+        mlen = token & 15
+        if mlen == 15:
+            while True:
+                if ip >= n:
+                    raise CompressionError("truncated match length")
+                b = src[ip]
+                ip += 1
+                mlen += b
+                if b != 255:
+                    break
+        mlen += 4
+        if len(out) + mlen > raw_nbytes:
+            raise CompressionError("match run out of bounds")
+        start = len(out) - offset
+        for i in range(mlen):  # a forward copy handles overlap (runs)
+            out.append(out[start + i])
+    if len(out) != raw_nbytes:
+        raise CompressionError(f"decoded {len(out)} bytes, expected {raw_nbytes}")
+    return bytes(out)
+
+
+def _py_unshuffle(data: bytes, elem: int) -> bytes:
+    if elem <= 1 or not data:
+        return data
+    ne = len(data) // elem
+    body = ne * elem
+    planes = np.frombuffer(data[:body], dtype=np.uint8).reshape(elem, ne)
+    return planes.T.tobytes() + data[body:]
+
+
+def _py_decompress_tiles(src_mv, comp_sizes, tile_raw, total_raw, elem, out_mv) -> None:
+    off = 0
+    raw_off = 0
+    if tile_raw <= 0:
+        tile_raw = total_raw
+    for clen in comp_sizes:
+        raw_len = min(tile_raw, total_raw - raw_off)
+        if raw_len <= 0 or off + clen > src_mv.nbytes:
+            raise CompressionError("compressed tile sizes out of bounds")
+        tile = src_mv[off : off + clen]
+        if clen == raw_len:
+            out_mv[raw_off : raw_off + raw_len] = tile  # stored raw
+        elif clen > raw_len:
+            raise CompressionError("compressed tile larger than raw tile")
+        else:
+            shuffled = _py_lz4_decompress_block(tile, raw_len)
+            out_mv[raw_off : raw_off + raw_len] = _py_unshuffle(shuffled, elem)
+        off += clen
+        raw_off += raw_len
+    if off != src_mv.nbytes or raw_off != total_raw:
+        raise CompressionError("compressed tile sizes do not cover payload")

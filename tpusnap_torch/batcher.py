@@ -20,11 +20,19 @@ take freezes its CUDA sources — the pack is already a device copy, so
 the packed slab is the frozen state. A host slab copies its members'
 live bytes at staging time; COW members are verified against that copy
 at once, since the write pipeline only sees the slab.
+
+Incremental takes dedup per member: a member whose bytes match its base
+entry is dropped from the slab (its entry re-pointed at the base's byte
+range) and the survivors are compacted; a slab left empty is not
+written. A member with a save-time transform never goes into a device
+slab (the pack copies the untransformed bytes); it is host-packed, and
+its own stager transforms it on the card.
 """
 
 from __future__ import annotations
 
 import asyncio
+import ctypes
 import threading
 import uuid
 from concurrent.futures import Executor
@@ -37,11 +45,20 @@ from . import _native
 from ._staging_pool import release
 from .io_preparers.array import (
     ArrayBufferStager,
+    _adopt_base_location,
     _record_checksums,
+    dedup_entries_match,
     enqueue_dtoh,
     event_on,
 )
-from .io_types import BufferConsumer, BufferStager, BufferType, ReadReq, WriteReq
+from .io_types import (
+    SKIP_WRITE,
+    BufferConsumer,
+    BufferStager,
+    BufferType,
+    ReadReq,
+    WriteReq,
+)
 from .knobs import (
     get_slab_size_threshold_bytes,
     is_batching_disabled,
@@ -61,9 +78,13 @@ class BatchedBufferStager(BufferStager):
 
     async def stage_buffer(self, executor: Optional[Executor] = None) -> BufferType:
         slab = _native.aligned_empty(self.total)
+        skipped = [False] * len(self.members)
 
-        async def fill(offset: int, nbytes: int, stager: BufferStager) -> None:
+        async def fill(i: int, offset: int, nbytes: int, stager: BufferStager) -> None:
             buf = await stager.stage_buffer(executor)
+            if buf is SKIP_WRITE:
+                skipped[i] = True  # the member dedup'd against its base
+                return
             mv = memoryview(buf).cast("B")
             if mv.nbytes != nbytes:
                 raise RuntimeError(
@@ -79,8 +100,25 @@ class BatchedBufferStager(BufferStager):
                 stager.cow_pending = False
             release(buf)  # a member's clone goes back to the pool
 
-        await asyncio.gather(*(fill(o, n, s) for o, n, s in self.members))
-        return slab
+        await asyncio.gather(
+            *(fill(i, o, n, s) for i, (o, n, s) in enumerate(self.members))
+        )
+        if not any(skipped):
+            return slab
+        # Compact in place around the dedup'd members (memmove: source and
+        # destination overlap) and return a view of the kept prefix.
+        new_offset = 0
+        for i, (offset, nbytes, stager) in enumerate(self.members):
+            if skipped[i]:
+                continue
+            if new_offset != offset:
+                ctypes.memmove(slab.ctypes.data + new_offset, slab.ctypes.data + offset, nbytes)
+            if stager.entry is not None:
+                stager.entry.byte_range = [new_offset, new_offset + nbytes]
+            new_offset += nbytes
+        if new_offset == 0:
+            return SKIP_WRITE
+        return slab[:new_offset]
 
     def get_staging_cost_bytes(self) -> int:
         # The slab plus transiently one member's own staging cost.
@@ -158,22 +196,60 @@ class DeviceBatchedBufferStager(BufferStager):
                 f"device-packed slab is {host.numel()} bytes, expected {self.total}"
             )
         mv = memoryview(host.numpy())
-        if not is_checksum_disabled():
-            # The member stagers are bypassed: record their checksums from
-            # the slab slices, as the host path does inside each member.
-            for offset, nbytes, stager in self.members:
-                if stager.entry is not None:
-                    _record_checksums(stager.entry, mv[offset : offset + nbytes])
-        return mv
+        if is_checksum_disabled():
+            return mv
+        # The member stagers are bypassed: record their checksums from the
+        # slab slices, as the host path does inside each member, and drop
+        # the members that match their base entry.
+        keep: List[Tuple[int, int, ArrayBufferStager]] = []
+        for offset, nbytes, stager in self.members:
+            if stager.entry is None:
+                keep.append((offset, nbytes, stager))
+                continue
+            _record_checksums(
+                stager.entry, mv[offset : offset + nbytes], stager.record_dedup_hashes
+            )
+            if stager.dedup_entry is not None and dedup_entries_match(
+                stager.entry, stager.dedup_entry
+            ):
+                _adopt_base_location(stager.entry, stager.dedup_entry)
+                continue
+            keep.append((offset, nbytes, stager))
+        if not keep:
+            return SKIP_WRITE
+        if len(keep) == len(self.members):
+            return mv
+        # The survivors are compacted into an aligned host buffer; the
+        # pinned slab goes back to its pool when this returns.
+        out = _native.aligned_empty(sum(n for _, n, _ in keep))
+        new_offset = 0
+        for offset, nbytes, stager in keep:
+            out[new_offset : new_offset + nbytes] = np.frombuffer(
+                mv[offset : offset + nbytes], dtype=np.uint8
+            )
+            if stager.entry is not None:
+                stager.entry.byte_range = [new_offset, new_offset + nbytes]
+            new_offset += nbytes
+        return out
 
     def get_staging_cost_bytes(self) -> int:
+        # A partial dedup holds the pinned slab and the compacted copy at
+        # once: 2x whenever a member may dedup.
+        if any(s.dedup_entry is not None for _, _, s in self.members):
+            return 2 * self.total
         return self.total
 
 
 def _device_group_key(stager: BufferStager) -> Optional[str]:
     """CUDA tensor members share a key per device (device packing);
     ``None`` → host packing."""
-    if isinstance(stager, ArrayBufferStager) and stager.arr.is_cuda:
+    if (
+        isinstance(stager, ArrayBufferStager)
+        and stager.arr.is_cuda
+        # The device pack copies the untransformed bytes; a transform must
+        # run in the member's own staging.
+        and stager.array_prepare_func is None
+    ):
         return str(stager.arr.device)
     return None
 

@@ -5,6 +5,8 @@ tpusnap routes on ``jax.Array``:
 
 - int/float/bool/str/bytes          → inlined PrimitiveEntry (no I/O)
 - DTensor / sharded tensor          → NotImplementedError (ROADMAP.md A5)
+- dense tensor whose base entry has  → ChunkedArrayIOPreparer on the
+  a tile map (incremental takes)      base's checksum-tile grid
 - dense tensor above max_chunk_size → ChunkedArrayIOPreparer
 - dense tensor, supported dtype     → ArrayIOPreparer
 - anything else                     → ObjectIOPreparer (pickle)
@@ -19,8 +21,12 @@ from typing import Any, List, Optional, Tuple
 
 import torch
 
-from .io_preparers.array import ArrayIOPreparer, is_supported_array_dtype
-from .io_preparers.chunked import ChunkedArrayIOPreparer, should_chunk
+from .io_preparers.array import (
+    ArrayIOPreparer,
+    is_supported_array_dtype,
+    trace_array_prepare,
+)
+from .io_preparers.chunked import ChunkedArrayIOPreparer, should_chunk, tile_prev_map
 from .io_preparers.object import ObjectIOPreparer
 from .io_types import Future, ReadReq, WriteReq
 from .manifest import (
@@ -54,7 +60,22 @@ def prepare_write(
     rank: int,
     replicated: bool = False,
     is_async_snapshot: bool = False,
+    array_prepare_func: Optional[Any] = None,
+    array_prepare_traced: Optional[Tuple[str, Any]] = None,
+    prev_entry: Optional[Entry] = None,
+    record_dedup_hashes: bool = False,
+    allow_tile_dedup: bool = True,
 ) -> Tuple[Entry, List[WriteReq]]:
+    """``array_prepare_func(tensor, tracing) -> tensor`` is the save-time
+    transform of dense and chunked tensors (other objects pass through).
+    ``prev_entry`` is the base snapshot's entry for this logical path,
+    locations relative to the new root: blobs whose staged bytes hash the
+    same skip their writes and reference the base's. When it carries a
+    tile map (``chunked.tile_prev_map``), the tensor is re-chunked on the
+    base's checksum-tile grid so each tile dedups on its own.
+    ``record_dedup_hashes`` records the 64-bit per-tile hashes that make
+    the next increment tile-grain; ``allow_tile_dedup=False`` keeps the
+    write blob-grain."""
     if PrimitiveEntry.supported(obj):
         return PrimitiveEntry.from_object(obj, replicated=replicated), []
 
@@ -66,10 +87,27 @@ def prepare_write(
 
     storage_path = get_storage_path(logical_path, rank, replicated)
     if isinstance(obj, torch.Tensor) and is_supported_array_dtype(obj):
+        if array_prepare_traced is None:
+            array_prepare_traced = trace_array_prepare(obj, array_prepare_func)
+        kwargs = dict(
+            array_prepare_func=array_prepare_func,
+            array_prepare_traced=array_prepare_traced,
+            record_dedup_hashes=record_dedup_hashes,
+        )
+        if prev_entry is not None and allow_tile_dedup:
+            tiled_prev = tile_prev_map(prev_entry, *array_prepare_traced)
+            if tiled_prev is not None:
+                grid_rows, prev_tiles = tiled_prev
+                return ChunkedArrayIOPreparer.prepare_write(
+                    storage_path, obj, replicated, is_async_snapshot,
+                    chunk_rows=grid_rows, prev_chunks=prev_tiles, **kwargs,
+                )
         preparer = ChunkedArrayIOPreparer if should_chunk(obj) else ArrayIOPreparer
-        return preparer.prepare_write(storage_path, obj, replicated, is_async_snapshot)
+        return preparer.prepare_write(
+            storage_path, obj, replicated, is_async_snapshot, prev_entry=prev_entry, **kwargs
+        )
 
-    return ObjectIOPreparer.prepare_write(storage_path, obj, replicated)
+    return ObjectIOPreparer.prepare_write(storage_path, obj, replicated, prev_entry=prev_entry)
 
 
 def prepare_read(

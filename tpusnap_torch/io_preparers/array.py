@@ -37,8 +37,30 @@ staging. What differs from tpusnap and why:
   through ``copy_``, which writes through the target's strides. A CUDA
   target of another shape is replaced by a new tensor on its device, as
   tpusnap ``device_put``s onto the target's sharding.
+- **Save-time transforms** (``array_prepare_func``, e.g.
+  ``transforms.cast_on_save``). The manifest's dtype comes from running
+  the transform on a ``meta`` tensor (``trace_array_prepare``: no memory,
+  no arithmetic — the counterpart of ``jax.eval_shape``). At stage time a
+  CUDA source is transformed on the card, on the staging side stream
+  after its ready event (or after the frozen copy's), and the result
+  crosses to pinned memory; the host never sees the untransformed bytes.
+  Restoring a narrower stored dtype into a CUDA target casts on the card.
+- **Incremental dedup** (``dedup_entry``). The staged bytes are hashed at
+  stage time — whole-blob or per checksum tile, the 32-bit CRC32C and
+  the 64-bit XXH64 in one pass — and a blob whose hashes all match its
+  base entry's returns ``SKIP_WRITE``: no write, and the entry adopts the
+  base blob's location (``dedup_entries_match``).
+- **Fused tile compression** (``compress_codec``, armed by the take's
+  ``compress`` policy). One pass over the staged bytes shuffles,
+  LZ4-compresses and hashes each checksum tile; the staged buffer is the
+  compressed blob, fresh memory, so an async take needs neither a clone
+  nor COW, and a CUDA source's pinned buffer is dropped as soon as the
+  codec has read it. The restore reads compressed tiles in groups whose
+  decompressed size fits the budget, verifies each group's stored bytes
+  and decompresses it into the target's rows — for a CUDA target into a
+  pinned buffer per group, copied into the rows in place on the card.
 - Tile-grain checksums, the fused read-time checksum and budget-tiled
-  reads are kept as in tpusnap. Compressed blobs are not ported yet.
+  reads are kept as in tpusnap.
 """
 
 from __future__ import annotations
@@ -53,7 +75,14 @@ from typing import Callable, Dict, Iterable, List, Optional, Tuple, Union
 import torch
 
 from .. import _native
+from ..compress import (
+    check_tile_coverage,
+    codec_elem,
+    combined_comp_checksum,
+    comp_tile_offsets,
+)
 from ..io_types import (
+    SKIP_WRITE,
     BufferConsumer,
     BufferStager,
     BufferType,
@@ -80,8 +109,6 @@ from ..serialization import (
 
 logger = logging.getLogger(__name__)
 
-_HASH_THREADS = 4
-
 
 def array_nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
@@ -107,19 +134,25 @@ def _record_ready(t: torch.Tensor) -> Optional["torch.cuda.Event"]:
 
 
 def enqueue_dtoh(
-    t: torch.Tensor, ready: Optional["torch.cuda.Event"]
+    t: torch.Tensor,
+    ready: Optional["torch.cuda.Event"],
+    transform: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, "torch.cuda.Event"]:
-    """Start the device→host copy of ``t``'s bytes into a pinned buffer
-    on a side stream; returns ``(pinned_u8, done_event)``. The caller
-    must ``done_event.synchronize()`` before reading the buffer."""
+    """Start the device→host copy of ``t``'s bytes — of ``transform(t)``
+    when given, computed on the card — into a pinned buffer on a side
+    stream; returns ``(pinned_u8, done_event)``. The caller must
+    ``done_event.synchronize()`` before reading the buffer."""
     stream = torch.cuda.Stream(device=t.device)
-    host = torch.empty(array_nbytes(t), dtype=torch.uint8, pin_memory=True)
     with torch.cuda.stream(stream):
         if ready is not None:
             stream.wait_event(ready)
-        # A non-contiguous source is compacted here, on the side stream,
-        # after the ready event.
-        host.copy_(tensor_as_bytes(t), non_blocking=True)
+        # The transform and the compaction of a non-contiguous source run
+        # here, on the side stream, after the ready event; their results
+        # are allocated on this stream, so the allocator cannot reuse
+        # them before the copy below has read them.
+        src = t if transform is None else transform(t)
+        host = torch.empty(array_nbytes(src), dtype=torch.uint8, pin_memory=True)
+        host.copy_(tensor_as_bytes(src), non_blocking=True)
         # The caching allocator must not hand ``t``'s memory out again
         # before this copy has read it, even if the caller drops ``t``.
         t.record_stream(stream)
@@ -156,14 +189,32 @@ class ArrayBufferStager(BufferStager):
         arr: torch.Tensor,
         entry: Optional[TensorEntry] = None,
         is_async_snapshot: bool = False,
+        array_prepare_func: Optional[Callable[[torch.Tensor, bool], torch.Tensor]] = None,
+        dedup_entry: Optional[TensorEntry] = None,
+        record_dedup_hashes: bool = False,
     ) -> None:
         self.arr = arr
         self.is_async_snapshot = is_async_snapshot
         # Manifest entry annotated with the checksums; the metadata is
         # encoded after every write has landed, so the values reach it.
         self.entry = entry
+        # Save-time transform ``f(tensor, tracing) -> tensor``, applied to
+        # the source at stage time (on its device).
+        self.array_prepare_func = array_prepare_func
+        # Incremental takes: the base snapshot's entry for this blob
+        # (locations relative to the new root). Bytes that hash the same
+        # skip their write and the entry adopts the base blob.
+        self.dedup_entry = dedup_entry
+        # Record the 64-bit per-tile dedup hashes too (incremental takes,
+        # or TPUSNAP_RECORD_DEDUP_HASHES), so the next increment can skip
+        # at tile grain.
+        self.record_dedup_hashes = record_dedup_hashes
+        # Set by the take's compress policy after batching: the staged
+        # buffer is then the compressed blob.
+        self.compress_codec: Optional[str] = None
         # Set by the take after batching: hash on the write path
         # (``late_checksum``) instead of inside the staging window.
+        # Incremental takes never defer: dedup needs the stage-time hash.
         self.defer_checksums = False
         # Per-take override of COW: defensive clones for CPU sources.
         self.force_clone = False
@@ -186,31 +237,122 @@ class ArrayBufferStager(BufferStager):
         return self._stage_blocking()
 
     def _stage_blocking(self) -> BufferType:
-        if self.arr.is_cuda:
-            mv = self._stage_device()
-        elif array_nbytes(self.arr) == 0:
-            mv = memoryview(b"")
-        else:
-            mv = tensor_as_memoryview(self.arr)
         want_crc = self.entry is not None and not is_checksum_disabled()
+        if self.compress_codec is not None and want_crc:
+            return self._stage_compressed()
+        mv = self._host_bytes()
+        if want_crc and self.dedup_entry is not None:
+            # Incremental dedup: hash first (the expected outcome is
+            # "unchanged", where nothing is cloned or written).
+            _record_checksums(self.entry, mv, self.record_dedup_hashes)
+            if dedup_entries_match(self.entry, self.dedup_entry):
+                _adopt_base_location(self.entry, self.dedup_entry)
+                return SKIP_WRITE
+            if self.is_async_snapshot and _may_alias_live_memory(self.arr):
+                if self.uses_cow():
+                    self.cow_pending = True  # checksums already recorded
+                    return mv
+                out = _acquire_clone_buffer(mv.nbytes)
+                _native.memcpy(out, mv, nthreads=get_native_copy_threads())
+                return out
+            return mv
         if self.is_async_snapshot and _may_alias_live_memory(self.arr):
             return self._stage_live(mv, want_crc)
         if want_crc and not self.defer_checksums:
-            _record_checksums(self.entry, mv)
+            _record_checksums(self.entry, mv, self.record_dedup_hashes)
         return mv
+
+    def _host_bytes(self) -> memoryview:
+        """The bytes to persist in host memory: a pinned copy of a CUDA
+        source (transformed on the card), a view of a CPU source (or of
+        its transform's result)."""
+        if self.arr.is_cuda:
+            return self._stage_device()
+        src = self.arr
+        if self.array_prepare_func is not None:
+            src = self._transformed(src)
+        if array_nbytes(src) == 0:
+            return memoryview(b"")
+        return tensor_as_memoryview(src)
+
+    def _transformed(self, t: torch.Tensor) -> torch.Tensor:
+        with torch.no_grad():
+            out = self.array_prepare_func(t, False)  # tracing=False
+        if self.entry is not None and (
+            list(out.shape) != list(self.entry.shape)
+            or dtype_to_string(out.dtype) != self.entry.dtype
+        ):
+            raise RuntimeError(
+                f"_custom_array_prepare_func returned {out.dtype}{list(out.shape)} "
+                f"at stage time but {self.entry.dtype}{list(self.entry.shape)} was "
+                "recorded at prepare time — the transform must be deterministic"
+            )
+        return out
 
     def _stage_device(self) -> memoryview:
         """The source's bytes in pinned host memory, from the frozen copy
-        when there is one. The copy is dropped once its DtoH has landed."""
+        when there is one, transformed on the card when a transform is
+        set. The copy is dropped once its DtoH has landed."""
         if array_nbytes(self.arr) == 0:
             return memoryview(b"")
+        transform = self._transformed if self.array_prepare_func is not None else None
         with self._lock:
             src, ready = self._frozen or (self.arr, self.ready)
-            host, done = enqueue_dtoh(src, ready)
+            host, done = enqueue_dtoh(src, ready, transform)
             self._dtoh_done = done
         done.synchronize()
         self._frozen = None
         return memoryview(host.numpy())
+
+    def _stage_compressed(self) -> BufferType:
+        """Fused shuffle+LZ4+dual-hash staging: one read of the staged
+        bytes, compressed tiles and their checksums and dedup hashes out,
+        all over the STORED bytes. The result is copied into a right-sized
+        pool buffer, so the codec's worst-case output buffer — and a CUDA
+        source's pinned buffer — are released before the write."""
+        codec = self.compress_codec
+        entry = self.entry
+        mv = self._host_bytes()
+        tile_rows, row_nbytes = _tile_geometry(entry, mv.nbytes)
+        tile_nbytes = tile_rows * row_nbytes if tile_rows else mv.nbytes
+        want_dedup = (
+            _want_dedup_hashes(self.record_dedup_hashes, tile_rows, mv.nbytes)
+            or self.dedup_entry is not None
+        )
+        # Raw-hash fast skip: the codec is deterministic, so equal RAW
+        # bytes imply equal stored bytes, and an unchanged blob costs one
+        # hash pass instead of a codec pass.
+        raw_hash = _raw_dual_hash(mv) if want_dedup else None
+        prev = self.dedup_entry
+        if (
+            prev is not None
+            and raw_hash is not None
+            and prev.uncompressed_dedup_hash == raw_hash
+            and prev.codec == codec
+            and prev.checksum is not None
+            and prev.dtype == entry.dtype
+            and list(prev.shape) == list(entry.shape)
+            and prev.serializer == entry.serializer
+        ):
+            _adopt_base_location(entry, prev)
+            _annotate_from_dedup_base(entry, prev)
+            return SKIP_WRITE
+        raw_nbytes = mv.nbytes
+        out, comp_sizes, crcs, xxhs = _native.compress_tiles(
+            mv, tile_nbytes, codec_elem(codec), want_dedup,
+            nthreads=get_native_copy_threads(),
+        )
+        del mv  # a CUDA source's pinned buffer goes back to its pool here
+        _annotate_compressed(entry, codec, raw_nbytes, comp_sizes, crcs, tile_rows, xxhs)
+        if raw_hash is not None:
+            # Skip evidence for the next increment's raw-hash fast path.
+            entry.uncompressed_dedup_hash = raw_hash
+        if prev is not None and dedup_entries_match(entry, prev):
+            _adopt_base_location(entry, prev)
+            return SKIP_WRITE
+        final = _acquire_clone_buffer(out.nbytes)
+        _native.memcpy(final, out, nthreads=get_native_copy_threads())
+        return final
 
     def pending_device_bytes(self) -> int:
         """Device bytes ``freeze`` would copy."""
@@ -223,7 +365,8 @@ class ArrayBufferStager(BufferStager):
         caller's later in-place updates, with work on ``stream`` (which
         the caller's stream then waits on): a DtoH already enqueued is
         waited for; otherwise the tensor is copied on the card after its
-        ready event, and the DtoH reads the copy later."""
+        ready event, and the DtoH reads the copy later (a transform runs
+        once, at stage time, on the copy)."""
         with self._lock:
             if self._dtoh_done is not None:
                 stream.wait_event(self._dtoh_done)
@@ -244,13 +387,15 @@ class ArrayBufferStager(BufferStager):
         they are; otherwise they are cloned into a pool buffer, hashed in
         the same pass unless the hash is deferred."""
         if self.uses_cow():
-            _record_checksums(self.entry, mv)
+            _record_checksums(self.entry, mv, self.record_dedup_hashes)
             self.cow_pending = True
             return mv
         out = _acquire_clone_buffer(mv.nbytes)
         threads = get_native_copy_threads()
         if want_crc and not self.defer_checksums:
-            _clone_and_record_checksums(self.entry, out, mv, threads)
+            _clone_and_record_checksums(
+                self.entry, out, mv, threads, self.record_dedup_hashes
+            )
         else:
             _native.memcpy(out, mv, nthreads=threads)
         return out
@@ -259,7 +404,7 @@ class ArrayBufferStager(BufferStager):
         """Record checksums from the STAGED buffer (write path)."""
         if self.entry is None or is_checksum_disabled() or self.entry.checksum:
             return
-        _record_checksums(self.entry, memoryview(buf).cast("B"))
+        _record_checksums(self.entry, memoryview(buf).cast("B"), self.record_dedup_hashes)
 
     def verify_cow_after_write(self, buf) -> None:
         """COW staging: re-hash the live bytes after the storage write and
@@ -312,21 +457,33 @@ class ArrayBufferStager(BufferStager):
 
     def uses_cow(self) -> bool:
         """Whether an async take stages this tensor's live bytes and
-        verifies them after the write (instead of cloning them)."""
+        verifies them after the write (instead of cloning them). A
+        compressed blob is fresh memory and needs neither."""
         return (
             self.is_async_snapshot
             and _may_alias_live_memory(self.arr)
             and is_async_cow_enabled()
             and not self.force_clone
+            and self.compress_codec is None
             and self.entry is not None
             and not is_checksum_disabled()
         )
 
     def get_staging_cost_bytes(self) -> int:
-        n = array_nbytes(self.arr)
+        n = self.get_planned_bytes()
+        if self.compress_codec is not None:
+            # The codec's worst-case output buffer plus the right-sized
+            # staged copy.
+            return 2 * n
         if self.is_async_snapshot and _may_alias_live_memory(self.arr) and not self.uses_cow():
             return 2 * n  # the defensive clone: a second host copy in flight
         return n
+
+    def get_planned_bytes(self) -> int:
+        if self.array_prepare_func is not None and self.entry is not None:
+            # What is staged is the transformed tensor.
+            return tensor_nbytes(self.entry.dtype, self.entry.shape)
+        return array_nbytes(self.arr)
 
 
 def freeze_device_sources(stagers: Iterable[BufferStager]) -> bool:
@@ -336,9 +493,10 @@ def freeze_device_sources(stagers: Iterable[BufferStager]) -> bool:
     overtake them, and the host does not wait. Returns False when the
     card has too little free memory for the copies (or a copy runs out
     of it): the caller must then stage everything before it returns."""
+    stagers = list(stagers)
     groups: Dict[torch.device, List[BufferStager]] = {}
-    for s in stagers:
-        if getattr(s, "cuda_device", None) is not None and not s.frozen:
+    for s in _device_sources(stagers):
+        if not s.frozen:
             groups.setdefault(s.cuda_device, []).append(s)
     for device, group in groups.items():
         need = sum(s.pending_device_bytes() for s in group)
@@ -364,7 +522,25 @@ def freeze_device_sources(stagers: Iterable[BufferStager]) -> bool:
             "staging all of it before returning"
         )
         return False
+    for s in stagers:
+        members = getattr(s, "members", None)
+        if getattr(s, "cuda_device", None) is None and members:
+            # A host slab whose members are all frozen CUDA sources (they
+            # carry a save-time transform) no longer reads live state.
+            s.frozen = all(m.frozen for _, _, m in members)
     return True
+
+
+def _device_sources(stagers: List[BufferStager]) -> Iterable[BufferStager]:
+    """The stagers that read CUDA memory: CUDA tensors and device slabs,
+    and the CUDA members of host slabs."""
+    for s in stagers:
+        if getattr(s, "cuda_device", None) is not None:
+            yield s
+        else:
+            for _, _, m in getattr(s, "members", None) or ():
+                if getattr(m, "cuda_device", None) is not None:
+                    yield m
 
 
 def _room_for_device_copies(device: torch.device) -> int:
@@ -418,9 +594,53 @@ def _tile_geometry(entry: TensorEntry, nbytes: int) -> Tuple[int, int]:
 
 
 # Tile-less blobs at or below this size record their 64-bit dedup hash on
-# every take, as tpusnap does.
+# every take, as tpusnap does; larger ones only when asked to.
 _DEDUP_HASH_EAGER_MAX = 64 << 20
 _XXH_MASK = (1 << 64) - 1
+
+
+def _want_dedup_hashes(record_flag: bool, tile_rows: int, nbytes: int) -> bool:
+    if tile_rows:
+        return record_flag
+    return record_flag or nbytes <= _DEDUP_HASH_EAGER_MAX
+
+
+def dedup_entries_match(new: TensorEntry, prev: TensorEntry) -> bool:
+    """True when the freshly staged blob (``new``, checksums recorded) is
+    byte-identical to the base's blob by its recorded checksums: same
+    dtype, shape, serializer, whole-blob CRC, tile geometry and tile CRCs,
+    codec and stored layout — AND matching 64-bit dedup hashes on both
+    sides (per tile for tiled blobs), so a skip never rests on a single
+    32-bit CRC. A base without the hashes conservatively rewrites."""
+    if not (
+        prev.checksum is not None
+        and new.checksum == prev.checksum
+        and new.dtype == prev.dtype
+        and list(new.shape) == list(prev.shape)
+        and new.serializer == prev.serializer
+        and new.tile_rows == prev.tile_rows
+        and new.tile_checksums == prev.tile_checksums
+        and new.codec == prev.codec
+        and new.comp_tile_sizes == prev.comp_tile_sizes
+    ):
+        return False
+    if new.tile_checksums:
+        return bool(
+            new.tile_dedup_hashes
+            and prev.tile_dedup_hashes
+            and new.tile_dedup_hashes == prev.tile_dedup_hashes
+        )
+    return (
+        new.dedup_hash is not None
+        and prev.dedup_hash is not None
+        and new.dedup_hash == prev.dedup_hash
+    )
+
+
+def _adopt_base_location(entry: TensorEntry, base: TensorEntry) -> None:
+    """A skipped blob references the base's bytes instead."""
+    entry.location = base.location
+    entry.byte_range = list(base.byte_range) if base.byte_range is not None else None
 
 
 def _annotate_checksums(
@@ -428,6 +648,7 @@ def _annotate_checksums(
     tile_crcs: List[int],
     tile_rows: int,
     row_nbytes: int,
+    tile_xxhs: Optional[List[int]] = None,
     whole_xxh: Optional[int] = None,
 ) -> None:
     algo = _native.checksum_algorithm()
@@ -444,6 +665,9 @@ def _annotate_checksums(
             f"{algo}:{crc & 0xFFFFFFFF:08x}" for crc in tile_crcs
         ]
         entry.checksum = f"{algo}:{combined:08x}"
+        if tile_xxhs is not None:
+            dalgo = _native.dedup_hash_algorithm()
+            entry.tile_dedup_hashes = [f"{dalgo}:{x & _XXH_MASK:016x}" for x in tile_xxhs]
     else:
         entry.checksum = f"{algo}:{tile_crcs[0] & 0xFFFFFFFF:08x}"
         if whole_xxh is not None:
@@ -451,12 +675,78 @@ def _annotate_checksums(
             entry.dedup_hash = f"{dalgo}:{whole_xxh & _XXH_MASK:016x}"
 
 
-def _record_checksums(entry: TensorEntry, mv: memoryview) -> None:
+def _annotate_compressed(
+    entry: TensorEntry,
+    codec: str,
+    raw_nbytes: int,
+    comp_sizes: List[int],
+    tile_crcs: List[int],
+    tile_rows: int,
+    tile_xxhs: Optional[List[int]] = None,
+) -> None:
+    """The compressed blob's manifest fields: codec, logical size, stored
+    size per tile, and checksums and dedup hashes over the STORED bytes
+    (the whole-blob value folds the tiles over their stored lengths)."""
+    algo = _native.checksum_algorithm()
+    entry.codec = codec
+    entry.uncompressed_nbytes = raw_nbytes
+    entry.comp_tile_sizes = [int(s) for s in comp_sizes]
+    if tile_rows:
+        entry.tile_rows = tile_rows
+        entry.tile_checksums = [f"{algo}:{crc & 0xFFFFFFFF:08x}" for crc in tile_crcs]
+        entry.checksum = f"{algo}:{_fold_crcs(tile_crcs, entry.comp_tile_sizes):08x}"
+        if tile_xxhs is not None:
+            dalgo = _native.dedup_hash_algorithm()
+            entry.tile_dedup_hashes = [f"{dalgo}:{x & _XXH_MASK:016x}" for x in tile_xxhs]
+    else:
+        entry.checksum = f"{algo}:{tile_crcs[0] & 0xFFFFFFFF:08x}"
+        if tile_xxhs is not None:
+            dalgo = _native.dedup_hash_algorithm()
+            entry.dedup_hash = f"{dalgo}:{tile_xxhs[0] & _XXH_MASK:016x}"
+
+
+def _raw_dual_hash(mv: memoryview) -> str:
+    """CRC32C and XXH64 of a compressed stager's RAW bytes: the
+    ``uncompressed_dedup_hash`` skip evidence."""
+    algo = _native.checksum_algorithm()
+    crc = _native.crc32c(mv) & 0xFFFFFFFF
+    xxh = _native.xxh64(mv) & _XXH_MASK
+    return f"{algo}:{crc:08x}+xxh64:{xxh:016x}"
+
+
+def _annotate_from_dedup_base(entry: TensorEntry, prev: TensorEntry) -> None:
+    """A raw-hash skip never ran the codec: the entry adopts the base's
+    stored representation and every integrity field wholesale (the codec
+    is deterministic, so they are what compressing again would give)."""
+    entry.codec = prev.codec
+    entry.uncompressed_nbytes = prev.uncompressed_nbytes
+    entry.comp_tile_sizes = list(prev.comp_tile_sizes) if prev.comp_tile_sizes is not None else None
+    entry.tile_rows = prev.tile_rows
+    entry.checksum = prev.checksum
+    entry.tile_checksums = list(prev.tile_checksums) if prev.tile_checksums is not None else None
+    entry.dedup_hash = prev.dedup_hash
+    entry.tile_dedup_hashes = (
+        list(prev.tile_dedup_hashes) if prev.tile_dedup_hashes is not None else None
+    )
+    entry.uncompressed_dedup_hash = prev.uncompressed_dedup_hash
+
+
+def _record_checksums(
+    entry: TensorEntry, mv: memoryview, record_dedup_hashes: bool = False
+) -> None:
     """Record integrity checksums into ``entry``: row-tile CRCs combined
     into the whole-blob value for large blobs (the verifiable unit of a
-    budget-tiled read), one CRC plus the 64-bit dedup hash otherwise."""
+    budget-tiled read), one CRC otherwise; plus the 64-bit dedup hashes,
+    fused into the same pass, per tile when ``record_dedup_hashes`` and
+    for small tile-less blobs always."""
     tile_rows, row_nbytes = _tile_geometry(entry, mv.nbytes)
+    want_dedup = _want_dedup_hashes(record_dedup_hashes, tile_rows, mv.nbytes)
+    threads = get_native_copy_threads()
     if tile_rows:
+        if want_dedup:
+            crcs, xxhs = _native.crc_xxh_tiles(mv, tile_rows * row_nbytes, nthreads=threads)
+            _annotate_checksums(entry, crcs, tile_rows, row_nbytes, tile_xxhs=xxhs)
+            return
         n_rows = entry.shape[0]
         crcs = [
             _native.crc32c(
@@ -466,25 +756,31 @@ def _record_checksums(entry: TensorEntry, mv: memoryview) -> None:
         ]
         _annotate_checksums(entry, crcs, tile_rows, row_nbytes)
         return
-    if mv.nbytes <= _DEDUP_HASH_EAGER_MAX:
-        crcs, xxhs = _native.crc_xxh_tiles(mv, mv.nbytes, nthreads=_HASH_THREADS)
+    if want_dedup:
+        crcs, xxhs = _native.crc_xxh_tiles(mv, mv.nbytes, nthreads=threads)
         _annotate_checksums(entry, crcs, 0, row_nbytes, whole_xxh=xxhs[0])
         return
     _annotate_checksums(entry, [_native.crc32c(mv)], 0, row_nbytes)
 
 
 def _clone_and_record_checksums(
-    entry: TensorEntry, out, mv: memoryview, nthreads: int
+    entry: TensorEntry, out, mv: memoryview, nthreads: int, record_dedup_hashes: bool = False
 ) -> None:
     """The defensive clone fused with the stage-time hash: one read of the
     live bytes, recording exactly what ``_record_checksums`` would."""
     tile_rows, row_nbytes = _tile_geometry(entry, mv.nbytes)
+    want_dedup = _want_dedup_hashes(record_dedup_hashes, tile_rows, mv.nbytes)
     if tile_rows:
-        crcs = _native.memcpy_crc_tiles(
-            out, mv, tile_rows * row_nbytes, nthreads=nthreads
-        )
-        _annotate_checksums(entry, crcs, tile_rows, row_nbytes)
-    elif mv.nbytes <= _DEDUP_HASH_EAGER_MAX:
+        if want_dedup:
+            crcs, xxhs = _native.memcpy_crc_xxh_tiles(
+                out, mv, tile_rows * row_nbytes, nthreads=nthreads
+            )
+        else:
+            crcs = _native.memcpy_crc_tiles(out, mv, tile_rows * row_nbytes, nthreads=nthreads)
+            xxhs = None
+        _annotate_checksums(entry, crcs, tile_rows, row_nbytes, tile_xxhs=xxhs)
+    elif want_dedup:
+        # XXH64 has no combine: the fused clone+hash runs as one tile.
         crcs, xxhs = _native.memcpy_crc_xxh_tiles(out, mv, mv.nbytes)
         _annotate_checksums(entry, crcs, 0, row_nbytes, whole_xxh=xxhs[0])
     else:
@@ -494,6 +790,31 @@ def _clone_and_record_checksums(
         crcs = _native.memcpy_crc_tiles(out, mv, sub, nthreads=nthreads)
         whole = _fold_crcs(crcs, _tile_lengths(mv.nbytes, sub, len(crcs)))
         _annotate_checksums(entry, [whole], 0, row_nbytes)
+
+
+def trace_array_prepare(
+    t: torch.Tensor,
+    array_prepare_func: Optional[Callable[[torch.Tensor, bool], torch.Tensor]],
+) -> Tuple[str, List[int]]:
+    """The (dtype, shape) the manifest records for ``t`` under an optional
+    save-time transform, found by running the transform on a ``meta``
+    tensor of the same shape and dtype: no memory and no arithmetic (the
+    counterpart of tpusnap's ``jax.eval_shape``). A transform that cannot
+    run on ``meta`` tensors gets one real call, whose result is dropped.
+    A transform must not change the shape."""
+    if array_prepare_func is None:
+        return dtype_to_string(t.dtype), list(t.shape)
+    with torch.no_grad():
+        try:
+            traced = array_prepare_func(torch.empty_like(t, device="meta"), True)
+        except Exception:
+            traced = array_prepare_func(t, True)  # tracing=True
+    if list(traced.shape) != list(t.shape):
+        raise RuntimeError(
+            "_custom_array_prepare_func must not change the tensor's shape "
+            f"(changed from {list(t.shape)} to {list(traced.shape)})"
+        )
+    return dtype_to_string(traced.dtype), list(traced.shape)
 
 
 def combined_tile_checksum(
@@ -543,7 +864,9 @@ def _verify_read_time_crc(read_io, checksum: Optional[str], location: str) -> No
 def _copy_into_target(target: torch.Tensor, host: torch.Tensor, ready) -> None:
     """Copy a host tensor into ``target`` in place (casting to its dtype,
     through its strides). CUDA targets copy on a side stream ordered
-    after ``ready`` and are synchronised before returning."""
+    after ``ready`` and are synchronised before returning; a cast (a
+    bf16-stored blob into an f32 target) crosses the bus at the stored
+    width and runs on the card."""
     with torch.no_grad():
         if not target.is_cuda:
             target.copy_(host)
@@ -552,6 +875,8 @@ def _copy_into_target(target: torch.Tensor, host: torch.Tensor, ready) -> None:
         with torch.cuda.stream(stream):
             if ready is not None:
                 stream.wait_event(ready)
+            if host.dtype != target.dtype:
+                host = host.to(target.device, non_blocking=True)
             target.copy_(host, non_blocking=True)
             done = torch.cuda.Event()
             done.record(stream)
@@ -687,15 +1012,30 @@ class ArrayIOPreparer:
         arr: torch.Tensor,
         replicated: bool = False,
         is_async_snapshot: bool = False,
+        array_prepare_func: Optional[Callable[[torch.Tensor, bool], torch.Tensor]] = None,
+        array_prepare_traced: Optional[Tuple[str, List[int]]] = None,
+        prev_entry=None,
+        record_dedup_hashes: bool = False,
     ) -> Tuple[TensorEntry, List[WriteReq]]:
+        if array_prepare_traced is not None:
+            dtype, shape = array_prepare_traced[0], list(array_prepare_traced[1])
+        else:
+            dtype, shape = trace_array_prepare(arr, array_prepare_func)
         entry = TensorEntry(
             location=storage_path,
             serializer=Serializer.BUFFER_PROTOCOL.value,
-            dtype=dtype_to_string(arr.dtype),
-            shape=list(arr.shape),
+            dtype=dtype,
+            shape=shape,
             replicated=replicated,
         )
-        stager = ArrayBufferStager(arr, entry=entry, is_async_snapshot=is_async_snapshot)
+        stager = ArrayBufferStager(
+            arr,
+            entry=entry,
+            is_async_snapshot=is_async_snapshot,
+            array_prepare_func=array_prepare_func,
+            dedup_entry=prev_entry if isinstance(prev_entry, TensorEntry) else None,
+            record_dedup_hashes=record_dedup_hashes,
+        )
         return entry, [WriteReq(path=storage_path, buffer_stager=stager)]
 
     @staticmethod
@@ -705,13 +1045,11 @@ class ArrayIOPreparer:
         buffer_size_limit_bytes: Optional[int] = None,
         logical_path: str = "",
     ) -> Tuple[List[ReadReq], Future]:
-        if entry.codec:
-            raise NotImplementedError(
-                f"{logical_path or entry.location!r} is stored compressed "
-                f"({entry.codec}); compressed reads are not ported yet "
-                "(ROADMAP.md item A3)"
-            )
         fut: Future = Future()
+        if entry.codec:
+            return ArrayIOPreparer._prepare_compressed_read(
+                entry, obj_out, buffer_size_limit_bytes, fut, logical_path
+            )
         nbytes = tensor_nbytes(entry.dtype, entry.shape)
         if (
             buffer_size_limit_bytes is not None
@@ -808,6 +1146,196 @@ class ArrayIOPreparer:
                 )
             )
         return read_reqs, fut
+
+
+    @staticmethod
+    def _prepare_compressed_read(
+        entry: TensorEntry,
+        obj_out: Optional[torch.Tensor],
+        buffer_size_limit_bytes: Optional[int],
+        fut: Future,
+        logical_path: str = "",
+    ) -> Tuple[List[ReadReq], Future]:
+        """Read path of a codec entry: the compressed tiles are read by
+        byte range in groups whose DECOMPRESSED bytes fit the budget (the
+        stored tile is the smallest readable unit), each group's stored
+        bytes verified against its combined checksum and decompressed into
+        the destination rows: the target's own memory for an exact CPU
+        target, a pinned buffer per group copied in place into an exact
+        CUDA target's rows on the card, else one host tensor handed to
+        ``finalize_into_target`` at the end."""
+        shape = entry.shape
+        raw_nbytes = entry.uncompressed_nbytes or tensor_nbytes(entry.dtype, shape)
+        sizes = [int(s) for s in (entry.comp_tile_sizes or [])]
+        if not sizes:
+            raise IOError(
+                f"compressed entry {entry.location!r} records no comp_tile_sizes "
+                "— the snapshot metadata is inconsistent"
+            )
+        n_rows = shape[0] if shape else 0
+        row_nbytes = raw_nbytes // n_rows if n_rows else 0
+        tile_raw = entry.tile_rows * row_nbytes if entry.tile_rows else raw_nbytes
+        # Each group verifies only its own range: a comp_tile_sizes that
+        # does not cover the payload would leave the tail unwritten.
+        check_tile_coverage(entry.location, len(sizes), raw_nbytes, tile_raw)
+        ready = _record_ready(obj_out) if isinstance(obj_out, torch.Tensor) else None
+        dest = _CompressedDestination(entry, obj_out, ready)
+        offsets = comp_tile_offsets(sizes)
+        base = entry.byte_range[0] if entry.byte_range is not None else 0
+        groups: List[Tuple[int, int]] = []
+        t0 = 0
+        while t0 < len(sizes):
+            t1 = t0 + 1
+            if buffer_size_limit_bytes is None:
+                t1 = len(sizes)
+            while t1 < len(sizes) and (t1 + 1 - t0) * tile_raw <= buffer_size_limit_bytes:
+                t1 += 1
+            groups.append((t0, t1))
+            t0 = t1
+        remaining = {"count": len(groups)}
+        verify = not is_checksum_disabled()
+        read_reqs: List[ReadReq] = []
+        for g0, g1 in groups:
+            expected = combined_comp_checksum(entry, g0, g1) if verify else None
+            raw_start = g0 * tile_raw
+            consumer = _CompressedConsumer(
+                dest,
+                comp_sizes=sizes[g0:g1],
+                tile_raw=tile_raw,
+                raw_start=raw_start,
+                raw_end=min(g1 * tile_raw, raw_nbytes),
+                remaining=remaining,
+                fut=fut,
+                expected_checksum=expected,
+                location=f"{logical_path or entry.location} (comp tiles {g0}:{g1})",
+            )
+            read_reqs.append(
+                ReadReq(
+                    path=entry.location,
+                    byte_range=(base + offsets[g0], base + offsets[g1 - 1] + sizes[g1 - 1]),
+                    buffer_consumer=consumer,
+                    want_crc=expected is not None,
+                )
+            )
+        return read_reqs, fut
+
+
+class _CompressedDestination:
+    """Where the decompressed bytes of one codec entry land (see
+    ``_prepare_compressed_read``)."""
+
+    def __init__(self, entry: TensorEntry, obj_out, ready) -> None:
+        self.entry = entry
+        self.obj_out = obj_out
+        self.ready = ready
+        self.codec_elem = codec_elem(entry.codec)
+        self.device_bytes: Optional[torch.Tensor] = None
+        self.host_out: Optional[torch.Tensor] = None
+        self.host_mv = writable_byte_view(obj_out, entry.dtype, entry.shape)
+        self.in_place = self.host_mv is not None
+        if not self.in_place:
+            if _is_exact_cuda_target(obj_out, entry.dtype, entry.shape) and obj_out.is_contiguous():
+                self.device_bytes = tensor_as_bytes(obj_out)
+                self.in_place = True
+            else:
+                self.host_out = torch.empty(
+                    tuple(entry.shape), dtype=string_to_dtype(entry.dtype)
+                )
+                if self.host_out.numel():
+                    self.host_mv = memoryview(tensor_as_bytes(self.host_out).numpy())
+
+    def decode(self, mv: memoryview, comp_sizes, tile_raw: int, raw_start: int, raw_end: int):
+        """Decompress one group's stored tiles into raw bytes
+        [raw_start, raw_end) of the destination."""
+        threads = get_native_copy_threads()
+        if self.device_bytes is not None:
+            pinned = torch.empty(raw_end - raw_start, dtype=torch.uint8, pin_memory=True)
+            _native.decompress_tiles(
+                mv, comp_sizes, tile_raw, raw_end - raw_start, self.codec_elem,
+                memoryview(pinned.numpy()), nthreads=threads,
+            )
+            _copy_into_target(self.device_bytes[raw_start:raw_end], pinned, self.ready)
+        elif self.host_mv is not None:
+            _native.decompress_tiles(
+                mv, comp_sizes, tile_raw, raw_end - raw_start, self.codec_elem,
+                self.host_mv[raw_start:raw_end], nthreads=threads,
+            )
+
+    def result(self):
+        if self.in_place:
+            return self.obj_out
+        return finalize_into_target(self.host_out, self.obj_out, True, self.ready)
+
+
+class _CompressedConsumer(BufferConsumer):
+    """One group of compressed tiles: verify the CRC of the stored bytes
+    (the read-time value when the plugin computed one, else one hash
+    pass), then decompress into the destination rows. The last group to
+    land resolves the future."""
+
+    def __init__(
+        self,
+        dest: _CompressedDestination,
+        comp_sizes: List[int],
+        tile_raw: int,
+        raw_start: int,
+        raw_end: int,
+        remaining: dict,
+        fut: Future,
+        expected_checksum: Optional[str],
+        location: str,
+    ) -> None:
+        self.dest = dest
+        self.comp_sizes = comp_sizes
+        self.tile_raw = tile_raw
+        self.raw_start, self.raw_end = raw_start, raw_end
+        self.remaining = remaining
+        self.fut = fut
+        self.expected_checksum = expected_checksum
+        self.location = location
+        self.comp_nbytes = sum(comp_sizes)
+
+    async def consume_read_io(self, read_io, executor: Optional[Executor] = None) -> None:
+        await _run(
+            executor, self._consume_blocking, read_io.buf.getbuffer(),
+            read_io.crc32c, read_io.crc_algo,
+        )
+        await self._after_consume(executor)
+
+    async def consume_buffer(
+        self, buf: BufferType, executor: Optional[Executor] = None
+    ) -> None:
+        await _run(executor, self._consume_blocking, buf, None, None)
+        await self._after_consume(executor)
+
+    def _consume_blocking(self, buf: BufferType, crc, crc_algo) -> None:
+        mv = memoryview(buf).cast("B")
+        if self.expected_checksum is not None:
+            if crc is not None and crc_algo:
+                _native.verify_checksum_value(crc, crc_algo, self.expected_checksum, self.location)
+            else:
+                _native.verify_checksum(mv, self.expected_checksum, self.location)
+        if mv.nbytes != self.comp_nbytes:
+            raise IOError(
+                f"short read: got {mv.nbytes} of {self.comp_nbytes} compressed "
+                f"bytes for {self.location} — the blob is truncated"
+            )
+        try:
+            self.dest.decode(mv, self.comp_sizes, self.tile_raw, self.raw_start, self.raw_end)
+        except _native.CompressionError as e:
+            raise _native.CompressionError(
+                f"{self.location}: {e} (stored checksum verified — the blob "
+                "was written malformed, not corrupted in transit)"
+            ) from e
+
+    async def _after_consume(self, executor: Optional[Executor] = None) -> None:
+        # Completion bookkeeping stays on the event-loop thread.
+        self.remaining["count"] -= 1
+        if self.remaining["count"] == 0:
+            self.fut.obj = await _run(executor, self.dest.result)
+
+    def get_consuming_cost_bytes(self) -> int:
+        return (self.raw_end - self.raw_start) + self.comp_nbytes
 
 
 class _TileConsumer(BufferConsumer):

@@ -10,14 +10,16 @@ CUDA tensor. Host memory stays under the scheduler's budget, and an async
 take's pipelined windows move chunk by chunk.
 
 Restore lands each chunk in ``target[r0:r1]`` in place — on the card for a
-CUDA target — through the dense preparer (budget-tiled when asked). A
-target that cannot take the bytes in place (another dtype, shape or
-layout) gets them assembled in one host tensor first and then handed on
-as a dense restore would.
+CUDA target — through the dense preparer (budget-tiled when asked; a
+compressed chunk is read through the dense compressed path, in tile
+groups under the budget). A target that cannot take the bytes in place
+(another dtype, shape or layout) gets them assembled in one host tensor
+first and then handed on as a dense restore would.
 
-Not here yet: ``tile_prev_map`` (tile-grain incremental dedup) and
-compressed chunks belong to ``incremental_from`` and compression, ROADMAP
-item 3; both raise.
+Incremental takes: chunks dedup against the base's chunks of the same
+rows; and ``tile_prev_map`` lets ``io_preparer`` re-chunk a tensor on the
+base's checksum-tile grid, so that each tile skips or writes on its own
+(one changed row of a large tensor rewrites one tile).
 """
 
 from __future__ import annotations
@@ -30,12 +32,7 @@ import torch
 from ..io_types import BufferConsumer, BufferType, Future, ReadReq, WriteReq
 from ..knobs import get_max_chunk_size_bytes
 from ..manifest import Chunk, ChunkedTensorEntry, TensorEntry
-from ..serialization import (
-    Serializer,
-    dtype_to_string,
-    string_to_dtype,
-    tensor_nbytes,
-)
+from ..serialization import Serializer, string_to_dtype, tensor_nbytes
 from .array import (
     ArrayBufferStager,
     ArrayIOPreparer,
@@ -43,6 +40,7 @@ from .array import (
     _run,
     array_nbytes,
     finalize_into_target,
+    trace_array_prepare,
 )
 
 
@@ -61,11 +59,91 @@ def chunk_row_ranges(
     ]
 
 
-def tile_prev_map(prev_entry, dtype: str, shape: List[int]):
-    raise NotImplementedError(
-        "tile-grain incremental dedup is not ported to tpusnap_torch yet "
-        "(ROADMAP.md item 3)"
-    )
+def tile_prev_map(
+    prev_entry, dtype: str, shape: List[int]
+) -> Optional[Tuple[int, dict]]:
+    """Per-tile view of a base entry for tile-grain incremental dedup:
+    ``(grid_rows, {(offsets, sizes): TensorEntry})`` with one entry per
+    checksum tile — its byte range within the base blob, its tile CRC and
+    its 64-bit tile dedup hash — or None when tile-grain dedup is not
+    possible (another identity, no tile checksums or dedup hashes, a
+    compressed base, an irregular grid).
+
+    Accepts a dense ``TensorEntry`` carrying ``tile_checksums`` and
+    ``tile_dedup_hashes``, or a ``ChunkedTensorEntry`` from an earlier
+    tile-grain take (uniform tile-sized chunks, each with its checksum
+    and dedup hash), so a chain keeps deduping at tile grain."""
+    serializer = Serializer.BUFFER_PROTOCOL.value
+    if (
+        isinstance(prev_entry, TensorEntry)
+        and prev_entry.serializer == serializer
+        and prev_entry.dtype == dtype
+        and list(prev_entry.shape) == list(shape)
+        and prev_entry.tile_rows
+        and prev_entry.tile_checksums
+        and prev_entry.tile_dedup_hashes
+        and len(prev_entry.tile_checksums) == len(prev_entry.tile_dedup_hashes)
+        # A compressed base's tile hashes are over stored bytes at
+        # compressed offsets: it dedups whole-blob only.
+        and not prev_entry.codec
+    ):
+        t = prev_entry.tile_rows
+        n_rows = shape[0]
+        row_nbytes = tensor_nbytes(dtype, shape[1:]) if len(shape) > 1 else tensor_nbytes(dtype, [1])
+        base = prev_entry.byte_range[0] if prev_entry.byte_range else 0
+        ndim = len(shape)
+        out = {}
+        for i, (crc, dh) in enumerate(
+            zip(prev_entry.tile_checksums, prev_entry.tile_dedup_hashes)
+        ):
+            r0, r1 = i * t, min((i + 1) * t, n_rows)
+            offsets = tuple([r0] + [0] * (ndim - 1))
+            sizes = tuple([r1 - r0] + list(shape[1:]))
+            out[(offsets, sizes)] = TensorEntry(
+                location=prev_entry.location,
+                serializer=serializer,
+                dtype=dtype,
+                shape=list(sizes),
+                replicated=False,
+                byte_range=[base + r0 * row_nbytes, base + r1 * row_nbytes],
+                checksum=crc,
+                dedup_hash=dh,
+            )
+        return t, out
+    if (
+        isinstance(prev_entry, ChunkedTensorEntry)
+        and prev_entry.dtype == dtype
+        and list(prev_entry.shape) == list(shape)
+        and prev_entry.chunks
+    ):
+        chunks = sorted(prev_entry.chunks, key=lambda c: c.offsets[0])
+        t = chunks[0].sizes[0]
+        n_rows = shape[0]
+        out = {}
+        expect_r0 = 0
+        for i, c in enumerate(chunks):
+            r0 = c.offsets[0]
+            r1 = r0 + c.sizes[0]
+            last = i == len(chunks) - 1
+            if (
+                r0 != expect_r0
+                or (not last and c.sizes[0] != t)
+                or (last and r1 != n_rows)
+                or any(o != 0 for o in c.offsets[1:])
+                or list(c.sizes[1:]) != list(shape[1:])
+                or c.tensor.serializer != serializer
+                or c.tensor.checksum is None
+                or c.tensor.dedup_hash is None
+                or c.tensor.tile_rows  # an oversized chunk: not a tile grid
+                or c.tensor.codec  # a compressed chunk dedups whole-blob only
+            ):
+                return None
+            out[(tuple(c.offsets), tuple(c.sizes))] = c.tensor
+            expect_r0 = r1
+        if expect_r0 != n_rows or len(out) < 2:
+            return None
+        return t, out
+    return None
 
 
 class ChunkedArrayIOPreparer:
@@ -75,12 +153,42 @@ class ChunkedArrayIOPreparer:
         arr: torch.Tensor,
         replicated: bool = False,
         is_async_snapshot: bool = False,
+        array_prepare_func=None,
+        array_prepare_traced=None,
+        prev_entry=None,
+        record_dedup_hashes: bool = False,
+        chunk_rows: Optional[int] = None,
+        prev_chunks: Optional[dict] = None,
     ) -> Tuple[ChunkedTensorEntry, List[WriteReq]]:
-        dtype, shape = dtype_to_string(arr.dtype), list(arr.shape)
+        """``chunk_rows``/``prev_chunks`` come from the tile-grain
+        incremental route (``io_preparer.prepare_write``): chunks follow
+        the base's checksum-tile grid instead of the chunk-size knob, and
+        each dedups against the base tile of its rows. The geometry
+        follows the transformed dtype; the transform runs per chunk at
+        stage time."""
+        if array_prepare_traced is not None:
+            dtype, shape = array_prepare_traced[0], list(array_prepare_traced[1])
+        else:
+            dtype, shape = trace_array_prepare(arr, array_prepare_func)
+        # Dedup against the base's chunks of the same rows; a changed
+        # chunk-size knob shifts the boundaries and conservatively misses.
+        if prev_chunks is None:
+            prev_chunks = {}
+            if isinstance(prev_entry, ChunkedTensorEntry):
+                prev_chunks = {
+                    (tuple(c.offsets), tuple(c.sizes)): c.tensor for c in prev_entry.chunks
+                }
+        if chunk_rows is not None:
+            ranges = [
+                (r0, min(r0 + chunk_rows, shape[0])) for r0 in range(0, shape[0], chunk_rows)
+            ]
+        else:
+            ranges = chunk_row_ranges(shape, dtype, get_max_chunk_size_bytes())
         chunks: List[Chunk] = []
         write_reqs: List[WriteReq] = []
-        for r0, r1 in chunk_row_ranges(shape, dtype, get_max_chunk_size_bytes()):
+        for r0, r1 in ranges:
             location = f"{storage_path}_{r0}_0"
+            offsets = [r0] + [0] * (len(shape) - 1)
             sizes = [r1 - r0] + shape[1:]
             tensor_entry = TensorEntry(
                 location=location,
@@ -89,11 +197,14 @@ class ChunkedArrayIOPreparer:
                 shape=list(sizes),
                 replicated=replicated,
             )
-            chunks.append(
-                Chunk(offsets=[r0] + [0] * (len(shape) - 1), sizes=sizes, tensor=tensor_entry)
-            )
+            chunks.append(Chunk(offsets=offsets, sizes=sizes, tensor=tensor_entry))
             stager = ArrayBufferStager(
-                arr[r0:r1], entry=tensor_entry, is_async_snapshot=is_async_snapshot
+                arr[r0:r1],
+                entry=tensor_entry,
+                is_async_snapshot=is_async_snapshot,
+                array_prepare_func=array_prepare_func,
+                dedup_entry=prev_chunks.get((tuple(offsets), tuple(sizes))),
+                record_dedup_hashes=record_dedup_hashes,
             )
             write_reqs.append(WriteReq(path=location, buffer_stager=stager))
         entry = ChunkedTensorEntry(dtype=dtype, shape=shape, chunks=chunks, replicated=replicated)

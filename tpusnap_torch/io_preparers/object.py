@@ -1,10 +1,9 @@
 """Fallback preparer for arbitrary picklable objects.
 
-Counterpart of tpusnap/io_preparers/object.py (copied, minus incremental
-dedup): objects are pickled eagerly at prepare time — they are small in
-practice (configs, schedules, metrics), and it makes both the staging
-cost and the manifest ``nbytes`` exact, which the read scheduler's
-memory budget relies on.
+Counterpart of tpusnap/io_preparers/object.py (copied): objects are
+pickled eagerly at prepare time — they are small in practice (configs,
+schedules, metrics), and it makes both the staging cost and the manifest
+``nbytes`` exact, which the read scheduler's memory budget relies on.
 """
 
 from __future__ import annotations
@@ -76,7 +75,7 @@ class ObjectBufferConsumer(BufferConsumer):
 class ObjectIOPreparer:
     @staticmethod
     def prepare_write(
-        storage_path: str, obj: Any, replicated: bool = False
+        storage_path: str, obj: Any, replicated: bool = False, prev_entry: Any = None
     ) -> Tuple[ObjectEntry, List[WriteReq]]:
         buf = pickle_as_bytes(obj)
         checksum = None
@@ -93,6 +92,20 @@ class ObjectIOPreparer:
             checksum=checksum,
             dedup_hash=dedup_hash,
         )
+        # Incremental dedup: the object is pickled and hashed here, so an
+        # unchanged one needs no write request at all. Both the CRC and
+        # the 64-bit hash must match the base's.
+        if (
+            isinstance(prev_entry, ObjectEntry)
+            and checksum is not None
+            and prev_entry.checksum == checksum
+            and dedup_hash is not None
+            and prev_entry.dedup_hash == dedup_hash
+            and prev_entry.nbytes == len(buf)
+            and prev_entry.serializer == entry.serializer
+        ):
+            entry.location = prev_entry.location
+            return entry, []
         return entry, [WriteReq(path=storage_path, buffer_stager=ObjectBufferStager(buf))]
 
     @staticmethod

@@ -27,6 +27,26 @@ BufferType = Union[bytes, bytearray, memoryview]
 
 T = TypeVar("T")
 
+# Namespace of library-owned files inside a snapshot (never blobs), and
+# the directory the compression policy's write probe uses within it.
+SIDECAR_PREFIX = ".tpusnap/"
+PROBE_DIR = SIDECAR_PREFIX + "probe"
+
+
+class _SkipWrite:
+    """Sentinel a stager may return instead of bytes: the blob's content
+    is already persisted (incremental dedup — the stager re-pointed its
+    entry at the base snapshot's blob), so the request completes with no
+    storage I/O."""
+
+    __slots__ = ()
+
+    def __repr__(self) -> str:
+        return "SKIP_WRITE"
+
+
+SKIP_WRITE = _SkipWrite()
+
 
 class Future(Generic[T]):
     """Completion cell for values materialized during read execution."""
@@ -66,7 +86,8 @@ class BufferStager(abc.ABC):
     @abc.abstractmethod
     async def stage_buffer(self, executor: Optional[Executor] = None) -> BufferType:
         """Produce the bytes to persist (may run device→host copies in
-        ``executor``)."""
+        ``executor``), or ``SKIP_WRITE`` when the content is already
+        persisted and this request needs no storage I/O."""
 
     @abc.abstractmethod
     def get_staging_cost_bytes(self) -> int:
@@ -124,9 +145,11 @@ class StoragePlugin(abc.ABC):
     @abc.abstractmethod
     async def write(self, write_io: WriteIO) -> None: ...
 
-    async def write_atomic(self, write_io: WriteIO) -> None:
+    async def write_atomic(self, write_io: WriteIO, durable: bool = False) -> None:
         """Write that either fully lands or leaves any existing object
-        untouched (filesystem plugins: temp file + rename)."""
+        untouched (filesystem plugins: temp file + rename). ``durable``
+        also makes it survive power loss once this returns (callers that
+        rewrite committed metadata ask for it)."""
         await self.write(write_io)
 
     @abc.abstractmethod
@@ -139,9 +162,12 @@ class StoragePlugin(abc.ABC):
         return None
 
     def sync_write_atomic(
-        self, write_io: WriteIO, event_loop: asyncio.AbstractEventLoop
+        self,
+        write_io: WriteIO,
+        event_loop: asyncio.AbstractEventLoop,
+        durable: bool = False,
     ) -> None:
-        run_on_loop(event_loop, self.write_atomic(write_io))
+        run_on_loop(event_loop, self.write_atomic(write_io, durable=durable))
 
     def sync_read(
         self, read_io: ReadIO, event_loop: asyncio.AbstractEventLoop

@@ -4,7 +4,8 @@ single-process take/restore path consults.
 Counterpart of tpusnap/knobs.py. The names stay ``TPUSNAP_*`` so one
 environment configures either package; the defaults are tpusnap's
 (512 MB max chunk, 128 MB slab threshold, 16 MiB checksum tiles, 2 GiB
-async staging window, COW async staging on, 4 GiB staging pool).
+async staging window, COW async staging on, 4 GiB staging pool,
+``TPUSNAP_COMPRESS=auto``).
 """
 
 import contextlib
@@ -31,6 +32,9 @@ _CAS_DIR_ENV_VAR = "TPUSNAP_CAS_DIR"
 _ASYNC_STAGE_WINDOW_ENV_VAR = "TPUSNAP_ASYNC_STAGE_WINDOW_BYTES"
 _ASYNC_COW_ENV_VAR = "TPUSNAP_ASYNC_COW"
 _STAGING_POOL_ENV_VAR = "TPUSNAP_STAGING_POOL_BYTES"
+_COMPRESS_MIN_BLOB_ENV_VAR = "TPUSNAP_COMPRESS_MIN_BLOB_BYTES"
+_RECORD_DEDUP_HASHES_ENV_VAR = "TPUSNAP_RECORD_DEDUP_HASHES"
+_SCRUB_CONCURRENCY_ENV_VAR = "TPUSNAP_SCRUB_CONCURRENCY"
 
 _DEFAULT_MAX_CHUNK_SIZE_BYTES = 512 * 1024 * 1024
 _DEFAULT_SLAB_SIZE_THRESHOLD_BYTES = 128 * 1024 * 1024
@@ -140,11 +144,47 @@ def get_memory_budget_override_bytes() -> Optional[int]:
     return int(val) if val is not None else None
 
 
-def is_compression_forced() -> bool:
-    """``TPUSNAP_COMPRESS=on``/``lz4`` forces tpusnap's fused tile codec,
-    which the port does not have yet; ``auto`` (tpusnap's default) and
-    ``off`` both mean uncompressed blobs here."""
-    return os.environ.get(_COMPRESS_ENV_VAR, "auto").strip().lower() in ("on", "lz4")
+_KNOWN_COMPRESS_MODES = ("auto", "on", "off", "lz4")
+_warned_compress_modes: set = set()
+
+
+def get_compress_mode() -> str:
+    """Per-take fused tile compression (``compress``): ``auto`` (the
+    default) compresses when the storage pipe's measured ceiling is
+    clearly slower than the codec's measured throughput, ``on`` compresses
+    every eligible blob, ``off`` bypasses, ``lz4`` pins the codec family
+    (the same as ``on`` today). Unknown values warn once per process and
+    fall back to ``auto``."""
+    raw = (os.environ.get(_COMPRESS_ENV_VAR) or "auto").strip().lower()
+    if raw not in _KNOWN_COMPRESS_MODES:
+        if raw not in _warned_compress_modes:
+            _warned_compress_modes.add(raw)
+            logger.warning(
+                "Ignoring unknown %s=%r (known: %s); using auto",
+                _COMPRESS_ENV_VAR,
+                raw,
+                ", ".join(_KNOWN_COMPRESS_MODES),
+            )
+        return "auto"
+    return raw
+
+
+def get_compress_min_blob_bytes() -> int:
+    """Blobs smaller than this bypass the codec (floor 64 KiB, default
+    1 MiB)."""
+    return max(64 * 1024, _get_int_env(_COMPRESS_MIN_BLOB_ENV_VAR, 1024 * 1024))
+
+
+def is_dedup_hash_recording_forced() -> bool:
+    """Record 64-bit per-tile dedup hashes on every take, not only on
+    incremental ones: set on the full base take of a planned incremental
+    chain so that its first increment already dedups at tile grain."""
+    return _flag(_RECORD_DEDUP_HASHES_ENV_VAR)
+
+
+def get_scrub_concurrency() -> int:
+    """Blob ranges ``verify`` keeps in flight (default 4)."""
+    return max(1, _get_int_env(_SCRUB_CONCURRENCY_ENV_VAR, 4))
 
 
 def get_cas_dir() -> Optional[str]:
@@ -190,3 +230,27 @@ def override_async_stage_window_bytes(nbytes: int):
 
 def override_async_cow(enabled: bool):
     return _override_env(_ASYNC_COW_ENV_VAR, "1" if enabled else "0")
+
+
+@contextlib.contextmanager
+def override_compress(mode: Optional[str] = None, min_blob_bytes: Optional[int] = None):
+    """Override the compression knobs in one scope (None leaves one as it
+    is)."""
+    with contextlib.ExitStack() as stack:
+        if mode is not None:
+            stack.enter_context(_override_env(_COMPRESS_ENV_VAR, mode))
+        if min_blob_bytes is not None:
+            stack.enter_context(_override_env(_COMPRESS_MIN_BLOB_ENV_VAR, str(min_blob_bytes)))
+        yield
+
+
+def override_record_dedup_hashes(enabled: bool):
+    return _override_env(_RECORD_DEDUP_HASHES_ENV_VAR, "1" if enabled else "0")
+
+
+def override_tile_checksum_bytes(nbytes: int):
+    return _override_env(_TILE_CHECKSUM_ENV_VAR, str(nbytes))
+
+
+def override_checksum_disabled(disabled: bool):
+    return _override_env(_DISABLE_CHECKSUM_ENV_VAR, "1" if disabled else "0")

@@ -5,7 +5,8 @@ async) and the restore, without the roofline probe, progress reporter and
 flight-recorder hooks:
 
 - Write path (``_WriteScheduler``): each WriteReq moves ready_for_staging
-  → staging → ready_for_io → io → done. Staging (device→host copy into
+  → staging → ready_for_io → io → done; a stager that returns
+  ``SKIP_WRITE`` (incremental dedup) is done after staging, with no I/O. Staging (device→host copy into
   pinned memory and serialization, on a thread pool) is dispatched only
   while the outstanding staging cost fits the memory budget — at least
   one request is always admitted so a single over-budget item cannot
@@ -32,6 +33,7 @@ from typing import Callable, List, Optional, Set
 
 from ._staging_pool import release
 from .io_types import (
+    SKIP_WRITE,
     BufferStager,
     ReadIO,
     ReadReq,
@@ -96,9 +98,16 @@ class _WritePipeline:
         self.staging_cost = write_req.buffer_stager.get_staging_cost_bytes()
         self.buf = None
         self.buf_size = 0
+        self.skipped = False
 
     async def stage(self, executor: ThreadPoolExecutor) -> "_WritePipeline":
-        self.buf = await self.write_req.buffer_stager.stage_buffer(executor)
+        buf = await self.write_req.buffer_stager.stage_buffer(executor)
+        if buf is SKIP_WRITE:
+            # Incremental dedup: the content is already persisted. No
+            # storage I/O; the staging budget comes back at once.
+            self.skipped = True
+            return self
+        self.buf = buf
         self.buf_size = memoryview(self.buf).cast("B").nbytes
         return self
 
@@ -295,7 +304,8 @@ class _WriteScheduler:
                     self.budget += pipeline.staging_cost - pipeline.buf_size
                     self.eager_pending.discard(id(pipeline))
                     self.staged_cost_total += pipeline.staging_cost
-                    self.ready_for_io.append(pipeline)
+                    if not pipeline.skipped:
+                        self.ready_for_io.append(pipeline)
                 else:
                     self.io_tasks.discard(task)
                     self.budget += pipeline.buf_size

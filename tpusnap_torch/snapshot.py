@@ -26,9 +26,22 @@ names of the functions carried over are tpusnap's:
 - ``async_restore``: the restore on a background thread
   (``PendingRestore``).
 
+- ``incremental_from``: a take against an earlier snapshot. Blobs whose
+  staged bytes hash the same as the base's (CRC32C and XXH64, whole-blob,
+  per slab member, or per checksum tile) are not written; the manifest
+  references the base's blobs by relative location (``../<base>/...``)
+  and records the base roots it points into. Such a take hashes at stage
+  time and stages everything before it returns (an async one too).
+- ``_custom_array_prepare_func`` (e.g. ``transforms.cast_on_save``):
+  save-time transforms, run on each tensor's own device.
+- ``TPUSNAP_COMPRESS``: the fused tile codec, per take by the
+  ``compress`` policy.
+- ``verify()`` / ``materialize()``: the integrity scrub and making an
+  increment self-contained (``inspect``); ``retention.apply_retention``
+  retires old snapshots.
+
 Left out of this slice, each raising ``NotImplementedError`` when asked
-for rather than being ignored (ROADMAP.md lists them): ``incremental_from``,
-compression and save-time transforms (item 3), multi-process
+for rather than being ignored (ROADMAP.md lists them): multi-process
 communicators (A4), sharded/DTensor state (A5), tiering, CAS, cloud
 storage and the delta stream (A8). tpusnap's journal, progress, flight,
 SLO, telemetry and tuner hooks are observability the port adds later
@@ -38,22 +51,34 @@ SLO, telemetry and tuner hooks are observability the port adds later
 from __future__ import annotations
 
 import asyncio
+import copy
 import fnmatch
+import functools
 import logging
+import os
+import posixpath
 import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
+from urllib.parse import urlsplit
 
 import torch
 
+from . import _native, compress
 from .batcher import batch_read_requests, batch_write_requests
 from .comm import Communicator, get_communicator
 from .flatten import flatten, inflate
+from .inspect import _entry_tensors, base_root_of_location, entry_nbytes
 from .io_preparer import prepare_read, prepare_write
 from .io_preparers.array import ArrayBufferStager, event_on, freeze_device_sources
 from .io_types import ReadIO, StoragePlugin, WriteIO, run_on_loop
-from .knobs import get_async_stage_window_bytes, is_compression_forced
+from .knobs import (
+    get_async_stage_window_bytes,
+    is_checksum_disabled,
+    is_dedup_hash_recording_forced,
+)
 from .manifest import (
+    Entry,
     Manifest,
     MetadataError,
     SnapshotMetadata,
@@ -82,15 +107,6 @@ def _not_ported(feature: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{feature} is not ported to tpusnap_torch yet (ROADMAP.md item {item})"
     )
-
-
-def _check_unported(incremental_from, custom_array_prepare_func) -> None:
-    if incremental_from is not None:
-        raise _not_ported("incremental_from", "3")
-    if custom_array_prepare_func is not None:
-        raise _not_ported("_custom_array_prepare_func (save-time transforms)", "3")
-    if is_compression_forced():
-        raise _not_ported("TPUSNAP_COMPRESS compression", "3")
 
 
 class Snapshot:
@@ -155,6 +171,7 @@ class Snapshot:
         per_key_barrier: bool = False,
         incremental_from: Optional[str] = None,
         _custom_array_prepare_func: Optional[Any] = None,
+        _record_dedup_hashes: bool = False,
     ) -> "Snapshot":
         """Write every stateful in ``app_state`` to ``path``. CUDA tensors
         are copied through pinned host memory; the state captured is the
@@ -162,14 +179,30 @@ class Snapshot:
         caller's stream included). ``replicated`` globs mark host values
         as replicated, as in tpusnap. ``per_key_barrier`` orders the
         ``state_dict()`` calls of several processes; one process has no
-        barrier to add."""
-        _check_unported(incremental_from, _custom_array_prepare_func)
+        barrier to add.
+
+        ``incremental_from`` makes this an incremental snapshot against
+        the snapshot at that path (a sibling directory, typically): blobs
+        whose bytes are unchanged are not written and are referenced in
+        the base, which must then outlive this snapshot (or be
+        materialized into it). A base whose entries carry per-tile dedup
+        hashes (every incremental take records them, as does
+        ``_record_dedup_hashes=True`` or ``TPUSNAP_RECORD_DEDUP_HASHES=1``
+        on a full take) dedups at tile grain: one changed row of a large
+        tensor rewrites one checksum tile.
+
+        ``_custom_array_prepare_func(logical_path, tensor, tracing)``
+        transforms tensors at save time (``transforms.cast_on_save``); it
+        must keep the shape and be deterministic."""
         comm = get_communicator(comm)
         event_loop = asyncio.new_event_loop()
         try:
             pending, metadata, storage, _ = _take_impl(
                 path, app_state, storage_options, comm, replicated or [], event_loop,
                 is_async_snapshot=False,
+                array_prepare_func=_custom_array_prepare_func,
+                incremental_from=incremental_from,
+                force_dedup_hashes=_record_dedup_hashes,
             )
             try:
                 pending.sync_complete(event_loop)
@@ -196,6 +229,7 @@ class Snapshot:
         per_key_barrier: bool = False,
         incremental_from: Optional[str] = None,
         _custom_array_prepare_func: Optional[Any] = None,
+        _record_dedup_hashes: bool = False,
     ) -> "PendingSnapshot":
         """``take`` that returns once the blocked window closes. The
         snapshot holds the state as of this call even if the caller then
@@ -204,14 +238,18 @@ class Snapshot:
         them only after ``wait_staged()``; with ``TPUSNAP_ASYNC_COW=0``
         they are cloned before the return. ``wait()`` gives the committed
         snapshot or re-raises the failure; a failed take leaves no
-        ``.snapshot_metadata``."""
-        _check_unported(incremental_from, _custom_array_prepare_func)
+        ``.snapshot_metadata``. An incremental take stages (and hashes)
+        everything before it returns: its dedup decisions must be final
+        before the manifest is."""
         comm = get_communicator(comm)
         event_loop = asyncio.new_event_loop()
         try:
             pending, metadata, storage, live_until_drained = _take_impl(
                 path, app_state, storage_options, comm, replicated or [], event_loop,
                 is_async_snapshot=True,
+                array_prepare_func=_custom_array_prepare_func,
+                incremental_from=incremental_from,
+                force_dedup_hashes=_record_dedup_hashes,
             )
         except BaseException:
             event_loop.close()
@@ -313,6 +351,39 @@ class Snapshot:
             sync_execute_read_reqs(read_reqs, storage, budget, event_loop)
             return fut.obj
 
+    # ------------------------------------------------------------- integrity
+
+    def verify(self):
+        """Stream-verify every blob of this snapshot against the checksums
+        its manifest records (see :mod:`tpusnap_torch.inspect`). Returns a
+        ``ScrubReport``; ``report.clean`` is False on any corruption,
+        truncation or missing blob."""
+        from .inspect import verify_snapshot
+
+        with self._op_lock:
+            event_loop, storage = self._resources()
+            return verify_snapshot(
+                self.path,
+                self._storage_options,
+                metadata=self._metadata,
+                resources=(event_loop, storage),
+            )
+
+    def materialize(self) -> Dict[str, int]:
+        """Make an incremental snapshot self-contained: copy in every blob
+        it references in its bases, verify the copies and rewrite the
+        manifest; the bases may then be deleted. No-op on a full
+        snapshot. Returns ``{"blobs_copied": N, "bytes_copied": N}``."""
+        from .inspect import materialize_snapshot
+
+        with self._op_lock:
+            event_loop, storage = self._resources()
+            stats = materialize_snapshot(
+                self.path, self._storage_options, resources=(event_loop, storage)
+            )
+            self._metadata = None  # the manifest was rewritten on disk
+        return stats
+
     # -------------------------------------------------------------- metadata
 
     @property
@@ -370,6 +441,9 @@ def _take_impl(
     replicated: List[str],
     event_loop: asyncio.AbstractEventLoop,
     is_async_snapshot: bool,
+    array_prepare_func: Optional[Any] = None,
+    incremental_from: Optional[str] = None,
+    force_dedup_hashes: bool = False,
 ) -> Tuple[PendingIOWork, SnapshotMetadata, StoragePlugin, bool]:
     """Flatten, prepare and batch every write and run the write engine to
     the blocked-window boundary. Returns the work left, the metadata to
@@ -397,6 +471,25 @@ def _take_impl(
         p for p in flattened_all if any(fnmatch.fnmatch(p, g) for g in globs)
     }
 
+    # Incremental: this rank's view of the base manifest, its blob
+    # locations rewritten relative to the new root.
+    prev_entries: Manifest = {}
+    base_root_candidates: List[str] = []
+    if incremental_from is not None:
+        if is_checksum_disabled():
+            # Dedup compares stage-time checksums; without them every blob
+            # would silently rewrite in full.
+            raise ValueError(
+                "incremental_from requires checksums; unset "
+                "TPUSNAP_DISABLE_CHECKSUM to take an incremental snapshot"
+            )
+        prev_entries, base_root_candidates = _load_prev_entries(
+            incremental_from, storage_options, rank, path, event_loop
+        )
+    record_dedup_hashes = (
+        incremental_from is not None or force_dedup_hashes or is_dedup_hash_recording_forced()
+    )
+
     storage = url_to_storage_plugin_in_event_loop(path, event_loop, storage_options)
     try:
         entries: Manifest = dict(manifest)
@@ -408,6 +501,13 @@ def _take_impl(
                 rank=rank,
                 replicated=logical_path in replicated_paths,
                 is_async_snapshot=is_async_snapshot,
+                array_prepare_func=(
+                    functools.partial(array_prepare_func, logical_path)
+                    if array_prepare_func is not None
+                    else None
+                ),
+                prev_entry=prev_entries.get(logical_path),
+                record_dedup_hashes=record_dedup_hashes,
             )
             entries[logical_path] = entry
             write_reqs.extend(reqs)
@@ -416,21 +516,32 @@ def _take_impl(
             list(entries.values()), write_reqs
         )
         entries = dict(zip(entries.keys(), entries_list))
-        # Standalone tensor blobs hash on the write path, overlapping other
-        # requests' disk time; slab members hash inside their slab's
-        # staging. The entry objects are the manifest's, so the late
-        # values land before the metadata is encoded.
-        for wr in write_reqs:
-            if isinstance(wr.buffer_stager, ArrayBufferStager):
-                wr.buffer_stager.defer_checksums = True
+        # One measured compress-or-bypass decision per take, armed on the
+        # eligible standalone blobs after batching. Never fails a take.
+        compress.apply_take_policy(write_reqs, storage, event_loop)
+        if incremental_from is None:
+            # Standalone tensor blobs hash on the write path, overlapping
+            # other requests' disk time; slab members hash inside their
+            # slab's staging. The entry objects are the manifest's, so the
+            # late values land before the metadata is encoded. Incremental
+            # takes hash at stage time: dedup decides before the write.
+            for wr in write_reqs:
+                if isinstance(wr.buffer_stager, ArrayBufferStager):
+                    wr.buffer_stager.defer_checksums = True
         live_until_drained = any(
             isinstance(wr.buffer_stager, ArrayBufferStager) and wr.buffer_stager.uses_cow()
             for wr in write_reqs
         )
 
         # An async take pipelines its staging unless the window knob is 0
-        # (strict mode: everything stages before the return).
-        pipelined = is_async_snapshot and get_async_stage_window_bytes() is not None
+        # (strict mode: everything stages before the return). Incremental
+        # takes never pipeline: their dedup decisions rewrite entry
+        # locations at stage time and must be final before the manifest.
+        pipelined = (
+            is_async_snapshot
+            and incremental_from is None
+            and get_async_stage_window_bytes() is not None
+        )
         pending = sync_execute_write_reqs(
             write_reqs,
             storage,
@@ -448,11 +559,15 @@ def _take_impl(
     except BaseException:
         storage.sync_close(event_loop)
         raise
+    global_manifest = _gather_manifest(entries, comm)
     metadata = SnapshotMetadata(
         version=__version__,
         world_size=comm.world_size,
-        manifest=_gather_manifest(entries, comm),
+        manifest=global_manifest,
         created_at=time.time(),
+        # The base roots the manifest's external references point into,
+        # so readers never parse roots out of location strings.
+        base_roots=_referenced_base_roots(global_manifest, base_root_candidates) or None,
     )
     return pending, metadata, storage, live_until_drained
 
@@ -477,6 +592,108 @@ def _write_metadata(
         WriteIO(path=SNAPSHOT_METADATA_FNAME, buf=encode_metadata(metadata)),
         event_loop,
     )
+
+
+def _referenced_base_roots(manifest: Manifest, candidates: List[str]) -> List[str]:
+    """The candidate base roots the manifest's external (``../``) blob
+    locations point into, matched by the longest-prefix rule readers use
+    (``inspect.base_root_of_location``)."""
+    if not candidates:
+        return []
+    roots = set()
+    for entry in manifest.values():
+        for t in _entry_tensors(entry):
+            if t.location.startswith("../"):
+                matched = base_root_of_location(t.location, known_roots=candidates)
+                if matched in candidates:
+                    roots.add(matched)
+    return sorted(roots)
+
+
+def _relative_ref_prefix(base_path: str, new_path: str) -> str:
+    """Relative reference from the NEW snapshot root to the BASE root
+    (``"../step_1000"`` for siblings), so a tree of snapshots moves as a
+    unit. Both must live on the same scheme and host."""
+    for url in (base_path, new_path):
+        scheme = url.split("://", 1)[0].lower() if "://" in url else ""
+        if scheme.startswith("tier+"):
+            raise _not_ported(f"the write-back tier URL {url!r}", "A8")
+    a, b = urlsplit(base_path), urlsplit(new_path)
+    if a.scheme != b.scheme or a.netloc != b.netloc:
+        raise ValueError(
+            f"incremental_from {base_path!r} must share the scheme and "
+            f"bucket/host of the snapshot path {new_path!r}"
+        )
+    if a.scheme in ("", "file"):
+        pa = os.path.abspath(a.path or base_path)
+        pb = os.path.abspath(b.path or new_path)
+    else:
+        pa, pb = a.path, b.path
+    rel = posixpath.relpath(pa, pb)
+    if rel == ".":
+        raise ValueError(
+            "incremental_from must name a different snapshot than the one being taken"
+        )
+    return rel
+
+
+def _rewrite_entry_locations(entry: Entry, rel_prefix: str) -> Entry:
+    """Deep copy of ``entry`` with every blob location re-expressed
+    relative to the new root. Chained references collapse: a base that
+    itself references an older base resolves to the older one directly."""
+    e = copy.deepcopy(entry)
+    for t in _entry_tensors(e):
+        t.location = posixpath.normpath(posixpath.join(rel_prefix, t.location))
+    return e
+
+
+def _load_prev_entries(
+    incremental_from: str,
+    storage_options: Optional[Dict[str, Any]],
+    rank: int,
+    new_path: str,
+    event_loop: asyncio.AbstractEventLoop,
+) -> Tuple[Manifest, List[str]]:
+    """This rank's view of the base manifest, every blob location
+    rewritten relative to the new root, and the base roots such a
+    location can point into (the base and its own recorded roots)."""
+    rel_prefix = _relative_ref_prefix(incremental_from, new_path)
+    storage = url_to_storage_plugin_in_event_loop(
+        incremental_from, event_loop, storage_options
+    )
+    try:
+        read_io = ReadIO(path=SNAPSHOT_METADATA_FNAME)
+        try:
+            storage.sync_read(read_io, event_loop)
+            prev_md = decode_metadata(read_io.buf.getvalue())
+        except Exception as e:
+            raise RuntimeError(
+                f"incremental_from={incremental_from!r} is not a readable "
+                "snapshot (missing or corrupt .snapshot_metadata)"
+            ) from e
+    finally:
+        storage.sync_close(event_loop)
+    view = get_manifest_for_rank(prev_md, rank)
+    # A base taken without checksums, or by a build with another checksum
+    # algorithm, can never match: refuse rather than rewrite everything.
+    algo_prefix = _native.checksum_algorithm() + ":"
+    blob_entries = [e for e in view.values() if entry_nbytes(e) > 0]
+    usable = any(
+        (t.checksum or "").startswith(algo_prefix)
+        for e in blob_entries
+        for t in _entry_tensors(e)
+    )
+    if blob_entries and not usable:
+        raise ValueError(
+            f"incremental_from={incremental_from!r} carries no "
+            f"{algo_prefix[:-1]} checksums (taken with checksums disabled or "
+            "by a different build?) — dedup is impossible, every blob would "
+            "silently rewrite in full"
+        )
+    candidates = [rel_prefix] + [
+        posixpath.normpath(posixpath.join(rel_prefix, r)) for r in (prev_md.base_roots or [])
+    ]
+    return {p: _rewrite_entry_locations(e, rel_prefix) for p, e in view.items()}, candidates
 
 
 def load_snapshot(

@@ -23,6 +23,14 @@ from ..memoryview_stream import MemoryviewStream
 _NATIVE_READ_THRESHOLD = 4 * 1024 * 1024
 
 
+def _fsync_path(path: str) -> None:
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
 class FSStoragePlugin(StoragePlugin):
     supports_in_place_reads = True
 
@@ -60,9 +68,10 @@ class FSStoragePlugin(StoragePlugin):
         self._ensure_parent(path)
         await self._run(_native.write_file, str(path), write_io.buf)
 
-    async def write_atomic(self, write_io: WriteIO) -> None:
+    async def write_atomic(self, write_io: WriteIO, durable: bool = False) -> None:
         """Temp file + rename: a crash mid-write never leaves a torn file
-        at the destination."""
+        at the destination. ``durable`` fsyncs the temp file before the
+        rename and the parent directory after it."""
         path = pathlib.Path(os.path.join(self.root, write_io.path))
         self._ensure_parent(path)
         tmp = path.with_name(path.name + f".tmp.{os.getpid()}")
@@ -70,7 +79,11 @@ class FSStoragePlugin(StoragePlugin):
         def work():
             try:
                 _native.write_file(str(tmp), write_io.buf)
+                if durable:
+                    _fsync_path(str(tmp))
                 os.replace(tmp, path)
+                if durable:
+                    _fsync_path(str(path.parent))
             except BaseException:
                 try:
                     os.unlink(tmp)
