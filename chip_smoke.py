@@ -63,10 +63,29 @@ Phases, in order:
              blobs, restore into the f32 params equal to the bf16 round
              trip; then an async take of the 4 GiB bulk with its f32 half
              cast and add_(1) on every tensor right after the return.
+13. distributed — two ranks on the one card
+             (``tpusnap_torch.test_utils.run_subprocess_world``: a gloo
+             process group, the port's store communicator; no device
+             collective). Each rank trains the flagship at full width from
+             one seed (2 Adam steps) and proves the replicas bitwise equal
+             by hashes (else copies rank 0's state, and says so); then a
+             sync take with ``replicated=["**"]`` (exactly 2 gathers, 2
+             barriers, 0 broadcasts; every entry checksummed; each rank's
+             staged and written bytes within one tensor of an even split),
+             a restore into a fresh model (no collective; bit-exact,
+             Parameter identity, post-restore step equal to the
+             witness's), an async take with a train step at once, wait()
+             and restore, the parent's world-1 snapshot restored on both
+             ranks (1 -> 2), and an async take whose writes fail on rank
+             1: both wait() raise well inside TPUSNAP_BARRIER_TIMEOUT_S
+             (120 s here) and no .snapshot_metadata appears. The parent
+             then restores the world-2 snapshot into a world-1 model
+             (2 -> 1), bit for bit.
 
 Launch counts (in all and by route) are set to 0 just before each path
-that runs the model — train + snapshot, async_train and incremental — and
-read just after it: the kernels phase's comparison launches do not count.
+that runs the model — train + snapshot, async_train, incremental, and
+each rank of distributed — and read just after it: the kernels phase's
+comparison launches do not count.
 Every main-path launch must take the wgmma route. The incremental and
 transforms phases run with compression off, so their byte counts are the
 tensors' own.
@@ -1056,6 +1075,362 @@ def phase_transforms(ctx: dict, workdir: str) -> dict:
     }
 
 
+class _CountingComm:
+    """Wraps a communicator and counts the collectives a take or restore
+    issues; everything else passes through."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.counts = {"all_gather": 0, "barrier": 0, "broadcast": 0}
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    @property
+    def rank(self):
+        return self.inner.rank
+
+    @property
+    def world_size(self):
+        return self.inner.world_size
+
+    def barrier(self):
+        self.counts["barrier"] += 1
+        self.inner.barrier()
+
+    def all_gather_object(self, obj):
+        self.counts["all_gather"] += 1
+        return self.inner.all_gather_object(obj)
+
+    def broadcast_object(self, obj, src=0):
+        self.counts["broadcast"] += 1
+        return self.inner.broadcast_object(obj, src)
+
+
+def _state_hashes(model) -> dict:
+    """sha256 of every train-state tensor's bytes, by path."""
+    import hashlib
+
+    import torch
+
+    return {
+        p: hashlib.sha256(
+            t.detach().contiguous().reshape(-1).view(torch.uint8).cpu().numpy().tobytes()
+        ).hexdigest()
+        for p, t in _leaves(model.train_state())
+    }
+
+
+def _restore_and_check(path: str, want: dict, fresh, witness, tokens, comm=None) -> tuple:
+    """Restore ``path`` into ``fresh``, time it, and hold it to ``want`` as
+    ``_check_restore`` does (bit for bit, Parameter identity, one step
+    from each of ``fresh`` and ``witness`` bitwise equal). Returns
+    (restore seconds, post-restore loss)."""
+    import torch
+
+    from tpusnap_torch import Snapshot, StateDict
+
+    target = StateDict(**fresh.train_state())
+    before_ids = {p: id(t) for p, t in _leaves(target)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    Snapshot(path, comm=comm).restore({"train": target})
+    restore_s = time.perf_counter() - t0
+    for p, got in _leaves(fresh.train_state()):
+        if not got.is_cuda or not torch.equal(got, want[p]):
+            raise AssertionError(f"{path}: restored {p} differs from the state it holds")
+    for p, got in _leaves(target):
+        if id(got) != before_ids[p]:
+            raise AssertionError(f"{path}: restore replaced the tensor object at {p}")
+    if {id(p) for p in fresh.parameters()} != {
+        before_ids[f"params/{p}"] for p, _ in _leaves(fresh.params())
+    }:
+        raise AssertionError(f"{path}: the module's parameters are not the restored objects")
+    with torch.no_grad():
+        for p, t in _leaves(witness.train_state()):
+            t.copy_(want[p])
+    loss_a, loss_b = fresh.train_step(tokens), witness.train_step(tokens)
+    if not torch.equal(loss_a, loss_b):
+        raise AssertionError(f"{path}: post-restore step {loss_a.item()!r} vs {loss_b.item()!r}")
+    return restore_s, loss_a.item()
+
+
+_RANK_LINE = "distributed_rank "
+
+
+def _distributed_rank(ddir: str) -> None:
+    """One rank of the distributed phase (run by ``run_subprocess_world``
+    in its own process, both ranks on the one card): train, prove the
+    replicas equal, take, restore, async take, restore the world-1
+    snapshot, abort. Prints one line ``distributed_rank {json}``."""
+    import torch
+
+    import tpusnap_torch.storage_plugins.fs as fs
+    from tpusnap_torch import Snapshot, StateDict
+    from tpusnap_torch import scheduler
+    from tpusnap_torch.comm import StoreComm, get_communicator
+    from tpusnap_torch.dist_store import TakeAbortedError
+    from tpusnap_torch.knobs import get_barrier_timeout_s
+    from tpusnap_torch.manifest import is_container_entry
+    from tpusnap_torch.models import Transformer, TransformerConfig
+    from tpusnap_torch.ops import flash_attention as fa
+
+    if not torch.cuda.is_available():
+        raise AssertionError("a rank of the distributed phase sees no CUDA device")
+    torch.cuda.set_device(0)
+    comm = get_communicator()
+    if not isinstance(comm, StoreComm) or comm.world_size != 2:
+        raise AssertionError(f"get_communicator() gave {comm!r} in a group of 2")
+    rank = comm.rank
+    _reset_launches()
+    out = {"rank": rank, "torch": torch.__version__}
+
+    # Bytes each rank stages to the host and writes, by take.
+    staged, written = [0], {"replicated": 0, "rank": 0}
+    orig_stage, orig_write = scheduler._WritePipeline.stage, fs.FSStoragePlugin.write
+    fail_writes = [False]
+
+    async def stage(self, executor):
+        result = await orig_stage(self, executor)
+        staged[0] += self.buf_size
+        return result
+
+    async def write(self, write_io):
+        if fail_writes[0]:
+            raise OSError(f"rank {rank}: injected write failure")
+        n = memoryview(write_io.buf).nbytes
+        written["replicated" if write_io.path.startswith(("replicated/", "batched/")) else "rank"] += n
+        await orig_write(self, write_io)
+
+    scheduler._WritePipeline.stage, fs.FSStoragePlugin.write = stage, write
+
+    def reset_bytes():
+        staged[0] = 0
+        written.update(replicated=0, rank=0)
+
+    # Setup: every rank trains the flagship from one seed, then proves
+    # the replicas equal by hashes before it declares them replicated.
+    cfg = TransformerConfig()
+    model = Transformer(cfg, device="cuda", seed=SEED)
+    tokens = _tokens(cfg, 8, SEED)
+    for _ in range(2):
+        model.train_step(tokens, learning_rate=1e-3)
+    torch.cuda.synchronize()
+    hashes = _state_hashes(model)
+    gathered = comm.all_gather_object(hashes)
+    out["replicas_bitwise_equal_after_training"] = all(h == gathered[0] for h in gathered)
+    if not out["replicas_bitwise_equal_after_training"]:
+        # Smoke setup, not a library feature: rank 0's state goes to the
+        # others through a file, and the hashes are checked again.
+        state_file = os.path.join(ddir, "rank0_state.pt")
+        if rank == 0:
+            torch.save({p: t.cpu() for p, t in _leaves(model.train_state())}, state_file)
+        comm.barrier()
+        if rank != 0:
+            saved = torch.load(state_file)
+            with torch.no_grad():
+                for p, t in _leaves(model.train_state()):
+                    t.copy_(saved[p])
+        hashes = _state_hashes(model)
+        if any(h != hashes for h in comm.all_gather_object(hashes)):
+            raise AssertionError("replicas differ after copying rank 0's state")
+    n_tensors = len(hashes)
+    state_bytes = sum(t.numel() * t.element_size() for _, t in _leaves(model.train_state()))
+    largest = max(t.numel() * t.element_size() for _, t in _leaves(model.train_state()))
+
+    # 1. Sync take, every value replicated, with the collectives counted.
+    path = os.path.join(ddir, "w2")
+    want = _clone_state(model)
+    if rank == 0:
+        with open(os.path.join(ddir, "w2_hashes.json"), "w") as f:
+            json.dump(hashes, f)
+    reset_bytes()
+    counting = _CountingComm(comm)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    snap = Snapshot.take(path, {"train": StateDict(**model.train_state())}, replicated=["**"],
+                         comm=counting)
+    out["take_s"] = time.perf_counter() - t0
+    out["take_collectives"] = dict(counting.counts)
+    out["take_bytes_staged"] = staged[0]
+    out["take_bytes_written"] = dict(written)
+    if counting.counts != {"all_gather": 2, "barrier": 2, "broadcast": 0}:
+        raise AssertionError(f"rank {rank}: a take issued {counting.counts}")
+    leaves = {k: e for k, e in snap.metadata.manifest.items() if not is_container_entry(e)}
+    if any(k.startswith("1/") or not e.replicated for k, e in leaves.items()):
+        raise AssertionError("replicated entries were not consolidated onto rank 0's tree")
+    manifest = leaves
+    missing = [k for k, e in manifest.items() if hasattr(e, "location") and not e.checksum]
+    if missing:
+        raise AssertionError(f"entries without a checksum: {missing}")
+    if not snap.verify().clean:
+        raise AssertionError(f"rank {rank}: verify() of the world-2 snapshot is not clean")
+
+    # 2. Restore into a fresh model on every rank, with no collective.
+    fresh = Transformer(cfg, device="cuda", seed=SEED + 1)
+    witness = Transformer(cfg, device="cuda", seed=SEED + 2)
+    step_tokens = _tokens(cfg, 8, SEED + 1)
+    counting = _CountingComm(comm)
+    out["restore_s"], out["post_restore_loss"] = _restore_and_check(
+        path, want, fresh, witness, step_tokens, comm=counting
+    )
+    out["restore_collectives"] = dict(counting.counts)
+    if sum(counting.counts.values()):
+        raise AssertionError(f"rank {rank}: a warm restore issued {counting.counts}")
+
+    # 3. Async take with a train step at once, then wait() and restore.
+    path_a = os.path.join(ddir, "w2_async")
+    want_a = _clone_state(model)
+    reset_bytes()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pending = Snapshot.async_take(path_a, {"train": StateDict(**model.train_state())},
+                                  replicated=["**"])
+    out["async_blocked_s"] = time.perf_counter() - t0
+    model.train_step(tokens, learning_rate=1e-3)
+    t1 = time.perf_counter()
+    pending.wait()
+    out["async_wait_s"] = time.perf_counter() - t1
+    out["async_total_s"] = time.perf_counter() - t0
+    out["async_bytes_staged"] = staged[0]
+    out["async_bytes_written"] = dict(written)
+    out["async_restore_s"], _ = _restore_and_check(path_a, want_a, fresh, witness, step_tokens)
+
+    # 4. Elastic, world 1 -> 2: the parent's world-1 snapshot restores
+    # into a fresh model on both ranks.
+    with open(os.path.join(ddir, "w1_hashes.json")) as f:
+        w1_hashes = json.load(f)
+    target = StateDict(**fresh.train_state())
+    before_ids = {p: id(t) for p, t in _leaves(target)}
+    t0 = time.perf_counter()
+    Snapshot(os.path.join(ddir, "w1")).restore({"train": target})
+    out["w1_restore_s"] = time.perf_counter() - t0
+    if _state_hashes(fresh) != w1_hashes:
+        raise AssertionError(f"rank {rank}: the world-1 snapshot restored differently")
+    if any(id(t) != before_ids[p] for p, t in _leaves(target)):
+        raise AssertionError(f"rank {rank}: the world-1 restore replaced a tensor object")
+
+    # 5. Abort: rank 1's writes fail inside the async take's drain; both
+    # ranks' wait() raise within the barrier timeout and no metadata
+    # appears.
+    # (An async take of this size dispatches no write before it returns:
+    # the first write fails on the drain thread.)
+    path_x = os.path.join(ddir, "w2_abort")
+    fail_writes[0] = rank == 1
+    pending = Snapshot.async_take(path_x, {"train": StateDict(**model.train_state())},
+                                  replicated=["**"])
+    t0 = time.perf_counter()
+    try:
+        pending.wait()
+    except (TakeAbortedError, OSError) as e:
+        out["abort_error"] = f"{type(e).__name__}: {e}"[:160]
+    else:
+        raise AssertionError(f"rank {rank}: the aborted take committed")
+    finally:
+        fail_writes[0] = False
+    out["abort_wait_s"] = time.perf_counter() - t0
+    if out["abort_wait_s"] >= get_barrier_timeout_s():
+        raise AssertionError(f"rank {rank}: the abort took {out['abort_wait_s']} s")
+    if rank == 0 and not out["abort_error"].startswith("TakeAbortedError"):
+        raise AssertionError(f"rank 0 saw {out['abort_error']}, not the peer's abort")
+    comm.barrier()
+    if os.path.exists(os.path.join(path_x, ".snapshot_metadata")):
+        raise AssertionError("the aborted take left .snapshot_metadata")
+
+    torch.cuda.synchronize()
+    out.update(
+        n_tensors=n_tensors, state_bytes=state_bytes, largest_tensor_bytes=largest,
+        flash_launches=fa.launches, flash_routes=dict(fa.route_launches),
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+    )
+    print(_RANK_LINE + json.dumps(out), flush=True)
+
+
+def phase_distributed(ctx: dict, workdir: str) -> dict:
+    """Two ranks on the one card (``tpusnap_torch.test_utils.
+    run_subprocess_world``: gloo process group, the port's store
+    communicator): see ``_distributed_rank``. The parent takes the world-1
+    snapshot the ranks restore (1 -> 2) and restores the ranks' world-2
+    snapshot into a world-1 model (2 -> 1)."""
+    import torch
+
+    from tpusnap_torch import Snapshot, StateDict
+    from tpusnap_torch.models import Transformer
+    from tpusnap_torch.test_utils import run_subprocess_world
+
+    t_phase = time.perf_counter()
+    cfg, model = ctx["cfg"], ctx["model"]
+    ddir = os.path.join(workdir, "distributed")
+    os.makedirs(ddir)
+    # A DDP job's world-1 snapshot marks its values replicated, so that
+    # a rank the saving world did not have restores them.
+    Snapshot.take(
+        os.path.join(ddir, "w1"), {"train": StateDict(**model.train_state())}, replicated=["**"]
+    )
+    with open(os.path.join(ddir, "w1_hashes.json"), "w") as f:
+        json.dump(_state_hashes(model), f)
+
+    t0 = time.perf_counter()
+    outputs = run_subprocess_world(
+        _distributed_rank, world_size=2, args=[ddir], timeout=600,
+        extra_env={"TPUSNAP_BARRIER_TIMEOUT_S": "120"},
+    )
+    world_s = time.perf_counter() - t0
+    ranks = []
+    for r, text in enumerate(outputs):
+        lines = [ln for ln in text.splitlines() if ln.startswith(_RANK_LINE)]
+        if len(lines) != 1:
+            raise AssertionError(f"rank {r} printed no result:\n{text[-4000:]}")
+        ranks.append(json.loads(lines[0][len(_RANK_LINE):]))
+
+    # The replicated bytes were spread: each rank within the largest unit
+    # (one tensor) of an even split, staged and written alike.
+    for key in ("take_bytes_staged", "repl_written"):
+        per_rank = [
+            r["take_bytes_written"]["replicated"] if key == "repl_written" else r[key]
+            for r in ranks
+        ]
+        total = sum(per_rank)
+        if total < ranks[0]["state_bytes"] or any(
+            abs(n - total / 2) > ranks[0]["largest_tensor_bytes"] for n in per_rank
+        ):
+            raise AssertionError(f"{key} per rank {per_rank}: not an even split of {total}")
+    if any(r["take_bytes_written"]["rank"] for r in ranks):
+        raise AssertionError("a rank wrote per-rank blobs of replicated state")
+
+    # Elastic, world 2 -> 1: this process restores the world-2 snapshot.
+    with open(os.path.join(ddir, "w2_hashes.json")) as f:
+        w2_hashes = json.load(f)
+    fresh = Transformer(cfg, device="cuda", seed=SEED + 5)
+    target = StateDict(**fresh.train_state())
+    before_ids = {p: id(t) for p, t in _leaves(target)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    Snapshot(os.path.join(ddir, "w2")).restore({"train": target})
+    w2_to_w1_s = time.perf_counter() - t0
+    if _state_hashes(fresh) != w2_hashes:
+        raise AssertionError("the world-2 snapshot restored into world 1 differs")
+    if any(id(t) != before_ids[p] for p, t in _leaves(target)):
+        raise AssertionError("the world-2 -> 1 restore replaced a tensor object")
+    del fresh, target
+    shutil.rmtree(ddir)
+    keys = ("rank", "take_s", "restore_s", "async_blocked_s", "async_wait_s", "async_total_s",
+            "async_restore_s", "w1_restore_s", "abort_wait_s", "take_bytes_staged",
+            "take_bytes_written", "async_bytes_staged", "async_bytes_written",
+            "take_collectives", "restore_collectives", "flash_launches", "flash_routes",
+            "replicas_bitwise_equal_after_training", "abort_error", "peak_mem_gib")
+    total_repl = sum(r["take_bytes_written"]["replicated"] for r in ranks)
+    return {
+        "phase": "distributed", "world_size": 2, "state_bytes": ranks[0]["state_bytes"],
+        "tensors": ranks[0]["n_tensors"], "largest_tensor_bytes": ranks[0]["largest_tensor_bytes"],
+        "ranks": [{k: r[k] for k in keys} for r in ranks],
+        "replicated_share": [r["take_bytes_written"]["replicated"] / total_repl for r in ranks],
+        "world2_to_world1_restore_s": w2_to_w1_s, "world_s": world_s,
+        "seconds": time.perf_counter() - t_phase, "bit_exact": True,
+        "parameter_identity": True, "torch": torch.__version__, "card": ctx["card"],
+    }
+
+
 def _reset_launches() -> None:
     from tpusnap_torch.ops import flash_attention as fa
 
@@ -1107,6 +1482,10 @@ def main() -> int:
         paths["incremental"] = (fa.launches, dict(fa.route_launches))
         emit(phase_compress(ctx, workdir))
         emit(phase_transforms(ctx, workdir))
+        dist_line = phase_distributed(ctx, workdir)
+        emit(dist_line)
+        for r in dist_line["ranks"]:
+            paths[f"distributed rank {r['rank']}"] = (r["flash_launches"], r["flash_routes"])
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     for path, (launches, routes) in paths.items():

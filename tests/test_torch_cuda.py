@@ -382,3 +382,85 @@ def test_async_incremental_take_is_staged_at_return(gen, tmp_path):
     Snapshot(inc).restore({"s": targets})
     for k, v in witness.items():
         assert torch.equal(targets[k], v), k
+
+
+# --- two ranks on the one card (gloo group, the port's store communicator) ---
+
+
+def _card_state(rank):
+    """Replicated values (the same on both ranks, from one seed) and one
+    per-rank value, all on the card."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    state = {f"r{i}": torch.randn((64 * (i + 1), 1024), generator=g, device="cuda") for i in range(6)}
+    state["own"] = torch.full((4096,), float(rank), device="cuda")
+    return state
+
+
+def _world_two_rank_take_stages_assigned_units(snap_dir):
+    from tpusnap_torch import scheduler
+    from tpusnap_torch.comm import get_communicator
+    from tpusnap_torch.partitioner import assign_replicated_units, estimate_write_loads
+
+    torch.cuda.set_device(0)
+    comm = get_communicator()
+    staged = []
+    orig = scheduler._WritePipeline.stage
+
+    async def stage(self, executor):
+        result = await orig(self, executor)
+        staged.append(self.buf_size)
+        return result
+
+    scheduler._WritePipeline.stage = stage
+    state = _card_state(comm.rank)
+    Snapshot.take(snap_dir, {"s": StateDict(state)}, replicated=["s/r*"])
+    # The same plan the take computed: each rank copied to the host the
+    # bytes of the units assigned to it and of its own value, no more.
+    flat = {f"s/{k}": v for k, v in state.items()}
+    units, base, _ = estimate_write_loads(flat, sorted(p for p in flat if "/r" in p))
+    per_rank = comm.all_gather_object((units, base))
+    assignment, _ = assign_replicated_units([u for u, _ in per_rank], [b for _, b in per_rank])
+    mine = sum(c for u, c in units if assignment[u] == comm.rank) + base
+    assert sum(staged) == mine, (comm.rank, sum(staged), mine)
+    assert len(set(assignment.values())) == 2, assignment
+    targets = StateDict({k: torch.zeros_like(v) for k, v in state.items()})
+    Snapshot(snap_dir).restore({"s": targets})
+    for k, v in state.items():
+        assert targets[k].is_cuda and torch.equal(targets[k], v), k
+
+
+def _world_two_rank_async_take_in_place(snap_dir):
+    from tpusnap_torch.comm import get_communicator
+
+    torch.cuda.set_device(0)
+    comm = get_communicator()
+    state = _card_state(comm.rank)
+    witness = {k: v.clone() for k, v in state.items()}
+    with override_async_stage_window_bytes(2 << 20):  # residual windows frozen on the card
+        pending = Snapshot.async_take(snap_dir, {"s": StateDict(state)}, replicated=["s/r*"])
+        assert pending.staged()
+        for v in state.values():
+            v.add_(1)
+        pending.wait()
+    targets = StateDict({k: torch.zeros_like(v) for k, v in state.items()})
+    Snapshot(snap_dir).restore({"s": targets})
+    for k, v in witness.items():
+        assert torch.equal(targets[k], v), k
+        assert not torch.equal(state[k], v), k
+
+
+def test_two_rank_take_stages_only_assigned_units(gen, tmp_path):
+    from tpusnap_torch.test_utils import run_subprocess_world
+
+    run_subprocess_world(
+        _world_two_rank_take_stages_assigned_units, world_size=2,
+        args=[str(tmp_path / "snap")], extra_env={"TPUSNAP_DISABLE_BATCHING": "1"},
+    )
+
+
+def test_two_rank_async_take_under_in_place_updates(gen, tmp_path):
+    from tpusnap_torch.test_utils import run_subprocess_world
+
+    run_subprocess_world(
+        _world_two_rank_async_take_in_place, world_size=2, args=[str(tmp_path / "snap")]
+    )

@@ -34,7 +34,10 @@ def test_every_module_imports_without_jax_or_tpusnap():
     modules = _port_modules()
     assert "tpusnap_torch.ops.flash_attention" in modules
     assert "tpusnap_torch.models.transformer" in modules
-    for name in ("compress", "inspect", "retention", "transforms"):
+    for name in (
+        "compress", "inspect", "retention", "transforms",
+        "comm", "dist_store", "partitioner", "test_utils",
+    ):
         assert f"tpusnap_torch.{name}" in modules
     code = (
         "import importlib, sys\n"

@@ -247,7 +247,7 @@ def test_slab_layout_matches_tpusnap_byte_for_byte(tmp_path):
 
 @pytest.mark.parametrize(
     "call",
-    ["tier_incremental_from", "stream", "s3_url", "comm"],
+    ["tier_incremental_from", "stream", "s3_url"],
 )
 def test_unported_features_raise(tmp_path, monkeypatch, call):
     path = str(tmp_path / "snap")
@@ -259,17 +259,8 @@ def test_unported_features_raise(tmp_path, monkeypatch, call):
         match = "A8"
     elif call == "stream":
         fn = lambda: Snapshot.stream(path, state)  # noqa: E731
-    elif call == "s3_url":
-        fn = lambda: Snapshot.take("s3://bucket/snap", state)  # noqa: E731
     else:
-        from tpusnap_torch.comm import Communicator
-
-        class TwoRanks(Communicator):
-            @property
-            def world_size(self):
-                return 2
-
-        fn = lambda: Snapshot.take(path, state, comm=TwoRanks())  # noqa: E731
+        fn = lambda: Snapshot.take("s3://bucket/snap", state)  # noqa: E731
     with pytest.raises(NotImplementedError, match=match):
         fn()
     assert not os.path.exists(os.path.join(path, ".snapshot_metadata"))

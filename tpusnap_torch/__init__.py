@@ -5,8 +5,10 @@ the same snapshot format (docs/format.md), the same knob names, the same
 logical paths, for ``torch.Tensor`` state on an NVIDIA GPU. A snapshot
 taken by either package restores through the other.
 
-It carries the single-process ``Snapshot.take`` → ``restore`` path to a
-local filesystem with chunked tensors, ``async_take`` (``PendingSnapshot``)
+It carries the ``Snapshot.take`` → ``restore`` path to a local
+filesystem, from one process or from every rank of a ``torch.distributed``
+job (replicated values written once, the writes spread across ranks,
+``TakeAbortedError`` when a peer's take fails), with chunked tensors, ``async_take`` (``PendingSnapshot``)
 and ``async_restore`` (``PendingRestore``), ``read_object``,
 ``load_snapshot`` and ``RNGState``; incremental takes
 (``incremental_from``), fused tile compression (``TPUSNAP_COMPRESS``),
@@ -28,6 +30,7 @@ from .snapshot import (  # noqa: F401
     Snapshot,
     load_snapshot,
 )
+from .dist_store import TakeAbortedError  # noqa: F401
 from .inspect import ScrubReport, verify_snapshot  # noqa: F401
 from .retention import apply_retention  # noqa: F401
 from .transforms import cast_on_save  # noqa: F401
@@ -42,6 +45,7 @@ __all__ = [
     "Snapshot",
     "StateDict",
     "Stateful",
+    "TakeAbortedError",
     "apply_retention",
     "cast_on_save",
     "load_snapshot",

@@ -1,7 +1,7 @@
 """Core I/O abstractions: write/read requests, stagers/consumers, and the
 StoragePlugin ABC.
 
-Counterpart of tpusnap/io_types.py, reduced to what the single-process
+Counterpart of tpusnap/io_types.py, reduced to what the port's
 take/restore path uses:
 
 - ``WriteReq``  = storage path + ``BufferStager`` (produces bytes, e.g. by

@@ -1,5 +1,5 @@
 """Tunable knobs read from the environment — the subset the port's
-single-process take/restore path consults.
+take/restore paths consult.
 
 Counterpart of tpusnap/knobs.py. The names stay ``TPUSNAP_*`` so one
 environment configures either package; the defaults are tpusnap's
@@ -35,6 +35,9 @@ _STAGING_POOL_ENV_VAR = "TPUSNAP_STAGING_POOL_BYTES"
 _COMPRESS_MIN_BLOB_ENV_VAR = "TPUSNAP_COMPRESS_MIN_BLOB_BYTES"
 _RECORD_DEDUP_HASHES_ENV_VAR = "TPUSNAP_RECORD_DEDUP_HASHES"
 _SCRUB_CONCURRENCY_ENV_VAR = "TPUSNAP_SCRUB_CONCURRENCY"
+_BARRIER_TIMEOUT_ENV_VAR = "TPUSNAP_BARRIER_TIMEOUT_S"
+_NODE_NAME_ENV_VAR = "TPUSNAP_NODE_NAME"
+_DISABLE_PARTITIONER_ENV_VAR = "TPUSNAP_DISABLE_PARTITIONER"
 
 _DEFAULT_MAX_CHUNK_SIZE_BYTES = 512 * 1024 * 1024
 _DEFAULT_SLAB_SIZE_THRESHOLD_BYTES = 128 * 1024 * 1024
@@ -53,6 +56,17 @@ def _get_int_env(name: str, default: int) -> int:
         return int(val)
     except ValueError:
         logger.warning("Ignoring non-integer %s=%r", name, val)
+        return default
+
+
+def _get_float_env(name: str, default: float) -> float:
+    val = os.environ.get(name)
+    if val is None:
+        return default
+    try:
+        return float(val)
+    except ValueError:
+        logger.warning("Ignoring non-numeric %s=%r", name, val)
         return default
 
 
@@ -187,6 +201,37 @@ def get_scrub_concurrency() -> int:
     return max(1, _get_int_env(_SCRUB_CONCURRENCY_ENV_VAR, 4))
 
 
+def get_barrier_timeout_s() -> float:
+    """Deadline of every blocking collective or KV-store wait (the
+    communicator's barriers and gathers, ``LinearBarrier``, ``KVStore.get``)
+    and the timeout set on the communicator's store. Default 600 s, floor
+    1 s."""
+    return max(1.0, _get_float_env(_BARRIER_TIMEOUT_ENV_VAR, 600.0))
+
+
+def get_commit_barrier_timeout_s() -> float:
+    """Deadline of the async commit's ``LinearBarrier`` waits: 3x the
+    collective timeout (the commit waits on every rank's whole write
+    drain, not one round trip)."""
+    return 3.0 * get_barrier_timeout_s()
+
+
+def get_node_name() -> str:
+    """Which host this process runs on, for the per-host memory-budget
+    divisor: ``TPUSNAP_NODE_NAME`` or the OS hostname (the variable
+    serves containers that each report their own hostname on one node,
+    and simulated multi-host tests)."""
+    import socket
+
+    return os.environ.get(_NODE_NAME_ENV_VAR) or socket.gethostname()
+
+
+def is_partitioner_disabled() -> bool:
+    """Every rank writes its own copy of each replicated value (the
+    write-load partitioner is bypassed; the manifest is the same)."""
+    return _flag(_DISABLE_PARTITIONER_ENV_VAR)
+
+
 def get_cas_dir() -> Optional[str]:
     return os.environ.get(_CAS_DIR_ENV_VAR) or None
 
@@ -254,3 +299,7 @@ def override_tile_checksum_bytes(nbytes: int):
 
 def override_checksum_disabled(disabled: bool):
     return _override_env(_DISABLE_CHECKSUM_ENV_VAR, "1" if disabled else "0")
+
+
+def override_barrier_timeout_s(seconds: float):
+    return _override_env(_BARRIER_TIMEOUT_ENV_VAR, str(seconds))

@@ -1,7 +1,7 @@
 """Async execution engine: budget-gated, pipelined staging and storage I/O.
 
-Counterpart of tpusnap/scheduler.py for single-process takes (sync and
-async) and the restore, without the roofline probe, progress reporter and
+Counterpart of tpusnap/scheduler.py for takes (sync and async) and the
+restore, without the roofline probe, progress reporter and
 flight-recorder hooks:
 
 - Write path (``_WriteScheduler``): each WriteReq moves ready_for_staging
@@ -17,8 +17,8 @@ flight-recorder hooks:
   ``take`` or on a background thread for ``async_take``.
 - Read path: read (≤16 in flight, budget-gated on consuming cost) ∥
   consume (deserialize + copy into the restore target, thread pool).
-- Memory budget = min(0.6 × available host RAM, 32 GB), overridable by
-  ``TPUSNAP_MAX_PER_RANK_MEMORY_BUDGET_BYTES``.
+- Memory budget = min(0.6 × available host RAM / ranks on this host,
+  32 GB), overridable by ``TPUSNAP_MAX_PER_RANK_MEMORY_BUDGET_BYTES``.
 """
 
 from __future__ import annotations
@@ -66,12 +66,39 @@ def _available_host_memory_bytes() -> int:
     return os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
 
 
-def get_process_memory_budget_bytes() -> int:
-    """Host-memory budget for staging/consuming buffers of one process."""
+# Ranks sharing this host, stable for the life of a job: cached so that
+# restore and read_object pay no collective for it (take passes it in from
+# its first gather).
+_cached_local_world_size: Optional[int] = None
+
+
+def get_process_memory_budget_bytes(
+    comm=None, local_world_size: Optional[int] = None
+) -> int:
+    """Host-memory budget for staging/consuming buffers of one process:
+    the host's share divided by the ranks on this host. ``local_world_size``
+    is passed by a caller that already gathered host names (take's first
+    gather); otherwise it is found once per process with one host-name
+    gather on ``comm`` and cached."""
+    global _cached_local_world_size
     override = get_memory_budget_override_bytes()
     if override is not None:
         return override
-    budget = int(_available_host_memory_bytes() * _AVAILABLE_MEMORY_FRACTION)
+    if local_world_size is not None:
+        _cached_local_world_size = local_world_size
+    elif _cached_local_world_size is not None:
+        local_world_size = _cached_local_world_size
+    elif comm is not None and comm.world_size > 1:
+        from .knobs import get_node_name
+
+        hostnames = comm.all_gather_object(get_node_name())
+        local_world_size = hostnames.count(get_node_name())
+        _cached_local_world_size = local_world_size
+    else:
+        local_world_size = 1
+    budget = int(
+        _available_host_memory_bytes() * _AVAILABLE_MEMORY_FRACTION / max(local_world_size, 1)
+    )
     return min(budget, _MAX_PER_RANK_MEMORY_BUDGET_BYTES)
 
 
@@ -163,6 +190,12 @@ class PendingIOWork:
 
     def sync_complete(self, event_loop: asyncio.AbstractEventLoop) -> None:
         run_on_loop(event_loop, self.complete())
+
+    def sync_cancel(self, event_loop: asyncio.AbstractEventLoop) -> None:
+        """Cancel the staging and writes still in flight and wait for them
+        to end (an aborting take does this before it deletes its blobs,
+        so no write lands after the delete)."""
+        run_on_loop(event_loop, self.scheduler._abort())
 
 
 class _WriteScheduler:
@@ -392,6 +425,7 @@ def sync_execute_write_reqs(
     event_loop: asyncio.AbstractEventLoop,
     prioritize_staging: bool = False,
     pipelined_staging: bool = False,
+    stage_eagerly: Optional[Callable[[WriteReq], bool]] = None,
 ) -> PendingIOWork:
     return run_on_loop(
         event_loop,
@@ -401,6 +435,7 @@ def sync_execute_write_reqs(
             memory_budget_bytes,
             prioritize_staging=prioritize_staging,
             pipelined_staging=pipelined_staging,
+            stage_eagerly=stage_eagerly,
         ),
     )
 

@@ -1,8 +1,8 @@
 """Snapshot — the user-facing save/restore/random-access API.
 
 Counterpart of tpusnap/snapshot.py (``Snapshot.take``, ``restore``,
-``read_object`` and ``load_snapshot``) for one process. The steps and the
-names of the functions carried over are tpusnap's:
+``read_object`` and ``load_snapshot``) for one process or many. The steps
+and the names of the functions carried over are tpusnap's:
 
 - ``take``: per-key ``state_dict()`` → ``flatten`` → ``prepare_write`` →
   ``batch_write_requests`` → ``execute_write_reqs`` (staging ∥ storage
@@ -40,12 +40,40 @@ names of the functions carried over are tpusnap's:
   increment self-contained (``inspect``); ``retention.apply_retention``
   retires old snapshots.
 
-Left out of this slice, each raising ``NotImplementedError`` when asked
-for rather than being ignored (ROADMAP.md lists them): multi-process
-communicators (A4), sharded/DTensor state (A5), tiering, CAS, cloud
-storage and the delta stream (A8). tpusnap's journal, progress, flight,
-SLO, telemetry and tuner hooks are observability the port adds later
-(A9); a snapshot without them reads the same in either package.
+Several processes (``torchrun``, or any ``init_process_group`` job; or an
+explicit ``comm.StoreComm``) take one snapshot together, as in tpusnap:
+
+- take: one gather before staging (G1) carries every rank's path,
+  replicated globs, write-load estimate, host name and a take id; from it
+  every rank applies rank 0's path, keeps the globs every rank gave,
+  computes the same partition plan (``partitioner``: each replicated
+  unit is written by one rank, the load spread across ranks) and the
+  ranks on its host (the memory-budget divisor). Replicated requests
+  assigned to other ranks are dropped before staging. After staging, the
+  manifest gather (G2) consolidates replicated entries onto rank 0's
+  tree. Checksums hashed on the write path reach every rank's manifest
+  copy through the KV store (``_LateChecksums``) between the two commit
+  barriers; rank 0 alone writes the metadata between them. No device
+  collective runs during a take.
+- a failing rank publishes an abort record; every peer's waits raise
+  ``TakeAbortedError`` within seconds, and each rank deletes the blobs it
+  may have written (best effort) unless the commit may have started.
+- async_take: the commit runs on the drain thread over two
+  ``LinearBarrier``s of the KV store (their prefix is broadcast on the
+  calling thread); a failed rank poisons them, so no metadata is written
+  and ``wait()`` raises on every rank.
+- restore and read_object issue no collective once the memory-budget
+  divisor is cached (a cold restore pays one host-name gather); a
+  snapshot restores at another world size for replicated and per-rank
+  state (``manifest_ops.get_manifest_for_rank``).
+
+Left out of this port so far, each raising ``NotImplementedError`` when
+asked for rather than being ignored (ROADMAP.md lists them): sharded/
+DTensor state (A5), tiering, CAS, cloud storage, the delta stream, the
+degraded commit and rank-liveness leases (A8). tpusnap's journal,
+progress, flight, SLO, telemetry and tuner hooks are observability the
+port adds later (A9); a snapshot without them reads the same in either
+package.
 """
 
 from __future__ import annotations
@@ -59,6 +87,7 @@ import os
 import posixpath
 import threading
 import time
+import uuid
 from typing import Any, Dict, List, Optional, Tuple
 from urllib.parse import urlsplit
 
@@ -67,6 +96,14 @@ import torch
 from . import _native, compress
 from .batcher import batch_read_requests, batch_write_requests
 from .comm import Communicator, get_communicator
+from .dist_store import (
+    KVStore,
+    LinearBarrier,
+    MemoryKVStore,
+    TakeAbortedError,
+    TakeAbortMonitor,
+    TCPStoreKVStore,
+)
 from .flatten import flatten, inflate
 from .inspect import _entry_tensors, base_root_of_location, entry_nbytes
 from .io_preparer import prepare_read, prepare_write
@@ -74,19 +111,30 @@ from .io_preparers.array import ArrayBufferStager, event_on, freeze_device_sourc
 from .io_types import ReadIO, StoragePlugin, WriteIO, run_on_loop
 from .knobs import (
     get_async_stage_window_bytes,
+    get_commit_barrier_timeout_s,
+    get_node_name,
     is_checksum_disabled,
     is_dedup_hash_recording_forced,
 )
 from .manifest import (
+    ChunkedTensorEntry,
     Entry,
     Manifest,
     MetadataError,
     SnapshotMetadata,
+    TensorEntry,
     decode_metadata,
     encode_metadata,
     is_container_entry,
+    is_replicated,
 )
 from .manifest_ops import get_manifest_for_rank
+from .partitioner import (
+    assign_replicated_units,
+    consolidate_replicated_entries,
+    estimate_write_loads,
+    filter_assigned_write_reqs,
+)
 from .rng_state import RNGState
 from .scheduler import (
     PendingIOWork,
@@ -176,10 +224,16 @@ class Snapshot:
         """Write every stateful in ``app_state`` to ``path``. CUDA tensors
         are copied through pinned host memory; the state captured is the
         state as of this call (device work already queued on the
-        caller's stream included). ``replicated`` globs mark host values
-        as replicated, as in tpusnap. ``per_key_barrier`` orders the
-        ``state_dict()`` calls of several processes; one process has no
-        barrier to add.
+        caller's stream included). ``replicated`` globs mark values that
+        every rank holds identically (DDP): each is written once, by the
+        rank the partition plan picks, and stored under ``replicated/``.
+        Several processes call ``take`` together with the same path (rank
+        0's wins) and ``replicated`` (only globs every rank gives count).
+
+        ``per_key_barrier`` orders the ``state_dict()`` calls of several
+        processes (one gather of the keys, one barrier per key), for
+        statefuls that run collectives inside ``state_dict()``; the port
+        issues none itself, so by default there are none.
 
         ``incremental_from`` makes this an incremental snapshot against
         the snapshot at that path (a sibling directory, typically): blobs
@@ -189,33 +243,40 @@ class Snapshot:
         hashes (every incremental take records them, as does
         ``_record_dedup_hashes=True`` or ``TPUSNAP_RECORD_DEDUP_HASHES=1``
         on a full take) dedups at tile grain: one changed row of a large
-        tensor rewrites one checksum tile.
+        tensor rewrites one checksum tile. Replicated values of a
+        multi-process take stay blob-grain.
 
         ``_custom_array_prepare_func(logical_path, tensor, tracing)``
         transforms tensors at save time (``transforms.cast_on_save``); it
         must keep the shape and be deterministic."""
         comm = get_communicator(comm)
         event_loop = asyncio.new_event_loop()
+        abort_ctx = _TakeAbortContext(comm, event_loop)
         try:
-            pending, metadata, storage, _ = _take_impl(
-                path, app_state, storage_options, comm, replicated or [], event_loop,
-                is_async_snapshot=False,
-                array_prepare_func=_custom_array_prepare_func,
-                incremental_from=incremental_from,
-                force_dedup_hashes=_record_dedup_hashes,
-            )
             try:
-                pending.sync_complete(event_loop)
-                comm.barrier()
-                if comm.rank == 0:
-                    _write_metadata(storage, metadata, event_loop)
-                comm.barrier()
+                pending, metadata, path, storage, late_checksums, _ = _take_impl(
+                    path, app_state, storage_options, comm, replicated or [], event_loop,
+                    abort_ctx,
+                    is_async_snapshot=False,
+                    per_key_barrier=per_key_barrier,
+                    array_prepare_func=_custom_array_prepare_func,
+                    incremental_from=incremental_from,
+                    force_dedup_hashes=_record_dedup_hashes,
+                )
+                meta_cached = _commit(
+                    pending, metadata, storage, comm, late_checksums, abort_ctx, event_loop
+                )
+            except BaseException as e:
+                abort_ctx.on_failure(e)
+                raise
             finally:
-                storage.sync_close(event_loop)
+                abort_ctx.close_storage()
         finally:
+            abort_ctx.disarm()
             event_loop.close()
         snapshot = cls(path, storage_options, comm)
-        snapshot._metadata = metadata
+        if meta_cached:
+            snapshot._metadata = metadata
         return snapshot
 
     @classmethod
@@ -237,29 +298,37 @@ class Snapshot:
         tensors the contract is tpusnap's: under COW (the default) mutate
         them only after ``wait_staged()``; with ``TPUSNAP_ASYNC_COW=0``
         they are cloned before the return. ``wait()`` gives the committed
-        snapshot or re-raises the failure; a failed take leaves no
-        ``.snapshot_metadata``. An incremental take stages (and hashes)
-        everything before it returns: its dedup decisions must be final
-        before the manifest is."""
+        snapshot or re-raises the failure; a failed take (on any rank)
+        leaves no ``.snapshot_metadata``. An incremental take stages (and
+        hashes) everything before it returns: its dedup decisions must be
+        final before the manifest is. The commit of several processes
+        runs over the KV store on the drain thread: no collective runs
+        off the calling thread."""
         comm = get_communicator(comm)
         event_loop = asyncio.new_event_loop()
+        abort_ctx = _TakeAbortContext(comm, event_loop)
         try:
-            pending, metadata, storage, live_until_drained = _take_impl(
+            pending, metadata, path, storage, late_checksums, live_until_drained = _take_impl(
                 path, app_state, storage_options, comm, replicated or [], event_loop,
+                abort_ctx,
                 is_async_snapshot=True,
+                per_key_barrier=per_key_barrier,
                 array_prepare_func=_custom_array_prepare_func,
                 incremental_from=incremental_from,
                 force_dedup_hashes=_record_dedup_hashes,
             )
-        except BaseException:
+            # From here the event loop and storage belong to the drain
+            # thread, which closes them.
+            return PendingSnapshot(
+                path, pending, metadata, storage, comm, event_loop, storage_options,
+                live_until_drained, late_checksums=late_checksums, abort_ctx=abort_ctx,
+            )
+        except BaseException as e:
+            abort_ctx.on_failure(e)
+            abort_ctx.close_storage()
+            abort_ctx.disarm()
             event_loop.close()
             raise
-        # From here the event loop belongs to the drain thread, which
-        # closes it.
-        return PendingSnapshot(
-            path, pending, metadata, storage, comm, event_loop, storage_options,
-            live_until_drained,
-        )
 
     @classmethod
     def stream(cls, *args, **kwargs):
@@ -267,36 +336,65 @@ class Snapshot:
 
     # --------------------------------------------------------------- restore
 
-    def restore(self, app_state: AppState) -> None:
+    def restore(self, app_state: AppState, per_key_barrier: bool = False) -> None:
         """Restore every stateful in ``app_state`` from this snapshot, in
         place where the current ``state_dict()`` holds tensors of the
-        stored shape. Returns after every device copy has completed."""
+        stored shape. Returns after every device copy has completed.
+
+        Each rank restores its own view of the manifest on its own and
+        issues no collective, except that a process that has not taken a
+        snapshot yet gathers host names once to size its memory budget,
+        so all ranks enter a cold restore together. A snapshot restores at
+        another world size: replicated values on every rank, per-rank
+        values on the ranks that saved them. ``per_key_barrier`` adds a
+        gather of the keys and a barrier per key, for statefuls that run
+        collectives inside ``load_state_dict``."""
         comm = get_communicator(self._comm)
         _validate_app_state(app_state)
         with self._op_lock:
-            event_loop, storage = self._resources()
-            metadata = self._get_metadata(storage, event_loop)
-            memory_budget = get_process_memory_budget_bytes()
-            # RNG state loads last, so that loading other statefuls cannot
-            # disturb it.
-            keys = sorted(app_state, key=lambda k: isinstance(app_state[k], RNGState))
-            for key in keys:
-                _load_stateful(
-                    stateful=app_state[key],
-                    key=key,
-                    metadata=metadata,
-                    rank=comm.rank,
-                    storage=storage,
-                    memory_budget=memory_budget,
-                    event_loop=event_loop,
-                )
+            self._restore_locked(app_state, comm, per_key_barrier)
+
+    def _restore_locked(
+        self,
+        app_state: AppState,
+        comm: Communicator,
+        per_key_barrier: bool,
+        memory_budget: Optional[int] = None,
+    ) -> None:
+        event_loop, storage = self._resources()
+        metadata = self._get_metadata(storage, event_loop)
+        if memory_budget is None:
+            memory_budget = get_process_memory_budget_bytes(comm)
+        multi = per_key_barrier and comm.world_size > 1
+        keys = _gather_keys(comm, sorted(app_state)) if multi else sorted(app_state)
+        # RNG state loads last, so that loading other statefuls cannot
+        # disturb it.
+        keys.sort(key=lambda k: isinstance(app_state.get(k), RNGState))
+        for key in keys:
+            if multi:
+                comm.barrier()
+            stateful = app_state.get(key)
+            if stateful is None:
+                continue
+            _load_stateful(
+                stateful=stateful,
+                key=key,
+                metadata=metadata,
+                rank=comm.rank,
+                storage=storage,
+                memory_budget=memory_budget,
+                event_loop=event_loop,
+            )
 
     def async_restore(self, app_state: AppState) -> "PendingRestore":
         """``restore`` on a background thread; ``app_state`` must not be
         touched until ``wait()`` returns. A stateful whose
         ``load_state_dict`` runs collectives declares
         ``load_requires_collectives = True`` and is refused: collectives
-        must not run off the calling thread."""
+        must not run off the calling thread. The one collective a cold
+        restore may need (the host-name gather) runs here, before the
+        thread starts."""
+        comm = get_communicator(self._comm)
         _validate_app_state(app_state)
         offenders = sorted(
             key
@@ -310,7 +408,7 @@ class Snapshot:
                 "collectives must not run on the background restore thread. "
                 "Use restore() for these statefuls."
             )
-        return PendingRestore(self, app_state)
+        return PendingRestore(self, app_state, comm, get_process_memory_budget_bytes(comm))
 
     # ----------------------------------------------------------- random access
 
@@ -325,6 +423,7 @@ class Snapshot:
         unless ``obj_out`` says otherwise: a target of the stored shape is
         filled in place, a CUDA target of another shape gets a new tensor
         on its device."""
+        comm = get_communicator(self._comm)
         rank_str, _, logical_path = path.partition("/")
         if not rank_str.isdigit() or not logical_path:
             raise ValueError(
@@ -347,7 +446,7 @@ class Snapshot:
                 buffer_size_limit_bytes=memory_budget_bytes,
                 logical_path=logical_path,
             )
-            budget = memory_budget_bytes or get_process_memory_budget_bytes()
+            budget = memory_budget_bytes or get_process_memory_budget_bytes(comm)
             sync_execute_read_reqs(read_reqs, storage, budget, event_loop)
             return fut.obj
 
@@ -433,6 +532,93 @@ def _validate_app_state(app_state: AppState) -> None:
             )
 
 
+class _TakeAbortContext:
+    """Failure-path bookkeeping for one take.
+
+    Armed (several processes) once G1 agrees on the take id: installs the
+    :class:`TakeAbortMonitor` as the communicator's wait watcher, so every
+    later collective wait and commit barrier raises
+    :class:`TakeAbortedError` within seconds of any rank's failure instead
+    of running out the barrier timeout. On failure it publishes this
+    rank's abort record, deletes the blobs this rank may have written (so
+    the path stays reusable), and drops this rank's late-checksum record.
+    Blob deletion is skipped once the metadata commit may have started:
+    orphan blobs are safe, dangling manifest references are not. The
+    journal, the liveness lease and the degraded commit of tpusnap's
+    context are not ported yet (ROADMAP.md A8)."""
+
+    def __init__(self, comm: Communicator, event_loop: asyncio.AbstractEventLoop) -> None:
+        self.comm = comm
+        self.event_loop = event_loop
+        self.monitor: Optional[TakeAbortMonitor] = None
+        self.storage: Optional[StoragePlugin] = None
+        self.pending: Optional[PendingIOWork] = None
+        self.write_paths: List[str] = []
+        self.late_checksums: Optional["_LateChecksums"] = None
+        self.commit_started = False
+        self._failed = False
+
+    def arm(self, monitor: TakeAbortMonitor) -> None:
+        self.monitor = monitor
+        self.comm.set_wait_watcher(monitor.check)
+
+    def barrier_watchers(self) -> List:
+        """Watchers for the async commit's ``LinearBarrier`` waits."""
+        return [self.monitor.check] if self.monitor is not None else []
+
+    def disarm(self) -> None:
+        if self.monitor is not None:
+            self.comm.clear_wait_watcher()
+
+    def close_storage(self) -> None:
+        if self.storage is not None:
+            self.storage.sync_close(self.event_loop)
+            self.storage = None
+
+    def mark_commit_started(self) -> None:
+        self.commit_started = True
+        if self.monitor is not None:
+            self.monitor.mark_commit_started()
+
+    def on_failure(self, exc: BaseException) -> None:
+        """Publish and clean up, once; never raises."""
+        if self._failed:
+            return
+        self._failed = True
+        if self.monitor is not None and not isinstance(exc, TakeAbortedError):
+            self.monitor.publish(exc)
+        keep_blobs = self.commit_started or (
+            self.monitor is not None and self.monitor.commit_may_have_started()
+        )
+        if self.pending is not None and not self.pending.drained():
+            try:
+                self.pending.sync_cancel(self.event_loop)
+            except Exception:
+                logger.debug("cancelling the take's writes failed", exc_info=True)
+        if not keep_blobs and self.storage is not None:
+            for path in self.write_paths:
+                try:
+                    run_on_loop(self.event_loop, self.storage.delete(path))
+                except FileNotFoundError:
+                    pass  # never written (dedup skip, or not reached)
+                except Exception:
+                    logger.debug("abort cleanup of %r failed", path, exc_info=True)
+        if self.late_checksums is not None:
+            try:
+                self.late_checksums.discard()
+            except Exception:
+                logger.debug("late-checksum discard failed", exc_info=True)
+
+
+def _gather_keys(comm: Communicator, local_keys: List[str]) -> List[str]:
+    if comm.world_size == 1:
+        return sorted(local_keys)
+    merged = set()
+    for keys in comm.all_gather_object(local_keys):
+        merged.update(keys)
+    return sorted(merged)
+
+
 def _take_impl(
     path: str,
     app_state: AppState,
@@ -440,26 +626,42 @@ def _take_impl(
     comm: Communicator,
     replicated: List[str],
     event_loop: asyncio.AbstractEventLoop,
+    abort_ctx: _TakeAbortContext,
     is_async_snapshot: bool,
+    per_key_barrier: bool = False,
     array_prepare_func: Optional[Any] = None,
     incremental_from: Optional[str] = None,
     force_dedup_hashes: bool = False,
-) -> Tuple[PendingIOWork, SnapshotMetadata, StoragePlugin, bool]:
-    """Flatten, prepare and batch every write and run the write engine to
-    the blocked-window boundary. Returns the work left, the metadata to
-    commit once it is done, the open storage plugin, and whether live
-    CPU bytes are read until the writes drain (COW)."""
+) -> Tuple[PendingIOWork, SnapshotMetadata, str, StoragePlugin, Optional["_LateChecksums"], bool]:
+    """Flatten, plan, prepare and batch every write, and run the write
+    engine to the blocked-window boundary. Returns the work left, the
+    metadata to commit once it is done, the path (rank 0's), the open
+    storage plugin, the late-checksum transport (several processes) and
+    whether live CPU bytes are read until the writes drain (COW).
+
+    Exactly two gathers with several processes, as in tpusnap: G1 before
+    staging (path, globs, write-load estimate, host name, take id) and G2
+    after it (the manifests); ``per_key_barrier`` adds a key gather and a
+    barrier per key."""
     _validate_app_state(app_state)
     rank = comm.rank
+    multi = comm.world_size > 1
     # Other statefuls' state_dict() may draw from the RNGs, and a take
     # must leave them as it found them.
     rng_captured = {
         k: v.state_dict() for k, v in app_state.items() if isinstance(v, RNGState)
     }
+    ordered = per_key_barrier and multi
+    keys = _gather_keys(comm, sorted(app_state)) if ordered else sorted(app_state)
     manifest: Manifest = {}
     flattened_all: Dict[str, Any] = {}
-    for key in sorted(app_state.keys()):
-        state_dict = rng_captured.get(key) or app_state[key].state_dict()
+    for key in keys:
+        if ordered:
+            comm.barrier()
+        stateful = app_state.get(key)
+        if stateful is None:
+            continue
+        state_dict = rng_captured.get(key) or stateful.state_dict()
         mft, flat = flatten(state_dict, prefix=key)
         manifest.update(mft)
         flattened_all.update(flat)
@@ -467,9 +669,57 @@ def _take_impl(
         app_state[key].load_state_dict(captured)
 
     globs = sorted(set(replicated))
-    replicated_paths = {
-        p for p in flattened_all if any(fnmatch.fnmatch(p, g) for g in globs)
-    }
+    matched = {p for p in flattened_all if any(fnmatch.fnmatch(p, g) for g in globs)}
+    assignment: Dict[str, int] = {}
+    local_world_size: Optional[int] = None
+    traced_geometry: Dict[str, Tuple[str, List[int]]] = {}
+    take_id = uuid.uuid4().hex
+    if multi:
+        units, base_load, traced_geometry = estimate_write_loads(
+            flattened_all, sorted(matched), array_prepare_func=array_prepare_func
+        )
+        gathered = comm.all_gather_object(
+            {
+                "path": path,
+                "globs": globs,
+                "units": units,
+                "base_load": base_load,
+                "hostname": get_node_name(),
+                # Scopes the take's KV keys; rank 0's wins, like the path.
+                "take_id": take_id,
+            }
+        )
+        take_id = gathered[0]["take_id"]
+        if gathered[0]["path"] != path:
+            logger.warning(
+                "Rank %d's snapshot path %r differs from rank 0's %r; using rank 0's",
+                rank, path, gathered[0]["path"],
+            )
+        path = gathered[0]["path"]
+        # Only globs every rank gave count.
+        common_globs = set(gathered[0]["globs"])
+        for g in gathered[1:]:
+            common_globs &= set(g["globs"])
+        if set(globs) - common_globs:
+            logger.warning(
+                "Replicated globs %s were not given on every rank; ignoring them",
+                sorted(set(globs) - common_globs),
+            )
+
+        def unit_valid(uid: str) -> bool:
+            p = uid.split("::", 1)[0]
+            return any(fnmatch.fnmatch(p, g) for g in common_globs)
+
+        assignment, replicated_paths = assign_replicated_units(
+            [g["units"] for g in gathered], [g["base_load"] for g in gathered], unit_valid
+        )
+        my_host = gathered[rank]["hostname"]
+        local_world_size = sum(1 for g in gathered if g["hostname"] == my_host)
+        # From here every collective wait of this take raises within
+        # seconds when a peer publishes an abort record.
+        abort_ctx.arm(TakeAbortMonitor(_get_kv_store(comm), take_id, rank, comm.world_size))
+    else:
+        replicated_paths = matched
 
     # Incremental: this rank's view of the base manifest, its blob
     # locations rewritten relative to the new root.
@@ -490,75 +740,112 @@ def _take_impl(
         incremental_from is not None or force_dedup_hashes or is_dedup_hash_recording_forced()
     )
 
+    # The storage plugin is the abort context's until the caller takes it
+    # over: on failure the context deletes this rank's blobs through it.
     storage = url_to_storage_plugin_in_event_loop(path, event_loop, storage_options)
-    try:
-        entries: Manifest = dict(manifest)
-        write_reqs = []
-        for logical_path, leaf in flattened_all.items():
-            entry, reqs = prepare_write(
-                obj=leaf,
-                logical_path=logical_path,
-                rank=rank,
-                replicated=logical_path in replicated_paths,
-                is_async_snapshot=is_async_snapshot,
-                array_prepare_func=(
-                    functools.partial(array_prepare_func, logical_path)
-                    if array_prepare_func is not None
-                    else None
-                ),
-                prev_entry=prev_entries.get(logical_path),
-                record_dedup_hashes=record_dedup_hashes,
-            )
-            entries[logical_path] = entry
-            write_reqs.extend(reqs)
-
-        entries_list, write_reqs = batch_write_requests(
-            list(entries.values()), write_reqs
+    abort_ctx.storage = storage
+    late_checksums: Optional[_LateChecksums] = None
+    entries: Manifest = dict(manifest)
+    write_reqs = []
+    replicated_entry_paths: List[str] = []
+    for logical_path, leaf in flattened_all.items():
+        is_repl = logical_path in replicated_paths
+        entry, reqs = prepare_write(
+            obj=leaf,
+            logical_path=logical_path,
+            rank=rank,
+            replicated=is_repl,
+            is_async_snapshot=is_async_snapshot,
+            array_prepare_func=(
+                functools.partial(array_prepare_func, logical_path)
+                if array_prepare_func is not None
+                else None
+            ),
+            array_prepare_traced=traced_geometry.get(logical_path),
+            prev_entry=prev_entries.get(logical_path),
+            record_dedup_hashes=record_dedup_hashes,
+            # Replicated entries of several processes stay blob-grain:
+            # the partition plan's unit ids, computed without the
+            # base, must match what is prepared.
+            allow_tile_dedup=not (multi and is_repl),
         )
-        entries = dict(zip(entries.keys(), entries_list))
-        # One measured compress-or-bypass decision per take, armed on the
-        # eligible standalone blobs after batching. Never fails a take.
-        compress.apply_take_policy(write_reqs, storage, event_loop)
-        if incremental_from is None:
-            # Standalone tensor blobs hash on the write path, overlapping
-            # other requests' disk time; slab members hash inside their
-            # slab's staging. The entry objects are the manifest's, so the
-            # late values land before the metadata is encoded. Incremental
-            # takes hash at stage time: dedup decides before the write.
-            for wr in write_reqs:
-                if isinstance(wr.buffer_stager, ArrayBufferStager):
-                    wr.buffer_stager.defer_checksums = True
-        live_until_drained = any(
-            isinstance(wr.buffer_stager, ArrayBufferStager) and wr.buffer_stager.uses_cow()
-            for wr in write_reqs
+        entries[logical_path] = entry
+        if is_repl and is_replicated(entry):
+            replicated_entry_paths.append(logical_path)
+        write_reqs.extend(reqs)
+
+    # Keep only the replicated requests the plan gives this rank,
+    # before anything is staged or batched: the device slab pack then
+    # holds this rank's members only.
+    if multi and replicated_entry_paths:
+        write_reqs = filter_assigned_write_reqs(
+            entries, write_reqs, replicated_entry_paths, assignment, rank
         )
 
-        # An async take pipelines its staging unless the window knob is 0
-        # (strict mode: everything stages before the return). Incremental
-        # takes never pipeline: their dedup decisions rewrite entry
-        # locations at stage time and must be final before the manifest.
-        pipelined = (
-            is_async_snapshot
-            and incremental_from is None
-            and get_async_stage_window_bytes() is not None
+    entries_list, write_reqs = batch_write_requests(
+        list(entries.values()), write_reqs
+    )
+    entries = dict(zip(entries.keys(), entries_list))
+    # One measured compress-or-bypass decision per take, armed on the
+    # eligible standalone blobs after batching. Never fails a take.
+    compress.apply_take_policy(write_reqs, storage, event_loop)
+    abort_ctx.write_paths = [wr.path for wr in write_reqs]
+    if incremental_from is None:
+        # Standalone tensor blobs hash on the write path, overlapping
+        # other requests' disk time; slab members hash inside their
+        # slab's staging. One process: the entry objects are the
+        # manifest's, so the late values land before the metadata is
+        # encoded. Several: the manifests are gathered by value at
+        # staging-complete, so the late values travel through the KV
+        # store (_LateChecksums). Incremental takes hash at stage
+        # time: dedup decides before the write.
+        deferred = []
+        for wr in write_reqs:
+            if isinstance(wr.buffer_stager, ArrayBufferStager):
+                wr.buffer_stager.defer_checksums = True
+                deferred.append(wr.buffer_stager)
+        if multi:
+            late_checksums = _LateChecksums(comm, take_id, deferred)
+            abort_ctx.late_checksums = late_checksums
+    live_until_drained = any(
+        isinstance(wr.buffer_stager, ArrayBufferStager) and wr.buffer_stager.uses_cow()
+        for wr in write_reqs
+    )
+
+    # An async take pipelines its staging unless the window knob is 0
+    # (strict mode: everything stages before the return). Incremental
+    # takes never pipeline: their dedup decisions rewrite entry
+    # locations at stage time and must be final before the manifest.
+    pipelined = (
+        is_async_snapshot
+        and incremental_from is None
+        and get_async_stage_window_bytes() is not None
+    )
+    stage_eagerly = None
+    if pipelined and multi:
+        # The manifests are gathered by value as soon as the blocked
+        # window closes: stagers that annotate their entries at stage
+        # time (slabs, objects) must stage inside it; deferring
+        # tensor stagers send theirs through _LateChecksums.
+        stage_eagerly = lambda wr: not getattr(  # noqa: E731
+            wr.buffer_stager, "defer_checksums", False
         )
-        pending = sync_execute_write_reqs(
-            write_reqs,
-            storage,
-            get_process_memory_budget_bytes(),
-            event_loop,
-            prioritize_staging=is_async_snapshot and not pipelined,
-            pipelined_staging=pipelined,
-        )
-        if pipelined and not pending.staging_complete():
-            # The freeze: CUDA state outside the first window is copied
-            # on the card before the return, or, without room for the
-            # copies, staged now.
-            if not freeze_device_sources(pending.scheduler.unstaged_stagers()):
-                run_on_loop(event_loop, pending.scheduler.stage_all())
-    except BaseException:
-        storage.sync_close(event_loop)
-        raise
+    pending = sync_execute_write_reqs(
+        write_reqs,
+        storage,
+        get_process_memory_budget_bytes(comm, local_world_size=local_world_size),
+        event_loop,
+        prioritize_staging=is_async_snapshot and not pipelined,
+        pipelined_staging=pipelined,
+        stage_eagerly=stage_eagerly,
+    )
+    abort_ctx.pending = pending
+    if pipelined and not pending.staging_complete():
+        # The freeze: CUDA state outside the first window is copied
+        # on the card before the return, or, without room for the
+        # copies, staged now.
+        if not freeze_device_sources(pending.scheduler.unstaged_stagers()):
+            run_on_loop(event_loop, pending.scheduler.stage_all())
     global_manifest = _gather_manifest(entries, comm)
     metadata = SnapshotMetadata(
         version=__version__,
@@ -569,16 +856,176 @@ def _take_impl(
         # so readers never parse roots out of location strings.
         base_roots=_referenced_base_roots(global_manifest, base_root_candidates) or None,
     )
-    return pending, metadata, storage, live_until_drained
+    return pending, metadata, path, storage, late_checksums, live_until_drained
+
+
+def _commit(
+    pending: PendingIOWork,
+    metadata: SnapshotMetadata,
+    storage: StoragePlugin,
+    comm: Communicator,
+    late_checksums: Optional["_LateChecksums"],
+    abort_ctx: _TakeAbortContext,
+    event_loop: asyncio.AbstractEventLoop,
+) -> bool:
+    """A sync take's drain and two-phase commit: writes drained and late
+    checksums published on every rank, barrier, every rank patches its
+    manifest copy, rank 0 writes the metadata, barrier, rank 0 deletes
+    the take's KV keys. Returns whether this rank's manifest copy is the
+    committed one (a non-leader whose patch failed reads the file)."""
+    pending.sync_complete(event_loop)
+    if late_checksums is not None:
+        late_checksums.publish()
+    comm.barrier()
+    meta_cached = True
+    if late_checksums is not None:
+        try:
+            late_checksums.apply(metadata.manifest)
+        except Exception:
+            if comm.rank == 0:
+                raise
+            logger.warning(
+                "Non-leader late-checksum patch failed; the snapshot handle "
+                "reads the committed metadata instead",
+                exc_info=True,
+            )
+            meta_cached = False
+    if comm.rank == 0:
+        abort_ctx.mark_commit_started()
+        _write_metadata(storage, metadata, event_loop)
+    # The second barrier is also the cleanup gate: every rank passing it
+    # has read the take's KV records.
+    comm.barrier()
+    if comm.rank == 0:
+        if late_checksums is not None:
+            late_checksums.cleanup()
+        if abort_ctx.monitor is not None:
+            abort_ctx.monitor.clear()
+    return meta_cached
 
 
 def _gather_manifest(entries: Manifest, comm: Communicator) -> Manifest:
-    """Key every rank's entries by ``rank/logical_path`` (one rank here)."""
-    return {
-        f"{rank}/{logical_path}": entry
-        for rank, per_rank in enumerate(comm.all_gather_object(entries))
-        for logical_path, entry in per_rank.items()
-    }
+    """Gather every rank's entries, key them by ``rank/logical_path`` and
+    consolidate replicated entries onto rank 0's tree, preferring the
+    writer's version. One process keeps its own entry objects."""
+    per_rank = [entries] if comm.world_size == 1 else comm.all_gather_object(entries)
+    return consolidate_replicated_entries(per_rank)
+
+
+class _LateChecksums:
+    """Carries the checksums hashed on the write path into every rank's
+    copy of the manifest before the metadata commit. The manifests of
+    several processes are gathered by value at staging-complete, before
+    the write path has hashed anything; without this, a multi-rank
+    snapshot would commit ``checksum=None`` and ``verify`` would skip it.
+
+    Pure KV traffic riding the commit's own synchronization (no extra
+    collective; usable from the async commit's thread):
+
+    - once a rank's writes have drained, ``publish`` sets one record of
+      ``{location: fields}`` under a take-scoped key (possibly empty:
+      every rank publishes);
+    - after the commit barrier's arrive phase (every rank arrived, so
+      every rank published), every rank ``apply``s: one ``check`` and one
+      ``multi_get`` of the ``world_size`` keys, patching that rank's copy
+      by blob location;
+    - ``cleanup`` (rank 0, after the second barrier: every rank has read
+      the records) deletes them."""
+
+    def __init__(self, comm: Communicator, take_id: str, stagers) -> None:
+        self.comm = comm
+        self.take_id = take_id
+        self.stagers = stagers
+
+    def _prefix(self) -> str:
+        return f"tpusnap_late_cs/{self.take_id}/"
+
+    def _key(self, rank: int) -> str:
+        return f"{self._prefix()}{rank}"
+
+    def _keys(self) -> List[str]:
+        return [self._key(r) for r in range(self.comm.world_size)]
+
+    def publish(self) -> None:
+        import pickle
+
+        fields = {}
+        for st in self.stagers:
+            e = st.entry
+            if e is None or e.checksum is None:
+                continue
+            fields[e.location] = (
+                e.checksum,
+                e.tile_rows,
+                e.tile_checksums,
+                e.dedup_hash,
+                e.tile_dedup_hashes,
+                # A compressed stager annotates its layout at stage time
+                # but pipelines like any deferring stager.
+                e.codec,
+                e.uncompressed_nbytes,
+                e.comp_tile_sizes,
+            )
+        _get_kv_store(self.comm).set(self._key(self.comm.rank), pickle.dumps(fields))
+
+    def discard(self) -> None:
+        """Abort path: remove this rank's record (the commit that would
+        have deleted it will not run)."""
+        _get_kv_store(self.comm).delete_prefix(
+            self._key(self.comm.rank), keys=[self._key(self.comm.rank)]
+        )
+
+    def apply(self, manifest: Manifest) -> None:
+        """Patch this rank's manifest copy from the published records.
+        The caller holds proof that every rank published."""
+        import pickle
+
+        by_loc: Dict[str, TensorEntry] = {}
+        for entry in manifest.values():
+            if isinstance(entry, TensorEntry):
+                by_loc[entry.location] = entry
+            elif isinstance(entry, ChunkedTensorEntry):
+                for c in entry.chunks:
+                    by_loc[c.tensor.location] = c.tensor
+        store = _get_kv_store(self.comm)
+        blobs = store.try_get_dir(self._prefix(), keys=self._keys())
+        if blobs is None or len(blobs) < self.comm.world_size:
+            blobs = {k: store.get(k, timeout_sec=120.0) for k in self._keys()}
+        for raw in blobs.values():
+            for loc, fields in pickle.loads(raw).items():
+                cs, tr, tcs, dh, tdh, codec, unb, cts = fields
+                te = by_loc.get(loc)
+                if te is None:
+                    continue
+                if te.checksum is None:
+                    te.checksum = cs
+                    te.tile_rows = tr
+                    te.tile_checksums = tcs
+                if te.dedup_hash is None:
+                    te.dedup_hash = dh
+                if te.tile_dedup_hashes is None:
+                    te.tile_dedup_hashes = tdh
+                if te.codec is None and codec is not None:
+                    te.codec = codec
+                    te.uncompressed_nbytes = unb
+                    te.comp_tile_sizes = cts
+
+    def cleanup(self) -> None:
+        _get_kv_store(self.comm).delete_prefix(self._prefix(), keys=self._keys())
+
+
+def _get_kv_store(comm: Communicator) -> KVStore:
+    """A ``MemoryKVStore`` for one process; above that, the KV store over
+    the communicator's store (or, for a communicator that wraps another,
+    the default process group's)."""
+    if comm.world_size == 1:
+        return MemoryKVStore()
+    store = getattr(comm, "store", None)
+    if store is None:
+        from .comm import _default_group_store
+
+        store = _default_group_store()
+    return TCPStoreKVStore(store)
 
 
 def _write_metadata(
@@ -792,7 +1239,8 @@ def _load_stateful(
 class _BackgroundWork:
     """Daemon thread with exception capture and join-and-reraise, behind
     ``PendingSnapshot`` and ``PendingRestore``. Subclasses implement
-    ``_body`` and may implement ``_cleanup``; both run on the thread."""
+    ``_body`` and may implement ``_on_error`` and ``_cleanup``; all run
+    on the thread."""
 
     _thread_name = "tpusnap-torch-bg"
 
@@ -809,6 +1257,10 @@ class _BackgroundWork:
             self._body()
         except BaseException as e:  # noqa: B902 - re-raised from wait()
             self._exc = e
+            try:
+                self._on_error(e)
+            except Exception:
+                logger.warning("error handling of %s failed", self._thread_name, exc_info=True)
         finally:
             try:
                 self._cleanup()
@@ -818,6 +1270,9 @@ class _BackgroundWork:
 
     def _body(self) -> None:
         raise NotImplementedError
+
+    def _on_error(self, exc: BaseException) -> None:
+        pass
 
     def _cleanup(self) -> None:
         pass
@@ -833,11 +1288,14 @@ class _BackgroundWork:
 
 class PendingSnapshot(_BackgroundWork):
     """Handle on an in-flight ``async_take``. A background thread drains
-    the residual staging windows and the writes, then writes
-    ``.snapshot_metadata`` (one process: no commit barrier). A failure
-    anywhere leaves no metadata, and ``wait()`` re-raises it.
-    ``staged()``/``wait_staged()`` report when the caller may change its
-    state in place; ``wait()`` returns the committed ``Snapshot``."""
+    the residual staging windows and the writes, then commits through two
+    ``LinearBarrier``s of the KV store: no collective runs off the calling
+    thread (their prefix was broadcast on it). If any rank fails, its
+    abort record (or the poisoned barrier) makes every rank's commit
+    raise: ``.snapshot_metadata`` is never written, and ``wait()``
+    re-raises on every rank. ``staged()``/``wait_staged()`` report when
+    the caller may change its state in place; ``wait()`` returns the
+    committed ``Snapshot``."""
 
     _thread_name = "tpusnap-torch-commit"
 
@@ -851,6 +1309,8 @@ class PendingSnapshot(_BackgroundWork):
         event_loop: asyncio.AbstractEventLoop,
         storage_options: Optional[Dict[str, Any]],
         live_until_drained: bool,
+        late_checksums: Optional[_LateChecksums],
+        abort_ctx: _TakeAbortContext,
     ) -> None:
         self.path = path
         self._pending_io_work = pending_io_work
@@ -859,6 +1319,8 @@ class PendingSnapshot(_BackgroundWork):
         self._comm = comm
         self._event_loop = event_loop
         self._storage_options = storage_options
+        self._late_checksums = late_checksums
+        self._abort_ctx = abort_ctx
         self._snapshot: Optional[Snapshot] = None
         # Under COW the live bytes of CPU tensors are read until their
         # writes and verifies drain; otherwise the state is safe to change
@@ -868,14 +1330,87 @@ class PendingSnapshot(_BackgroundWork):
         self._frozen_at_return = pending_io_work.staging_complete() or all(
             s.frozen for s in pending_io_work.scheduler.unstaged_stagers()
         )
+        # The barriers' identity is agreed here, on the calling thread;
+        # the drain thread then touches only the KV store.
+        barrier_prefix = comm.broadcast_object(f"tpusnap_commit/{uuid.uuid4().hex}", src=0)
+        # Everything pending deletion now is proved consumed once every
+        # rank departs the commit barrier; collectives the calling thread
+        # issues later (a newer take) stay pending.
+        self._gc_epoch = comm.gc_epoch()
+        store = _get_kv_store(comm)
+        watchers = abort_ctx.barrier_watchers()
+        self._barrier = LinearBarrier(
+            store, barrier_prefix, comm.rank, comm.world_size,
+            timeout_sec=get_commit_barrier_timeout_s(), watchers=watchers,
+        )
+        # After the commit barrier every rank patches its manifest copy
+        # from the take's KV records; this barrier proves all have read
+        # them before rank 0 deletes them.
+        self._post_barrier = (
+            LinearBarrier(
+                store, barrier_prefix + "-post", comm.rank, comm.world_size,
+                timeout_sec=get_commit_barrier_timeout_s(), watchers=watchers,
+            )
+            if comm.world_size > 1
+            else None
+        )
+        # The calling thread is done with collectives for this take: free
+        # the communicator's wait watcher for a newer take. The commit
+        # keeps abort awareness through the barriers' watchers.
+        abort_ctx.disarm()
         self._start()
 
     def _body(self) -> None:
         self._pending_io_work.sync_complete(self._event_loop)
-        _write_metadata(self._storage, self._metadata, self._event_loop)
+        if self._late_checksums is not None:
+            self._late_checksums.publish()
+        self._barrier.arrive()
+        if self._comm.rank == 0:
+            # Every rank arrived, so every rank published.
+            if self._late_checksums is not None:
+                self._late_checksums.apply(self._metadata.manifest)
+            self._abort_ctx.mark_commit_started()
+            _write_metadata(self._storage, self._metadata, self._event_loop)
+        self._barrier.depart()
+        meta_cached = True
+        if self._comm.rank != 0 and self._late_checksums is not None:
+            try:
+                self._late_checksums.apply(self._metadata.manifest)
+            except Exception:
+                logger.warning(
+                    "Non-leader late-checksum patch failed; the snapshot handle "
+                    "reads the committed metadata instead",
+                    exc_info=True,
+                )
+                meta_cached = False
+        if self._post_barrier is not None:
+            self._post_barrier.arrive()
+            if self._comm.rank == 0 and self._late_checksums is not None:
+                self._late_checksums.cleanup()
+            self._post_barrier.depart()
+        if self._comm.rank == 0 and self._abort_ctx.monitor is not None:
+            self._abort_ctx.monitor.clear()
+        # Every rank departed, so every rank consumed the take's gathers
+        # and the prefix broadcast: release their keys now (no further
+        # barrier runs on this communicator for this take). Store deletes
+        # only; bounded by the epoch taken at construction.
+        try:
+            self._comm.gc_consumed_keys(self._gc_epoch)
+        except Exception:
+            logger.debug("store gc after the async commit failed", exc_info=True)
         snapshot = Snapshot(self.path, self._storage_options, self._comm)
-        snapshot._metadata = self._metadata
+        if meta_cached:
+            snapshot._metadata = self._metadata
         self._snapshot = snapshot
+
+    def _on_error(self, exc: BaseException) -> None:
+        # Publish this rank's abort record (peers' barrier watchers then
+        # raise TakeAbortedError) and delete its staged blobs; the
+        # metadata is never written. Without a monitor (one process),
+        # poison the barrier.
+        self._abort_ctx.on_failure(exc)
+        if self._abort_ctx.monitor is None:
+            self._barrier.report_error(exc)
 
     def _cleanup(self) -> None:
         try:
@@ -930,9 +1465,17 @@ class PendingRestore(_BackgroundWork):
 
     _thread_name = "tpusnap-torch-restore"
 
-    def __init__(self, snapshot: Snapshot, app_state: AppState) -> None:
+    def __init__(
+        self,
+        snapshot: Snapshot,
+        app_state: AppState,
+        comm: Communicator,
+        memory_budget: int,
+    ) -> None:
         self._snapshot = snapshot
         self._app_state = app_state
+        self._comm = comm
+        self._memory_budget = memory_budget
         self._device: Optional[int] = None
         self._caller_ready: Optional["torch.cuda.Event"] = None
         self._copied: Optional["torch.cuda.Event"] = None
@@ -941,16 +1484,23 @@ class PendingRestore(_BackgroundWork):
             self._caller_ready = event_on(torch.cuda.current_stream())
         self._start()
 
+    def _restore(self) -> None:
+        with self._snapshot._op_lock:
+            self._snapshot._restore_locked(
+                self._app_state, self._comm, per_key_barrier=False,
+                memory_budget=self._memory_budget,
+            )
+
     def _body(self) -> None:
         if self._device is None:
-            self._snapshot.restore(self._app_state)
+            self._restore()
             return
         # The current device and stream are per thread.
         torch.cuda.set_device(self._device)
         stream = torch.cuda.Stream()
         stream.wait_event(self._caller_ready)
         with torch.cuda.stream(stream):
-            self._snapshot.restore(self._app_state)
+            self._restore()
             self._copied = event_on(stream)
 
     def wait(self) -> None:
