@@ -81,11 +81,27 @@ Phases, in order:
              (120 s here) and no .snapshot_metadata appears. The parent
              then restores the world-2 snapshot into a world-1 model
              (2 -> 1), bit for bit.
+14. sharded — the same two ranks, each training the flagship, expose
+             the train state as Shard(0) DTensors over
+             DeviceMesh("cuda", [0, 1]) whose local tensors are views of
+             the rank's own parameters and Adam moments (the 0-d step
+             stays dense). A sync take (each rank stages and writes its
+             own boxes; 2 gathers, 2 barriers, 0 broadcasts; every shard
+             checksummed; verify() clean), an unchanged increment (0
+             bytes), a take under a 16 MiB shard cap (the embedding's and
+             unembedding's boxes split), an async take with a train step
+             at once; restores into views of a fresh model, in place and
+             bit-exact per box: 2 -> 2 into Shard(0), the capped snapshot
+             into Shard(1) for 2-D and 3-D leaves, the async snapshot
+             (the state before the step), and the parent's world-1
+             snapshot (1 -> 2). The parent restores the world-2 snapshot
+             into a dense model (2 -> 1) and one step from it equals one
+             from a witness holding rank 0's state.
 
 Launch counts (in all and by route) are set to 0 just before each path
-that runs the model — train + snapshot, async_train, incremental, and
-each rank of distributed — and read just after it: the kernels phase's
-comparison launches do not count.
+that runs the model — train + snapshot, async_train, incremental, each
+rank of distributed and of sharded, and sharded's parent — and read just
+after it: the kernels phase's comparison launches do not count.
 Every main-path launch must take the wgmma route. The incremental and
 transforms phases run with compression off, so their byte counts are the
 tensors' own.
@@ -93,6 +109,7 @@ tensors' own.
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import shutil
@@ -1155,6 +1172,101 @@ def _restore_and_check(path: str, want: dict, fresh, witness, tokens, comm=None)
     return restore_s, loss_a.item()
 
 
+class _IOCounter:
+    """Counts the bytes this process stages to the host (``staged[0]``)
+    and writes (``written``: replicated and slab blobs, sharded blobs,
+    per-rank blobs), by wrapping the write scheduler's stage step and the
+    filesystem plugin's write; with ``fail_writes`` set, every write
+    raises."""
+
+    def __init__(self, rank: int) -> None:
+        import tpusnap_torch.storage_plugins.fs as fs
+        from tpusnap_torch import scheduler
+
+        self.staged = [0]
+        self.written = {"replicated": 0, "sharded": 0, "rank": 0}
+        self.blobs = 0
+        self.fail_writes = False
+        orig_stage, orig_write = scheduler._WritePipeline.stage, fs.FSStoragePlugin.write
+        counter = self
+
+        async def stage(pipeline, executor):
+            result = await orig_stage(pipeline, executor)
+            counter.staged[0] += pipeline.buf_size
+            return result
+
+        async def write(plugin, write_io):
+            if counter.fail_writes:
+                raise OSError(f"rank {rank}: injected write failure")
+            n = memoryview(write_io.buf).nbytes
+            if write_io.path.startswith(("replicated/", "batched/")):
+                counter.written["replicated"] += n
+            elif write_io.path.startswith("sharded/"):
+                counter.written["sharded"] += n
+            else:
+                counter.written["rank"] += n
+            counter.blobs += 1
+            await orig_write(plugin, write_io)
+
+        scheduler._WritePipeline.stage, fs.FSStoragePlugin.write = stage, write
+
+    def reset(self) -> None:
+        self.staged[0] = 0
+        self.written.update(replicated=0, sharded=0, rank=0)
+        self.blobs = 0
+
+
+def _rank_comm(phase: str):
+    """A rank's start in a two-rank phase: the card, the port's store
+    communicator over the gloo group, launch counts set to 0."""
+    import torch
+
+    from tpusnap_torch.comm import StoreComm, get_communicator
+
+    if not torch.cuda.is_available():
+        raise AssertionError(f"a rank of the {phase} phase sees no CUDA device")
+    torch.cuda.set_device(0)
+    comm = get_communicator()
+    if not isinstance(comm, StoreComm) or comm.world_size != 2:
+        raise AssertionError(f"get_communicator() gave {comm!r} in a group of 2")
+    _reset_launches()
+    return comm
+
+
+def _trained_replicas(comm, cfg, ddir: str):
+    """Each rank trains the flagship from one seed (2 Adam steps) and
+    proves the replicas bitwise equal by hashes; if they are not, rank 0's
+    state goes to the others through a file (smoke setup, not a library
+    feature) and the hashes are checked again. Returns (model, tokens,
+    hashes, whether the replicas were equal without the copy)."""
+    import torch
+
+    from tpusnap_torch.models import Transformer
+
+    model = Transformer(cfg, device="cuda", seed=SEED)
+    tokens = _tokens(cfg, 8, SEED)
+    for _ in range(2):
+        model.train_step(tokens, learning_rate=1e-3)
+    torch.cuda.synchronize()
+    hashes = _state_hashes(model)
+    gathered = comm.all_gather_object(hashes)
+    equal = all(h == gathered[0] for h in gathered)
+    if not equal:
+        state_file = os.path.join(ddir, "rank0_state.pt")
+        if comm.rank == 0:
+            torch.save({p: t.cpu() for p, t in _leaves(model.train_state())}, state_file)
+        comm.barrier()
+        if comm.rank != 0:
+            saved = torch.load(state_file)
+            with torch.no_grad():
+                for p, t in _leaves(model.train_state()):
+                    t.copy_(saved[p])
+        hashes = _state_hashes(model)
+        if any(h != hashes for h in comm.all_gather_object(hashes)):
+            raise AssertionError("replicas differ after copying rank 0's state")
+    return model, tokens, hashes, equal
+
+
 _RANK_LINE = "distributed_rank "
 
 
@@ -1165,75 +1277,28 @@ def _distributed_rank(ddir: str) -> None:
     snapshot, abort. Prints one line ``distributed_rank {json}``."""
     import torch
 
-    import tpusnap_torch.storage_plugins.fs as fs
     from tpusnap_torch import Snapshot, StateDict
-    from tpusnap_torch import scheduler
-    from tpusnap_torch.comm import StoreComm, get_communicator
     from tpusnap_torch.dist_store import TakeAbortedError
     from tpusnap_torch.knobs import get_barrier_timeout_s
     from tpusnap_torch.manifest import is_container_entry
     from tpusnap_torch.models import Transformer, TransformerConfig
     from tpusnap_torch.ops import flash_attention as fa
 
-    if not torch.cuda.is_available():
-        raise AssertionError("a rank of the distributed phase sees no CUDA device")
-    torch.cuda.set_device(0)
-    comm = get_communicator()
-    if not isinstance(comm, StoreComm) or comm.world_size != 2:
-        raise AssertionError(f"get_communicator() gave {comm!r} in a group of 2")
+    comm = _rank_comm("distributed")
     rank = comm.rank
-    _reset_launches()
     out = {"rank": rank, "torch": torch.__version__}
 
     # Bytes each rank stages to the host and writes, by take.
-    staged, written = [0], {"replicated": 0, "rank": 0}
-    orig_stage, orig_write = scheduler._WritePipeline.stage, fs.FSStoragePlugin.write
-    fail_writes = [False]
-
-    async def stage(self, executor):
-        result = await orig_stage(self, executor)
-        staged[0] += self.buf_size
-        return result
-
-    async def write(self, write_io):
-        if fail_writes[0]:
-            raise OSError(f"rank {rank}: injected write failure")
-        n = memoryview(write_io.buf).nbytes
-        written["replicated" if write_io.path.startswith(("replicated/", "batched/")) else "rank"] += n
-        await orig_write(self, write_io)
-
-    scheduler._WritePipeline.stage, fs.FSStoragePlugin.write = stage, write
-
-    def reset_bytes():
-        staged[0] = 0
-        written.update(replicated=0, rank=0)
+    io = _IOCounter(rank)
+    staged, written = io.staged, io.written
+    reset_bytes = io.reset
 
     # Setup: every rank trains the flagship from one seed, then proves
     # the replicas equal by hashes before it declares them replicated.
     cfg = TransformerConfig()
-    model = Transformer(cfg, device="cuda", seed=SEED)
-    tokens = _tokens(cfg, 8, SEED)
-    for _ in range(2):
-        model.train_step(tokens, learning_rate=1e-3)
-    torch.cuda.synchronize()
-    hashes = _state_hashes(model)
-    gathered = comm.all_gather_object(hashes)
-    out["replicas_bitwise_equal_after_training"] = all(h == gathered[0] for h in gathered)
-    if not out["replicas_bitwise_equal_after_training"]:
-        # Smoke setup, not a library feature: rank 0's state goes to the
-        # others through a file, and the hashes are checked again.
-        state_file = os.path.join(ddir, "rank0_state.pt")
-        if rank == 0:
-            torch.save({p: t.cpu() for p, t in _leaves(model.train_state())}, state_file)
-        comm.barrier()
-        if rank != 0:
-            saved = torch.load(state_file)
-            with torch.no_grad():
-                for p, t in _leaves(model.train_state()):
-                    t.copy_(saved[p])
-        hashes = _state_hashes(model)
-        if any(h != hashes for h in comm.all_gather_object(hashes)):
-            raise AssertionError("replicas differ after copying rank 0's state")
+    model, tokens, hashes, out["replicas_bitwise_equal_after_training"] = _trained_replicas(
+        comm, cfg, ddir
+    )
     n_tensors = len(hashes)
     state_bytes = sum(t.numel() * t.element_size() for _, t in _leaves(model.train_state()))
     largest = max(t.numel() * t.element_size() for _, t in _leaves(model.train_state()))
@@ -1316,7 +1381,7 @@ def _distributed_rank(ddir: str) -> None:
     # (An async take of this size dispatches no write before it returns:
     # the first write fails on the drain thread.)
     path_x = os.path.join(ddir, "w2_abort")
-    fail_writes[0] = rank == 1
+    io.fail_writes = rank == 1
     pending = Snapshot.async_take(path_x, {"train": StateDict(**model.train_state())},
                                   replicated=["**"])
     t0 = time.perf_counter()
@@ -1327,7 +1392,7 @@ def _distributed_rank(ddir: str) -> None:
     else:
         raise AssertionError(f"rank {rank}: the aborted take committed")
     finally:
-        fail_writes[0] = False
+        io.fail_writes = False
     out["abort_wait_s"] = time.perf_counter() - t0
     if out["abort_wait_s"] >= get_barrier_timeout_s():
         raise AssertionError(f"rank {rank}: the abort took {out['abort_wait_s']} s")
@@ -1431,6 +1496,257 @@ def phase_distributed(ctx: dict, workdir: str) -> dict:
     }
 
 
+def _sharded_views(model, mesh, dim: int = 0):
+    """The train state with every leaf as a ``Shard(d)`` DTensor whose
+    local tensor is a view of this rank's box of the model's own tensor
+    (``d`` = ``dim`` for leaves of more than ``dim`` dims, else 0); 0-d
+    leaves stay dense. No collective runs."""
+    from torch.distributed.tensor import Shard
+
+    from tpusnap_torch import StateDict
+    from tpusnap_torch.test_utils import as_dtensor
+
+    def wrap(t):
+        if t.dim() == 0:
+            return t
+        return as_dtensor(t.detach(), mesh, [Shard(dim if t.dim() > dim else 0)])
+
+    def nest(tree):
+        return {k: nest(v) for k, v in tree.items()} if isinstance(tree, dict) else wrap(tree)
+
+    return StateDict(**nest(model.train_state()))
+
+
+def _check_local_boxes(label: str, state, want: dict) -> None:
+    """Every leaf of ``state`` holds ``want``'s values, bit for bit: a
+    DTensor in its local box, a dense tensor whole."""
+    import torch
+
+    from tpusnap_torch import is_sharded
+    from tpusnap_torch.io_preparers.sharded import local_box
+
+    for p, t in _leaves(dict(state)):
+        full = want[p]
+        if is_sharded(t):
+            offsets, sizes = local_box(list(t.shape), list(t.device_mesh.shape),
+                                       t.device_mesh.get_coordinate(), list(t.placements))
+            full = full[tuple(slice(o, o + n) for o, n in zip(offsets, sizes))]
+            t = t.to_local()
+        if not t.is_cuda or not torch.equal(t, full):
+            raise AssertionError(f"{label}: {p} differs from the state it holds")
+
+
+def _restore_sharded(path: str, state, want: dict, label: str) -> float:
+    """Restore ``path`` into ``state`` (DTensor views of a model); the
+    objects and their local storage must stay, and every local box must
+    equal ``want``'s. Returns the restore's seconds."""
+    import torch
+
+    from tpusnap_torch import Snapshot, is_sharded
+
+    before = {p: (id(t), t.to_local().data_ptr() if is_sharded(t) else t.data_ptr())
+              for p, t in _leaves(dict(state))}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    Snapshot(path).restore({"train": state})
+    seconds = time.perf_counter() - t0
+    for p, t in _leaves(dict(state)):
+        ptr = t.to_local().data_ptr() if is_sharded(t) else t.data_ptr()
+        if (id(t), ptr) != before[p]:
+            raise AssertionError(f"{label}: the restore did not land in place at {p}")
+    _check_local_boxes(label, state, want)
+    return seconds
+
+
+_SHARDED_LINE = "sharded_rank "
+
+
+def _sharded_rank(sdir: str) -> None:
+    """One rank of the sharded phase (two ranks on the one card): train,
+    expose the train state as Shard(0) DTensors over views of the model's
+    own tensors, take (sync, an unchanged increment, a subdivided take, an
+    async take with a step at once) and restore (2 -> 2 into Shard(0) and,
+    from the subdivided take, into Shard(1); the async snapshot; the
+    parent's world-1 snapshot, 1 -> 2). Prints ``sharded_rank {json}``."""
+    import torch
+
+    from tpusnap_torch import Snapshot, is_sharded
+    from tpusnap_torch.knobs import override_max_shard_size_bytes
+    from tpusnap_torch.manifest import ShardedEntry
+    from tpusnap_torch.models import Transformer, TransformerConfig
+    from tpusnap_torch.ops import flash_attention as fa
+    from tpusnap_torch.serialization import tensor_nbytes
+    from tpusnap_torch.test_utils import world_mesh
+
+    comm = _rank_comm("sharded")
+    rank = comm.rank
+    mesh = world_mesh("cuda")
+    out = {"rank": rank, "torch": torch.__version__}
+    io = _IOCounter(rank)
+    cfg = TransformerConfig()
+    model, tokens, hashes, out["replicas_bitwise_equal_after_training"] = _trained_replicas(
+        comm, cfg, sdir
+    )
+    state = _sharded_views(model, mesh)
+    leaves = dict(_leaves(dict(state)))
+    out["dtensors"] = sum(1 for t in leaves.values() if is_sharded(t))
+    out["local_bytes"] = sum(
+        (t.to_local() if is_sharded(t) else t).numel() * t.element_size() for t in leaves.values()
+    )
+
+    def own_shards(snap):
+        return [s for k, e in snap.metadata.manifest.items()
+                if k.startswith(f"{rank}/") and isinstance(e, ShardedEntry) for s in e.shards]
+
+    def take(name, **kw):
+        io.reset()
+        counting = _CountingComm(comm)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        snap = Snapshot.take(os.path.join(sdir, name), {"train": state}, replicated=["**"],
+                             comm=counting, **kw)
+        seconds = time.perf_counter() - t0
+        if counting.counts != {"all_gather": 2, "barrier": 2, "broadcast": 0}:
+            raise AssertionError(f"rank {rank}: the {name} take issued {counting.counts}")
+        return snap, {"s": seconds, "bytes_staged": io.staged[0], "bytes_written": dict(io.written),
+                      "blobs_written": io.blobs, "collectives": counting.counts}
+
+    # 1. Sync take: this rank stages and writes its own boxes. It records
+    # the tile dedup hashes the increment below needs to skip the boxes
+    # of more than one 16 MiB checksum tile.
+    want = _clone_state(model)
+    snap, out["take"] = take("s2", _record_dedup_hashes=True)
+    shards = own_shards(snap)
+    out["take"]["shards"] = len(shards)
+    if len(shards) != out["dtensors"] or out["take"]["bytes_written"]["sharded"] != sum(
+        tensor_nbytes(s.tensor.dtype, s.sizes) for s in shards
+    ):
+        raise AssertionError(f"rank {rank}: wrote {out['take']} for {len(shards)} shards")
+    missing = [s.tensor.location for e in snap.metadata.manifest.values()
+               if isinstance(e, ShardedEntry) for s in e.shards if not s.tensor.checksum]
+    if missing:
+        raise AssertionError(f"shards without a checksum: {missing}")
+    if not snap.verify().clean:
+        raise AssertionError(f"rank {rank}: verify() of the sharded snapshot is not clean")
+
+    # 2. An unchanged increment writes nothing.
+    _, out["increment"] = take("s2_inc", incremental_from=os.path.join(sdir, "s2"))
+    if out["increment"]["blobs_written"] or sum(out["increment"]["bytes_written"].values()):
+        raise AssertionError(f"rank {rank}: the unchanged increment wrote {out['increment']}")
+
+    # 3. A 16 MiB cap splits each rank's 32 MiB boxes of the embedding and
+    # the unembedding (and their Adam moments).
+    with override_max_shard_size_bytes(16 << 20):
+        snap, out["split"] = take("s2_split")
+    split = own_shards(snap)
+    out["split"]["shards"] = len(split)
+    per_path = collections.Counter(s.tensor.location.rsplit(".", 1)[0] for s in split)
+    out["split"]["split_paths"] = sorted(p for p, n in per_path.items() if n > 1)
+    if out["split"]["shards"] <= out["dtensors"] or out["split"]["blobs_written"] <= out["dtensors"]:
+        raise AssertionError(f"rank {rank}: the capped take did not split: {out['split']}")
+
+    # 4. Async take, a train step at once: it updates the viewed shards
+    # in place while the take drains.
+    io.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pending = Snapshot.async_take(os.path.join(sdir, "s2_async"), {"train": state},
+                                  replicated=["**"])
+    blocked = time.perf_counter() - t0
+    model.train_step(tokens, learning_rate=1e-3)
+    t1 = time.perf_counter()
+    pending.wait()
+    out["async"] = {"blocked_s": blocked, "wait_s": time.perf_counter() - t1,
+                    "total_s": time.perf_counter() - t0, "bytes_staged": io.staged[0]}
+    if model.embed.detach().equal(want["params/embed"]):
+        raise AssertionError("the step during the async take changed nothing")
+
+    if rank == 0:  # the parent's witness for the 2 -> 1 restore, saved
+        # after the takes so that its writeback does not share their disk
+        torch.save({p: t.cpu() for p, t in want.items()}, os.path.join(sdir, "w2_state.pt"))
+
+    # 5. Restores into DTensor views of a fresh model.
+    fresh = Transformer(cfg, device="cuda", seed=SEED + 1)
+    out["restore_s"] = _restore_sharded(os.path.join(sdir, "s2"), _sharded_views(fresh, mesh),
+                                        want, "2 -> 2")
+    out["reshard_restore_s"] = _restore_sharded(
+        os.path.join(sdir, "s2_split"), _sharded_views(fresh, mesh, dim=1), want, "2 -> 2 Shard(1)"
+    )
+    # The async snapshot holds the state from before the step.
+    out["async_restore_s"] = _restore_sharded(
+        os.path.join(sdir, "s2_async"), _sharded_views(fresh, mesh), want, "async"
+    )
+    # 1 -> 2: the parent's world-1 snapshot of its own model.
+    w1_want = {p: t.to("cuda") for p, t in torch.load(os.path.join(sdir, "w1_state.pt")).items()}
+    out["w1_restore_s"] = _restore_sharded(
+        os.path.join(sdir, "w1"), _sharded_views(fresh, mesh), w1_want, "1 -> 2"
+    )
+    torch.cuda.synchronize()
+    out.update(
+        flash_launches=fa.launches, flash_routes=dict(fa.route_launches),
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+    )
+    print(_SHARDED_LINE + json.dumps(out), flush=True)
+
+
+def phase_sharded(ctx: dict, workdir: str) -> dict:
+    """Two ranks on the one card hold the train state as Shard(0)
+    DTensors (``_sharded_rank``). The parent takes the world-1 snapshot
+    the ranks restore (1 -> 2), then restores the ranks' world-2 snapshot
+    into a dense model (2 -> 1), bit for bit with Parameter identity, and
+    steps it beside a witness holding rank 0's state at the take."""
+    import torch
+
+    from tpusnap_torch import Snapshot, StateDict
+    from tpusnap_torch.models import Transformer
+    from tpusnap_torch.test_utils import run_subprocess_world
+
+    t_phase = time.perf_counter()
+    cfg, model = ctx["cfg"], ctx["model"]
+    sdir = os.path.join(workdir, "sharded")
+    os.makedirs(sdir)
+    Snapshot.take(os.path.join(sdir, "w1"), {"train": StateDict(**model.train_state())},
+                  replicated=["**"])
+    torch.save({p: t.cpu() for p, t in _leaves(model.train_state())},
+               os.path.join(sdir, "w1_state.pt"))
+
+    t0 = time.perf_counter()
+    # Compression off, so each take's byte counts are the tensors' own.
+    outputs = run_subprocess_world(
+        _sharded_rank, world_size=2, args=[sdir], timeout=600,
+        extra_env={"TPUSNAP_BARRIER_TIMEOUT_S": "120", "TPUSNAP_COMPRESS": "off"},
+    )
+    world_s = time.perf_counter() - t0
+    ranks = []
+    for r, text in enumerate(outputs):
+        lines = [ln for ln in text.splitlines() if ln.startswith(_SHARDED_LINE)]
+        if len(lines) != 1:
+            raise AssertionError(f"rank {r} printed no result:\n{text[-4000:]}")
+        ranks.append(json.loads(lines[0][len(_SHARDED_LINE):]))
+    state_bytes = sum(t.numel() * t.element_size() for _, t in _leaves(model.train_state()))
+    if sum(r["local_bytes"] for r in ranks) != state_bytes + 4:  # the 0-d step on both
+        raise AssertionError(f"local bytes {[r['local_bytes'] for r in ranks]} of {state_bytes}")
+
+    # 2 -> 1: a dense model from the world-2 snapshot, held to rank 0's
+    # state at the take and stepped beside a witness holding that state.
+    want = {p: t.to("cuda") for p, t in torch.load(os.path.join(sdir, "w2_state.pt")).items()}
+    fresh = Transformer(cfg, device="cuda", seed=SEED + 7)
+    witness = Transformer(cfg, device="cuda", seed=SEED + 8)
+    w2_to_w1_s, loss = _restore_and_check(
+        os.path.join(sdir, "s2"), want, fresh, witness, _tokens(cfg, 8, SEED + 1)
+    )
+    del fresh, witness, want
+    shutil.rmtree(sdir)
+    return {
+        "phase": "sharded", "world_size": 2, "placements": "Shard(0) over DeviceMesh('cuda', [0, 1])",
+        "state_bytes": state_bytes, "tensors": len(list(_leaves(model.train_state()))),
+        "ranks": ranks, "world2_to_world1_restore_s": w2_to_w1_s,
+        "post_restore_loss": loss, "world_s": world_s,
+        "seconds": time.perf_counter() - t_phase, "bit_exact": True, "in_place": True,
+        "torch": torch.__version__, "card": ctx["card"],
+    }
+
+
 def _reset_launches() -> None:
     from tpusnap_torch.ops import flash_attention as fa
 
@@ -1486,6 +1802,12 @@ def main() -> int:
         emit(dist_line)
         for r in dist_line["ranks"]:
             paths[f"distributed rank {r['rank']}"] = (r["flash_launches"], r["flash_routes"])
+        _reset_launches()
+        sharded_line = phase_sharded(ctx, workdir)
+        paths["sharded parent"] = (fa.launches, dict(fa.route_launches))
+        emit(sharded_line)
+        for r in sharded_line["ranks"]:
+            paths[f"sharded rank {r['rank']}"] = (r["flash_launches"], r["flash_routes"])
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     for path, (launches, routes) in paths.items():

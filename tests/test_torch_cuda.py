@@ -1,6 +1,7 @@
 """tpusnap_torch on the card: the Hopper flash kernels against their plain
 version, snapshot round trips of CUDA tensors (chunked ones too), async
-takes followed at once by in-place updates, and async restores.
+takes followed at once by in-place updates, async restores, and two ranks
+sharing the card (replicated state, and DTensor state restored in place).
 
 Every test here carries the ``cuda`` marker and skips without a card (the
 kernels have no CPU mode). The file imports neither JAX nor ``tpusnap``,
@@ -464,3 +465,88 @@ def test_two_rank_async_take_under_in_place_updates(gen, tmp_path):
     run_subprocess_world(
         _world_two_rank_async_take_in_place, world_size=2, args=[str(tmp_path / "snap")]
     )
+
+
+# --- DTensor state on the card: two ranks, a DeviceMesh("cuda", [0, 1]) ---
+
+
+def _world_dtensor_restore_in_place(snap_dir):
+    """A Shard(0) snapshot restores into Shard(1) views of zeros on
+    cuda:0: the DTensor objects and their local storage stay."""
+    from torch.distributed.tensor import Shard
+
+    from tpusnap_torch.test_utils import as_dtensor, world_mesh
+
+    torch.cuda.set_device(0)
+    mesh = world_mesh("cuda")
+    rank = torch.distributed.get_rank()
+    full = torch.randn((512, 384), generator=torch.Generator(device="cuda").manual_seed(1),
+                       device="cuda")
+    Snapshot.take(snap_dir, {"m": StateDict(w=as_dtensor(full, mesh, [Shard(0)]))})
+    target = as_dtensor(torch.zeros_like(full), mesh, [Shard(1)])
+    local = target.to_local()
+    state = StateDict(w=target)
+    Snapshot(snap_dir).restore({"m": state})
+    assert state["w"] is target
+    assert target.to_local().is_cuda and target.to_local().data_ptr() == local.data_ptr()
+    assert torch.equal(target.to_local(), full[:, rank * 192:(rank + 1) * 192])
+
+
+def _world_cast_sharded_restore(snap_dir):
+    """A bf16 (cast on save) sharded snapshot restores into f32 DTensor
+    targets on the card, upcast there, in place."""
+    from torch.distributed.tensor import Shard
+
+    from tpusnap_torch import cast_on_save
+    from tpusnap_torch.test_utils import as_dtensor, world_mesh
+
+    torch.cuda.set_device(0)
+    mesh = world_mesh("cuda")
+    rank = torch.distributed.get_rank()
+    w = torch.linspace(-2, 2, 256 * 96, device="cuda").reshape(256, 96)
+    snap = Snapshot.take(snap_dir, {"m": StateDict(w=as_dtensor(w, mesh, [Shard(0)]))},
+                         _custom_array_prepare_func=cast_on_save({"**": torch.bfloat16}))
+    assert all(e.dtype == "bfloat16" for k, e in snap.metadata.manifest.items() if k.endswith("/w"))
+    target = as_dtensor(torch.zeros_like(w), mesh, [Shard(0)])
+    ptr = target.to_local().data_ptr()
+    Snapshot(snap_dir).restore({"m": StateDict(w=target)})
+    got = target.to_local()
+    assert got.is_cuda and got.dtype == torch.float32 and got.data_ptr() == ptr
+    assert torch.equal(got, w.to(torch.bfloat16).float()[rank * 128:(rank + 1) * 128])
+
+
+def _world_sharded_async_take_in_place(snap_dir):
+    """The freeze covers DTensor local shards: updated in place at once
+    after the async take returns, the snapshot holds the values before."""
+    from torch.distributed.tensor import Shard
+
+    from tpusnap_torch.test_utils import as_dtensor, world_mesh
+
+    torch.cuda.set_device(0)
+    mesh = world_mesh("cuda")
+    full = torch.randn((2048, 1024), generator=torch.Generator(device="cuda").manual_seed(2),
+                       device="cuda")
+    witness = full.clone()
+    src = as_dtensor(full, mesh, [Shard(0)])
+    with override_async_stage_window_bytes(2 << 20):  # residual windows frozen on the card
+        pending = Snapshot.async_take(snap_dir, {"m": StateDict(w=src)})
+        assert pending.staged()
+        src.to_local().add_(1)
+        pending.wait()
+    target = as_dtensor(torch.zeros_like(full), mesh, [Shard(0)])
+    Snapshot(snap_dir).restore({"m": StateDict(w=target)})
+    rank = torch.distributed.get_rank()
+    assert torch.equal(target.to_local(), witness[rank * 1024:(rank + 1) * 1024])
+    assert not torch.equal(full, witness)
+
+
+@pytest.mark.parametrize(
+    "world",
+    [_world_dtensor_restore_in_place, _world_cast_sharded_restore,
+     _world_sharded_async_take_in_place],
+    ids=["restore_in_place", "cast_upcasts_on_card", "async_take_frozen"],
+)
+def test_two_rank_dtensor_state_on_card(gen, tmp_path, world):
+    from tpusnap_torch.test_utils import run_subprocess_world
+
+    run_subprocess_world(world, world_size=2, args=[str(tmp_path / "snap")])

@@ -247,13 +247,18 @@ def test_slab_layout_matches_tpusnap_byte_for_byte(tmp_path):
 
 @pytest.mark.parametrize(
     "call",
-    ["tier_incremental_from", "stream", "s3_url"],
+    ["tier_incremental_from", "stream", "s3_url", "rank_failure_degrade"],
 )
 def test_unported_features_raise(tmp_path, monkeypatch, call):
     path = str(tmp_path / "snap")
     state = {"s": StateDict(x=torch.ones(2))}
     match = None
-    if call == "tier_incremental_from":
+    if call == "rank_failure_degrade":
+        # A policy the port does not have is refused, never ignored.
+        monkeypatch.setenv("TPUSNAP_RANK_FAILURE", "degrade")
+        fn = lambda: Snapshot.take(path, state)  # noqa: E731
+        match = "degraded commit.*A8"
+    elif call == "tier_incremental_from":
         base = "tier+local=" + str(tmp_path / "base") + "+remote=s3://bucket/base"
         fn = lambda: Snapshot.take(path, state, incremental_from=base)  # noqa: E731
         match = "A8"

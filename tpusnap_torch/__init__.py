@@ -8,7 +8,9 @@ taken by either package restores through the other.
 It carries the ``Snapshot.take`` → ``restore`` path to a local
 filesystem, from one process or from every rank of a ``torch.distributed``
 job (replicated values written once, the writes spread across ranks,
-``TakeAbortedError`` when a peer's take fails), with chunked tensors, ``async_take`` (``PendingSnapshot``)
+``TakeAbortedError`` when a peer's take fails), ``DTensor`` state with
+``Shard``/``Replicate`` placements resharded on restore (``is_sharded``,
+``get_available_entries``), chunked tensors, ``async_take`` (``PendingSnapshot``)
 and ``async_restore`` (``PendingRestore``), ``read_object``,
 ``load_snapshot`` and ``RNGState``; incremental takes
 (``incremental_from``), fused tile compression (``TPUSNAP_COMPRESS``),
@@ -32,6 +34,8 @@ from .snapshot import (  # noqa: F401
 )
 from .dist_store import TakeAbortedError  # noqa: F401
 from .inspect import ScrubReport, verify_snapshot  # noqa: F401
+from .io_preparers.sharded import is_sharded  # noqa: F401
+from .manifest_ops import get_available_entries  # noqa: F401
 from .retention import apply_retention  # noqa: F401
 from .transforms import cast_on_save  # noqa: F401
 
@@ -48,6 +52,8 @@ __all__ = [
     "TakeAbortedError",
     "apply_retention",
     "cast_on_save",
+    "get_available_entries",
+    "is_sharded",
     "load_snapshot",
     "verify_snapshot",
 ]

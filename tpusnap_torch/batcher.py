@@ -63,6 +63,7 @@ from .knobs import (
     get_slab_size_threshold_bytes,
     is_batching_disabled,
     is_checksum_disabled,
+    is_device_batching_disabled,
 )
 from .manifest import ChunkedTensorEntry, Entry, TensorEntry
 from .serialization import tensor_nbytes
@@ -242,9 +243,11 @@ class DeviceBatchedBufferStager(BufferStager):
 
 def _device_group_key(stager: BufferStager) -> Optional[str]:
     """CUDA tensor members share a key per device (device packing);
-    ``None`` → host packing."""
+    ``None`` → host packing, also for every member when
+    ``TPUSNAP_DISABLE_DEVICE_BATCHING=1``."""
     if (
-        isinstance(stager, ArrayBufferStager)
+        not is_device_batching_disabled()
+        and isinstance(stager, ArrayBufferStager)
         and stager.arr.is_cuda
         # The device pack copies the untransformed bytes; a transform must
         # run in the member's own staging.

@@ -4,15 +4,21 @@ Counterpart of tpusnap/io_preparer.py, routing on ``torch.Tensor`` where
 tpusnap routes on ``jax.Array``:
 
 - int/float/bool/str/bytes          → inlined PrimitiveEntry (no I/O)
-- DTensor / sharded tensor          → NotImplementedError (ROADMAP.md A5)
+- DTensor                           → ShardedArrayIOPreparer ("sharded/...")
+- the legacy ShardedTensor          → NotImplementedError (no counterpart
+                                      in tpusnap; use DTensor)
 - dense tensor whose base entry has  → ChunkedArrayIOPreparer on the
   a tile map (incremental takes)      base's checksum-tile grid
 - dense tensor above max_chunk_size → ChunkedArrayIOPreparer
 - dense tensor, supported dtype     → ArrayIOPreparer
 - anything else                     → ObjectIOPreparer (pickle)
 
-Storage paths: replicated entries under ``replicated/``, everything else
-under ``<rank>/``.
+Read: a ``Sharded`` entry goes to the sharded preparer, and so does a
+dense entry restored into a DTensor target (its blobs seen as saved
+boxes, read where they overlap the target's local box).
+
+Storage paths: sharded entries under ``sharded/``, replicated entries
+under ``replicated/``, everything else under ``<rank>/``.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from .io_preparers.array import (
 )
 from .io_preparers.chunked import ChunkedArrayIOPreparer, should_chunk, tile_prev_map
 from .io_preparers.object import ObjectIOPreparer
+from .io_preparers.sharded import ShardedArrayIOPreparer, as_sharded_entry, is_sharded
 from .io_types import Future, ReadReq, WriteReq
 from .manifest import (
     ChunkedTensorEntry,
@@ -39,19 +46,20 @@ from .manifest import (
 )
 
 
-def get_storage_path(logical_path: str, rank: int, replicated: bool) -> str:
+def get_storage_path(
+    logical_path: str, rank: int, replicated: bool, sharded: bool = False
+) -> str:
+    if sharded:
+        return f"sharded/{logical_path}"
     if replicated:
         return f"replicated/{logical_path}"
     return f"{rank}/{logical_path}"
 
 
-def _is_distributed_tensor(obj: Any) -> bool:
-    """DTensor (and the older ShardedTensor) subclass torch.Tensor; their
-    local data is a shard, so they must never take the dense route."""
-    return isinstance(obj, torch.Tensor) and type(obj).__name__ in (
-        "DTensor",
-        "ShardedTensor",
-    )
+def is_legacy_sharded_tensor(obj: Any) -> bool:
+    """The older ``ShardedTensor`` subclasses torch.Tensor; its local
+    data is a shard, so it must never take the dense route."""
+    return isinstance(obj, torch.Tensor) and type(obj).__name__ == "ShardedTensor"
 
 
 def prepare_write(
@@ -75,14 +83,26 @@ def prepare_write(
     base's checksum-tile grid so each tile dedups on its own.
     ``record_dedup_hashes`` records the 64-bit per-tile hashes that make
     the next increment tile-grain; ``allow_tile_dedup=False`` keeps the
-    write blob-grain."""
+    write blob-grain. A DTensor is never replicated: each distinct box is
+    written once, by the rank that owns it, and the transform applies to
+    each local shard."""
     if PrimitiveEntry.supported(obj):
         return PrimitiveEntry.from_object(obj, replicated=replicated), []
 
-    if _is_distributed_tensor(obj):
+    if is_sharded(obj):
+        return ShardedArrayIOPreparer.prepare_write(
+            get_storage_path(logical_path, rank, False, sharded=True),
+            obj,
+            is_async_snapshot=is_async_snapshot,
+            array_prepare_func=array_prepare_func,
+            array_prepare_traced=array_prepare_traced,
+            prev_entry=prev_entry,
+            record_dedup_hashes=record_dedup_hashes,
+        )
+    if is_legacy_sharded_tensor(obj):
         raise NotImplementedError(
-            f"{logical_path!r} is a {type(obj).__name__}; sharded state is "
-            "not ported yet (ROADMAP.md item A5)"
+            f"{logical_path!r} is a ShardedTensor, which has no counterpart in "
+            "tpusnap; convert it to a DTensor"
         )
 
     storage_path = get_storage_path(logical_path, rank, replicated)
@@ -121,9 +141,12 @@ def prepare_read(
     if isinstance(entry, PrimitiveEntry):
         return [], Future(obj=entry.get_value())
     if isinstance(entry, ShardedEntry):
-        raise NotImplementedError(
-            f"{logical_path!r} is a {entry.type} entry; sharded reads are "
-            "not ported yet (ROADMAP.md item A5)"
+        return ShardedArrayIOPreparer.prepare_read(
+            entry, obj_out, buffer_size_limit_bytes, logical_path=logical_path
+        )
+    if is_sharded(obj_out) and isinstance(entry, (TensorEntry, ChunkedTensorEntry)):
+        return ShardedArrayIOPreparer.prepare_read(
+            as_sharded_entry(entry), obj_out, buffer_size_limit_bytes, logical_path=logical_path
         )
     if isinstance(entry, ChunkedTensorEntry):
         return ChunkedArrayIOPreparer.prepare_read(

@@ -192,6 +192,7 @@ class ArrayBufferStager(BufferStager):
         array_prepare_func: Optional[Callable[[torch.Tensor, bool], torch.Tensor]] = None,
         dedup_entry: Optional[TensorEntry] = None,
         record_dedup_hashes: bool = False,
+        compressible: bool = True,
     ) -> None:
         self.arr = arr
         self.is_async_snapshot = is_async_snapshot
@@ -210,7 +211,9 @@ class ArrayBufferStager(BufferStager):
         # at tile grain.
         self.record_dedup_hashes = record_dedup_hashes
         # Set by the take's compress policy after batching: the staged
-        # buffer is then the compressed blob.
+        # buffer is then the compressed blob. Shards opt out at
+        # construction: a reshard reads sub-boxes of them.
+        self.compressible = compressible
         self.compress_codec: Optional[str] = None
         # Set by the take after batching: hash on the write path
         # (``late_checksum``) instead of inside the staging window.
@@ -477,6 +480,8 @@ class ArrayBufferStager(BufferStager):
             return 2 * n
         if self.is_async_snapshot and _may_alias_live_memory(self.arr) and not self.uses_cow():
             return 2 * n  # the defensive clone: a second host copy in flight
+        if self.arr.is_cuda and not self.arr.is_contiguous():
+            return 2 * n  # compacted on the card before the copy out
         return n
 
     def get_planned_bytes(self) -> int:

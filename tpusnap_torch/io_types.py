@@ -158,8 +158,18 @@ class StoragePlugin(abc.ABC):
     @abc.abstractmethod
     async def delete(self, path: str) -> None: ...
 
+    async def flush_created_dirs(self) -> None:
+        """Make the dirents of everything this plugin instance created
+        durable (filesystems: fsync each created directory). Every rank
+        calls it when ``TPUSNAP_DURABLE_COMMIT`` is on, after its writes
+        drain and before the commit barrier."""
+        return None
+
     async def close(self) -> None:
         return None
+
+    def sync_flush_created_dirs(self, event_loop: asyncio.AbstractEventLoop) -> None:
+        run_on_loop(event_loop, self.flush_created_dirs())
 
     def sync_write_atomic(
         self,

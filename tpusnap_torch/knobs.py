@@ -3,9 +3,9 @@ take/restore paths consult.
 
 Counterpart of tpusnap/knobs.py. The names stay ``TPUSNAP_*`` so one
 environment configures either package; the defaults are tpusnap's
-(512 MB max chunk, 128 MB slab threshold, 16 MiB checksum tiles, 2 GiB
-async staging window, COW async staging on, 4 GiB staging pool,
-``TPUSNAP_COMPRESS=auto``).
+(512 MB max chunk and shard, 128 MB slab threshold, 16 MiB checksum
+tiles, 2 GiB async staging window, COW async staging on, 4 GiB staging
+pool, ``TPUSNAP_COMPRESS=auto``).
 """
 
 import contextlib
@@ -38,8 +38,13 @@ _SCRUB_CONCURRENCY_ENV_VAR = "TPUSNAP_SCRUB_CONCURRENCY"
 _BARRIER_TIMEOUT_ENV_VAR = "TPUSNAP_BARRIER_TIMEOUT_S"
 _NODE_NAME_ENV_VAR = "TPUSNAP_NODE_NAME"
 _DISABLE_PARTITIONER_ENV_VAR = "TPUSNAP_DISABLE_PARTITIONER"
+_MAX_SHARD_SIZE_ENV_VAR = "TPUSNAP_MAX_SHARD_SIZE_BYTES"
+_DISABLE_DEVICE_BATCHING_ENV_VAR = "TPUSNAP_DISABLE_DEVICE_BATCHING"
+_DURABLE_COMMIT_ENV_VAR = "TPUSNAP_DURABLE_COMMIT"
+_RANK_FAILURE_ENV_VAR = "TPUSNAP_RANK_FAILURE"
 
 _DEFAULT_MAX_CHUNK_SIZE_BYTES = 512 * 1024 * 1024
+_DEFAULT_MAX_SHARD_SIZE_BYTES = 512 * 1024 * 1024
 _DEFAULT_SLAB_SIZE_THRESHOLD_BYTES = 128 * 1024 * 1024
 _DEFAULT_DIRECT_IO_QD = 2
 _DEFAULT_DIRECT_IO_CHUNK_BYTES = 32 * 1024 * 1024
@@ -78,6 +83,12 @@ def get_max_chunk_size_bytes() -> int:
     return _get_int_env(_MAX_CHUNK_SIZE_ENV_VAR, _DEFAULT_MAX_CHUNK_SIZE_BYTES)
 
 
+def get_max_shard_size_bytes() -> int:
+    """Sharded (DTensor) blobs above this size are split along their
+    largest dim, at the stored dtype's width."""
+    return _get_int_env(_MAX_SHARD_SIZE_ENV_VAR, _DEFAULT_MAX_SHARD_SIZE_BYTES)
+
+
 def get_slab_size_threshold_bytes() -> int:
     return _get_int_env(
         _SLAB_SIZE_THRESHOLD_ENV_VAR, _DEFAULT_SLAB_SIZE_THRESHOLD_BYTES
@@ -86,6 +97,12 @@ def get_slab_size_threshold_bytes() -> int:
 
 def is_batching_disabled() -> bool:
     return _flag(_DISABLE_BATCHING_ENV_VAR)
+
+
+def is_device_batching_disabled() -> bool:
+    """CUDA slab members are packed on the host, each with its own
+    device-to-host copy, instead of in one pack on the card."""
+    return _flag(_DISABLE_DEVICE_BATCHING_ENV_VAR)
 
 
 def is_native_disabled() -> bool:
@@ -232,6 +249,40 @@ def is_partitioner_disabled() -> bool:
     return _flag(_DISABLE_PARTITIONER_ENV_VAR)
 
 
+def is_durable_commit_enabled() -> bool:
+    """Make a returned take survive power loss: every blob file is
+    fsync'd after its write, every rank fsyncs the directories its
+    storage plugin created before the commit barrier, and the metadata
+    commit fsyncs its temp file, renames, then fsyncs its directory. Off
+    by default: the fsyncs after a multi-GB take force the device to
+    flush everything just written. Without it the commit is still
+    crash-safe (temp + rename: never torn, at worst invisible)."""
+    return _flag(_DURABLE_COMMIT_ENV_VAR)
+
+
+_KNOWN_RANK_FAILURE_POLICIES = ("abort", "degrade")
+_warned_rank_failure_policies: set = set()
+
+
+def get_rank_failure_policy() -> str:
+    """What a multi-process take does when a peer dies mid-take:
+    ``abort`` (the default) or ``degrade`` (the survivors complete a
+    take whose dead rank held only replicated writes). Unknown values
+    warn once per process and fall back to ``abort``."""
+    raw = os.environ.get(_RANK_FAILURE_ENV_VAR, "abort").strip().lower()
+    if raw not in _KNOWN_RANK_FAILURE_POLICIES:
+        if raw not in _warned_rank_failure_policies:
+            _warned_rank_failure_policies.add(raw)
+            logger.warning(
+                "Ignoring unknown %s=%r (known: %s); using abort",
+                _RANK_FAILURE_ENV_VAR,
+                raw,
+                ", ".join(_KNOWN_RANK_FAILURE_POLICIES),
+            )
+        return "abort"
+    return raw
+
+
 def get_cas_dir() -> Optional[str]:
     return os.environ.get(_CAS_DIR_ENV_VAR) or None
 
@@ -254,6 +305,14 @@ def _override_env(name: str, value: Optional[str]) -> Generator[None, None, None
 
 def override_batching_disabled(disabled: bool):
     return _override_env(_DISABLE_BATCHING_ENV_VAR, "1" if disabled else "0")
+
+
+def override_max_shard_size_bytes(nbytes: int):
+    return _override_env(_MAX_SHARD_SIZE_ENV_VAR, str(nbytes))
+
+
+def override_device_batching_disabled(disabled: bool):
+    return _override_env(_DISABLE_DEVICE_BATCHING_ENV_VAR, "1" if disabled else "0")
 
 
 def override_max_chunk_size_bytes(nbytes: int):

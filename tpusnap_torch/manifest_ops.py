@@ -1,8 +1,9 @@
 """Build a rank's view of a snapshot from the global manifest.
 
-Counterpart of ``tpusnap/manifest_ops.py::get_manifest_for_rank``, copied
-unchanged. Global manifest keys are ``"<rank>/<logical_path>"``. A rank's
-view:
+Counterpart of ``tpusnap/manifest_ops.py`` (``get_manifest_for_rank``,
+``get_available_entries`` and ``handle_sharded_elasticity``), copied
+unchanged. Global manifest keys are ``"<rank>/<logical_path>"``. A
+rank's view:
 
 - its own subtree (keys under ``rank/``), with the prefix stripped;
 - replicated entries — stored on rank 0 only after dedup — re-exposed to
@@ -16,7 +17,7 @@ view:
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, Tuple
 
 from .manifest import (
     Entry,
@@ -89,3 +90,23 @@ def _ensure_ancestors(local: Manifest, source: Manifest, logical_path: str) -> N
         ancestor = "/".join(parts[:i])
         if ancestor not in local and ancestor in source:
             local[ancestor] = source[ancestor]
+
+
+def get_available_entries(metadata: SnapshotMetadata, rank: int) -> Manifest:
+    """The per-rank restorable view (the reference's
+    ``Snapshot.get_manifest`` surface)."""
+    return get_manifest_for_rank(metadata, rank)
+
+
+def handle_sharded_elasticity(
+    local_manifest: Manifest, target_flattened: Dict[str, object]
+) -> None:
+    """Reconcile sharded entries with the restoring rank's targets. The
+    merged entries' overlap reads already reshard into any target
+    placement, including ranks that did not take the snapshot; what is
+    left is to drop the sharded entries the rank has no target for, so
+    that no read is issued for them."""
+    for logical_path in list(local_manifest):
+        entry = local_manifest[logical_path]
+        if isinstance(entry, ShardedEntry) and logical_path not in target_flattened:
+            del local_manifest[logical_path]

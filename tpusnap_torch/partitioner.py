@@ -6,8 +6,9 @@ write it; the partitioner makes sure each replicated unit is written by
 exactly one rank, chosen greedily so that the write load balances:
 
 - units: one per replicated entry; chunked tensors split per chunk;
-- per-rank starting load: the rank's non-replicated write bytes,
-  estimated before prepare, without a collective, so they ride take's one
+- per-rank starting load: the rank's non-replicated write bytes (the
+  boxes of DTensors it owns among them, at the stored width), estimated
+  before prepare, without a collective, so they ride take's one
   pre-staging gather;
 - every rank runs the same deterministic largest-first argmin greedy on
   the identical gathered inputs: no broadcast;
@@ -59,9 +60,10 @@ def estimate_write_loads(
     transform later given to prepare_write."""
     import functools
 
-    from .io_preparer import _is_distributed_tensor
+    from .io_preparer import is_legacy_sharded_tensor
     from .io_preparers.array import is_supported_array_dtype, trace_array_prepare
     from .io_preparers.chunked import chunk_row_ranges, should_chunk
+    from .io_preparers.sharded import _is_empty, _local_piece, is_sharded
     from .serialization import tensor_nbytes
 
     candidates = set(replicated_candidates)
@@ -77,8 +79,23 @@ def estimate_write_loads(
             if path in candidates:
                 units.append((path, 0))
             continue
-        if _is_distributed_tensor(leaf):
-            continue  # sharded state: prepare_write refuses it (ROADMAP.md A5)
+        if is_legacy_sharded_tensor(leaf):
+            continue  # prepare_write refuses it
+        if is_sharded(leaf):
+            # Never replicated-partitioned: the box this rank owns is its
+            # own load, at the stored width (the trace, of the global
+            # geometry, is handed on so the preparer does not trace again).
+            dtype, _ = trace_array_prepare(
+                leaf.to_local(),
+                functools.partial(array_prepare_func, path)
+                if array_prepare_func is not None
+                else None,
+            )
+            traced_map[path] = (dtype, list(leaf.shape))
+            piece = _local_piece(leaf)
+            if piece is not None and piece[2] and not _is_empty(piece[1]):
+                base_load += tensor_nbytes(dtype, piece[1])
+            continue
         is_tensor = isinstance(leaf, torch.Tensor) and is_supported_array_dtype(leaf)
         dtype = None
         if is_tensor:

@@ -67,13 +67,20 @@ explicit ``comm.StoreComm``) take one snapshot together, as in tpusnap:
   snapshot restores at another world size for replicated and per-rank
   state (``manifest_ops.get_manifest_for_rank``).
 
+``DTensor`` state (``Shard``/``Replicate`` placements over a
+``DeviceMesh``) takes the sharded preparer: each distinct box is written
+once, by the rank that owns it, and a restore reads the saved boxes that
+overlap each rank's target box, so it reshards into any placement and
+any world size (``io_preparers/sharded.py``); ``read_object`` of a
+sharded path returns the dense tensor. No DTensor collective runs.
+
 Left out of this port so far, each raising ``NotImplementedError`` when
-asked for rather than being ignored (ROADMAP.md lists them): sharded/
-DTensor state (A5), tiering, CAS, cloud storage, the delta stream, the
-degraded commit and rank-liveness leases (A8). tpusnap's journal,
-progress, flight, SLO, telemetry and tuner hooks are observability the
-port adds later (A9); a snapshot without them reads the same in either
-package.
+asked for rather than being ignored (ROADMAP.md lists them): tiering,
+CAS, cloud storage, the delta stream, the degraded commit
+(``TPUSNAP_RANK_FAILURE=degrade``) and rank-liveness leases (A8).
+tpusnap's journal, progress, flight, SLO, telemetry and tuner hooks are
+observability the port adds later (A9); a snapshot without them reads
+the same in either package.
 """
 
 from __future__ import annotations
@@ -113,14 +120,17 @@ from .knobs import (
     get_async_stage_window_bytes,
     get_commit_barrier_timeout_s,
     get_node_name,
+    get_rank_failure_policy,
     is_checksum_disabled,
     is_dedup_hash_recording_forced,
+    is_durable_commit_enabled,
 )
 from .manifest import (
     ChunkedTensorEntry,
     Entry,
     Manifest,
     MetadataError,
+    ShardedEntry,
     SnapshotMetadata,
     TensorEntry,
     decode_metadata,
@@ -128,7 +138,7 @@ from .manifest import (
     is_container_entry,
     is_replicated,
 )
-from .manifest_ops import get_manifest_for_rank
+from .manifest_ops import get_manifest_for_rank, handle_sharded_elasticity
 from .partitioner import (
     assign_replicated_units,
     consolidate_replicated_entries,
@@ -643,6 +653,8 @@ def _take_impl(
     staging (path, globs, write-load estimate, host name, take id) and G2
     after it (the manifests); ``per_key_barrier`` adds a key gather and a
     barrier per key."""
+    if get_rank_failure_policy() == "degrade":
+        raise _not_ported("the degraded commit (TPUSNAP_RANK_FAILURE=degrade)", "A8")
     _validate_app_state(app_state)
     rank = comm.rank
     multi = comm.world_size > 1
@@ -874,6 +886,11 @@ def _commit(
     the take's KV keys. Returns whether this rank's manifest copy is the
     committed one (a non-leader whose patch failed reads the file)."""
     pending.sync_complete(event_loop)
+    if is_durable_commit_enabled():
+        # Every rank makes its own dirents durable before the commit
+        # barrier: rank 0's metadata fsync covers only the directories
+        # its own plugin instance created.
+        storage.sync_flush_created_dirs(event_loop)
     if late_checksums is not None:
         late_checksums.publish()
     comm.barrier()
@@ -984,9 +1001,10 @@ class _LateChecksums:
         for entry in manifest.values():
             if isinstance(entry, TensorEntry):
                 by_loc[entry.location] = entry
-            elif isinstance(entry, ChunkedTensorEntry):
-                for c in entry.chunks:
-                    by_loc[c.tensor.location] = c.tensor
+            elif isinstance(entry, (ChunkedTensorEntry, ShardedEntry)):
+                parts = entry.chunks if isinstance(entry, ChunkedTensorEntry) else entry.shards
+                for part in parts:
+                    by_loc[part.tensor.location] = part.tensor
         store = _get_kv_store(self.comm)
         blobs = store.try_get_dir(self._prefix(), keys=self._keys())
         if blobs is None or len(blobs) < self.comm.world_size:
@@ -1034,10 +1052,12 @@ def _write_metadata(
     event_loop: asyncio.AbstractEventLoop,
 ) -> None:
     # Atomic (temp + rename): a crash mid-write must not leave a torn
-    # metadata file. Self-checksummed, as tpusnap writes it.
+    # metadata file. Self-checksummed, as tpusnap writes it. Durable
+    # (fsynced with its directories) under TPUSNAP_DURABLE_COMMIT.
     storage.sync_write_atomic(
         WriteIO(path=SNAPSHOT_METADATA_FNAME, buf=encode_metadata(metadata)),
         event_loop,
+        durable=is_durable_commit_enabled(),
     )
 
 
@@ -1225,8 +1245,9 @@ def _load_stateful(
         logger.warning("No entries for key %r in snapshot; skipping", key)
         return
     # The current state_dict provides the restore targets (device
-    # placement, in-place destinations).
+    # placement, DTensor placements, in-place destinations).
     _, target_flattened = flatten(stateful.state_dict(), prefix=key)
+    handle_sharded_elasticity(local_manifest, target_flattened)
     restored = _read_and_inflate(
         key, local_manifest, target_flattened, storage, memory_budget, event_loop
     )
@@ -1362,6 +1383,9 @@ class PendingSnapshot(_BackgroundWork):
 
     def _body(self) -> None:
         self._pending_io_work.sync_complete(self._event_loop)
+        if is_durable_commit_enabled():
+            # As in the sync take: this rank's dirents before the barrier.
+            self._storage.sync_flush_created_dirs(self._event_loop)
         if self._late_checksums is not None:
             self._late_checksums.publish()
         self._barrier.arrive()

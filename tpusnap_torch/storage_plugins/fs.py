@@ -6,6 +6,11 @@ thread pool through the native helper (GIL released, O_DIRECT for large
 streams), and in-place reads that land straight in the consumer's
 buffer with the CRC32C fused into the copy-out. The aiofiles path of
 tpusnap is not carried over: every request runs on the thread pool.
+
+Under ``TPUSNAP_DURABLE_COMMIT=1`` every blob is fsync'd after its write
+and ``flush_created_dirs`` fsyncs the directories this instance created,
+as tpusnap does, so the commit that follows declares a snapshot whose
+data and dirents are on stable storage.
 """
 
 import asyncio
@@ -17,7 +22,7 @@ from typing import Optional, Set
 
 from .. import _native
 from ..io_types import ReadIO, StoragePlugin, WriteIO
-from ..knobs import get_direct_io_qd
+from ..knobs import get_direct_io_qd, is_durable_commit_enabled
 from ..memoryview_stream import MemoryviewStream
 
 _NATIVE_READ_THRESHOLD = 4 * 1024 * 1024
@@ -67,11 +72,18 @@ class FSStoragePlugin(StoragePlugin):
         path = pathlib.Path(os.path.join(self.root, write_io.path))
         self._ensure_parent(path)
         await self._run(_native.write_file, str(path), write_io.buf)
+        if is_durable_commit_enabled():
+            # fsync of the metadata file does not write back other files'
+            # dirty pages: each blob's data is made durable before the
+            # commit can declare the snapshot durable.
+            await self._run(_fsync_path, str(path))
 
     async def write_atomic(self, write_io: WriteIO, durable: bool = False) -> None:
         """Temp file + rename: a crash mid-write never leaves a torn file
         at the destination. ``durable`` fsyncs the temp file before the
-        rename and the parent directory after it."""
+        rename, then the parent directory and every directory this
+        instance created, so the dirents of the blobs written before the
+        commit become durable with it."""
         path = pathlib.Path(os.path.join(self.root, write_io.path))
         self._ensure_parent(path)
         tmp = path.with_name(path.name + f".tmp.{os.getpid()}")
@@ -83,7 +95,8 @@ class FSStoragePlugin(StoragePlugin):
                     _fsync_path(str(tmp))
                 os.replace(tmp, path)
                 if durable:
-                    _fsync_path(str(path.parent))
+                    for d in {str(p) for p in self._dir_cache} | {str(path.parent)}:
+                        _fsync_path(d)
             except BaseException:
                 try:
                     os.unlink(tmp)
@@ -157,6 +170,21 @@ class FSStoragePlugin(StoragePlugin):
             read_io.crc_algo = algo
         view = memoryview(arr)[:got] if got != n else memoryview(arr)
         return MemoryviewStream(view)
+
+    async def flush_created_dirs(self) -> None:
+        """fsync every directory this instance created (durable commit:
+        each rank runs this once its writes have drained, so the dirents
+        of every rank's blobs are stable before rank 0 commits)."""
+        dirs = {str(p) for p in self._dir_cache} | {self.root}
+
+        def work():
+            for d in dirs:
+                try:
+                    _fsync_path(d)
+                except FileNotFoundError:
+                    pass  # deleted since it was created
+
+        await self._run(work)
 
     async def delete(self, path: str) -> None:
         await self._run(os.remove, os.path.join(self.root, path))

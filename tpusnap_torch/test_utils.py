@@ -21,6 +21,10 @@ share only the TCPStore on ``MASTER_PORT`` (rank 0 hosts it), which
 ``store_from_env()`` connects to — enough for the port's store-based
 collectives at large world sizes.
 
+``world_mesh`` builds a ``DeviceMesh`` over such a world, and
+``as_dtensor`` exposes a tensor every rank holds whole as a DTensor whose
+local tensor is a view of this rank's box of it, with no collective.
+
 The entry point of each child is ``python -m tpusnap_torch.test_utils``.
 """
 
@@ -66,6 +70,41 @@ def store_from_env():
             timeout=datetime.timedelta(seconds=300),
         )
     return _world_store
+
+
+def world_mesh(device_type: str = "cpu", mesh_shape: Optional[List[int]] = None):
+    """A ``DeviceMesh`` of ``mesh_shape`` (default: one dim of every rank)
+    over the ranks of this process's default group, in rank order. Every
+    rank must call it: the mesh builds its sub-groups collectively. For
+    ``"cuda"``, set the current device first (several ranks may share
+    one card; the group stays gloo)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    world = dist.get_world_size()
+    shape = list(mesh_shape) if mesh_shape is not None else [world]
+    return DeviceMesh(device_type, torch.arange(world).reshape(shape))
+
+
+def as_dtensor(full, mesh, placements):
+    """``full`` (the whole tensor, held by every rank) as a DTensor over
+    ``mesh`` whose local tensor is a view of this rank's box of it. No
+    collective runs (``run_check=False``); a rank outside the mesh gets an
+    empty local tensor."""
+    from torch.distributed.tensor import DTensor
+
+    from .io_preparers.sharded import local_box
+
+    coordinate = mesh.get_coordinate()
+    if coordinate is None:
+        local = full.new_empty((0,) * full.dim())
+    else:
+        offsets, sizes = local_box(list(full.shape), list(mesh.shape), coordinate, placements)
+        local = full[tuple(slice(o, o + n) for o, n in zip(offsets, sizes))]
+    return DTensor.from_local(
+        local, mesh, placements, run_check=False, shape=full.shape, stride=full.stride()
+    )
 
 
 def run_subprocess_world(
