@@ -98,10 +98,35 @@ Phases, in order:
              into a dense model (2 -> 1) and one step from it equals one
              from a witness holding rank 0's state.
 
+15. moe    — the MoE flagship at full default width with 4 experts
+             (71,315,968 parameters; a train state of 855,791,620 bytes in
+             31 tensors): two steps, a take, an async take with a step at
+             once, restores of both into a fresh model (bit-exact,
+             Parameter identity, a post-restore step bitwise equal to a
+             witness's), verify().
+16. embedding — tpusnap's embedding benchmark configuration: 4 row-wise
+             [1,000,000, 64] f32 tables with row-wise Adagrad accumulators
+             (1,040,000,000 bytes in 8 tensors), t2 and t3 pinned on the
+             host (520,000,000 bytes). Adagrad steps (pinned rows gathered
+             and updated on the host), a sync take whose device-to-host
+             bytes are exactly the device tables' (none for the pinned
+             ones), an unchanged increment (0 bytes written), an async
+             take with a step at once (its snapshot equals the state at
+             the call), restores that keep every tensor's identity,
+             storage and pinning.
+17. layouts — two ranks on the one card: the MoE train state as DTensor
+             views at (data, fsdp, tensor) = (1, 2, 1), taken (each rank
+             writes exactly its boxes) and restored into (1, 1, 2) views of
+             a fresh model (a reshard, in place); the embedding tables
+             row-wise at (1, 2, 1), the pinned ones over a "cpu" mesh,
+             taken, then read dense with read_object and placed
+             column-wise. The parent restores both world-2 snapshots into
+             world 1 (2 -> 1), bit for bit, in place, pinning kept.
+
 Launch counts (in all and by route) are set to 0 just before each path
 that runs the model — train + snapshot, async_train, incremental, each
-rank of distributed and of sharded, and sharded's parent — and read just
-after it: the kernels phase's comparison launches do not count.
+rank of distributed, sharded and layouts, sharded's parent, and moe — and
+read just after it: the kernels phase's comparison launches do not count.
 Every main-path launch must take the wgmma route. The incremental and
 transforms phases run with compression off, so their byte counts are the
 tensors' own.
@@ -1124,8 +1149,8 @@ class _CountingComm:
         return self.inner.broadcast_object(obj, src)
 
 
-def _state_hashes(model) -> dict:
-    """sha256 of every train-state tensor's bytes, by path."""
+def _tensor_hashes(tensors: dict) -> dict:
+    """sha256 of each tensor's bytes, by name."""
     import hashlib
 
     import torch
@@ -1134,8 +1159,13 @@ def _state_hashes(model) -> dict:
         p: hashlib.sha256(
             t.detach().contiguous().reshape(-1).view(torch.uint8).cpu().numpy().tobytes()
         ).hexdigest()
-        for p, t in _leaves(model.train_state())
+        for p, t in tensors.items()
     }
+
+
+def _state_hashes(model) -> dict:
+    """sha256 of every train-state tensor's bytes, by path."""
+    return _tensor_hashes(dict(_leaves(model.train_state())))
 
 
 def _restore_and_check(path: str, want: dict, fresh, witness, tokens, comm=None) -> tuple:
@@ -1518,8 +1548,9 @@ def _sharded_views(model, mesh, dim: int = 0):
 
 
 def _check_local_boxes(label: str, state, want: dict) -> None:
-    """Every leaf of ``state`` holds ``want``'s values, bit for bit: a
-    DTensor in its local box, a dense tensor whole."""
+    """Every leaf of ``state`` holds ``want``'s values, bit for bit and on
+    the same device (the card, or pinned host memory): a DTensor in its
+    local box, a dense tensor whole."""
     import torch
 
     from tpusnap_torch import is_sharded
@@ -1532,7 +1563,7 @@ def _check_local_boxes(label: str, state, want: dict) -> None:
                                        t.device_mesh.get_coordinate(), list(t.placements))
             full = full[tuple(slice(o, o + n) for o, n in zip(offsets, sizes))]
             t = t.to_local()
-        if not t.is_cuda or not torch.equal(t, full):
+        if t.device != full.device or not torch.equal(t, full):
             raise AssertionError(f"{label}: {p} differs from the state it holds")
 
 
@@ -1747,6 +1778,462 @@ def phase_sharded(ctx: dict, workdir: str) -> dict:
     }
 
 
+# ---------------------------------------------------------------- slice 7
+
+MOE_STATE_BYTES, MOE_TENSORS = 855_791_620, 31
+EMB_ROWS, EMB_DIM, EMB_TABLES = 1_000_000, 64, 4
+EMB_STATE_BYTES, EMB_PINNED_BYTES = 1_040_000_000, 520_000_000
+EMB_BATCH, EMB_BAG = 4096, 20
+
+
+def _moe_config():
+    from tpusnap_torch.models import TransformerConfig
+
+    # The flagship at full default width with 4 experts
+    # (tpusnap/models/transformer.py:55-71, examples/transformer_example.py:56).
+    return TransformerConfig(n_experts=4)
+
+
+def _state_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for _, t in _leaves(dict(tree)))
+
+
+def phase_moe(ctx: dict, workdir: str) -> dict:
+    """The MoE flagship on the card: two steps, a take, an async take with
+    a step at once, restores in place of both into a fresh model (bit for
+    bit, Parameter identity kept, a post-restore step bitwise equal to a
+    witness's)."""
+    import torch
+
+    from tpusnap_torch import Snapshot, StateDict
+    from tpusnap_torch.models import Transformer
+    from tpusnap_torch.ops import flash_attention as fa
+
+    t_phase = time.perf_counter()
+    cfg = _moe_config()
+    model = Transformer(cfg, device="cuda", seed=SEED)
+    tokens = _tokens(cfg, 8, SEED)
+    losses, step_s = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(model.train_step(tokens, learning_rate=1e-3).item())
+        step_s.append(time.perf_counter() - t0)
+    if not all(x == x and abs(x) != float("inf") for x in losses):
+        raise AssertionError(f"non-finite MoE loss: {losses}")
+    state = StateDict(**model.train_state())
+    nbytes, n_tensors = _state_bytes(state), len(list(_leaves(dict(state))))
+    if (nbytes, n_tensors) != (MOE_STATE_BYTES, MOE_TENSORS):
+        raise AssertionError(f"MoE train state is {nbytes} bytes in {n_tensors} tensors")
+    root = os.path.join(workdir, "moe")
+    want_sync = _clone_state(model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    Snapshot.take(os.path.join(root, "sync"), {"train": state})
+    take_s = time.perf_counter() - t0
+
+    want_async = _clone_state(model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pending = Snapshot.async_take(os.path.join(root, "async"), {"train": state})
+    blocked_s = time.perf_counter() - t0
+    model.train_step(tokens, learning_rate=1e-3)  # in place, while the take drains
+    t1 = time.perf_counter()
+    pending.wait()
+    wait_s = time.perf_counter() - t1
+    if model.layers["w1e"].detach().equal(want_async["params/layers/w1e"]):
+        raise AssertionError("the step during the async take changed no expert weight")
+
+    fresh = Transformer(cfg, device="cuda", seed=SEED + 1)
+    witness = Transformer(cfg, device="cuda", seed=SEED + 2)
+    tokens2 = _tokens(cfg, 8, SEED + 1)
+    restore_s, loss = _restore_and_check(os.path.join(root, "sync"), want_sync, fresh, witness, tokens2)
+    async_restore_s, async_loss = _restore_and_check(
+        os.path.join(root, "async"), want_async, fresh, witness, tokens2
+    )
+    if not Snapshot(os.path.join(root, "async")).verify().clean:
+        raise AssertionError("verify() of the MoE async snapshot is not clean")
+    del fresh, witness, want_sync, want_async
+    shutil.rmtree(root)
+    torch.cuda.synchronize()
+    return {
+        "phase": "moe", "config": {
+            "vocab_size": cfg.vocab_size, "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+            "n_layers": cfg.n_layers, "d_ff": cfg.d_ff, "n_experts": cfg.n_experts,
+            "seq": cfg.max_seq_len, "batch": 8, "dtype": "bfloat16",
+        },
+        "params": sum(p.numel() for p in model.parameters()), "bytes": nbytes,
+        "tensors": n_tensors, "losses": losses, "step_s": step_s, "take_s": take_s,
+        "take_gb_s": nbytes / take_s / 1e9, "async_blocked_s": blocked_s,
+        "async_wait_s": wait_s, "restore_s": restore_s, "async_restore_s": async_restore_s,
+        "post_restore_loss": [loss, async_loss], "flash_launches": fa.launches,
+        "flash_routes": dict(fa.route_launches), "bit_exact": True,
+        "parameter_identity": True, "seconds": time.perf_counter() - t_phase,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "card": ctx["card"],
+    }
+
+
+class _DtoHCounter:
+    """Bytes that cross from the card to the host in a take: every
+    device-to-host staging copy (a tensor's own and the device slab
+    pack's) goes through ``enqueue_dtoh``."""
+
+    def __init__(self) -> None:
+        from tpusnap_torch import batcher
+        from tpusnap_torch.io_preparers import array
+
+        self.bytes = 0
+        self._modules = (array, batcher)
+        self._orig = array.enqueue_dtoh
+        counter = self
+
+        def enqueue(t, ready, transform=None):
+            counter.bytes += t.numel() * t.element_size()
+            return counter._orig(t, ready, transform)
+
+        for m in self._modules:
+            m.enqueue_dtoh = enqueue
+
+    def close(self) -> None:
+        for m in self._modules:
+            m.enqueue_dtoh = self._orig
+
+
+def _emb_tables(sharding: str = "row"):
+    from tpusnap_torch.models import TableConfig
+
+    # tpusnap's embedding benchmark: 4 row-wise [1,000,000, 64] f32 tables
+    # (benchmarks/embedding/main.py:39-47); t2 and t3 host-offloaded.
+    return [
+        TableConfig(f"t{i}", EMB_ROWS, EMB_DIM, sharding=sharding, host_offload=i >= 2,
+                    pooling="mean" if i % 2 else "sum")
+        for i in range(EMB_TABLES)
+    ]
+
+
+def _emb_leaves(params) -> dict:
+    return {f"{s}/{k}": t for s in ("tables", "opt") for k, t in params[s].items()}
+
+
+def _check_emb_restore(label: str, target, want: dict, before: dict) -> None:
+    """Every leaf restored bit for bit, the same tensor object with the
+    same storage, pinned where it was."""
+    import torch
+
+    for p, t in _emb_leaves(target).items():
+        if (id(t), t.data_ptr(), t.is_pinned() if not t.is_cuda else None) != before[p]:
+            raise AssertionError(f"{label}: {p} was replaced, moved or unpinned")
+        if not torch.equal(t, want[p]):
+            raise AssertionError(f"{label}: {p} differs from the state it holds")
+
+
+def phase_embedding(ctx: dict, workdir: str) -> dict:
+    """tpusnap's embedding benchmark configuration on the card: 4 row-wise
+    [1,000,000, 64] f32 tables with their Adagrad accumulators, t2 and t3
+    (table and accumulator) pinned on the host. Adagrad steps, then a sync
+    take (no device-to-host byte for the pinned tables), an unchanged
+    increment (0 bytes written), an async take with a step at once (its
+    snapshot equals the state at the call) and a restore that keeps every
+    tensor's identity, storage and pinning."""
+    import torch
+
+    from tpusnap_torch import PytreeState, Snapshot
+    from tpusnap_torch.knobs import override_async_cow, override_compress
+    from tpusnap_torch.models import EmbeddingCollection, rand_features
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    model = EmbeddingCollection(_emb_tables(), device="cuda", seed=SEED)
+    init_s = time.perf_counter() - t0
+    leaves = _emb_leaves(model.params())
+    pinned = {p for p, t in leaves.items() if not t.is_cuda}
+    if pinned != {"tables/t2", "tables/t3", "opt/t2", "opt/t3"} or not all(
+        leaves[p].is_pinned() for p in pinned
+    ):
+        raise AssertionError(f"pinned leaves {sorted(pinned)}")
+    nbytes = _state_bytes(model.params())
+    pinned_bytes = sum(leaves[p].numel() * leaves[p].element_size() for p in pinned)
+    if (nbytes, len(leaves), pinned_bytes) != (EMB_STATE_BYTES, 8, EMB_PINNED_BYTES):
+        raise AssertionError(f"embedding state {nbytes} bytes, {len(leaves)} tensors, "
+                             f"{pinned_bytes} pinned")
+    losses, step_s = [], []
+    for step in range(3):
+        feats, targets = rand_features(model, EMB_BATCH, EMB_BAG, seed=step)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(model.train_step(feats, targets).item())
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    if not all(x == x and abs(x) != float("inf") for x in losses):
+        raise AssertionError(f"non-finite embedding loss: {losses}")
+    for p in pinned:
+        if not leaves[p].is_pinned() or _emb_leaves(model.params())[p] is not leaves[p]:
+            raise AssertionError(f"the Adagrad step replaced or unpinned {p}")
+    touched = int((leaves["opt/t2"] > 0).sum())
+
+    root = os.path.join(workdir, "embedding")
+    app = {"emb": PytreeState(model.params())}
+    dtoh = _DtoHCounter()
+    out = {}
+    try:
+        with override_compress(mode="off"):  # byte counts are the tensors' own
+            want = {p: t.clone() for p, t in leaves.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            Snapshot.take(os.path.join(root, "base"), app, _record_dedup_hashes=True)
+            out["take_s"] = time.perf_counter() - t0
+            out["take_dtoh_bytes"] = dtoh.bytes
+            if dtoh.bytes != nbytes - pinned_bytes:
+                raise AssertionError(f"the take copied {dtoh.bytes} bytes device-to-host, "
+                                     f"not the {nbytes - pinned_bytes} device bytes")
+            dtoh.bytes = 0
+            t0 = time.perf_counter()
+            Snapshot.take(os.path.join(root, "inc"), app,
+                          incremental_from=os.path.join(root, "base"))
+            out["increment_s"] = time.perf_counter() - t0
+            out["increment_bytes_written"], out["increment_bytes_referenced"] = _snapshot_bytes(
+                os.path.join(root, "inc"))
+            if out["increment_bytes_written"] != 0:
+                raise AssertionError(f"the unchanged increment wrote {out['increment_bytes_written']}")
+
+            # Async: pinned tables are cloned in the blocked window (COW
+            # would forbid the step at once), device tables frozen on the card.
+            feats, targets = rand_features(model, EMB_BATCH, EMB_BAG, seed=7)
+            want_async = {p: t.clone() for p, t in leaves.items()}
+            dtoh.bytes = 0
+            with override_async_cow(False):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                pending = Snapshot.async_take(os.path.join(root, "async"), app)
+                out["async_blocked_s"] = time.perf_counter() - t0
+                model.train_step(feats, targets)
+                t1 = time.perf_counter()
+                pending.wait()
+                out["async_wait_s"] = time.perf_counter() - t1
+            out["async_dtoh_bytes"] = dtoh.bytes
+    finally:
+        dtoh.close()
+    if torch.equal(leaves["tables/t2"], want_async["tables/t2"]):
+        raise AssertionError("the step during the async take changed no pinned row")
+
+    fresh = EmbeddingCollection(_emb_tables(), device="cuda", seed=SEED + 1)
+    before = {p: (id(t), t.data_ptr(), t.is_pinned() if not t.is_cuda else None)
+              for p, t in _emb_leaves(fresh.params()).items()}
+    for name, expect in (("async", want_async), ("inc", want)):
+        target = PytreeState(fresh.params())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        Snapshot(os.path.join(root, name)).restore({"emb": target})
+        out[f"{name}_restore_s"] = time.perf_counter() - t0
+        _check_emb_restore(name, target.tree, expect, before)
+    del fresh, want, want_async
+    shutil.rmtree(root)
+    return {
+        "phase": "embedding", "tables": f"{EMB_TABLES} x [{EMB_ROWS}, {EMB_DIM}] f32 row-wise",
+        "pinned_tables": ["t2", "t3"], "bytes": nbytes, "tensors": len(leaves),
+        "pinned_bytes": pinned_bytes,
+        "pinned_dtoh_bytes": out["take_dtoh_bytes"] - (nbytes - pinned_bytes),
+        "init_s": init_s, "batch": EMB_BATCH, "bag": EMB_BAG,
+        "losses": losses, "step_s": step_s, "rows_touched_t2": touched, **out,
+        "bit_exact": True, "identity_and_pinning_kept": True,
+        "seconds": time.perf_counter() - t_phase, "card": ctx["card"],
+    }
+
+
+_LAYOUTS_LINE = "layouts_rank "
+
+
+def _own_box_bytes(state) -> int:
+    """Bytes of the boxes this rank writes: its local tensor where its
+    coordinate is 0 on every Replicate mesh dim."""
+    total = 0
+    for _, t in _leaves(dict(state)):
+        coordinate = t.device_mesh.get_coordinate()
+        if all(c == 0 for c, p in zip(coordinate, t.placements) if p.is_replicate()):
+            total += t.to_local().numel() * t.element_size()
+    return total
+
+
+def _layouts_rank(ldir: str) -> None:
+    """One rank of the layouts phase (two ranks on the one card): the MoE
+    flagship trained on both ranks, taken as views at (data, fsdp, tensor)
+    = (1, 2, 1) and restored into views of a fresh model at (1, 1, 2), a
+    reshard; the embedding tables (t2, t3 pinned, over a "cpu" mesh)
+    taken row-wise at (1, 2, 1), then read dense with read_object and
+    placed column-wise. Prints ``layouts_rank {json}``."""
+    import torch
+
+    from tpusnap_torch import PytreeState, Snapshot, StateDict, is_sharded
+    from tpusnap_torch.models import (
+        EmbeddingCollection,
+        Transformer,
+        make_mesh,
+        rand_features,
+        train_state_views,
+    )
+    from tpusnap_torch.ops import flash_attention as fa
+    from tpusnap_torch.test_utils import host_mesh_like
+
+    comm = _rank_comm("layouts")
+    rank = comm.rank
+    mesh_fsdp, mesh_tensor = make_mesh("cuda", (1, 2, 1)), make_mesh("cuda", (1, 1, 2))
+    host_fsdp = host_mesh_like(mesh_fsdp)
+    out = {"rank": rank}
+    io = _IOCounter(rank)
+
+    cfg = _moe_config()
+    model, tokens, hashes, out["replicas_bitwise_equal_after_training"] = _trained_replicas(
+        comm, cfg, ldir
+    )
+    state = StateDict(**train_state_views(model, mesh_fsdp))
+    out["dtensors"] = sum(1 for _, t in _leaves(dict(state)) if is_sharded(t))
+    own = _own_box_bytes(state)
+    want = _clone_state(model)
+    if rank == 0:
+        with open(os.path.join(ldir, "moe_hashes.json"), "w") as f:
+            json.dump(hashes, f)
+    io.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    Snapshot.take(os.path.join(ldir, "moe_fsdp"), {"train": state})
+    out["moe_take_s"] = time.perf_counter() - t0
+    out["moe_bytes_written"], out["moe_own_box_bytes"] = io.written["sharded"], own
+    if io.written["sharded"] != own or io.written["replicated"] or io.written["rank"]:
+        raise AssertionError(f"rank {rank} wrote {io.written}, its boxes are {own} bytes")
+    comm.barrier()
+
+    fresh = Transformer(cfg, device="cuda", seed=SEED + 1)
+    target = StateDict(**train_state_views(fresh, mesh_tensor))
+    before = {p: (id(t), t.to_local().data_ptr()) for p, t in _leaves(dict(target))}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    Snapshot(os.path.join(ldir, "moe_fsdp")).restore({"train": target})
+    out["moe_reshard_restore_s"] = time.perf_counter() - t0
+    if {p: (id(t), t.to_local().data_ptr()) for p, t in _leaves(dict(target))} != before:
+        raise AssertionError("the reshard restore did not land in place")
+    _check_local_boxes("MoE (1,2,1) -> (1,1,2)", target, want)
+    del fresh, target, want, model, state
+
+    # Embedding tables: row-wise at (1, 2, 1), pinned ones over a "cpu" mesh.
+    emb = EmbeddingCollection(_emb_tables(), device="cuda", seed=SEED)
+    feats, targets = rand_features(emb, EMB_BATCH, EMB_BAG, seed=0)
+    emb.train_step(feats, targets)
+    emb_hashes = _tensor_hashes(_emb_leaves(emb.params()))
+    if any(h != emb_hashes for h in comm.all_gather_object(emb_hashes)):
+        raise AssertionError("the embedding replicas differ after one Adagrad step")
+    emb_state = emb.shard_params(mesh_fsdp, host_fsdp)
+    pinned_locals = [p for p, t in _leaves(emb_state) if t.to_local().is_pinned()]
+    if sorted(pinned_locals) != ["opt/t2", "opt/t3", "tables/t2", "tables/t3"]:
+        raise AssertionError(f"pinned DTensor locals: {pinned_locals}")
+    if rank == 0:
+        with open(os.path.join(ldir, "emb_hashes.json"), "w") as f:
+            json.dump(emb_hashes, f)
+    io.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    Snapshot.take(os.path.join(ldir, "emb_row"), {"emb": PytreeState(emb_state)})
+    out["emb_take_s"] = time.perf_counter() - t0
+    out["emb_bytes_written"], out["emb_own_box_bytes"] = io.written["sharded"], _own_box_bytes(emb_state)
+    if out["emb_bytes_written"] != out["emb_own_box_bytes"]:
+        raise AssertionError(f"rank {rank} wrote {io.written} of embedding state")
+    comm.barrier()
+
+    # Across taxonomies: every table read dense and placed column-wise
+    # (tests/test_embedding.py's recipe), in place in a fresh collection.
+    col = EmbeddingCollection(_emb_tables(sharding="col"), device="cuda", seed=SEED + 1)
+    snap = Snapshot(os.path.join(ldir, "emb_row"))
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for p, t in _emb_leaves(col.params()).items():
+            t.copy_(snap.read_object(f"0/emb/{p}"))
+    out["emb_read_object_s"] = time.perf_counter() - t0
+    _check_local_boxes("embedding row -> col", col.shard_params(mesh_fsdp, host_fsdp),
+                        _emb_leaves(emb.params()))
+    if not torch.equal(col.apply(feats), emb.apply(feats)):
+        raise AssertionError("the column-wise tables look up other values")
+    torch.cuda.synchronize()
+    out.update(flash_launches=fa.launches, flash_routes=dict(fa.route_launches),
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    print(_LAYOUTS_LINE + json.dumps(out), flush=True)
+
+
+def phase_layouts(ctx: dict, workdir: str) -> dict:
+    """Two ranks on the one card (``_layouts_rank``); then this process
+    restores both world-2 snapshots into world 1 (2 -> 1): the MoE train
+    state into a dense model and the row-wise tables into a collection
+    whose t2 and t3 stay pinned, each bit for bit against rank 0's state
+    at the take, in place."""
+    import torch
+
+    from tpusnap_torch import PytreeState, Snapshot, StateDict
+    from tpusnap_torch.models import EmbeddingCollection, Transformer
+    from tpusnap_torch.test_utils import run_subprocess_world
+
+    t_phase = time.perf_counter()
+    ldir = os.path.join(workdir, "layouts")
+    os.makedirs(ldir)
+    t0 = time.perf_counter()
+    outputs = run_subprocess_world(
+        _layouts_rank, world_size=2, args=[ldir], timeout=600,
+        extra_env={"TPUSNAP_BARRIER_TIMEOUT_S": "120", "TPUSNAP_COMPRESS": "off"},
+    )
+    world_s = time.perf_counter() - t0
+    ranks = []
+    for r, text in enumerate(outputs):
+        lines = [ln for ln in text.splitlines() if ln.startswith(_LAYOUTS_LINE)]
+        if len(lines) != 1:
+            raise AssertionError(f"rank {r} printed no result:\n{text[-4000:]}")
+        ranks.append(json.loads(lines[0][len(_LAYOUTS_LINE):]))
+    if sum(r["moe_bytes_written"] for r in ranks) != MOE_STATE_BYTES:
+        raise AssertionError(f"the MoE boxes written sum to "
+                             f"{[r['moe_bytes_written'] for r in ranks]}")
+    if sum(r["emb_bytes_written"] for r in ranks) != EMB_STATE_BYTES:
+        raise AssertionError(f"the embedding boxes written sum to "
+                             f"{[r['emb_bytes_written'] for r in ranks]}")
+
+    out = {}
+    with open(os.path.join(ldir, "moe_hashes.json")) as f:
+        moe_hashes = json.load(f)
+    dense = Transformer(_moe_config(), device="cuda", seed=SEED + 7)
+    target = StateDict(**dense.train_state())
+    before = {p: id(t) for p, t in _leaves(target)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    Snapshot(os.path.join(ldir, "moe_fsdp")).restore({"train": target})
+    out["moe_2_to_1_restore_s"] = time.perf_counter() - t0
+    if _state_hashes(dense) != moe_hashes or {p: id(t) for p, t in _leaves(target)} != before:
+        raise AssertionError("the world-2 MoE snapshot restored into world 1 differs")
+    del dense, target
+
+    with open(os.path.join(ldir, "emb_hashes.json")) as f:
+        emb_hashes = json.load(f)
+    emb = EmbeddingCollection(_emb_tables(), device="cuda", seed=SEED + 2)
+    before = {p: (id(t), t.data_ptr(), t.is_pinned() if not t.is_cuda else None)
+              for p, t in _emb_leaves(emb.params()).items()}
+    target = PytreeState(emb.params())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    Snapshot(os.path.join(ldir, "emb_row")).restore({"emb": target})
+    out["emb_2_to_1_restore_s"] = time.perf_counter() - t0
+    leaves = _emb_leaves(target.tree)
+    if {p: (id(t), t.data_ptr(), t.is_pinned() if not t.is_cuda else None)
+            for p, t in leaves.items()} != before:
+        raise AssertionError("the world-2 -> 1 embedding restore replaced or unpinned a tensor")
+    if _tensor_hashes(leaves) != emb_hashes:
+        raise AssertionError("the world-2 embedding snapshot restored into world 1 differs")
+    del emb, target, leaves
+    shutil.rmtree(ldir)
+    return {
+        "phase": "layouts", "world_size": 2,
+        "moe_layout": "train_state_views at (data, fsdp, tensor) = (1, 2, 1), restored at (1, 1, 2)",
+        "embedding_layout": "row-wise at (1, 2, 1); t2, t3 pinned over a 'cpu' mesh",
+        "moe_bytes": MOE_STATE_BYTES, "embedding_bytes": EMB_STATE_BYTES,
+        "tensors": {"moe": MOE_TENSORS, "embedding": 8}, "ranks": ranks, **out, "world_s": world_s,
+        "seconds": time.perf_counter() - t_phase, "bit_exact": True, "in_place": True,
+        "card": ctx["card"],
+    }
+
+
 def _reset_launches() -> None:
     from tpusnap_torch.ops import flash_attention as fa
 
@@ -1808,6 +2295,14 @@ def main() -> int:
         emit(sharded_line)
         for r in sharded_line["ranks"]:
             paths[f"sharded rank {r['rank']}"] = (r["flash_launches"], r["flash_routes"])
+        _reset_launches()
+        emit(phase_moe(ctx, workdir))
+        paths["moe"] = (fa.launches, dict(fa.route_launches))
+        emit(phase_embedding(ctx, workdir))
+        layouts_line = phase_layouts(ctx, workdir)
+        emit(layouts_line)
+        for r in layouts_line["ranks"]:
+            paths[f"layouts rank {r['rank']}"] = (r["flash_launches"], r["flash_routes"])
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     for path, (launches, routes) in paths.items():

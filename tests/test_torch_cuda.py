@@ -1,7 +1,9 @@
 """tpusnap_torch on the card: the Hopper flash kernels against their plain
 version, snapshot round trips of CUDA tensors (chunked ones too), async
-takes followed at once by in-place updates, async restores, and two ranks
-sharing the card (replicated state, and DTensor state restored in place).
+takes followed at once by in-place updates, async restores, two ranks
+sharing the card (replicated state, and DTensor state restored in place),
+host-offloaded (pinned) state restored in place and kept pinned, the MoE
+flagship training, and embedding tables with pinned DTensor shards.
 
 Every test here carries the ``cuda`` marker and skips without a card (the
 kernels have no CPU mode). The file imports neither JAX nor ``tpusnap``,
@@ -550,3 +552,162 @@ def test_two_rank_dtensor_state_on_card(gen, tmp_path, world):
     from tpusnap_torch.test_utils import run_subprocess_world
 
     run_subprocess_world(world, world_size=2, args=[str(tmp_path / "snap")])
+
+
+# --- host-offloaded (pinned) state, the MoE flagship and the embedding tables ---
+
+
+def _count_dtoh(monkeypatch):
+    """Bytes through the device-to-host staging copy (a tensor's own or
+    the device slab pack's)."""
+    from tpusnap_torch import batcher
+
+    counted = {"bytes": 0}
+    orig = array_preparer.enqueue_dtoh
+
+    def enqueue(t, ready, transform=None):
+        counted["bytes"] += t.numel() * t.element_size()
+        return orig(t, ready, transform)
+
+    monkeypatch.setattr(array_preparer, "enqueue_dtoh", enqueue)
+    monkeypatch.setattr(batcher, "enqueue_dtoh", enqueue)
+    return counted
+
+
+def test_pinned_target_restores_in_place(gen, tmp_path, monkeypatch):
+    from tpusnap_torch import PytreeState, to_host_offload
+
+    counted = _count_dtoh(monkeypatch)
+    table = to_host_offload(torch.randn((4096, 64), generator=gen, device="cuda"))
+    acc = to_host_offload(torch.rand((4096,), generator=gen, device="cuda"))
+    assert table.is_pinned() and acc.is_pinned()
+    path = str(tmp_path / "snap")
+    Snapshot.take(path, {"s": PytreeState({"w": table, "acc": acc})})
+    assert counted["bytes"] == 0  # staged as views of themselves
+    targets = {"w": to_host_offload(torch.zeros_like(table)), "acc": to_host_offload(torch.zeros_like(acc))}
+    before = {k: (id(t), t.data_ptr()) for k, t in targets.items()}
+    state = PytreeState(targets)
+    Snapshot(path).restore({"s": state})
+    for k, want in (("w", table), ("acc", acc)):
+        got = state.tree[k]
+        assert (id(got), got.data_ptr()) == before[k] and got.is_pinned(), k
+        assert torch.equal(got, want), k
+
+
+@pytest.mark.parametrize("budget", [None, 1 << 14], ids=["whole", "tiled"])
+def test_pinned_target_of_another_shape_stays_pinned(gen, tmp_path, budget):
+    """tpusnap device_puts onto the target's sharding, memory kind
+    included: a pinned target of another shape gets a pinned tensor."""
+    from tpusnap_torch import to_host_offload
+
+    w = to_host_offload(torch.randn((512, 64), generator=gen, device="cuda"))
+    path = str(tmp_path / "snap")
+    Snapshot.take(path, {"s": StateDict(w=w)})
+    target = to_host_offload(torch.zeros((4, 4)))
+    got = Snapshot(path).read_object("0/s/w", obj_out=target, memory_budget_bytes=budget)
+    assert got is not target and got.is_pinned() and torch.equal(got, w)
+    restored = StateDict(w=to_host_offload(torch.zeros((8,))))
+    Snapshot(path).restore({"s": restored})
+    assert restored["w"].is_pinned() and torch.equal(restored["w"], w)
+
+
+def test_async_take_of_pinned_tables_holds_the_state_at_the_call(gen, tmp_path):
+    from tpusnap_torch import PytreeState, to_host_offload
+    from tpusnap_torch.knobs import override_async_cow
+
+    table = to_host_offload(torch.randn((8192, 64), generator=gen, device="cuda"))
+    want = table.clone()
+    path = str(tmp_path / "snap")
+    with override_async_cow(False):  # defensive clones: updated at once
+        pending = Snapshot.async_take(path, {"s": PytreeState({"w": table})})
+        table.add_(1)
+        pending.wait()
+    assert torch.equal(Snapshot(path).read_object("0/s/w"), want)
+
+
+def test_moe_flagship_trains_on_the_card(gen):
+    from tpusnap_torch.models import Transformer, TransformerConfig
+
+    cfg = TransformerConfig(vocab_size=512, d_model=128, n_heads=2, n_layers=2, d_ff=256,
+                            max_seq_len=128, n_experts=4)
+    model = Transformer(cfg, device="cuda")
+    tokens = torch.randint(0, 512, (2, 128), generator=gen, device="cuda")
+    fa.launches = 0
+    losses = [model.train_step(tokens).item() for _ in range(5)]
+    assert all(map(lambda x: x == x, losses)) and losses[-1] < losses[0], losses
+    assert fa.launches == 5 * cfg.n_layers
+    assert sorted(model.layers.keys()) == ["ln1", "ln2", "router", "w1e", "w2e", "wo", "wqkv"]
+
+
+def test_pinned_embedding_tables_train_as_device_ones(gen):
+    """A step on host-offloaded tables (rows gathered on the host, only
+    touched rows updated there) equals the same step on a collection held
+    on the CPU, and the tables stay the same pinned tensors."""
+    from tpusnap_torch.models import EmbeddingCollection, TableConfig, rand_features
+
+    tables = [TableConfig(f"t{i}", 4096, 32, host_offload=i >= 2, pooling="mean" if i % 2 else "sum")
+              for i in range(4)]
+    card = EmbeddingCollection(tables, device="cuda", seed=3)
+    again = EmbeddingCollection(tables, device="cuda", seed=3)
+    host = EmbeddingCollection(tables, device="cpu", seed=3)
+    before = {k: (id(t), t.data_ptr()) for k, t in card.params()["tables"].items()}
+    for step in range(3):
+        feats, targets = rand_features(card, batch=64, bag=8, seed=step)
+        card.train_step(feats, targets)
+        again.train_step(feats, targets)
+        host.train_step(*rand_features(host, batch=64, bag=8, seed=step))
+    for section in ("tables", "opt"):
+        for k, t in card.params()[section].items():
+            assert t.is_pinned() == (k in ("t2", "t3")), (section, k)
+            torch.testing.assert_close(t.cpu(), host.params()[section][k], rtol=1e-5, atol=1e-6)
+            # Deterministic: replicas trained on several ranks stay equal.
+            assert torch.equal(t, again.params()[section][k]), (section, k)
+    assert {k: (id(t), t.data_ptr()) for k, t in card.params()["tables"].items()} == before
+
+
+def _world_pinned_dtensor_shards(snap_dir):
+    """Row-wise tables, two of them pinned DTensors over a "cpu" mesh
+    beside the "cuda" one: an aligned restore lands in the pinned local
+    shards in place, and a resharded one (into column-wise views) is
+    copied into them; neither replaces them."""
+    from tpusnap_torch import PytreeState, is_sharded
+    from tpusnap_torch.io_preparers.sharded import local_box
+    from tpusnap_torch.models import EmbeddingCollection, TableConfig, make_mesh
+    from tpusnap_torch.test_utils import host_mesh_like
+
+    torch.cuda.set_device(0)
+    mesh = make_mesh("cuda", (1, 2, 1))
+    host_mesh = host_mesh_like(mesh)
+
+    def collection(sharding, seed):
+        return EmbeddingCollection(
+            [TableConfig(f"t{i}", 1024, 32, sharding=sharding, host_offload=i >= 2)
+             for i in range(4)], device="cuda", seed=seed)
+
+    src = collection("row", 1)
+    Snapshot.take(snap_dir, {"e": PytreeState(src.shard_params(mesh, host_mesh))})
+    for sharding in ("row", "col"):
+        dst = collection(sharding, 2)
+        state = dst.shard_params(mesh, host_mesh)
+        leaves = {f"{s}/{k}": t for s in state for k, t in state[s].items()}
+        before = {p: (id(t), t.to_local().data_ptr()) for p, t in leaves.items()}
+        target = PytreeState(state)
+        Snapshot(snap_dir).restore({"e": target})
+        for p, t in leaves.items():
+            got = target.tree[p.split("/")[0]][p.split("/")[1]]
+            assert is_sharded(got) and (id(got), got.to_local().data_ptr()) == before[p], p
+            assert got.to_local().is_pinned() == p.endswith(("t2", "t3")), p
+        for s in ("tables", "opt"):
+            for k, t in dst.params()[s].items():
+                full = src.params()[s][k]
+                local = target.tree[s][k]
+                offsets, sizes = local_box(list(full.shape), [1, 2, 1],
+                                           local.device_mesh.get_coordinate(), list(local.placements))
+                box = tuple(slice(o, o + n) for o, n in zip(offsets, sizes))
+                assert torch.equal(t[box], full[box]), (sharding, s, k)
+
+
+def test_pinned_dtensor_shards_restore_in_place(gen, tmp_path):
+    from tpusnap_torch.test_utils import run_subprocess_world
+
+    run_subprocess_world(_world_pinned_dtensor_shards, world_size=2, args=[str(tmp_path / "snap")])

@@ -37,7 +37,8 @@ def test_every_module_imports_without_jax_or_tpusnap():
     for name in (
         "compress", "inspect", "retention", "transforms",
         "comm", "dist_store", "partitioner", "test_utils",
-        "io_preparers.sharded",
+        "io_preparers.sharded", "host_offload", "pytree_state",
+        "models.embedding", "models.layout",
     ):
         assert f"tpusnap_torch.{name}" in modules
     code = (

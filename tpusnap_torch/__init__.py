@@ -15,10 +15,15 @@ and ``async_restore`` (``PendingRestore``), ``read_object``,
 ``load_snapshot`` and ``RNGState``; incremental takes
 (``incremental_from``), fused tile compression (``TPUSNAP_COMPRESS``),
 save-time transforms (``cast_on_save``), ``Snapshot.verify``/``materialize``
-(``verify_snapshot``, ``ScrubReport``) and ``apply_retention``; and the
-flagship transformer (``tpusnap_torch.models``) whose attention forward
-runs a hand-written Hopper kernel (``tpusnap_torch.ops``). The
-package imports torch, numpy and the standard library only — never JAX
+(``verify_snapshot``, ``ScrubReport``) and ``apply_retention``;
+host-offloaded state in pinned CPU memory (``to_host_offload``,
+``to_device``, ``is_host_resident``, ``supports_host_offload``), staged
+with no device-to-host copy; ``PytreeState`` for any pytree of tensors;
+and the two model families (``tpusnap_torch.models``): the flagship
+transformer, dense or MoE, at its dp/fsdp/tp/ep layouts, whose attention
+forward runs a hand-written Hopper kernel (``tpusnap_torch.ops``), and
+the embedding-table collection with pinned tables and row-wise Adagrad.
+The package imports torch, numpy and the standard library only — never JAX
 and never ``tpusnap``. ROADMAP.md lists what is still to port.
 """
 
@@ -33,9 +38,16 @@ from .snapshot import (  # noqa: F401
     load_snapshot,
 )
 from .dist_store import TakeAbortedError  # noqa: F401
+from .host_offload import (  # noqa: F401
+    is_host_resident,
+    supports_host_offload,
+    to_device,
+    to_host_offload,
+)
 from .inspect import ScrubReport, verify_snapshot  # noqa: F401
 from .io_preparers.sharded import is_sharded  # noqa: F401
 from .manifest_ops import get_available_entries  # noqa: F401
+from .pytree_state import PytreeState  # noqa: F401
 from .retention import apply_retention  # noqa: F401
 from .transforms import cast_on_save  # noqa: F401
 
@@ -44,6 +56,7 @@ __all__ = [
     "AppState",
     "PendingRestore",
     "PendingSnapshot",
+    "PytreeState",
     "RNGState",
     "ScrubReport",
     "Snapshot",
@@ -53,7 +66,11 @@ __all__ = [
     "apply_retention",
     "cast_on_save",
     "get_available_entries",
+    "is_host_resident",
     "is_sharded",
     "load_snapshot",
+    "supports_host_offload",
+    "to_device",
+    "to_host_offload",
     "verify_snapshot",
 ]

@@ -35,8 +35,10 @@ staging. What differs from tpusnap and why:
   an ``nn.Parameter`` keeps its identity (and its optimizer references)
   across a restore. Non-contiguous targets and dtype-casting restores go
   through ``copy_``, which writes through the target's strides. A CUDA
-  target of another shape is replaced by a new tensor on its device, as
-  tpusnap ``device_put``s onto the target's sharding.
+  target of another shape is replaced by a new tensor on its device, and
+  a pinned one by a new pinned tensor, as tpusnap ``device_put``s onto
+  the target's sharding and memory kind. A pinned CPU source stages as a
+  view of itself, with no device-to-host copy.
 - **Save-time transforms** (``array_prepare_func``, e.g.
   ``transforms.cast_on_save``). The manifest's dtype comes from running
   the transform on a ``meta`` tensor (``trace_array_prepare``: no memory,
@@ -901,6 +903,9 @@ def finalize_into_target(
     - a CUDA target of another shape gets a new tensor on ITS device at
       the stored dtype, as tpusnap ``device_put``s onto the target's
       sharding: the state stays on the card;
+    - a pinned (host-offloaded) target of another shape gets a new
+      pinned tensor: the state stays in pinned memory, as tpusnap's
+      ``device_put`` keeps the target's memory kind;
     - otherwise a CPU tensor owning its memory is returned
       (``owns_memory`` says whether ``host`` already does)."""
     if isinstance(obj_out, torch.Tensor) and tuple(obj_out.shape) == tuple(host.shape):
@@ -910,6 +915,9 @@ def finalize_into_target(
         # From pageable memory the copy has finished when ``to`` returns,
         # so ``host`` may alias a read buffer that is released next.
         return host.to(obj_out.device)
+    if isinstance(obj_out, torch.Tensor) and obj_out.is_pinned():
+        pinned = torch.empty(tuple(host.shape), dtype=host.dtype, pin_memory=True)
+        return pinned.copy_(host)
     return host if owns_memory else host.clone()
 
 

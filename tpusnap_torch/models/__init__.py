@@ -1,6 +1,41 @@
-"""Flagship model of the port (counterpart of tpusnap/models). The
-embedding-table collection is a later slice (ROADMAP.md item A7)."""
+"""The two model families of the port (counterpart of tpusnap/models).
 
-from .transformer import Transformer, TransformerConfig  # noqa: F401
+A flagship decoder transformer, dense or MoE, whose parameters take every
+layout the sharded preparer must round-trip over a
+``("data", "fsdp", "tensor")`` mesh — dp (replicated), fsdp, tp and ep
+(the expert dim over ``"data"``) — and an embedding-table collection (the
+torchrec DMP analog: row-, column- and table-wise layouts, host-offloaded
+tables in pinned memory, row-wise Adagrad state). Both keep tpusnap's
+parameter trees, so their snapshots restore across the two packages.
+Ring attention (sequence parallelism, ROADMAP.md item B3) is not ported.
+"""
 
-__all__ = ["Transformer", "TransformerConfig"]
+from .embedding import (  # noqa: F401
+    EmbeddingCollection,
+    TableConfig,
+    make_embedding_train_step,
+    rand_features,
+)
+from .layout import make_mesh  # noqa: F401
+from .transformer import (  # noqa: F401
+    Transformer,
+    TransformerConfig,
+    init_train_state,
+    make_train_step,
+    train_state_placements,
+    train_state_views,
+)
+
+__all__ = [
+    "EmbeddingCollection",
+    "TableConfig",
+    "Transformer",
+    "TransformerConfig",
+    "init_train_state",
+    "make_embedding_train_step",
+    "make_mesh",
+    "make_train_step",
+    "rand_features",
+    "train_state_placements",
+    "train_state_views",
+]

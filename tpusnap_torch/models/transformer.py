@@ -1,32 +1,46 @@
-"""Flagship decoder transformer — the dense, single-device configuration.
+"""Flagship decoder transformer — dense or MoE, with its sharded layouts.
 
 Counterpart of tpusnap/models/transformer.py (``TransformerConfig``,
-``Transformer``, the Adam ``train_step`` and ``init_train_state``) as an
-``nn.Module``. It keeps the JAX model's STACKED layout: every layer
-parameter carries a leading ``n_layers`` dim, under the same names
-(``embed``, ``layers.{ln1,ln2,wqkv,wo,w1,w2}``, ``ln_f``, ``unembed``), so
-``train_state()`` flattens to the same logical paths as tpusnap's
-``PytreeState(init_train_state(...))`` and a snapshot of either restores
-into the other. ``lax.scan`` over the layers becomes a Python loop over
-layer slices.
+``Transformer``, ``param_specs``, ``make_mesh``, the Adam ``train_step``
+and ``init_train_state``) as an ``nn.Module``. It keeps the JAX model's
+STACKED layout: every layer parameter carries a leading ``n_layers`` dim,
+under the same names (``embed``, ``layers.{ln1,ln2,wqkv,wo}`` and
+``layers.{w1,w2}`` or, with ``n_experts > 0``, ``layers.{router,w1e,w2e}``,
+``ln_f``, ``unembed``), so ``train_state()`` flattens to the same logical
+paths as tpusnap's ``PytreeState(init_train_state(...))`` and a snapshot
+of either restores into the other. ``lax.scan`` over the layers becomes a
+Python loop over layer slices.
 
 Numerics follow the JAX model: bf16 compute with f32 params and Adam
 moments; ``gelu`` with the tanh approximation (JAX's default); RoPE on
 interleaved even/odd lanes; RMSNorm in f32, cast, then scaled; the
-unembedding accumulated and returned in f32 from bf16 operands. The
-attention forward runs the Hopper flash kernel for CUDA tensors
-(``attention_impl="auto"`` or ``"flash"``) and the plain version for CPU
-tensors or ``"reference"``.
+unembedding accumulated and returned in f32 from bf16 operands. The MoE
+FFN is tpusnap's dense soft routing: softmax gates from the router, every
+expert applied to every token, the outputs summed by gate, all in the
+compute dtype. The attention forward runs the Hopper flash kernel for
+CUDA tensors (``attention_impl="auto"`` or ``"flash"``) and the plain
+version for CPU tensors or ``"reference"``.
+
+Layouts: ``param_specs()`` are tpusnap's ``PartitionSpec``s as tuples
+over a ``("data", "fsdp", "tensor")`` mesh (dp: replicated norms; fsdp
+and tp: the matmul weights; ep: the expert dim over ``"data"``), and
+``param_placements()`` the same as DTensor placements
+(``models/layout.py``). ``init_train_state(model, mesh)`` gives the train
+state as DTensors whose local tensors are this rank's boxes;
+``train_state_views`` gives them as views of the module's own tensors,
+for a replica trained on every rank. The train step itself runs on one
+replica: the step's own collectives across ranks wait for NCCL with one
+card per rank (ROADMAP.md item A7).
 
 Entry points run on the card: ``Transformer(cfg)`` places its parameters
 on ``cuda`` and raises when CUDA is absent; pass ``device="cpu"`` to run
-on the CPU. MoE FFNs (``n_experts > 0``, ROADMAP.md item A7) and ring
-attention (item B3) are later slices and raise.
+on the CPU. Ring attention (ROADMAP.md item B3) raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -35,8 +49,18 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.flash_attention import flash_attention, flash_attention_reference
+from .layout import make_mesh, map_specs, shard_tree, spec_placements
 
-_LAYER_KEYS = ("ln1", "ln2", "wqkv", "wo", "w1", "w2")
+__all__ = [
+    "Transformer",
+    "TransformerConfig",
+    "init_train_state",
+    "make_mesh",
+    "make_train_step",
+    "train_state_placements",
+    "train_state_specs",
+    "train_state_views",
+]
 _ADAM_B1, _ADAM_B2, _ADAM_EPS = 0.9, 0.999, 1e-8
 
 
@@ -84,10 +108,6 @@ class Transformer(nn.Module):
         self, config: TransformerConfig, device=None, seed: int = 0
     ) -> None:
         super().__init__()
-        if config.n_experts:
-            raise NotImplementedError(
-                "MoE FFNs (n_experts > 0) are not ported yet (ROADMAP.md item A7)"
-            )
         if config.use_ring_attention:
             raise NotImplementedError(
                 "ring attention is not ported yet (ROADMAP.md item B3)"
@@ -108,16 +128,22 @@ class Transformer(nn.Module):
             return nn.Parameter(torch.ones(shape, dtype=cfg.param_dtype, device=device))
 
         self.embed = norm(V, D, fan_in=D)
-        self.layers = nn.ParameterDict(
-            {
-                "ln1": ones(L, D),
-                "ln2": ones(L, D),
-                "wqkv": norm(L, D, 3 * D, fan_in=D),
-                "wo": norm(L, D, D, fan_in=D),
-                "w1": norm(L, D, Fd, fan_in=D),
-                "w2": norm(L, Fd, D, fan_in=Fd),
-            }
-        )
+        layers = {
+            "ln1": ones(L, D),
+            "ln2": ones(L, D),
+            "wqkv": norm(L, D, 3 * D, fan_in=D),
+            "wo": norm(L, D, D, fan_in=D),
+        }
+        if cfg.n_experts:
+            E = cfg.n_experts
+            layers["router"] = norm(L, D, E, fan_in=D)
+            layers["w1e"] = norm(L, E, D, Fd, fan_in=D)
+            layers["w2e"] = norm(L, E, Fd, D, fan_in=Fd)
+        else:
+            layers["w1"] = norm(L, D, Fd, fan_in=D)
+            layers["w2"] = norm(L, Fd, D, fan_in=Fd)
+        self.layer_keys = tuple(layers)
+        self.layers = nn.ParameterDict(layers)
         self.ln_f = ones(D)
         self.unembed = norm(D, V, fan_in=D)
 
@@ -140,7 +166,7 @@ class Transformer(nn.Module):
         ``nn.Parameter`` objects, not copies."""
         return {
             "embed": self.embed,
-            "layers": {k: self.layers[k] for k in _LAYER_KEYS},
+            "layers": {k: self.layers[k] for k in self.layer_keys},
             "ln_f": self.ln_f,
             "unembed": self.unembed,
         }
@@ -162,6 +188,38 @@ class Transformer(nn.Module):
         "step"}}`` of numpy arrays into the parameters and Adam state."""
         _copy_tree(tree, self.train_state(), "")
 
+    # ----------------------------------------------------------- layouts
+
+    def param_specs(self) -> Dict[str, Any]:
+        """tpusnap's ``param_specs()`` as tuples: per tensor dim, the mesh
+        axis (or axes) of a ``("data", "fsdp", "tensor")`` mesh that shards
+        it, or None."""
+        specs: Dict[str, Any] = {
+            "embed": ("fsdp", "tensor"),
+            "layers": {
+                "ln1": (None, None),
+                "ln2": (None, None),
+                "wqkv": (None, "fsdp", "tensor"),
+                "wo": (None, "tensor", "fsdp"),
+            },
+            "ln_f": (None,),
+            "unembed": ("tensor", "fsdp"),
+        }
+        if self.config.n_experts:
+            specs["layers"]["router"] = (None, "fsdp", None)
+            # Expert dim over "data": expert parallelism.
+            specs["layers"]["w1e"] = (None, "data", "fsdp", "tensor")
+            specs["layers"]["w2e"] = (None, "data", "tensor", "fsdp")
+        else:
+            specs["layers"]["w1"] = (None, "fsdp", "tensor")
+            specs["layers"]["w2"] = (None, "tensor", "fsdp")
+        return specs
+
+    def param_placements(self) -> Dict[str, Any]:
+        """``param_specs()`` as DTensor placements over a
+        ``("data", "fsdp", "tensor")`` mesh."""
+        return map_specs(spec_placements, self.param_specs())
+
     # ----------------------------------------------------------- forward
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -169,7 +227,7 @@ class Transformer(nn.Module):
         cfg = self.config
         x = F.embedding(tokens, self.embed).to(cfg.dtype)
         for i in range(cfg.n_layers):
-            lp = {k: self.layers[k][i] for k in _LAYER_KEYS}
+            lp = {k: self.layers[k][i] for k in self.layer_keys}
             x = x + self._attention(lp, _rmsnorm(x, lp["ln1"]))
             x = x + self._ffn(lp, _rmsnorm(x, lp["ln2"]))
         x = _rmsnorm(x, self.ln_f)
@@ -193,8 +251,14 @@ class Transformer(nn.Module):
 
     def _ffn(self, lp, x):
         dtype = self.config.dtype
-        h = F.gelu(x @ lp["w1"].to(dtype), approximate="tanh")
-        return h @ lp["w2"].to(dtype)
+        if not self.config.n_experts:
+            h = F.gelu(x @ lp["w1"].to(dtype), approximate="tanh")
+            return h @ lp["w2"].to(dtype)
+        # Dense soft routing: every token weighted over all experts.
+        gates = torch.softmax(x @ lp["router"].to(dtype), dim=-1)
+        h = F.gelu(torch.einsum("bsd,edf->bsef", x, lp["w1e"].to(dtype)), approximate="tanh")
+        out = torch.einsum("bsef,efd->bsed", h, lp["w2e"].to(dtype))
+        return torch.einsum("bsed,bse->bsd", out, gates)
 
     def loss(self, tokens: torch.Tensor) -> torch.Tensor:
         """Next-token cross-entropy (the last position predicts nothing)."""
@@ -230,6 +294,41 @@ class Transformer(nn.Module):
                 )
                 p.copy_(p_new.to(p.dtype))
         return loss.detach()
+
+
+def make_train_step(model: Transformer, learning_rate: float = 1e-3):
+    """tpusnap's ``make_train_step`` for the port: ``step(tokens) -> loss``,
+    one Adam step of ``model`` in place (tpusnap's returns a new state;
+    here the module's tensors are updated). It runs on one replica: a step
+    sharded across ranks waits for NCCL with one card per rank (ROADMAP.md
+    item A7)."""
+    return functools.partial(model.train_step, learning_rate=learning_rate)
+
+
+def train_state_specs(model: Transformer) -> Dict[str, Any]:
+    """The train state's specs: Adam moments as their params, the step
+    replicated."""
+    specs = model.param_specs()
+    return {"params": specs, "opt": {"mu": specs, "nu": specs, "step": ()}}
+
+
+def train_state_placements(model: Transformer) -> Dict[str, Any]:
+    return map_specs(spec_placements, train_state_specs(model))
+
+
+def init_train_state(model: Transformer, mesh) -> Dict[str, Any]:
+    """The module's train state as DTensors over ``mesh`` (a
+    ``("data", "fsdp", "tensor")`` ``DeviceMesh``) whose local tensors are
+    contiguous copies of this rank's boxes."""
+    return shard_tree(model.train_state(), train_state_placements(model), mesh, views=False)
+
+
+def train_state_views(model: Transformer, mesh) -> Dict[str, Any]:
+    """The module's train state as DTensors over ``mesh`` whose local
+    tensors are views of this rank's boxes of the module's own tensors: a
+    replica trained in place is snapshotted at the layout, and a restore
+    lands in the module."""
+    return shard_tree(model.train_state(), train_state_placements(model), mesh, views=True)
 
 
 def _rmsnorm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:

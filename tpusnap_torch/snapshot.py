@@ -74,13 +74,18 @@ overlap each rank's target box, so it reshards into any placement and
 any world size (``io_preparers/sharded.py``); ``read_object`` of a
 sharded path returns the dense tensor. No DTensor collective runs.
 
+Host-offloaded (pinned) CPU tensors stage as views of themselves, with
+no device-to-host copy, and restore in place; a pinned target of another
+shape gets a pinned tensor (``io_preparers/array.py``).
+
 Left out of this port so far, each raising ``NotImplementedError`` when
 asked for rather than being ignored (ROADMAP.md lists them): tiering,
 CAS, cloud storage, the delta stream, the degraded commit
-(``TPUSNAP_RANK_FAILURE=degrade``) and rank-liveness leases (A8).
-tpusnap's journal, progress, flight, SLO, telemetry and tuner hooks are
-observability the port adds later (A9); a snapshot without them reads
-the same in either package.
+(``TPUSNAP_RANK_FAILURE=degrade``) and rank-liveness leases (A8, which
+also ports the ``chaos+`` fault-injection layer with the retry
+middleware it needs). tpusnap's journal, progress, flight, SLO,
+telemetry and tuner hooks are observability the port adds later (A9); a
+snapshot without them reads the same in either package.
 """
 
 from __future__ import annotations

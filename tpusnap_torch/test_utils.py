@@ -21,8 +21,9 @@ share only the TCPStore on ``MASTER_PORT`` (rank 0 hosts it), which
 ``store_from_env()`` connects to — enough for the port's store-based
 collectives at large world sizes.
 
-``world_mesh`` builds a ``DeviceMesh`` over such a world, and
-``as_dtensor`` exposes a tensor every rank holds whole as a DTensor whose
+``world_mesh`` builds a ``DeviceMesh`` over such a world,
+``host_mesh_like`` a ``"cpu"`` mesh of the same ranks beside a ``"cuda"``
+one (for host-offloaded state), and ``as_dtensor`` exposes a tensor every rank holds whole as a DTensor whose
 local tensor is a view of this rank's box of it, with no collective.
 
 The entry point of each child is ``python -m tpusnap_torch.test_utils``.
@@ -85,6 +86,15 @@ def world_mesh(device_type: str = "cpu", mesh_shape: Optional[List[int]] = None)
     world = dist.get_world_size()
     shape = list(mesh_shape) if mesh_shape is not None else [world]
     return DeviceMesh(device_type, torch.arange(world).reshape(shape))
+
+
+def host_mesh_like(mesh):
+    """A ``"cpu"`` ``DeviceMesh`` over the ranks, shape and dim names of
+    ``mesh``: host-offloaded (pinned) tensors shard over it beside the
+    ``"cuda"`` mesh of the device state. Every rank must call it."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    return DeviceMesh("cpu", mesh.mesh, mesh_dim_names=mesh.mesh_dim_names)
 
 
 def as_dtensor(full, mesh, placements):
