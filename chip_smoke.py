@@ -122,11 +122,51 @@ Phases, in order:
              taken, then read dense with read_object and placed
              column-wise. The parent restores both world-2 snapshots into
              world 1 (2 -> 1), bit for bit, in place, pinning kept.
+18. crash  — the crash-safe take (every take journals itself, records
+             telemetry and a flight log). A fresh flagship trained one
+             step; its train state (saved to a file, setup) is loaded by
+             a spawned child, which takes it through chaos+fs:// with
+             crash_after_op=write:10 and TPUSNAP_DISABLE_BATCHING=1 and is
+             SIGKILLed by that plan. No .snapshot_metadata, fsck torn;
+             a retake salvages (bytes written < the state's, every byte
+             still staged); restore bit-exact, a post-restore step equal
+             to a witness's, verify() clean, gc reclaims only the killed
+             process's .tmp debris. Then a child's async take of the
+             4 GiB bulk, add_(1) at once, killed mid-drain: the retake
+             restores the state at the call.
+19. chaos  — the train state through chaos+fs:// under a seeded plan
+             (a transient error per op and every 5th op, 1 ms latency,
+             torn writes), batching off: take and restore converge under
+             retry (retries counted), the restore reads as many blobs in
+             place as a plain path's; an async take under the plan with a
+             train step at once holds the state at the call.
+20. liveness — three two-rank worlds at once (TPUSNAP_LIVENESS_TTL_S=2):
+             rank 1 SIGKILLed by a hook in its process at its first
+             stage, first blob write or commit barrier; rank 0 raises
+             RankFailedError naming it within 3x the TTL (seconds
+             printed), the merged flight timeline names rank 1, the
+             directory is torn with salvage records.
+21. degrade — three two-rank worlds at once (TPUSNAP_RANK_FAILURE=
+             degrade): a replicated sync take whose rank 1 dies after its
+             first blob write, committed by rank 0 (adopted bytes
+             printed, extras["degraded"]); an async take with a train step
+             in place on rank 0 right after the call, then rank 1 (wedged
+             on its first write) SIGKILLed: the committed snapshot equals
+             the state at the call, bitwise; a Shard(0) DTensor take
+             whose peer dies refuses to degrade and is torn.
+22. lifecycle_ab — printed, not gated: the bulk take and the train
+             state's take and restore with the default layers against
+             TPUSNAP_DISABLE_JOURNAL=1 TPUSNAP_TELEMETRY=0, compression off,
+             three of each in turns after a warm-up round; the
+             distributed phase also times its take at a 0.5 s and a
+             0.02 s heartbeat and with telemetry off.
 
 Launch counts (in all and by route) are set to 0 just before each path
 that runs the model — train + snapshot, async_train, incremental, each
-rank of distributed, sharded and layouts, sharded's parent, and moe — and
-read just after it: the kernels phase's comparison launches do not count.
+rank of distributed, sharded and layouts, sharded's parent, moe, the
+lifecycle model with crash and chaos, and rank 0 of the sync and async
+degrade worlds — and read just after it: the kernels phase's comparison
+launches do not count.
 Every main-path launch must take the wgmma route. The incremental and
 transforms phases run with compression off, so their byte counts are the
 tensors' own.
@@ -136,6 +176,7 @@ from __future__ import annotations
 
 import collections
 import json
+import logging
 import os
 import shutil
 import statistics
@@ -778,14 +819,17 @@ def _decision() -> dict:
 
 
 def _snapshot_bytes(path: str):
-    """(bytes written into the snapshot's own files, bytes it references
-    in base snapshots through ``../`` locations)."""
+    """(bytes written into the snapshot's own blob files, bytes it
+    references in base snapshots through ``../`` locations). The metadata
+    and the ``.tpusnap/`` sidecars (trace, heartbeat, flight log) are not
+    payload."""
     from tpusnap_torch import Snapshot
     from tpusnap_torch.inspect import iter_blobs
 
     written = sum(
         os.path.getsize(os.path.join(d, f))
-        for d, _, files in os.walk(path) for f in files if f != ".snapshot_metadata"
+        for d, _, files in os.walk(path) for f in files
+        if f != ".snapshot_metadata" and ".tpusnap" not in os.path.relpath(d, path)
     )
     referenced = sum(
         b.byte_range[1] - b.byte_range[0]
@@ -1228,6 +1272,10 @@ class _IOCounter:
         async def write(plugin, write_io):
             if counter.fail_writes:
                 raise OSError(f"rank {rank}: injected write failure")
+            if write_io.path.startswith(".tpusnap/"):
+                # Sidecars (telemetry trace) are not blobs.
+                await orig_write(plugin, write_io)
+                return
             n = memoryview(write_io.buf).nbytes
             if write_io.path.startswith(("replicated/", "batched/")):
                 counter.written["replicated"] += n
@@ -1360,6 +1408,22 @@ def _distributed_rank(ddir: str) -> None:
         raise AssertionError(f"entries without a checksum: {missing}")
     if not snap.verify().clean:
         raise AssertionError(f"rank {rank}: verify() of the world-2 snapshot is not clean")
+
+    # The heartbeat cadence's cost on this take (printed, not gated): the
+    # default 0.5 s pump, a 0.02 s pump, and no pump (telemetry off), in
+    # turns.
+    from tpusnap_torch.knobs import override_heartbeat_interval_s, override_telemetry_enabled
+
+    cadence = collections.defaultdict(list)
+    for i, label in enumerate(["pump_0.5s", "pump_0.02s", "off", "off", "pump_0.02s", "pump_0.5s"]):
+        with override_heartbeat_interval_s(0.02 if label == "pump_0.02s" else 0.5), \
+                override_telemetry_enabled(label != "off"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            Snapshot.take(os.path.join(ddir, f"cadence_{i}"),
+                          {"train": StateDict(**model.train_state())}, replicated=["**"])
+            cadence[label].append(time.perf_counter() - t0)
+    out["cadence_take_s"] = dict(cadence)
 
     # 2. Restore into a fresh model on every rank, with no collective.
     fresh = Transformer(cfg, device="cuda", seed=SEED + 1)
@@ -1513,7 +1577,8 @@ def phase_distributed(ctx: dict, workdir: str) -> dict:
             "async_restore_s", "w1_restore_s", "abort_wait_s", "take_bytes_staged",
             "take_bytes_written", "async_bytes_staged", "async_bytes_written",
             "take_collectives", "restore_collectives", "flash_launches", "flash_routes",
-            "replicas_bitwise_equal_after_training", "abort_error", "peak_mem_gib")
+            "replicas_bitwise_equal_after_training", "abort_error", "peak_mem_gib",
+            "cadence_take_s")
     total_repl = sum(r["take_bytes_written"]["replicated"] for r in ranks)
     return {
         "phase": "distributed", "world_size": 2, "state_bytes": ranks[0]["state_bytes"],
@@ -2234,6 +2299,566 @@ def phase_layouts(ctx: dict, workdir: str) -> dict:
     }
 
 
+# ---------------------------------------------------------------- lifecycle
+
+
+_LIFE_TTL_S = 2.0
+_LIFE_ENV = {
+    "TPUSNAP_LIVENESS_TTL_S": str(_LIFE_TTL_S),
+    "TPUSNAP_HEARTBEAT_INTERVAL_S": "0.1",
+    "TPUSNAP_BARRIER_TIMEOUT_S": "120",
+}
+# The crash child is SIGKILLed after this many blob writes (of the train
+# state's 28 with batching off; of the bulk's 32).
+_CRASH_AFTER_WRITES = 10
+
+
+def _lifecycle_model(ctx: dict, workdir: str):
+    """The flagship at full width from a seed, one Adam step (the flash
+    kernel runs), its train state saved to a file (smoke setup) so that
+    child processes hold the same bytes."""
+    import torch
+
+    from tpusnap_torch.models import Transformer
+
+    model = Transformer(ctx["cfg"], device="cuda", seed=SEED + 7)
+    model.train_step(ctx["tokens"], learning_rate=1e-3)
+    torch.cuda.synchronize()
+    state_file = os.path.join(workdir, "lifecycle_state.pt")
+    torch.save({p: t.detach().cpu() for p, t in _leaves(model.train_state())}, state_file)
+    return model, state_file
+
+
+def _model_from(cfg, state_file: str):
+    """A flagship on the card holding the saved train state."""
+    import torch
+
+    from tpusnap_torch.models import Transformer
+
+    model = Transformer(cfg, device="cuda", seed=SEED + 9)
+    saved = torch.load(state_file)
+    with torch.no_grad():
+        for p, t in _leaves(model.train_state()):
+            t.copy_(saved[p])
+    return model
+
+
+def _payload_bytes_written() -> int:
+    """Bytes the filesystem plugin has written in this process (payload
+    and metadata; sidecars are not sampled)."""
+    from tpusnap_torch import telemetry
+
+    return telemetry.global_io_histograms_snapshot().get(
+        "write.FSStoragePlugin", {}).get("bytes_total", 0)
+
+
+def _crash_child(kind: str, path: str, state_file: str) -> None:
+    """``chip_smoke.py --crash-child {train,bulk} PATH STATE_FILE``: a
+    fresh interpreter holds the state on the card and takes it through
+    ``chaos+fs://`` with ``crash_after_op``: the fault plan SIGKILLs it
+    after its N-th blob write. ``bulk``: an async take of the 4 GiB bulk,
+    then add_(1) on every tensor at once (a step in place); the kill comes
+    during the drain."""
+    import torch
+
+    from tpusnap_torch import Snapshot, StateDict
+    from tpusnap_torch.models import TransformerConfig
+
+    torch.cuda.set_device(0)
+    opts = {"fault_plan": f"crash_after_op=write:{_CRASH_AFTER_WRITES}"}
+    if kind == "train":
+        model = _model_from(TransformerConfig(), state_file)
+        torch.cuda.synchronize()
+        Snapshot.take("chaos+fs://" + path, {"train": StateDict(**model.train_state())},
+                      storage_options=opts)
+    else:
+        tensors = _bulk_tensors()
+        pending = Snapshot.async_take("chaos+fs://" + path, {"bulk": StateDict(tensors)},
+                                      storage_options=opts)
+        for t in tensors.values():
+            t.add_(1)
+        pending.wait()
+    raise SystemExit("the crash child was not killed")
+
+
+def _run_crash_child(kind: str, path: str, state_file: str) -> float:
+    # Batching and compression off, in the child and in the retake: slab
+    # blobs are never journaled, and the retake must stage the same
+    # bytes (after the compress phase, auto may choose to compress).
+    env = dict(os.environ, TPUSNAP_DISABLE_BATCHING="1", TPUSNAP_COMPRESS="off")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--crash-child", kind, path, state_file],
+        env=env, capture_output=True, text=True, timeout=300,
+    )
+    if proc.returncode != -9:
+        raise AssertionError(
+            f"the {kind} crash child exited {proc.returncode}, not SIGKILL:\n{proc.stderr[-3000:]}"
+        )
+    return time.perf_counter() - t0
+
+
+def _salvage_retake(path: str, state: dict) -> dict:
+    """Take ``state`` over the torn ``path`` (batching and compression
+    off, as the torn take): what it staged, salvaged and wrote."""
+    import torch
+
+    from tpusnap_torch import Snapshot, StateDict, telemetry
+    from tpusnap_torch.knobs import override_batching_disabled, override_compress
+
+    total = sum(t.numel() * t.element_size() for _, t in _leaves(state))
+    c0 = {k: telemetry.counter_value(k) for k in
+          ("salvage.bytes_salvaged", "salvage.blobs_salvaged", "scheduler.bytes_staged")}
+    w0 = _payload_bytes_written()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with override_batching_disabled(True), override_compress(mode="off"):
+        Snapshot.take(path, state)
+    take_s = time.perf_counter() - t0
+    meta = os.path.getsize(os.path.join(path, ".snapshot_metadata"))
+    out = {k.split(".", 1)[1]: telemetry.counter_value(k) - v for k, v in c0.items()}
+    out.update(state_bytes=total, bytes_written=_payload_bytes_written() - w0 - meta,
+               take_s=take_s)
+    if not 0 < out["bytes_written"] < total:
+        raise AssertionError(f"the salvage retake wrote {out['bytes_written']} of {total} bytes")
+    if out["bytes_written"] + out["bytes_salvaged"] != total:
+        raise AssertionError(f"written + salvaged != state bytes: {out}")
+    if out["bytes_staged"] != total:
+        raise AssertionError(f"the retake staged {out['bytes_staged']} of {total} bytes")
+    return out
+
+
+def _check_torn(path: str) -> dict:
+    """No metadata, and the port's fsck calls the directory torn."""
+    from tpusnap_torch import fsck_snapshot
+
+    if os.path.exists(os.path.join(path, ".snapshot_metadata")):
+        raise AssertionError(f"{path}: a killed take left .snapshot_metadata")
+    report = fsck_snapshot(path)
+    if report.state != "torn":
+        raise AssertionError(f"{path}: fsck says {report.summary()}")
+    return {"fsck": report.state, "salvage_records": report.salvage_records,
+            "salvage_bytes_present": report.salvage_bytes_present}
+
+
+def _gc_and_check_clean(path: str) -> list:
+    """A committed take: nothing missing; the only orphans allowed are
+    ``.tmp.`` debris of the killed process's atomic writes, which gc
+    reclaims; then no orphan is left and ``verify()`` is clean. Returns
+    the debris reclaimed."""
+    from tpusnap_torch import Snapshot, fsck_snapshot, gc_snapshot
+
+    report = fsck_snapshot(path)
+    if report.state != "committed" or report.missing_referenced:
+        raise AssertionError(f"{path}: {report.summary()}")
+    debris = sorted(report.orphans)
+    if any(".tmp." not in p for p in debris):
+        raise AssertionError(f"{path}: orphans that are not tmp debris: {debris}")
+    gc = gc_snapshot(path, dry_run=False)
+    if sorted(gc.reclaimed) != debris or gc.errors:
+        raise AssertionError(f"{path}: gc reclaimed {gc.reclaimed}, errors {gc.errors}")
+    after = fsck_snapshot(path)
+    if after.state != "committed" or after.orphans:
+        raise AssertionError(f"{path} after gc: {after.summary()}")
+    if not Snapshot(path).verify().clean:
+        raise AssertionError(f"{path}: verify() is not clean")
+    return debris
+
+
+def phase_crash(ctx: dict, workdir: str) -> dict:
+    """One rank, a child process SIGKILLed mid-write (the train state),
+    then mid-drain of an async take of the bulk stepped in place: each
+    directory is torn, a retake salvages it, restores bit-exact."""
+    import torch
+
+    from tpusnap_torch import Snapshot, StateDict
+    from tpusnap_torch.models import Transformer
+
+    t_phase = time.perf_counter()
+    cfg, model, state_file = ctx["cfg"], ctx["life_model"], ctx["life_state_file"]
+    out = {"phase": "crash"}
+    path = os.path.join(workdir, "crash_train")
+    out["child_s"] = _run_crash_child("train", path, state_file)
+    out["torn"] = _check_torn(path)
+    want = _clone_state(model)
+    out["retake"] = _salvage_retake(path, {"train": StateDict(**model.train_state())})
+    fresh = Transformer(cfg, device="cuda", seed=SEED + 1)
+    witness = Transformer(cfg, device="cuda", seed=SEED + 2)
+    out["post_restore_loss"] = _check_restore(path, want, fresh, witness, _tokens(cfg, 8, SEED + 3))
+    out["gc_reclaimed"] = _gc_and_check_clean(path)
+    del fresh, witness
+    shutil.rmtree(path)
+
+    path = os.path.join(workdir, "crash_bulk")
+    out["bulk_child_s"] = _run_crash_child("bulk", path, state_file)
+    out["bulk_torn"] = _check_torn(path)
+    bulk = _bulk_tensors()  # the state at the call
+    out["bulk_retake"] = _salvage_retake(path, {"bulk": StateDict(bulk)})
+    targets = StateDict({k: torch.zeros_like(v) for k, v in bulk.items()})
+    Snapshot(path).restore({"bulk": targets})
+    for k, v in bulk.items():
+        if not torch.equal(targets[k], v):
+            raise AssertionError(f"crash_bulk: {k} is not the state at the call")
+    out["bulk_gc_reclaimed"] = _gc_and_check_clean(path)
+    del bulk, targets
+    shutil.rmtree(path)
+    out.update(seconds=time.perf_counter() - t_phase, bit_exact=True, card=ctx["card"])
+    return out
+
+
+def phase_chaos(ctx: dict, workdir: str) -> dict:
+    """The train state through ``chaos+fs://`` under a seeded plan of
+    transient errors (one per op and every 5th), latency and torn
+    writes, batching off (one blob per tensor): take and restore converge
+    under retry; the restore lands as many reads in place as a plain
+    path's restore of the same snapshot; then an async take under chaos
+    with a step at once."""
+    import torch
+
+    import tpusnap_torch.storage_plugins.fs as fs_mod
+    from tpusnap_torch import Snapshot, StateDict, telemetry
+    from tpusnap_torch.knobs import override_batching_disabled
+    from tpusnap_torch.models import Transformer
+
+    t_phase = time.perf_counter()
+    # One warning per retried op would bury the run's output: the retries
+    # are counted instead.
+    logging.getLogger("tpusnap_torch.retry").setLevel(logging.ERROR)
+    cfg, model = ctx["cfg"], ctx["life_model"]
+    opts = {"fault_plan": "seed=5,transient_per_op=1,transient_every=5,latency_ms=1,torn_writes=1",
+            "retry_backoff_base_sec": 0.02, "retry_backoff_cap_sec": 0.2}
+    path = os.path.join(workdir, "chaos")
+    url = "chaos+fs://" + path
+    counters = ("retry.attempts", "retry.recovered", "faults.injected.write", "faults.injected.read")
+    c0 = {k: telemetry.counter_value(k) for k in counters}
+    want = _clone_state(model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with override_batching_disabled(True):
+        Snapshot.take(url, {"train": StateDict(**model.train_state())}, storage_options=opts)
+    take_s = time.perf_counter() - t0
+    reads = {}
+    orig_read = fs_mod.FSStoragePlugin.read
+    fresh = Transformer(cfg, device="cuda", seed=SEED + 1)
+    for label, where, o in (("chaos", url, opts), ("plain", path, None)):
+        seen = reads[label] = {"reads": 0, "in_place": 0}
+
+        async def read(plugin, read_io, seen=seen):
+            await orig_read(plugin, read_io)
+            seen["reads"] += 1
+            seen["in_place"] += bool(read_io.in_place)
+
+        fs_mod.FSStoragePlugin.read = read
+        try:
+            with torch.no_grad():
+                for _, t in _leaves(fresh.train_state()):
+                    t.zero_()
+            t0 = time.perf_counter()
+            Snapshot(where, storage_options=o).restore({"train": StateDict(**fresh.train_state())})
+            seen["restore_s"] = time.perf_counter() - t0
+        finally:
+            fs_mod.FSStoragePlugin.read = orig_read
+        for p, got in _leaves(fresh.train_state()):
+            if not torch.equal(got, want[p]):
+                raise AssertionError(f"chaos ({label} restore): {p} differs")
+    if not reads["chaos"]["in_place"] or reads["chaos"]["in_place"] != reads["plain"]["in_place"]:
+        raise AssertionError(f"chaos: in-place reads not kept: {reads}")
+    if not Snapshot(url, storage_options=opts).verify().clean:
+        raise AssertionError("chaos: verify() is not clean")
+    counts = {k: telemetry.counter_value(k) - v for k, v in c0.items()}
+    if not counts["retry.attempts"] or not counts["faults.injected.read"]:
+        raise AssertionError(f"chaos: the plan injected nothing: {counts}")
+
+    # Async take under chaos with a train step at once.
+    path_a = path + "_async"
+    want_a = _clone_state(model)
+    pending = Snapshot.async_take("chaos+fs://" + path_a, {"train": StateDict(**model.train_state())},
+                                  storage_options=opts)
+    model.train_step(ctx["tokens"], learning_rate=1e-3)
+    pending.wait()
+    witness = Transformer(cfg, device="cuda", seed=SEED + 2)
+    async_loss = _check_restore(path_a, want_a, fresh, witness, _tokens(cfg, 8, SEED + 3))
+    del fresh, witness
+    for p in (path, path_a):
+        shutil.rmtree(p)
+    return {"phase": "chaos", "plan": opts["fault_plan"], "take_s": take_s, "counters": counts,
+            "restores": reads, "async_post_restore_loss": async_loss,
+            "seconds": time.perf_counter() - t_phase, "bit_exact": True, "card": ctx["card"]}
+
+
+_LIVE_LINE = "liveness_rank "
+
+
+def _die_at(window: str, marker: str) -> None:
+    """Install rank 1's kill point for ``window`` (a hook in its own
+    process): the first stage, the first blob write, or the first commit
+    barrier of the take."""
+    import tpusnap_torch.snapshot as snap_mod
+    import tpusnap_torch.storage_plugins.fs as fs_mod
+    from tpusnap_torch import scheduler
+    from tpusnap_torch.comm import StoreComm
+
+    def die():
+        with open(marker, "w") as f:
+            f.write(repr(time.time()))
+        os.kill(os.getpid(), 9)
+
+    if window == "stage":
+        async def stage(pipeline, executor):
+            die()
+
+        scheduler._WritePipeline.stage = stage
+    elif window == "write":
+        orig_write = fs_mod.FSStoragePlugin.write
+
+        async def write(plugin, write_io):
+            await orig_write(plugin, write_io)
+            if not write_io.path.startswith(".tpusnap/"):
+                die()
+
+        fs_mod.FSStoragePlugin.write = write
+    elif window == "commit":
+        orig_commit, orig_barrier = snap_mod._commit, StoreComm.barrier
+        in_commit = []
+
+        def commit(*a, **k):
+            in_commit.append(True)
+            return orig_commit(*a, **k)
+
+        def barrier(self):
+            if in_commit:
+                die()
+            return orig_barrier(self)
+
+        snap_mod._commit, StoreComm.barrier = commit, barrier
+    else:
+        raise AssertionError(window)
+
+
+def _liveness_rank(ldir: str, window: str, state_file: str) -> None:
+    """One rank of a liveness world: rank 1 is SIGKILLed in ``window``;
+    rank 0 must raise RankFailedError naming it within 3x the TTL, the
+    merged flight timeline names it, the directory is torn."""
+    from tpusnap_torch import RankFailedError, Snapshot, StateDict, fsck_snapshot
+    from tpusnap_torch.flight import load_flight_logs, merge_timeline, postmortem_verdict
+    from tpusnap_torch.models import TransformerConfig
+
+    comm = _rank_comm("liveness")
+    model = _model_from(TransformerConfig(), state_file)
+    path = os.path.join(ldir, window)
+    marker = os.path.join(ldir, f"{window}.killed_at")
+    if comm.rank == 1:
+        _die_at(window, marker)
+    try:
+        Snapshot.take(path, {"train": StateDict(**model.train_state())}, replicated=["**"])
+    except RankFailedError as e:
+        detect = time.time()
+        with open(marker) as f:
+            detect_s = detect - float(f.read())
+        if e.ranks != [1]:
+            raise AssertionError(f"RankFailedError named {e.ranks}")
+        report = fsck_snapshot(path)
+        logs = load_flight_logs(path, files=report.files)
+        # The merged timeline's rank_dead events, by the rank they name
+        # (``op`` is "rank<k>"; ``rank`` is the rank that logged it).
+        named = sorted({ev.get("op") for ev in merge_timeline(logs) if ev.get("k") == "rank_dead"})
+        verdict = postmortem_verdict(path, report.state, logs)
+        print(_LIVE_LINE + json.dumps({
+            "window": window, "detect_s": detect_s, "fsck": report.state,
+            "salvage_records": report.salvage_records,
+            "salvage_bytes_present": report.salvage_bytes_present,
+            "timeline_rank_dead": named, "verdict_dead_ranks": verdict["dead_ranks"],
+        }), flush=True)
+        os._exit(0)  # the process group's exit barrier would wait on the dead peer
+    raise AssertionError(f"rank {comm.rank} committed a take whose peer died at {window}")
+
+
+def _run_worlds(fn, cases, args_of, env, line: str) -> dict:
+    """Run one two-rank world per case, concurrently, each expected to end
+    with rank 1 dead; returns rank 0's result line by case."""
+    from tpusnap_torch.test_utils import run_subprocess_world
+
+    def one(case):
+        try:
+            run_subprocess_world(fn, world_size=2, args=args_of(case), timeout=300,
+                                 extra_env=env)
+        except RuntimeError as e:
+            text = str(e)
+        else:
+            raise AssertionError(f"{case}: rank 1 was not killed")
+        if "ranks [1] failed" not in text:
+            raise AssertionError(f"{case}: not only rank 1 failed:\n{text[-6000:]}")
+        found = [ln for ln in text.splitlines() if ln.startswith(line)]
+        if len(found) != 1:
+            raise AssertionError(f"{case}: rank 0 printed no result:\n{text[-6000:]}")
+        return json.loads(found[0][len(line):])
+
+    with ThreadPoolExecutor(len(cases)) as pool:
+        return dict(zip(cases, pool.map(one, cases)))
+
+
+def phase_liveness(ctx: dict, workdir: str) -> dict:
+    t_phase = time.perf_counter()
+    ldir = os.path.join(workdir, "liveness")
+    os.makedirs(ldir)
+    windows = ["stage", "write", "commit"]
+    # Batching off, as in the crash phase: slab blobs are named per take
+    # and never journaled, so only standalone blobs are salvage evidence.
+    env = dict(_LIFE_ENV, TPUSNAP_DISABLE_BATCHING="1")
+    results = _run_worlds(_liveness_rank, windows,
+                          lambda w: [ldir, w, ctx["life_state_file"]], env, _LIVE_LINE)
+    for w, r in results.items():
+        if r["detect_s"] > 3 * _LIFE_TTL_S:
+            raise AssertionError(f"{w}: detection took {r['detect_s']} s > 3x TTL")
+        if r["fsck"] != "torn" or "rank1" not in r["timeline_rank_dead"] \
+                or 1 not in r["verdict_dead_ranks"] or not r["salvage_records"]:
+            raise AssertionError(f"{w}: {r}")
+    shutil.rmtree(ldir)
+    return {"phase": "liveness", "ttl_s": _LIFE_TTL_S, "windows": results,
+            "detect_s": {w: r["detect_s"] for w, r in results.items()},
+            "seconds": time.perf_counter() - t_phase, "card": ctx["card"]}
+
+
+_DEGRADE_LINE = "degrade_rank "
+
+
+def _degrade_rank(ddir: str, case: str, state_file: str) -> None:
+    """One rank of a degrade world (TPUSNAP_RANK_FAILURE=degrade, every
+    value replicated): ``sync`` — rank 1 is killed by its fault plan
+    after its first blob write and rank 0 adopts its units and commits;
+    ``async`` — rank 1 stops on its first blob write (a wedge), rank 0
+    runs a train step in place right after the call, then SIGKILLs rank
+    1, and the degraded snapshot must hold the state at the call;
+    ``dtensor`` — Shard(0) DTensor views: the take must refuse to degrade
+    and abort to a torn directory."""
+    import torch
+
+    from tpusnap_torch import RankFailedError, Snapshot, StateDict, fsck_snapshot, telemetry
+    from tpusnap_torch.models import Transformer, TransformerConfig
+    from tpusnap_torch.ops import flash_attention as fa
+    from tpusnap_torch.test_utils import world_mesh
+
+    comm = _rank_comm("degrade")
+    pids = comm.all_gather_object(os.getpid())
+    cfg = TransformerConfig()
+    model = _model_from(cfg, state_file)
+    url = "chaos+fs://" + os.path.join(ddir, case)
+    path = url.split("://", 1)[1]
+    out = {"case": case}
+    if case == "dtensor":
+        views = _sharded_views(model, world_mesh("cuda"))
+        try:
+            Snapshot.take(url, {"train": views},
+                          storage_options={"fault_plan": "rank=1,crash_after_op=write:1"})
+        except RankFailedError as e:
+            if "degrade refused" not in str(e):
+                raise
+            out.update(error=str(e)[:200], fsck=fsck_snapshot(path).state)
+            if out["fsck"] != "torn":
+                raise AssertionError(f"dtensor: fsck says {out['fsck']}")
+            print(_DEGRADE_LINE + json.dumps(out), flush=True)
+            os._exit(0)
+        raise AssertionError("a sharded take whose peer died committed")
+    want = _clone_state(model)
+    a0 = telemetry.counter_value("degraded.adopted_bytes")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if case == "sync":
+        snap = Snapshot.take(url, {"train": StateDict(**model.train_state())}, replicated=["**"],
+                             storage_options={"fault_plan": "rank=1,crash_after_op=write:1"})
+    else:
+        pending = Snapshot.async_take(url, {"train": StateDict(**model.train_state())},
+                                      replicated=["**"],
+                                      storage_options={"fault_plan": "rank=1,wedge=write:1"})
+        if comm.rank == 1:
+            pending.wait()
+            raise AssertionError("rank 1 committed through its wedge")
+        model.train_step(_tokens(cfg, 8, SEED), learning_rate=1e-3)  # in place, at once
+        torch.cuda.synchronize()
+        os.kill(pids[1], 9)
+        snap = pending.wait()
+    out["take_s"] = time.perf_counter() - t0
+    deg = (snap.metadata.extras or {}).get("degraded")
+    if not deg or deg["dead_ranks"] != [1] or not deg["adopted_units"]:
+        raise AssertionError(f"{case}: extras['degraded'] = {deg}")
+    out["adopted_bytes"] = telemetry.counter_value("degraded.adopted_bytes") - a0
+    out["adopted_units"] = len(deg["adopted_units"])
+    fresh = Transformer(cfg, device="cuda", seed=SEED + 1)
+    witness = Transformer(cfg, device="cuda", seed=SEED + 2)
+    out["restore_s"], out["post_restore_loss"] = _restore_and_check(
+        path, want, fresh, witness, _tokens(cfg, 8, SEED + 3))
+    out["fsck_summary"] = fsck_snapshot(path).summary()[-160:]
+    out["flash_launches"], out["flash_routes"] = fa.launches, dict(fa.route_launches)
+    print(_DEGRADE_LINE + json.dumps(out), flush=True)
+    os._exit(0)
+
+
+def phase_degrade(ctx: dict, workdir: str) -> dict:
+    t_phase = time.perf_counter()
+    ddir = os.path.join(workdir, "degrade")
+    os.makedirs(ddir)
+    env = dict(_LIFE_ENV, TPUSNAP_RANK_FAILURE="degrade")
+    cases = ["sync", "async", "dtensor"]
+    results = _run_worlds(_degrade_rank, cases, lambda c: [ddir, c, ctx["life_state_file"]],
+                          env, _DEGRADE_LINE)
+    for c in ("sync", "async"):
+        if results[c]["adopted_bytes"] <= 0 or "DEGRADED" not in results[c]["fsck_summary"]:
+            raise AssertionError(f"{c}: {results[c]}")
+    shutil.rmtree(ddir)
+    return {"phase": "degrade", "cases": results,
+            "adopted_bytes": {c: results[c]["adopted_bytes"] for c in ("sync", "async")},
+            "seconds": time.perf_counter() - t_phase, "bit_exact": True, "card": ctx["card"]}
+
+
+def phase_lifecycle_ab(ctx: dict, workdir: str) -> dict:
+    """What the default layers cost (printed, not gated): the bulk take
+    and the train state's take and restore with tpusnap's defaults
+    against TPUSNAP_DISABLE_JOURNAL=1 TPUSNAP_TELEMETRY=0, compression off,
+    after one warm-up round, three of each in turns (default, off, off,
+    default, default, off); medians beside the runs."""
+    import torch
+
+    from tpusnap_torch import Snapshot, StateDict
+    from tpusnap_torch.knobs import (
+        override_compress,
+        override_journal_disabled,
+        override_telemetry_enabled,
+    )
+    from tpusnap_torch.models import Transformer
+
+    model = ctx["life_model"]
+    bulk = _bulk_tensors()
+    fresh = Transformer(ctx["cfg"], device="cuda", seed=SEED + 1)
+    times = {"default": collections.defaultdict(list), "off": collections.defaultdict(list)}
+    order = ["warmup", "default", "off", "off", "default", "default", "off"]
+    for i, label in enumerate(order):
+        off = label == "off"
+        with override_journal_disabled(off), override_telemetry_enabled(not off), \
+                override_compress(mode="off"):
+            for name, state in (("bulk", {"bulk": StateDict(bulk)}),
+                                ("train", {"train": StateDict(**model.train_state())})):
+                path = os.path.join(workdir, f"ab_{name}_{i}")
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                Snapshot.take(path, state)
+                take_s = time.perf_counter() - t0
+                restore_s = None
+                if name == "train":
+                    t0 = time.perf_counter()
+                    Snapshot(path).restore({"train": StateDict(**fresh.train_state())})
+                    restore_s = time.perf_counter() - t0
+                shutil.rmtree(path)
+                if label != "warmup":
+                    times[label][f"{name}_take_s"].append(take_s)
+                    if restore_s is not None:
+                        times[label]["train_restore_s"].append(restore_s)
+    del bulk, fresh
+    medians = {label: {k: statistics.median(v) for k, v in t.items()} for label, t in times.items()}
+    return {"phase": "lifecycle_ab", "off": "TPUSNAP_DISABLE_JOURNAL=1 TPUSNAP_TELEMETRY=0",
+            "times": {k: dict(v) for k, v in times.items()}, "medians": medians,
+            "card": ctx["card"]}
+
+
 def _reset_launches() -> None:
     from tpusnap_torch.ops import flash_attention as fa
 
@@ -2258,6 +2883,9 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if sys.argv[1:2] == ["--crash-child"]:
+        _crash_child(*sys.argv[2:5])
+        return 1
     from tpusnap_torch.ops import flash_attention as fa
 
     card = nvidia_smi_line()
@@ -2303,6 +2931,18 @@ def main() -> int:
         emit(layouts_line)
         for r in layouts_line["ranks"]:
             paths[f"layouts rank {r['rank']}"] = (r["flash_launches"], r["flash_routes"])
+        _reset_launches()
+        ctx["life_model"], ctx["life_state_file"] = _lifecycle_model(ctx, workdir)
+        emit(phase_crash(ctx, workdir))
+        emit(phase_chaos(ctx, workdir))
+        paths["crash+chaos"] = (fa.launches, dict(fa.route_launches))
+        emit(phase_liveness(ctx, workdir))
+        degrade_line = phase_degrade(ctx, workdir)
+        emit(degrade_line)
+        for c in ("sync", "async"):
+            r = degrade_line["cases"][c]
+            paths[f"degrade {c} rank 0"] = (r["flash_launches"], r["flash_routes"])
+        emit(phase_lifecycle_ab(ctx, workdir))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     for path, (launches, routes) in paths.items():

@@ -274,9 +274,11 @@ def test_async_restore_onto_card_is_ordered_before_callers_stream(gen, tmp_path)
 
 
 def _written_blobs(root):
+    """Payload files only: not the metadata, not the .tpusnap/ sidecars."""
     return sorted(
         os.path.relpath(os.path.join(d, f), root)
-        for d, _, fs in os.walk(root) for f in fs if f != ".snapshot_metadata"
+        for d, _, fs in os.walk(root) for f in fs
+        if f != ".snapshot_metadata" and ".tpusnap" not in os.path.relpath(d, root)
     )
 
 
@@ -711,3 +713,186 @@ def test_pinned_dtensor_shards_restore_in_place(gen, tmp_path):
     from tpusnap_torch.test_utils import run_subprocess_world
 
     run_subprocess_world(_world_pinned_dtensor_shards, world_size=2, args=[str(tmp_path / "snap")])
+
+
+# --- the crash-safe take on the card: journal, telemetry, liveness, degrade ---
+
+
+def _world_degraded_async_cuda(snap_dir):
+    """Degrade under an async take of CUDA state: rank 1 stops on its
+    first blob write (a wedge), rank 0 updates every tensor in place
+    right after the call, then SIGKILLs rank 1. The degraded snapshot
+    holds the state at the call (the adopted units were frozen on the
+    card with rank 0's own)."""
+    import signal
+
+    from tpusnap_torch.comm import get_communicator
+
+    torch.cuda.set_device(0)
+    comm = get_communicator()
+    pids = comm.all_gather_object(os.getpid())
+    g = torch.Generator(device="cuda").manual_seed(5)
+    state = {f"w{i}": torch.randn((1 << 18,), generator=g, device="cuda") for i in range(8)}
+    witness = {k: v.clone() for k, v in state.items()}
+    pending = Snapshot.async_take(
+        "chaos+fs://" + snap_dir, {"s": StateDict(state)}, replicated=["**"],
+        storage_options={"fault_plan": "rank=1,wedge=write:1"},
+    )
+    if comm.rank == 1:
+        pending.wait()
+        raise AssertionError("rank 1 committed through its wedge")
+    for v in state.values():
+        v.add_(1)
+    torch.cuda.synchronize()
+    os.kill(pids[1], signal.SIGKILL)
+    snap = pending.wait()
+    assert snap.metadata.extras["degraded"]["dead_ranks"] == [1]
+    targets = StateDict({k: torch.zeros_like(v) for k, v in state.items()})
+    Snapshot(snap_dir).restore({"s": targets})
+    for k, v in witness.items():
+        assert torch.equal(targets[k], v), k
+    print("DEGRADED-ASYNC-CUDA-OK", flush=True)
+    os._exit(0)
+
+
+def test_degraded_async_take_of_cuda_state_holds_the_call(gen, tmp_path):
+    from tpusnap_torch.test_utils import run_subprocess_world
+
+    with pytest.raises(RuntimeError) as ei:
+        run_subprocess_world(
+            _world_degraded_async_cuda, world_size=2, args=[str(tmp_path / "snap")], timeout=180,
+            extra_env={"TPUSNAP_RANK_FAILURE": "degrade", "TPUSNAP_LIVENESS_TTL_S": "2",
+                       "TPUSNAP_HEARTBEAT_INTERVAL_S": "0.1", "TPUSNAP_DISABLE_BATCHING": "1"},
+        )
+    assert "DEGRADED-ASYNC-CUDA-OK" in str(ei.value), str(ei.value)[-3000:]
+
+
+_CUDA_CRASH_CHILD = r"""
+import sys
+import torch
+from tpusnap_torch import Snapshot, StateDict
+torch.cuda.set_device(0)
+g = torch.Generator(device="cuda").manual_seed(3)
+state = {f"w{i}": torch.randn((1 << 20,), generator=g, device="cuda") for i in range(8)}
+Snapshot.take("chaos+fs://" + sys.argv[1], {"s": StateDict(state)},
+              storage_options={"fault_plan": "crash_after_op=write:6"})
+raise SystemExit("not killed")
+"""
+
+
+def test_sigkilled_cuda_child_leaves_a_torn_salvageable_dir(gen, tmp_path):
+    import subprocess
+    import sys
+
+    from tpusnap_torch import fsck_snapshot, telemetry
+    from tpusnap_torch.knobs import override_batching_disabled
+
+    path = str(tmp_path / "snap")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, "-c", _CUDA_CRASH_CHILD, path], capture_output=True, text=True,
+        env=dict(os.environ, TPUSNAP_DISABLE_BATCHING="1", PYTHONPATH=repo), timeout=180,
+    )
+    assert proc.returncode == -9, proc.stderr[-3000:]
+    report = fsck_snapshot(path)
+    assert report.state == "torn" and report.salvage_records >= 1, report.summary()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    state = {f"w{i}": torch.randn((1 << 20,), generator=g, device="cuda") for i in range(8)}
+    before = telemetry.counter_value("salvage.blobs_salvaged")
+    with override_batching_disabled(True):
+        Snapshot.take(path, {"s": StateDict(state)})
+    assert telemetry.counter_value("salvage.blobs_salvaged") - before == report.salvage_records
+    targets = StateDict({k: torch.zeros_like(v) for k, v in state.items()})
+    Snapshot(path).restore({"s": targets})
+    for k, v in state.items():
+        assert torch.equal(targets[k], v), k
+
+
+def _world_heartbeats_on_card(snap_dir):
+    """Rank 1's first blob write hangs 3 s; rank 0 waits in the commit
+    barrier meanwhile, and its lease keeps being published (TTL 1 s, no
+    rank declared dead)."""
+    import threading
+    import time
+
+    from tpusnap_torch.comm import StoreComm, get_communicator
+    from tpusnap_torch.liveness import LeasePublisher
+
+    torch.cuda.set_device(0)
+    comm = get_communicator()
+    publishes, waits, lock = [], [], threading.Lock()
+    orig_publish, orig_barrier = LeasePublisher.publish, StoreComm.barrier
+
+    def publish(self, state=None):
+        orig_publish(self, state)
+        with lock:
+            publishes.append(time.monotonic())
+
+    def barrier(self):
+        t0 = time.monotonic()
+        orig_barrier(self)
+        waits.append((t0, time.monotonic()))
+
+    LeasePublisher.publish, StoreComm.barrier = publish, barrier
+    plan = "stall_op=write:1:3.0" if comm.rank == 1 else "seed=0"
+    state = {"w": torch.arange(1 << 16, dtype=torch.float32, device="cuda") * (comm.rank + 1)}
+    Snapshot.take("chaos+fs://" + snap_dir, {"s": StateDict(state)},
+                  storage_options={"fault_plan": plan})
+    if comm.rank == 0:
+        start, end = max(waits, key=lambda w: w[1] - w[0])
+        assert len([t for t in publishes if start <= t <= end]) >= 5, (end - start, publishes)
+
+
+def test_heartbeats_advance_while_peer_parks_on_card(gen, tmp_path):
+    from tpusnap_torch.test_utils import run_subprocess_world
+
+    run_subprocess_world(
+        _world_heartbeats_on_card, world_size=2, args=[str(tmp_path / "snap")],
+        extra_env={"TPUSNAP_HEARTBEAT_INTERVAL_S": "0.1", "TPUSNAP_LIVENESS_TTL_S": "1.0"},
+    )
+
+
+def test_journal_hashes_pinned_buffers_before_reuse(gen, tmp_path):
+    """CUDA sources stage through pinned buffers the pool recycles: every
+    journal record matches the bytes of its own tensor."""
+    from tpusnap_torch.knobs import override_batching_disabled
+    from tpusnap_torch.lifecycle import dual_hash_evidence, journal_rank_path
+
+    import tpusnap_torch.lifecycle as lifecycle
+
+    records = {}
+    orig_clear = lifecycle.clear_journal
+
+    def keep_records(storage, loop, world_size):
+        import json
+
+        with open(os.path.join(path, journal_rank_path(0))) as f:
+            records.update(json.load(f))
+        orig_clear(storage, loop, world_size)
+
+    path = str(tmp_path / "snap")
+    state = {f"w{i}": torch.full((1 << 20,), float(i), device="cuda") for i in range(12)}
+    lifecycle.clear_journal = keep_records
+    try:
+        with override_batching_disabled(True):
+            Snapshot.take(path, {"s": StateDict(state)})
+    finally:
+        lifecycle.clear_journal = orig_clear
+    assert len(records) == len(state)
+    for loc, rec in records.items():
+        t = state[loc.rsplit("/", 1)[-1]]
+        assert tuple(rec) == dual_hash_evidence(t.cpu().numpy().tobytes()), loc
+
+
+def test_dtoh_span_closes_when_the_copy_completes(gen, tmp_path):
+    """The device-to-host copy runs on a side stream; its telemetry span
+    closes when its event has completed, so a 128 MiB copy shows a time
+    near the copy's, not the enqueue's ~0 s."""
+    from tpusnap_torch import telemetry
+
+    t = torch.randn((32 << 20,), generator=gen, device="cuda")  # 128 MiB f32
+    torch.cuda.synchronize()
+    Snapshot.take(str(tmp_path / "snap"), {"s": StateDict(t=t)})
+    dtoh = telemetry.LAST_TAKE_SUMMARY["stages"]["dtoh"]
+    # 128 MiB over PCIe takes milliseconds; an enqueue takes microseconds.
+    assert dtoh["count"] == 1 and dtoh["total_s"] > 1e-3, dtoh

@@ -35,11 +35,18 @@ def _patch_fs_write(make_write):
 
 
 def _blob_files(root):
+    """Every file but the metadata and the observability sidecars
+    (telemetry traces, heartbeats, flight logs, which an aborted take
+    leaves on purpose: fsck still calls such a directory empty); journal
+    files count."""
     out = []
     for dirpath, _, files in os.walk(root):
         for f in files:
-            if not f.startswith(".snapshot"):
-                out.append(os.path.relpath(os.path.join(dirpath, f), root))
+            rel = os.path.relpath(os.path.join(dirpath, f), root)
+            if not f.startswith(".snapshot") and not rel.startswith(
+                (".tpusnap/telemetry/", ".tpusnap/progress/", ".tpusnap/flight/")
+            ):
+                out.append(rel)
     return sorted(out)
 
 

@@ -39,6 +39,8 @@ def test_every_module_imports_without_jax_or_tpusnap():
         "comm", "dist_store", "partitioner", "test_utils",
         "io_preparers.sharded", "host_offload", "pytree_state",
         "models.embedding", "models.layout",
+        "telemetry", "flight", "progress", "retry", "faults", "lifecycle",
+        "liveness", "rss_profiler", "storage_plugin",
     ):
         assert f"tpusnap_torch.{name}" in modules
     code = (

@@ -160,7 +160,7 @@ def test_filter_drops_requests_assigned_elsewhere():
             entry, r = prepare_write(leaf, path, rank, replicated=path in common)
             entries[path] = entry
             reqs += r
-        kept = filter_assigned_write_reqs(entries, reqs, repl, assignment, rank)
+        kept, _ = filter_assigned_write_reqs(entries, reqs, repl, assignment, rank)
         kept_by_rank[rank] = sorted(wr.path for wr in kept)
         others = {f"replicated/{u}" for u, w in assignment.items() if w != rank}
         assert not others & set(kept_by_rank[rank])

@@ -247,17 +247,20 @@ def test_slab_layout_matches_tpusnap_byte_for_byte(tmp_path):
 
 @pytest.mark.parametrize(
     "call",
-    ["tier_incremental_from", "stream", "s3_url", "rank_failure_degrade"],
+    ["tier_incremental_from", "stream", "s3_url", "metrics_export", "history"],
 )
 def test_unported_features_raise(tmp_path, monkeypatch, call):
     path = str(tmp_path / "snap")
     state = {"s": StateDict(x=torch.ones(2))}
     match = None
-    if call == "rank_failure_degrade":
-        # A policy the port does not have is refused, never ignored.
-        monkeypatch.setenv("TPUSNAP_RANK_FAILURE", "degrade")
+    if call in ("metrics_export", "history"):
+        # A telemetry consumer the port does not have is refused by its
+        # knob, never ignored.
+        knob = {"metrics_export": ("TPUSNAP_METRICS_EXPORT", "prom"),
+                "history": ("TPUSNAP_HISTORY", "1")}[call]
+        monkeypatch.setenv(*knob)
         fn = lambda: Snapshot.take(path, state)  # noqa: E731
-        match = "degraded commit.*A8"
+        match = f"{knob[0]}.*A9"
     elif call == "tier_incremental_from":
         base = "tier+local=" + str(tmp_path / "base") + "+remote=s3://bucket/base"
         fn = lambda: Snapshot.take(path, state, incremental_from=base)  # noqa: E731
@@ -283,9 +286,12 @@ def test_incremental_from_writes_only_changed_blobs(tmp_path):
         snap = Snapshot.take(
             inc, {"train": StateDict(**model.train_state())}, incremental_from=base
         )
+    # Blobs only: the metadata and the .tpusnap/ sidecars (trace,
+    # heartbeat, flight log) are not payload.
     written = sorted(
         os.path.relpath(os.path.join(d, f), inc)
-        for d, _, fs in os.walk(inc) for f in fs if f != ".snapshot_metadata"
+        for d, _, fs in os.walk(inc) for f in fs
+        if f != ".snapshot_metadata" and ".tpusnap" not in os.path.relpath(d, inc)
     )
     assert written == ["0/train/opt/mu/ln_f"]
     assert snap.metadata.base_roots == ["../base"]

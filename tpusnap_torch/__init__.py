@@ -38,6 +38,11 @@ from .snapshot import (  # noqa: F401
     load_snapshot,
 )
 from .dist_store import TakeAbortedError  # noqa: F401
+from .faults import FaultPlan, InjectedFaultError  # noqa: F401
+from .lifecycle import FsckReport, GCReport, fsck_snapshot, gc_snapshot  # noqa: F401
+from .liveness import RankFailedError  # noqa: F401
+from .retry import RetryPolicy  # noqa: F401
+from .telemetry import MetricsSink, metrics_sink  # noqa: F401
 from .host_offload import (  # noqa: F401
     is_host_resident,
     supports_host_offload,
@@ -54,10 +59,17 @@ from .transforms import cast_on_save  # noqa: F401
 __all__ = [
     "__version__",
     "AppState",
+    "FaultPlan",
+    "FsckReport",
+    "GCReport",
+    "InjectedFaultError",
+    "MetricsSink",
     "PendingRestore",
     "PendingSnapshot",
     "PytreeState",
     "RNGState",
+    "RankFailedError",
+    "RetryPolicy",
     "ScrubReport",
     "Snapshot",
     "StateDict",
@@ -65,10 +77,13 @@ __all__ = [
     "TakeAbortedError",
     "apply_retention",
     "cast_on_save",
+    "fsck_snapshot",
+    "gc_snapshot",
     "get_available_entries",
     "is_host_resident",
     "is_sharded",
     "load_snapshot",
+    "metrics_sink",
     "supports_host_offload",
     "to_device",
     "to_host_offload",

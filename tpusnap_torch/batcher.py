@@ -41,7 +41,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from . import _native
+from . import _native, telemetry
 from ._staging_pool import release
 from .io_preparers.array import (
     ArrayBufferStager,
@@ -185,12 +185,16 @@ class DeviceBatchedBufferStager(BufferStager):
             self.frozen = True
 
     def _stage_blocking(self) -> BufferType:
+        rec = telemetry.current()
+        t0 = rec.now() if rec is not None and rec.enabled else None
         with self._lock:
             if self._packed is None:
                 self._packed = self._pack_on(torch.cuda.Stream(device=self.cuda_device))
             host, done = enqueue_dtoh(*self._packed)
             self._dtoh_done = done
         done.synchronize()
+        if t0 is not None:
+            rec.record_span("dtoh", t0, rec.now() - t0, bytes=host.numel())
         self._packed = None
         if host.numel() != self.total:
             raise RuntimeError(

@@ -52,6 +52,8 @@ import threading
 import time
 from typing import Any, List, Optional
 
+from . import flight, telemetry
+
 logger = logging.getLogger(__name__)
 
 # Backoff of every polling wait: the first polls come quickly (a barrier
@@ -242,9 +244,17 @@ class StoreComm(Communicator):
         self._wait_watcher = None
 
     def barrier(self) -> None:
+        with telemetry.span("comm.barrier"):
+            self._barrier()
+
+    def _barrier(self) -> None:
         seq = self._next_seq()
         prefix = f"{self._namespace()}/b{seq}"
         deadline = self._deadline()
+        # Flight anchor: every rank logs the same string for the same
+        # barrier and leaves it at nearly the same instant (the cross-rank
+        # clock alignment of the flight timeline).
+        flight.record("barrier_enter", op=prefix)
         if self._wait_watcher is not None:
             keys = self._polling_barrier(prefix, deadline)
         else:
@@ -255,6 +265,7 @@ class StoreComm(Communicator):
                 self._store.set(keys[1], b"1")
             else:
                 self._wait_key(keys[1], deadline)
+        flight.record("barrier_exit", op=prefix)
         # Every rank has passed every earlier collective: their keys can
         # go. This barrier's own keys may still be polled by a slow rank,
         # so they wait for the next barrier.
@@ -310,10 +321,11 @@ class StoreComm(Communicator):
         seq = self._next_seq()
         prefix = f"{self._namespace()}/ag{seq}"
         keys = [f"{prefix}/{r}" for r in range(self._world_size)]
-        self._store.set(keys[self._rank], pickle.dumps(obj))
-        # The barrier guarantees every rank's key is written.
-        self.barrier()
-        values = self._store.multi_get(keys)
+        with telemetry.span("comm.all_gather"):
+            self._store.set(keys[self._rank], pickle.dumps(obj))
+            # The barrier guarantees every rank's key is written.
+            self.barrier()
+            values = self._store.multi_get(keys)
         self._defer_gc(keys)
         return [pickle.loads(bytes(v)) for v in values]
 
@@ -322,12 +334,13 @@ class StoreComm(Communicator):
         key is deleted after a later barrier proves it was consumed."""
         seq = self._next_seq()
         key = f"{self._namespace()}/bc{seq}"
-        if self._rank == src:
-            self._store.set(key, pickle.dumps(obj))
-            result = obj
-        else:
-            self._wait_key(key, self._deadline())
-            result = pickle.loads(bytes(self._store.get(key)))
+        with telemetry.span("comm.broadcast"):
+            if self._rank == src:
+                self._store.set(key, pickle.dumps(obj))
+                result = obj
+            else:
+                self._wait_key(key, self._deadline())
+                result = pickle.loads(bytes(self._store.get(key)))
         if self._rank == 0:
             self._defer_gc([key])
         return result

@@ -26,6 +26,8 @@ import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
+from . import flight, telemetry
+
 logger = logging.getLogger(__name__)
 
 # Auto mode never probes (or compresses) a take whose eligible payload
@@ -206,6 +208,20 @@ class CompressDecision:
     eligible_bytes: int = 0
 
 
+    def to_meta(self) -> Dict[str, object]:
+        """The decision as the take's telemetry records it."""
+        d: Dict[str, object] = {
+            "mode": self.mode,
+            "decision": "compress" if self.compress else "bypass",
+            "reason": self.reason,
+            "codec_gbps": self.codec_gbps,
+            "eligible_bytes": self.eligible_bytes,
+        }
+        if self.pipe_gbps is not None:
+            d["pipe_gbps"] = round(self.pipe_gbps, 4)
+        return d
+
+
 LAST_DECISION: Optional[CompressDecision] = None
 
 
@@ -290,6 +306,17 @@ def apply_take_policy(write_reqs, storage, event_loop):
             mode="auto", compress=False, reason="policy_error"
         )
     LAST_DECISION = decision
+    rec = telemetry.current()
+    if rec is not None:
+        rec.meta["compress"] = decision.to_meta()
+    if decision.compress or decision.reason not in (
+        "mode_off", "no_eligible_blobs", "below_auto_floor",
+    ):
+        flight.record(
+            "compress_policy", op=decision.reason,
+            decision="compress" if decision.compress else "bypass",
+            codec_gbps=decision.codec_gbps, pipe_gbps=decision.pipe_gbps,
+        )
     return decision
 
 

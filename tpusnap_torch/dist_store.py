@@ -439,16 +439,25 @@ class LinearBarrier:
         return missing
 
     def arrive(self) -> None:
-        self.store.set(self._key("arrive", str(self.rank)), b"1")
-        if self.rank == self.leader_rank:
-            for r in self.ranks:
-                self._checked_get(self._key("arrive", str(r)))
+        from . import flight, telemetry
+
+        flight.record("barrier_enter", op=self.prefix)
+        with telemetry.span("kv.barrier_arrive"):
+            self.store.set(self._key("arrive", str(self.rank)), b"1")
+            if self.rank == self.leader_rank:
+                for r in self.ranks:
+                    self._checked_get(self._key("arrive", str(r)))
 
     def depart(self) -> None:
-        if self.rank == self.leader_rank:
-            self.store.set(self._key("depart"), b"1")
-        else:
-            self._checked_get(self._key("depart"))
+        from . import flight, telemetry
+
+        with telemetry.span("kv.barrier_depart"):
+            if self.rank == self.leader_rank:
+                self.store.set(self._key("depart"), b"1")
+            else:
+                self._checked_get(self._key("depart"))
+        # Release observed: the cross-rank anchor of the flight timeline.
+        flight.record("barrier_exit", op=self.prefix)
 
     def report_error(self, exc: BaseException) -> None:
         try:

@@ -76,7 +76,7 @@ from typing import Callable, Dict, Iterable, List, Optional, Tuple, Union
 
 import torch
 
-from .. import _native
+from .. import _native, telemetry
 from ..compress import (
     check_tile_coverage,
     codec_elem,
@@ -301,11 +301,17 @@ class ArrayBufferStager(BufferStager):
         if array_nbytes(self.arr) == 0:
             return memoryview(b"")
         transform = self._transformed if self.array_prepare_func is not None else None
+        rec = telemetry.current()
+        t0 = rec.now() if rec is not None and rec.enabled else None
         with self._lock:
             src, ready = self._frozen or (self.arr, self.ready)
             host, done = enqueue_dtoh(src, ready, transform)
             self._dtoh_done = done
         done.synchronize()
+        if t0 is not None:
+            # The copy runs on a side stream: its span closes once its
+            # event has completed, not at the enqueue.
+            rec.record_span("dtoh", t0, rec.now() - t0, bytes=host.numel())
         self._frozen = None
         return memoryview(host.numpy())
 
@@ -746,6 +752,13 @@ def _record_checksums(
     budget-tiled read), one CRC otherwise; plus the 64-bit dedup hashes,
     fused into the same pass, per tile when ``record_dedup_hashes`` and
     for small tile-less blobs always."""
+    with telemetry.span("checksum", bytes=mv.nbytes):
+        _record_checksums_impl(entry, mv, record_dedup_hashes)
+
+
+def _record_checksums_impl(
+    entry: TensorEntry, mv: memoryview, record_dedup_hashes: bool
+) -> None:
     tile_rows, row_nbytes = _tile_geometry(entry, mv.nbytes)
     want_dedup = _want_dedup_hashes(record_dedup_hashes, tile_rows, mv.nbytes)
     threads = get_native_copy_threads()

@@ -28,9 +28,20 @@ BufferType = Union[bytes, bytearray, memoryview]
 T = TypeVar("T")
 
 # Namespace of library-owned files inside a snapshot (never blobs), and
-# the directory the compression policy's write probe uses within it.
+# the canonical sidecar paths under it (docs/format.md): every layer that
+# writes or classifies sidecar traffic imports these.
 SIDECAR_PREFIX = ".tpusnap/"
-PROBE_DIR = SIDECAR_PREFIX + "probe"
+JOURNAL_FNAME = SIDECAR_PREFIX + "journal"  # rank 0's take marker
+JOURNAL_RECORDS_DIR = SIDECAR_PREFIX + "journal.d"  # per-rank evidence
+PROGRESS_DIR = SIDECAR_PREFIX + "progress"  # heartbeat records
+TELEMETRY_DIR = SIDECAR_PREFIX + "telemetry"  # per-rank Chrome traces
+PROBE_DIR = SIDECAR_PREFIX + "probe"  # compression policy's write probe
+FLIGHT_DIR = SIDECAR_PREFIX + "flight"  # flight-recorder event logs
+# Written by tpusnap's write-back tiering and content-addressed store
+# (not ported yet); named here so fsck classifies such directories the
+# way tpusnap does.
+UPLOAD_JOURNAL_PATH = SIDECAR_PREFIX + "upload_journal"
+CAS_REFS_DIR = SIDECAR_PREFIX + "cas_refs"
 
 
 class _SkipWrite:
@@ -93,6 +104,11 @@ class BufferStager(abc.ABC):
     def get_staging_cost_bytes(self) -> int:
         """Peak host memory consumed while this buffer is staged."""
 
+    def get_planned_bytes(self) -> int:
+        """Payload bytes this request will stage and write (the progress
+        denominator); stagers whose cost exceeds the payload override it."""
+        return self.get_staging_cost_bytes()
+
 
 @dataclass
 class WriteReq:
@@ -142,6 +158,12 @@ class StoragePlugin(abc.ABC):
     def in_place_read_overhead_bytes(self, nbytes: int) -> int:
         return nbytes
 
+    def classify_transient(self, exc: BaseException) -> bool:
+        """Whether ``exc`` from this backend is worth retrying."""
+        from .retry import default_classify_transient
+
+        return default_classify_transient(exc)
+
     @abc.abstractmethod
     async def write(self, write_io: WriteIO) -> None: ...
 
@@ -158,6 +180,12 @@ class StoragePlugin(abc.ABC):
     @abc.abstractmethod
     async def delete(self, path: str) -> None: ...
 
+    async def list_with_sizes(self) -> Optional[dict]:
+        """``{relative_path: size_bytes}`` of every object under the root,
+        or None when the backend cannot list (fsck's orphan scan, gc and
+        salvage need it)."""
+        return None
+
     async def flush_created_dirs(self) -> None:
         """Make the dirents of everything this plugin instance created
         durable (filesystems: fsync each created directory). Every rank
@@ -168,24 +196,47 @@ class StoragePlugin(abc.ABC):
     async def close(self) -> None:
         return None
 
-    def sync_flush_created_dirs(self, event_loop: asyncio.AbstractEventLoop) -> None:
-        run_on_loop(event_loop, self.flush_created_dirs())
+    def sync_flush_created_dirs(
+        self, event_loop: Optional[asyncio.AbstractEventLoop] = None
+    ) -> None:
+        _run(self.flush_created_dirs(), event_loop)
+
+    def sync_write(
+        self, write_io: WriteIO, event_loop: Optional[asyncio.AbstractEventLoop] = None
+    ) -> None:
+        _run(self.write(write_io), event_loop)
 
     def sync_write_atomic(
         self,
         write_io: WriteIO,
-        event_loop: asyncio.AbstractEventLoop,
+        event_loop: Optional[asyncio.AbstractEventLoop] = None,
         durable: bool = False,
     ) -> None:
-        run_on_loop(event_loop, self.write_atomic(write_io, durable=durable))
+        _run(self.write_atomic(write_io, durable=durable), event_loop)
 
     def sync_read(
-        self, read_io: ReadIO, event_loop: asyncio.AbstractEventLoop
+        self, read_io: ReadIO, event_loop: Optional[asyncio.AbstractEventLoop] = None
     ) -> None:
-        run_on_loop(event_loop, self.read(read_io))
+        _run(self.read(read_io), event_loop)
 
-    def sync_close(self, event_loop: asyncio.AbstractEventLoop) -> None:
-        run_on_loop(event_loop, self.close())
+    def sync_delete(
+        self, path: str, event_loop: Optional[asyncio.AbstractEventLoop] = None
+    ) -> None:
+        _run(self.delete(path), event_loop)
+
+    def sync_list_with_sizes(
+        self, event_loop: Optional[asyncio.AbstractEventLoop] = None
+    ) -> Optional[dict]:
+        return _run(self.list_with_sizes(), event_loop)
+
+    def sync_close(self, event_loop: Optional[asyncio.AbstractEventLoop] = None) -> None:
+        _run(self.close(), event_loop)
+
+
+def shutdown_plugin_executor(executor) -> None:
+    """Join a plugin's thread pool on close: no straggler write survives
+    the close that an aborting take's deletes follow."""
+    executor.shutdown(wait=True)
 
 
 def run_on_loop(event_loop: asyncio.AbstractEventLoop, coro):
@@ -195,10 +246,37 @@ def run_on_loop(event_loop: asyncio.AbstractEventLoop, coro):
     task = event_loop.create_task(coro) if asyncio.iscoroutine(coro) else coro
     try:
         return event_loop.run_until_complete(task)
-    except BaseException:
+    except BaseException as exc:
         task.cancel()
         try:
             event_loop.run_until_complete(task)
         except BaseException:
             pass
+        _release_loop_frames(exc.__traceback__)
         raise
+    finally:
+        task = None  # noqa: F841
+
+
+def _release_loop_frames(tb) -> None:
+    """A failed task holds its exception, whose traceback holds the
+    finished asyncio frames that hold the task: a cycle that keeps every
+    caller frame's locals (a take's staged buffers and CUDA tensors)
+    alive until the cyclic collector runs, also when the caller catches
+    an expected miss (a fresh path has no journal to read). Clearing the
+    locals of those finished frames breaks it; the traceback still names
+    their lines."""
+    while tb is not None:
+        frame = tb.tb_frame
+        if frame.f_globals.get("__name__", "").startswith("asyncio."):
+            try:
+                frame.clear()
+            except RuntimeError:
+                pass  # still executing
+        tb = tb.tb_next
+
+
+def _run(coro, event_loop: Optional[asyncio.AbstractEventLoop]):
+    if event_loop is not None:
+        return run_on_loop(event_loop, coro)
+    return asyncio.run(coro)

@@ -42,6 +42,17 @@ _MAX_SHARD_SIZE_ENV_VAR = "TPUSNAP_MAX_SHARD_SIZE_BYTES"
 _DISABLE_DEVICE_BATCHING_ENV_VAR = "TPUSNAP_DISABLE_DEVICE_BATCHING"
 _DURABLE_COMMIT_ENV_VAR = "TPUSNAP_DURABLE_COMMIT"
 _RANK_FAILURE_ENV_VAR = "TPUSNAP_RANK_FAILURE"
+_DISABLE_JOURNAL_ENV_VAR = "TPUSNAP_DISABLE_JOURNAL"
+_TELEMETRY_ENV_VAR = "TPUSNAP_TELEMETRY"
+_STALL_DEADLINE_ENV_VAR = "TPUSNAP_STALL_DEADLINE_S"
+_HEARTBEAT_INTERVAL_ENV_VAR = "TPUSNAP_HEARTBEAT_INTERVAL_S"
+_TELEMETRY_DIR_ENV_VAR = "TPUSNAP_TELEMETRY_DIR"
+_FLIGHT_ENV_VAR = "TPUSNAP_FLIGHT"
+_FLIGHT_RING_ENV_VAR = "TPUSNAP_FLIGHT_RING"
+_FLIGHT_FLUSH_ENV_VAR = "TPUSNAP_FLIGHT_FLUSH_S"
+_LIVENESS_TTL_ENV_VAR = "TPUSNAP_LIVENESS_TTL_S"
+_JOB_ID_ENV_VAR = "TPUSNAP_JOB_ID"
+_FAULT_SPEC_ENV_VAR = "TPUSNAP_FAULT_SPEC"
 
 _DEFAULT_MAX_CHUNK_SIZE_BYTES = 512 * 1024 * 1024
 _DEFAULT_MAX_SHARD_SIZE_BYTES = 512 * 1024 * 1024
@@ -287,6 +298,134 @@ def get_cas_dir() -> Optional[str]:
     return os.environ.get(_CAS_DIR_ENV_VAR) or None
 
 
+def is_journal_disabled() -> bool:
+    """The crash-safe take journal (``lifecycle``) is on by default: rank
+    0 marks the take before any blob write and every rank records a
+    CRC32C+XXH64 completion record per blob (the salvage evidence).
+    ``TPUSNAP_DISABLE_JOURNAL=1`` turns it off, for A/B measurement: a
+    crashed take then reads as foreign and a retake starts from zero."""
+    return _flag(_DISABLE_JOURNAL_ENV_VAR)
+
+
+def is_telemetry_enabled() -> bool:
+    """Per-take span capture, persisted traces and the heartbeat pump
+    (``telemetry``, ``progress``): on by default. ``TPUSNAP_TELEMETRY=0``
+    turns spans, traces, heartbeats and rank-liveness leases off;
+    counters stay on either way."""
+    return os.environ.get(_TELEMETRY_ENV_VAR, "1") != "0"
+
+
+def get_stall_deadline_s() -> float:
+    """No-progress window after which the stall watchdog warns, naming
+    the blocked op and the ranks not yet arrived (default 30 s)."""
+    return max(0.1, _get_float_env(_STALL_DEADLINE_ENV_VAR, 30.0))
+
+
+def get_heartbeat_interval_s() -> float:
+    """Cadence of the heartbeat pump (default 0.5 s, floor 0.02 s)."""
+    return max(0.02, _get_float_env(_HEARTBEAT_INTERVAL_ENV_VAR, 0.5))
+
+
+def get_telemetry_dir() -> str:
+    """Local directory for telemetry that cannot live in a snapshot
+    (restore traces, local flight copies): ``TPUSNAP_TELEMETRY_DIR`` or a
+    per-user directory under the system temp dir."""
+    import tempfile
+
+    uid = os.getuid() if hasattr(os, "getuid") else "u"
+    return os.environ.get(_TELEMETRY_DIR_ENV_VAR) or os.path.join(
+        tempfile.gettempdir(), f"tpusnap-telemetry-{uid}"
+    )
+
+
+def is_flight_enabled() -> bool:
+    """The flight recorder (``flight``): a bounded ring of events flushed
+    to ``.tpusnap/flight/`` at the heartbeat cadence. On by default;
+    ``TPUSNAP_FLIGHT=0`` turns recording and flushing off."""
+    return os.environ.get(_FLIGHT_ENV_VAR, "1") != "0"
+
+
+def get_flight_ring_size() -> int:
+    """Flight ring capacity in events (default 4096, floor 256)."""
+    return max(256, _get_int_env(_FLIGHT_RING_ENV_VAR, 4096))
+
+
+def get_flight_flush_interval_s() -> float:
+    """Cadence of the flight recorder's flush: after a SIGKILL at most
+    this many seconds of events are lost. Defaults to the heartbeat
+    interval."""
+    val = _get_float_env(_FLIGHT_FLUSH_ENV_VAR, -1.0)
+    if val <= 0:
+        return get_heartbeat_interval_s()
+    return max(0.02, val)
+
+
+def get_liveness_ttl_s() -> float:
+    """Rank-liveness lease TTL (``liveness``): a peer whose lease has not
+    advanced for this long is declared dead and every wait of the take
+    raises ``RankFailedError`` within about twice the TTL. Default 15 s;
+    ``0`` turns leases off; floor 4x the heartbeat interval. Needs
+    telemetry on (the lease rides the heartbeat pump)."""
+    ttl = _get_float_env(_LIVENESS_TTL_ENV_VAR, 15.0)
+    if ttl <= 0:
+        return 0.0
+    return max(4.0 * get_heartbeat_interval_s(), ttl)
+
+
+def get_explicit_job_id() -> Optional[str]:
+    """``TPUSNAP_JOB_ID`` as configured (sanitized), or None when unset."""
+    raw = os.environ.get(_JOB_ID_ENV_VAR)
+    if not raw:
+        return None
+    clean = "".join(c if (c.isalnum() or c in "._-") else "-" for c in raw)
+    return clean or None
+
+
+def get_job_id() -> str:
+    """This job's identity on every observability record:
+    ``TPUSNAP_JOB_ID``, or ``<node>-<pid>``."""
+    explicit = get_explicit_job_id()
+    if explicit is not None:
+        return explicit
+    raw = f"{get_node_name()}-{os.getpid()}"
+    clean = "".join(c if (c.isalnum() or c in "._-") else "-" for c in raw)
+    return clean or "job"
+
+
+def get_fault_spec() -> Optional[str]:
+    """``TPUSNAP_FAULT_SPEC``: the fault plan a ``chaos+`` URL uses when
+    its storage options carry none (``faults.FaultPlan``)."""
+    return os.environ.get(_FAULT_SPEC_ENV_VAR) or None
+
+
+# tpusnap's consumers of the take's telemetry that are not ported yet
+# (ROADMAP.md item A9): each knob, when the user sets it to turn its
+# consumer on, is refused by name rather than silently ignored.
+_UNPORTED_HOOK_KNOBS = (
+    ("TPUSNAP_METRICS_EXPORT", lambda v: v.strip() != "", "metrics export sinks"),
+    ("TPUSNAP_HISTORY", lambda v: v.strip() not in ("", "0"), "the cross-run history"),
+    ("TPUSNAP_FLEET_DIR", lambda v: v.strip() != "", "the fleet status mirror"),
+    ("TPUSNAP_AUTOTUNE", lambda v: v.strip() == "1", "the auto-tuner"),
+    ("TPUSNAP_SLO_RPO_S", lambda v: v.strip() != "", "the checkpoint-SLO tracker"),
+    ("TPUSNAP_SLO_RTO_S", lambda v: v.strip() != "", "the checkpoint-SLO tracker"),
+    ("TPUSNAP_ACCESS_LEDGER", lambda v: v.strip() not in ("", "0"), "the access ledger"),
+    ("TPUSNAP_PROBE", lambda v: v.strip() == "1", "the in-take roofline probe"),
+)
+
+
+def refuse_unported_hooks() -> None:
+    """Raise ``NotImplementedError`` naming the first knob that asks for
+    a telemetry consumer the port does not have yet; with none of them
+    set, every such hook does nothing."""
+    for name, wants, what in _UNPORTED_HOOK_KNOBS:
+        val = os.environ.get(name)
+        if val is not None and wants(val):
+            raise NotImplementedError(
+                f"{name}={val!r} asks for {what}, which is not ported to "
+                "tpusnap_torch yet (ROADMAP.md item A9); unset it"
+            )
+
+
 @contextlib.contextmanager
 def _override_env(name: str, value: Optional[str]) -> Generator[None, None, None]:
     prev = os.environ.get(name)
@@ -362,3 +501,51 @@ def override_checksum_disabled(disabled: bool):
 
 def override_barrier_timeout_s(seconds: float):
     return _override_env(_BARRIER_TIMEOUT_ENV_VAR, str(seconds))
+
+
+def override_journal_disabled(disabled: bool):
+    return _override_env(_DISABLE_JOURNAL_ENV_VAR, "1" if disabled else "0")
+
+
+def override_telemetry_enabled(enabled: bool):
+    return _override_env(_TELEMETRY_ENV_VAR, "1" if enabled else "0")
+
+
+def override_stall_deadline_s(seconds: float):
+    return _override_env(_STALL_DEADLINE_ENV_VAR, str(seconds))
+
+
+def override_heartbeat_interval_s(seconds: float):
+    return _override_env(_HEARTBEAT_INTERVAL_ENV_VAR, str(seconds))
+
+
+def override_telemetry_dir(path: str):
+    return _override_env(_TELEMETRY_DIR_ENV_VAR, path)
+
+
+def override_flight_enabled(enabled: bool):
+    return _override_env(_FLIGHT_ENV_VAR, "1" if enabled else "0")
+
+
+def override_flight_ring_size(n: int):
+    return _override_env(_FLIGHT_RING_ENV_VAR, str(n))
+
+
+def override_flight_flush_interval_s(seconds: float):
+    return _override_env(_FLIGHT_FLUSH_ENV_VAR, str(seconds))
+
+
+def override_job_id(job_id: Optional[str]):
+    return _override_env(_JOB_ID_ENV_VAR, job_id)
+
+
+@contextlib.contextmanager
+def override_liveness(ttl_s: Optional[float] = None, policy: Optional[str] = None):
+    """Override the rank-liveness knobs in one scope (None leaves one as
+    it is)."""
+    with contextlib.ExitStack() as stack:
+        if ttl_s is not None:
+            stack.enter_context(_override_env(_LIVENESS_TTL_ENV_VAR, str(ttl_s)))
+        if policy is not None:
+            stack.enter_context(_override_env(_RANK_FAILURE_ENV_VAR, policy))
+        yield

@@ -156,19 +156,20 @@ def filter_assigned_write_reqs(
     replicated_paths: List[str],
     assignment: Dict[str, int],
     rank: int,
-) -> List[WriteReq]:
-    """Drop the replicated write requests assigned to other ranks (before
-    staging: a rank never copies or hashes bytes it will not write).
-    Entries are left untouched (their locations are rank-agnostic).
-    (tpusnap also returns the dropped requests, for the degraded commit to
-    adopt a dead writer's units; that path is not ported yet.)"""
+) -> Tuple[List[WriteReq], Dict[str, List[WriteReq]]]:
+    """Split off the replicated write requests assigned to other ranks
+    (before staging: a rank never copies or hashes bytes it will not
+    write). Returns ``(kept, dropped)``: ``dropped`` maps each unit id
+    assigned to another rank to this rank's own unstaged requests for it
+    (the same bytes), which a degraded commit stages if that rank dies.
+    Entries are left untouched (their locations are rank-agnostic)."""
     if not replicated_paths or is_partitioner_disabled():
-        return write_reqs
+        return write_reqs, {}
     keep_paths = set()
-    replicated_req_paths = set()
+    unit_of_location: Dict[str, str] = {}
 
     def decide(unit_id: str, location: str) -> None:
-        replicated_req_paths.add(location)
+        unit_of_location[location] = unit_id
         writer = assignment.get(unit_id)
         if writer is None:
             # The estimate and the prepared entry disagree (ranks saw
@@ -194,9 +195,26 @@ def filter_assigned_write_reqs(
             loc = getattr(entry, "location", None)
             if loc is not None:
                 decide(logical_path, loc)
-    return [
-        wr for wr in write_reqs if wr.path not in replicated_req_paths or wr.path in keep_paths
-    ]
+    kept: List[WriteReq] = []
+    dropped: Dict[str, List[WriteReq]] = {}
+    for wr in write_reqs:
+        if wr.path not in unit_of_location or wr.path in keep_paths:
+            kept.append(wr)
+        else:
+            dropped.setdefault(unit_of_location[wr.path], []).append(wr)
+    return kept, dropped
+
+
+def reassign_dead_units(
+    assignment: Dict[str, int], dead_ranks, live_ranks
+) -> Dict[str, int]:
+    """The adoption plan of a degraded commit: every unit whose writer
+    died goes round-robin to the sorted live ranks. Every survivor
+    computes the same plan from the same inputs (no broadcast)."""
+    dead = set(dead_ranks)
+    live = sorted(live_ranks)
+    orphaned = sorted(u for u, w in assignment.items() if w in dead)
+    return {u: live[i % len(live)] for i, u in enumerate(orphaned)}
 
 
 def _greedy_assign(units: List[Tuple[str, List[str], int]], loads: List[int]) -> Dict[str, int]:

@@ -1,8 +1,12 @@
 """Async execution engine: budget-gated, pipelined staging and storage I/O.
 
 Counterpart of tpusnap/scheduler.py for takes (sync and async) and the
-restore, without the roofline probe, progress reporter and
-flight-recorder hooks:
+restore, without the roofline probe and progress reporter. It records
+tpusnap's spans (``stage_buffer``, ``checksum_late``, ``storage_write``,
+``cow_verify``, ``budget_wait``, ``stage_window``, ``stage_blocked``,
+``storage_read``, ``consume``) and counters (``storage.bytes_written``,
+``scheduler.bytes_staged``, ...) into the take's or restore's
+``telemetry`` recorder:
 
 - Write path (``_WriteScheduler``): each WriteReq moves ready_for_staging
   → staging → ready_for_io → io → done; a stager that returns
@@ -31,6 +35,7 @@ from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Callable, List, Optional, Set
 
+from . import telemetry
 from ._staging_pool import release
 from .io_types import (
     SKIP_WRITE,
@@ -115,9 +120,12 @@ class _WritePipeline:
         write_req: WriteReq,
         storage: StoragePlugin,
         hash_executor: ThreadPoolExecutor,
+        tele: Optional["telemetry.TakeTelemetry"] = None,
     ) -> None:
         self.write_req = write_req
         self.storage = storage
+        self.tele = tele if tele is not None and tele.enabled else None
+        self._counters = tele
         # Deferred checksums and COW verifies run on their own pool, never
         # queued behind staging tasks (they would stretch the blocked
         # window they were moved out of).
@@ -128,11 +136,29 @@ class _WritePipeline:
         self.skipped = False
 
     async def stage(self, executor: ThreadPoolExecutor) -> "_WritePipeline":
-        buf = await self.write_req.buffer_stager.stage_buffer(executor)
+        tele = self.tele
+        start = tele.now() if tele is not None else 0.0
+        token = tele.op_enter("stage_buffer") if tele is not None else None
+        try:
+            buf = await self.write_req.buffer_stager.stage_buffer(executor)
+        finally:
+            if tele is not None:
+                tele.op_exit(token)
+        if tele is not None:
+            tele.record_span(
+                "stage_buffer", start, tele.now() - start,
+                path=self.write_req.path, bytes=self.staging_cost,
+            )
         if buf is SKIP_WRITE:
             # Incremental dedup: the content is already persisted. No
             # storage I/O; the staging budget comes back at once.
             self.skipped = True
+            telemetry.incr("scheduler.dedup_skipped", rec=self._counters)
+            telemetry.incr(
+                "scheduler.dedup_skipped_bytes",
+                self.write_req.buffer_stager.get_planned_bytes(),
+                rec=self._counters,
+            )
             return self
         self.buf = buf
         self.buf_size = memoryview(self.buf).cast("B").nbytes
@@ -140,6 +166,7 @@ class _WritePipeline:
 
     async def write(self) -> "_WritePipeline":
         stager = self.write_req.buffer_stager
+        tele = self.tele
         loop = asyncio.get_running_loop()
         late = getattr(stager, "late_checksum", None)
         if getattr(stager, "defer_checksums", False) and late is not None:
@@ -148,14 +175,40 @@ class _WritePipeline:
             # The staged buffer is stable: a pinned copy, a clone, or a
             # CPU tensor that a synchronous take does not let change (an
             # async take's COW stagers hashed at stage time).
+            start = tele.now() if tele is not None else 0.0
             await loop.run_in_executor(self.hash_executor, late, self.buf)
-        await self.storage.write(WriteIO(path=self.write_req.path, buf=self.buf))
+            if tele is not None:
+                tele.record_span(
+                    "checksum_late", start, tele.now() - start, bytes=self.buf_size
+                )
+        start = tele.now() if tele is not None else 0.0
+        token = tele.op_enter("storage_write") if tele is not None else None
+        try:
+            # A journaling storage layer hashes the buffer inside this
+            # call, so its evidence is final before the buffer goes back
+            # to the staging pool below.
+            await self.storage.write(WriteIO(path=self.write_req.path, buf=self.buf))
+        finally:
+            if tele is not None:
+                tele.op_exit(token)
+        if tele is not None:
+            tele.record_span(
+                "storage_write", start, tele.now() - start,
+                path=self.write_req.path, bytes=self.buf_size,
+            )
+        telemetry.incr("storage.bytes_written", self.buf_size, rec=self._counters)
+        telemetry.incr("storage.writes", rec=self._counters)
         if getattr(stager, "cow_pending", False):
             # COW: the buffer just written IS the live tensor; re-hash it
             # against the stage-time value, failing the take on a change.
+            start = tele.now() if tele is not None else 0.0
             await loop.run_in_executor(
                 self.hash_executor, stager.verify_cow_after_write, self.buf
             )
+            if tele is not None:
+                tele.record_span(
+                    "cow_verify", start, tele.now() - start, bytes=self.buf_size
+                )
         # A clone goes back to the staging pool (other buffers are ignored).
         release(self.buf)
         self.buf = None  # release host memory
@@ -228,8 +281,14 @@ class _WriteScheduler:
         prioritize_staging: bool = False,
         pipelined_staging: bool = False,
         stage_eagerly: Optional[Callable[[WriteReq], bool]] = None,
+        tele: Optional["telemetry.TakeTelemetry"] = None,
     ) -> None:
         self.storage = storage
+        # Counters go to the take's recorder whatever the span knob says.
+        self._counters = tele
+        self.tele = tele if tele is not None and tele.enabled else None
+        self._stage_phase_start = self.tele.now() if self.tele is not None else 0.0
+        self._stall_start: Optional[float] = None
         self.prioritize_staging = prioritize_staging
         self.pipelined = pipelined_staging
         self.stage_concurrency = get_stage_threads()
@@ -239,7 +298,7 @@ class _WriteScheduler:
         self.hash_executor = ThreadPoolExecutor(
             max_workers=_MAX_CPU_CONCURRENCY, thread_name_prefix="tpusnap-torch-hash"
         )
-        pls = [_WritePipeline(wr, storage, self.hash_executor) for wr in write_reqs]
+        pls = [_WritePipeline(wr, storage, self.hash_executor, tele) for wr in write_reqs]
         # Large first: they hold budget longest and their I/O overlaps the
         # staging of everything behind them. Eager requests lead.
         eager = stage_eagerly if self.pipelined and stage_eagerly is not None else None
@@ -285,6 +344,12 @@ class _WriteScheduler:
                 break
             self.pipelines.popleft()
             self.budget -= head.staging_cost
+            if self.tele is not None:
+                # High-water mark of the budget in use (it can exceed the
+                # budget through the >=1 over-budget admission).
+                self.tele.gauge_max(
+                    "scheduler.budget_used_bytes", self.memory_budget_bytes - self.budget
+                )
             self.in_flight.add(head)
             self.staging_tasks.add(asyncio.ensure_future(head.stage(self.executor)))
 
@@ -309,9 +374,39 @@ class _WriteScheduler:
     def _first_window_done(self) -> bool:
         return not self.eager_pending and self.staged_cost_total >= self.first_window_target
 
+    def _note_stall(self) -> None:
+        """One ``budget_wait`` span and counter per contiguous window in
+        which the head request cannot be admitted."""
+        starved = (
+            bool(self.pipelines)
+            and len(self.staging_tasks) < self.stage_concurrency
+            and self.pipelines[0].staging_cost > self.budget
+        )
+        if starved:
+            if self._stall_start is None:
+                self._stall_start = self.tele.now() if self.tele is not None else 0.0
+                telemetry.incr("scheduler.budget_waits", rec=self._counters)
+        elif self._stall_start is not None:
+            if self.tele is not None:
+                self.tele.record_span(
+                    "budget_wait", self._stall_start, self.tele.now() - self._stall_start
+                )
+            self._stall_start = None
+
     def _finish_staging(self) -> None:
         if not self.staging_complete:
             self.staging_complete = True
+            if self.tele is not None:
+                now = self.tele.now()
+                if self._stall_start is not None:
+                    self.tele.record_span(
+                        "budget_wait", self._stall_start, now - self._stall_start
+                    )
+                self.tele.record_span(
+                    "stage_window", self._stage_phase_start, now - self._stage_phase_start,
+                    bytes=self.staged_cost_total,
+                )
+            self._stall_start = None
             self.staging_done_event.set()
 
     def unstaged_stagers(self) -> List[BufferStager]:
@@ -325,6 +420,7 @@ class _WriteScheduler:
         while self.staging_tasks or self.pipelines:
             if stop_at_first_window and self._first_window_done():
                 return
+            self._note_stall()
             done, _ = await asyncio.wait(
                 self.staging_tasks | self.io_tasks, return_when=asyncio.FIRST_COMPLETED
             )
@@ -337,6 +433,9 @@ class _WriteScheduler:
                     self.budget += pipeline.staging_cost - pipeline.buf_size
                     self.eager_pending.discard(id(pipeline))
                     self.staged_cost_total += pipeline.staging_cost
+                    telemetry.incr(
+                        "scheduler.bytes_staged", pipeline.buf_size, rec=self._counters
+                    )
                     if not pipeline.skipped:
                         self.ready_for_io.append(pipeline)
                 else:
@@ -361,6 +460,12 @@ class _WriteScheduler:
         except BaseException:
             await self._abort()
             raise
+        if self.blocked and self.tele is not None:
+            self.tele.record_span(
+                "stage_blocked", self._stage_phase_start,
+                self.tele.now() - self._stage_phase_start,
+                staged_cost=self.staged_cost_total,
+            )
         self.blocked = False  # the I/O gate opens for the drain
 
     async def stage_all(self) -> None:
@@ -413,6 +518,7 @@ async def execute_write_reqs(
         prioritize_staging=prioritize_staging,
         pipelined_staging=pipelined_staging,
         stage_eagerly=stage_eagerly,
+        tele=telemetry.current(),
     )
     await sched.run_blocked_window()
     return PendingIOWork(scheduler=sched)
@@ -441,9 +547,16 @@ def sync_execute_write_reqs(
 
 
 class _ReadPipeline:
-    def __init__(self, read_req: ReadReq, storage: StoragePlugin) -> None:
+    def __init__(
+        self,
+        read_req: ReadReq,
+        storage: StoragePlugin,
+        tele: Optional["telemetry.TakeTelemetry"] = None,
+    ) -> None:
         self.read_req = read_req
         self.storage = storage
+        self._counters = tele
+        self.tele = tele if tele is not None and tele.enabled else None
         # Reads landing in the caller's own memory allocate no full-size
         # scratch buffer, so they are charged only the plugin's transient
         # overhead. A callable ``into`` allocates a staging buffer (pinned
@@ -466,11 +579,49 @@ class _ReadPipeline:
             into=into() if callable(into) else into,
             want_crc=self.read_req.want_crc,
         )
-        await self.storage.read(self.read_io)
+        tele = self.tele
+        start = tele.now() if tele is not None else 0.0
+        token = tele.op_enter("storage_read") if tele is not None else None
+        try:
+            await self.storage.read(self.read_io)
+        finally:
+            if tele is not None:
+                tele.op_exit(token)
+        nbytes = self._read_nbytes()
+        if tele is not None:
+            tele.record_span(
+                "storage_read", start, tele.now() - start,
+                path=self.read_req.path, bytes=nbytes,
+            )
+        telemetry.incr("storage.bytes_read", nbytes, rec=self._counters)
+        telemetry.incr("storage.reads", rec=self._counters)
         return self
 
+    def _read_nbytes(self) -> int:
+        rio = self.read_io
+        if rio.byte_range is not None:
+            return int(rio.byte_range[1] - rio.byte_range[0])
+        if rio.in_place and rio.into is not None:
+            return memoryview(rio.into).nbytes
+        try:
+            return rio.buf.getbuffer().nbytes
+        except Exception:
+            return 0
+
     async def consume(self, executor: ThreadPoolExecutor) -> "_ReadPipeline":
-        await self.read_req.buffer_consumer.consume_read_io(self.read_io, executor)
+        tele = self.tele
+        start = tele.now() if tele is not None else 0.0
+        token = tele.op_enter("consume") if tele is not None else None
+        try:
+            await self.read_req.buffer_consumer.consume_read_io(self.read_io, executor)
+        finally:
+            if tele is not None:
+                tele.op_exit(token)
+        if tele is not None:
+            tele.record_span(
+                "consume", start, tele.now() - start,
+                path=self.read_req.path, bytes=self.consuming_cost,
+            )
         self.read_io = None  # release
         return self
 
@@ -483,9 +634,10 @@ async def execute_read_reqs(
     executor = ThreadPoolExecutor(
         max_workers=_MAX_CPU_CONCURRENCY, thread_name_prefix="tpusnap-torch-consume"
     )
+    tele = telemetry.current()
     pipelines = deque(
         sorted(
-            (_ReadPipeline(rr, storage) for rr in read_reqs),
+            (_ReadPipeline(rr, storage, tele) for rr in read_reqs),
             key=lambda p: p.consuming_cost,
             reverse=True,
         )

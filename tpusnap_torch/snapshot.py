@@ -78,14 +78,37 @@ Host-offloaded (pinned) CPU tensors stage as views of themselves, with
 no device-to-host copy, and restore in place; a pinned target of another
 shape gets a pinned tensor (``io_preparers/array.py``).
 
-Left out of this port so far, each raising ``NotImplementedError`` when
-asked for rather than being ignored (ROADMAP.md lists them): tiering,
-CAS, cloud storage, the delta stream, the degraded commit
-(``TPUSNAP_RANK_FAILURE=degrade``) and rank-liveness leases (A8, which
-also ports the ``chaos+`` fault-injection layer with the retry
-middleware it needs). tpusnap's journal, progress, flight, SLO,
-telemetry and tuner hooks are observability the port adds later (A9); a
-snapshot without them reads the same in either package.
+Every take carries tpusnap's crash-safe lifecycle and observability,
+in tpusnap's order and with its on-disk names (docs/format.md):
+
+- the take journal (``lifecycle``): rank 0 writes ``.tpusnap/journal``
+  before any blob write, every rank its seeded record file, and each blob
+  write records CRC32C+XXH64 evidence; the commit clears them. A killed
+  take is "torn" to either package's ``fsck_snapshot``, and a retake to
+  the same path skips the storage writes of blobs whose staged bytes
+  match the evidence (salvage-resume: it still copies and hashes them).
+- telemetry (``telemetry``): phase and op spans, counters and I/O
+  histograms; a per-rank trace in ``.tpusnap/telemetry/`` and the
+  cross-rank rollup in ``metadata.extras["telemetry"]``; restore traces
+  under ``TPUSNAP_TELEMETRY_DIR``.
+- the heartbeat pump (``progress``) with the flight recorder
+  (``flight``) flushed on it, and, with several processes, the
+  rank-liveness lease (``liveness``): a dead peer fails every wait of the
+  take with ``RankFailedError`` within about twice
+  ``TPUSNAP_LIVENESS_TTL_S``.
+- ``TPUSNAP_RANK_FAILURE=degrade``: the survivors of a take whose dead
+  rank held only replicated state adopt its units and commit, recording
+  ``extras["degraded"]``. An async take freezes the units it would adopt
+  at the call, with its own, so a degraded snapshot still holds the
+  state at the call.
+- ``chaos+fs://`` paths run under the fault plan and the retry
+  middleware (``storage_plugin``).
+
+Left out so far, each raising ``NotImplementedError`` when asked for
+rather than being ignored (ROADMAP.md lists them): write-back tiering,
+the content-addressed store, cloud storage and the delta stream (A8b),
+and the consumers of the take's telemetry: metrics export, history,
+SLO, fleet, tuner and access ledger (A9), refused by their knobs.
 """
 
 from __future__ import annotations
@@ -105,7 +128,8 @@ from urllib.parse import urlsplit
 
 import torch
 
-from . import _native, compress
+from . import _native, compress, telemetry
+from . import flight as _flight
 from .batcher import batch_read_requests, batch_write_requests
 from .comm import Communicator, get_communicator
 from .dist_store import (
@@ -120,16 +144,20 @@ from .flatten import flatten, inflate
 from .inspect import _entry_tensors, base_root_of_location, entry_nbytes
 from .io_preparer import prepare_read, prepare_write
 from .io_preparers.array import ArrayBufferStager, event_on, freeze_device_sources
-from .io_types import ReadIO, StoragePlugin, WriteIO, run_on_loop
+from .io_types import BufferStager, ReadIO, StoragePlugin, WriteIO, run_on_loop
 from .knobs import (
     get_async_stage_window_bytes,
     get_commit_barrier_timeout_s,
+    get_liveness_ttl_s,
     get_node_name,
     get_rank_failure_policy,
     is_checksum_disabled,
     is_dedup_hash_recording_forced,
     is_durable_commit_enabled,
+    is_journal_disabled,
+    refuse_unported_hooks,
 )
+from .liveness import LeasePublisher, LivenessMonitor, RankFailedError
 from .manifest import (
     ChunkedTensorEntry,
     Entry,
@@ -148,6 +176,7 @@ from .partitioner import (
     assign_replicated_units,
     consolidate_replicated_entries,
     estimate_write_loads,
+    reassign_dead_units,
     filter_assigned_write_reqs,
 )
 from .rng_state import RNGState
@@ -265,11 +294,13 @@ class Snapshot:
         transforms tensors at save time (``transforms.cast_on_save``); it
         must keep the shape and be deterministic."""
         comm = get_communicator(comm)
+        refuse_unported_hooks()
         event_loop = asyncio.new_event_loop()
         abort_ctx = _TakeAbortContext(comm, event_loop)
+        tele = telemetry.begin_take(comm.rank)
         try:
             try:
-                pending, metadata, path, storage, late_checksums, _ = _take_impl(
+                pending, metadata, path, storage, late_checksums, _, tele_commit = _take_impl(
                     path, app_state, storage_options, comm, replicated or [], event_loop,
                     abort_ctx,
                     is_async_snapshot=False,
@@ -279,14 +310,33 @@ class Snapshot:
                     force_dedup_hashes=_record_dedup_hashes,
                 )
                 meta_cached = _commit(
-                    pending, metadata, storage, comm, late_checksums, abort_ctx, event_loop
+                    pending, metadata, storage, comm, late_checksums, abort_ctx, event_loop,
+                    tele_commit,
                 )
+            except RankFailedError as rank_exc:
+                # A peer died. Under TPUSNAP_RANK_FAILURE=degrade (with the
+                # recovery context armed) the survivors complete the take
+                # without it; anything else aborts to a torn directory.
+                try:
+                    degraded = _maybe_degraded_commit(abort_ctx, rank_exc)
+                except BaseException as e:
+                    abort_ctx.on_failure(e)
+                    raise
+                if degraded is None:
+                    abort_ctx.on_failure(rank_exc)
+                    raise
+                metadata, meta_cached = degraded, True
+                tele.meta["completed"] = True
+                abort_ctx.finish_progress("committed")
+                _flight.recorder().end_take("committed")
             except BaseException as e:
                 abort_ctx.on_failure(e)
                 raise
             finally:
                 abort_ctx.close_storage()
         finally:
+            abort_ctx.stop_progress()
+            telemetry.end_take(tele)
             abort_ctx.disarm()
             event_loop.close()
         snapshot = cls(path, storage_options, comm)
@@ -320,10 +370,15 @@ class Snapshot:
         runs over the KV store on the drain thread: no collective runs
         off the calling thread."""
         comm = get_communicator(comm)
+        refuse_unported_hooks()
         event_loop = asyncio.new_event_loop()
         abort_ctx = _TakeAbortContext(comm, event_loop)
+        tele = telemetry.begin_take(comm.rank)
         try:
-            pending, metadata, path, storage, late_checksums, live_until_drained = _take_impl(
+            (
+                pending, metadata, path, storage, late_checksums, live_until_drained,
+                tele_commit,
+            ) = _take_impl(
                 path, app_state, storage_options, comm, replicated or [], event_loop,
                 abort_ctx,
                 is_async_snapshot=True,
@@ -337,17 +392,20 @@ class Snapshot:
             return PendingSnapshot(
                 path, pending, metadata, storage, comm, event_loop, storage_options,
                 live_until_drained, late_checksums=late_checksums, abort_ctx=abort_ctx,
+                tele_commit=tele_commit,
             )
         except BaseException as e:
             abort_ctx.on_failure(e)
             abort_ctx.close_storage()
+            abort_ctx.stop_progress()
+            telemetry.end_take(tele)
             abort_ctx.disarm()
             event_loop.close()
             raise
 
     @classmethod
     def stream(cls, *args, **kwargs):
-        raise _not_ported("the delta stream", "A8")
+        raise _not_ported("the delta stream", "A8b")
 
     # --------------------------------------------------------------- restore
 
@@ -366,6 +424,7 @@ class Snapshot:
         collectives inside ``load_state_dict``."""
         comm = get_communicator(self._comm)
         _validate_app_state(app_state)
+        refuse_unported_hooks()
         with self._op_lock:
             self._restore_locked(app_state, comm, per_key_barrier)
 
@@ -376,12 +435,45 @@ class Snapshot:
         per_key_barrier: bool,
         memory_budget: Optional[int] = None,
     ) -> None:
+        """The restore under its own telemetry recorder (a thread-local
+        overlay, so an in-flight take's recorder is left alone): phases
+        ``restore.plan`` then per key ``restore.targets``,
+        ``restore.prepare``, ``restore.read``, ``restore.load``, the
+        scheduler's read spans; the trace goes to the local telemetry dir
+        (the snapshot is immutable)."""
+        tele = telemetry.begin_restore(comm.rank)
+        tele.meta.update(path=self.path, world_size=comm.world_size)
+        mark = telemetry.PhaseMarker(rec=tele, from_start=True)
+        try:
+            with telemetry.use(tele):
+                self._restore_instrumented(app_state, comm, per_key_barrier, memory_budget, mark)
+            tele.meta["completed"] = True
+        finally:
+            tele.finalize()
+            telemetry.publish_restore_summary(tele.summary())
+            if tele.enabled:
+                try:
+                    from .progress import persist_restore_trace
+
+                    persist_restore_trace(tele, self.path)
+                except Exception:
+                    logger.warning("Failed to persist restore trace (non-fatal)", exc_info=True)
+
+    def _restore_instrumented(
+        self,
+        app_state: AppState,
+        comm: Communicator,
+        per_key_barrier: bool,
+        memory_budget: Optional[int],
+        mark: "telemetry.PhaseMarker",
+    ) -> None:
         event_loop, storage = self._resources()
         metadata = self._get_metadata(storage, event_loop)
         if memory_budget is None:
             memory_budget = get_process_memory_budget_bytes(comm)
         multi = per_key_barrier and comm.world_size > 1
         keys = _gather_keys(comm, sorted(app_state)) if multi else sorted(app_state)
+        mark("restore.plan")
         # RNG state loads last, so that loading other statefuls cannot
         # disturb it.
         keys.sort(key=lambda k: isinstance(app_state.get(k), RNGState))
@@ -399,6 +491,7 @@ class Snapshot:
                 storage=storage,
                 memory_budget=memory_budget,
                 event_loop=event_loop,
+                mark=mark,
             )
 
     def async_restore(self, app_state: AppState) -> "PendingRestore":
@@ -554,13 +647,18 @@ class _TakeAbortContext:
     :class:`TakeAbortMonitor` as the communicator's wait watcher, so every
     later collective wait and commit barrier raises
     :class:`TakeAbortedError` within seconds of any rank's failure instead
-    of running out the barrier timeout. On failure it publishes this
-    rank's abort record, deletes the blobs this rank may have written (so
-    the path stays reusable), and drops this rank's late-checksum record.
-    Blob deletion is skipped once the metadata commit may have started:
-    orphan blobs are safe, dangling manifest references are not. The
-    journal, the liveness lease and the degraded commit of tpusnap's
-    context are not ported yet (ROADMAP.md A8)."""
+    of running out the barrier timeout; once the heartbeat pump runs, the
+    rank-liveness monitor joins the watcher (``arm_liveness``), so a dead
+    peer raises :class:`RankFailedError`. On failure it stops the pump
+    with an "aborted" record, records the abort in the flight recorder,
+    publishes this rank's abort record, deletes the blobs this rank may
+    have written (so the path stays reusable) and then its journal
+    records (rank 0 also the marker), and drops this rank's KV records.
+    Blobs and journal are kept once the metadata commit may have started
+    (orphan blobs are safe, dangling manifest references are not) and on
+    a rank failure (the survivors' blobs and evidence are what a retake
+    salvages). ``degrade`` holds what the survivors of a rank failure
+    need to finish the take (``TPUSNAP_RANK_FAILURE=degrade``)."""
 
     def __init__(self, comm: Communicator, event_loop: asyncio.AbstractEventLoop) -> None:
         self.comm = comm
@@ -570,16 +668,52 @@ class _TakeAbortContext:
         self.pending: Optional[PendingIOWork] = None
         self.write_paths: List[str] = []
         self.late_checksums: Optional["_LateChecksums"] = None
+        self.tele_commit: Optional["_TelemetryCommit"] = None
+        self.progress = None
+        self.lease: Optional[LeasePublisher] = None
+        self.liveness: Optional[LivenessMonitor] = None
+        self.degrade: Optional["_DegradeContext"] = None
+        # Set once the take's journal exists: an aborted take (not a
+        # killed one) cleans its blobs and then its journal, leaving the
+        # path empty, not torn.
+        self.journal_world_size: Optional[int] = None
         self.commit_started = False
         self._failed = False
 
     def arm(self, monitor: TakeAbortMonitor) -> None:
         self.monitor = monitor
-        self.comm.set_wait_watcher(monitor.check)
+        self._install_watcher()
+
+    def arm_liveness(self, lease: LeasePublisher, liveness: LivenessMonitor) -> None:
+        """Once the pump runs (after ``arm``): every wait also judges the
+        peers' leases."""
+        self.lease = lease
+        self.liveness = liveness
+        self._install_watcher()
+
+    def _install_watcher(self) -> None:
+        monitor, liveness = self.monitor, self.liveness
+        if monitor is None:
+            return
+        if liveness is None:
+            self.comm.set_wait_watcher(monitor.check)
+            return
+
+        def watcher() -> None:
+            monitor.check()
+            liveness.check()
+
+        self.comm.set_wait_watcher(watcher)
 
     def barrier_watchers(self) -> List:
-        """Watchers for the async commit's ``LinearBarrier`` waits."""
-        return [self.monitor.check] if self.monitor is not None else []
+        """Watchers for the async commit's ``LinearBarrier`` waits: peer
+        abort records and lease expiry."""
+        out = []
+        if self.monitor is not None:
+            out.append(self.monitor.check)
+        if self.liveness is not None:
+            out.append(self.liveness.check)
+        return out
 
     def disarm(self) -> None:
         if self.monitor is not None:
@@ -589,6 +723,18 @@ class _TakeAbortContext:
         if self.storage is not None:
             self.storage.sync_close(self.event_loop)
             self.storage = None
+
+    def finish_progress(self, state: str) -> None:
+        if self.progress is not None:
+            try:
+                self.progress.finish(state)
+            except Exception:
+                logger.debug("progress finish failed", exc_info=True)
+
+    def stop_progress(self) -> None:
+        """Safety net on every exit path: the pump thread is gone."""
+        if self.progress is not None:
+            self.progress.stop()
 
     def mark_commit_started(self) -> None:
         self.commit_started = True
@@ -600,29 +746,64 @@ class _TakeAbortContext:
         if self._failed:
             return
         self._failed = True
+        self.finish_progress("aborted")
+        try:
+            _flight.record("abort", op=type(exc).__name__)
+            _flight.recorder().end_take("aborted")
+        except Exception:
+            logger.debug("flight abort record failed", exc_info=True)
         if self.monitor is not None and not isinstance(exc, TakeAbortedError):
             self.monitor.publish(exc)
-        keep_blobs = self.commit_started or (
-            self.monitor is not None and self.monitor.commit_may_have_started()
+        rank_failure = isinstance(exc, RankFailedError) or isinstance(
+            getattr(exc, "__cause__", None), RankFailedError
+        )
+        keep_blobs = (
+            self.commit_started
+            or rank_failure
+            or (self.monitor is not None and self.monitor.commit_may_have_started())
         )
         if self.pending is not None and not self.pending.drained():
             try:
-                self.pending.sync_cancel(self.event_loop)
+                if rank_failure:
+                    # The blobs stay: let this rank's staged writes land,
+                    # so that its journal holds their salvage evidence.
+                    self.pending.sync_complete(self.event_loop)
+                else:
+                    self.pending.sync_cancel(self.event_loop)
             except Exception:
-                logger.debug("cancelling the take's writes failed", exc_info=True)
+                logger.debug("finishing the take's writes failed", exc_info=True)
         if not keep_blobs and self.storage is not None:
+            deletes_failed = False
             for path in self.write_paths:
                 try:
                     run_on_loop(self.event_loop, self.storage.delete(path))
                 except FileNotFoundError:
                     pass  # never written (dedup skip, or not reached)
                 except Exception:
+                    deletes_failed = True
                     logger.debug("abort cleanup of %r failed", path, exc_info=True)
-        if self.late_checksums is not None:
-            try:
-                self.late_checksums.discard()
-            except Exception:
-                logger.debug("late-checksum discard failed", exc_info=True)
+            # Blobs gone: this rank's journal records (rank 0: then the
+            # marker) go too, so the path reads empty, not torn. If a
+            # delete failed the marker stays: the leftovers must remain
+            # classifiable as torn.
+            if self.journal_world_size is not None:
+                from .lifecycle import clear_journal, journal_rank_path
+
+                try:
+                    if self.comm.rank != 0:
+                        self.storage.sync_delete(
+                            journal_rank_path(self.comm.rank), self.event_loop
+                        )
+                    elif not deletes_failed:
+                        clear_journal(self.storage, self.event_loop, self.journal_world_size)
+                except Exception:
+                    logger.debug("abort journal cleanup failed", exc_info=True)
+        for transport in (self.late_checksums, self.tele_commit):
+            if transport is not None:
+                try:
+                    transport.discard()
+                except Exception:
+                    logger.debug("KV record discard failed", exc_info=True)
 
 
 def _gather_keys(comm: Communicator, local_keys: List[str]) -> List[str]:
@@ -647,22 +828,27 @@ def _take_impl(
     array_prepare_func: Optional[Any] = None,
     incremental_from: Optional[str] = None,
     force_dedup_hashes: bool = False,
-) -> Tuple[PendingIOWork, SnapshotMetadata, str, StoragePlugin, Optional["_LateChecksums"], bool]:
+) -> Tuple[
+    PendingIOWork, SnapshotMetadata, str, StoragePlugin, Optional["_LateChecksums"], bool,
+    "_TelemetryCommit",
+]:
     """Flatten, plan, prepare and batch every write, and run the write
     engine to the blocked-window boundary. Returns the work left, the
     metadata to commit once it is done, the path (rank 0's), the open
-    storage plugin, the late-checksum transport (several processes) and
-    whether live CPU bytes are read until the writes drain (COW).
+    storage plugin (journaling), the late-checksum transport (several
+    processes), whether live CPU bytes are read until the writes drain
+    (COW), and the telemetry transport of the commit.
 
     Exactly two gathers with several processes, as in tpusnap: G1 before
     staging (path, globs, write-load estimate, host name, take id) and G2
     after it (the manifests); ``per_key_barrier`` adds a key gather and a
-    barrier per key."""
-    if get_rank_failure_policy() == "degrade":
-        raise _not_ported("the degraded commit (TPUSNAP_RANK_FAILURE=degrade)", "A8")
+    barrier per key. The phases ``state_dict``, ``plan``, ``prepare``,
+    ``stage``, ``manifest_gather`` and ``metadata`` tile the take's
+    timeline in its telemetry."""
     _validate_app_state(app_state)
     rank = comm.rank
     multi = comm.world_size > 1
+    mark = telemetry.phase_marker(from_start=True)
     # Other statefuls' state_dict() may draw from the RNGs, and a take
     # must leave them as it found them.
     rng_captured = {
@@ -684,6 +870,7 @@ def _take_impl(
         flattened_all.update(flat)
     for key, captured in rng_captured.items():
         app_state[key].load_state_dict(captured)
+    mark("state_dict", keys=len(keys))
 
     globs = sorted(set(replicated))
     matched = {p for p in flattened_all if any(fnmatch.fnmatch(p, g) for g in globs)}
@@ -737,6 +924,12 @@ def _take_impl(
         abort_ctx.arm(TakeAbortMonitor(_get_kv_store(comm), take_id, rank, comm.world_size))
     else:
         replicated_paths = matched
+    mark("plan")
+    if mark.rec is not None:
+        mark.rec.meta.update(
+            take_id=take_id, path=path, world_size=comm.world_size,
+            incremental=incremental_from is not None,
+        )
 
     # Incremental: this rank's view of the base manifest, its blob
     # locations rewritten relative to the new root.
@@ -761,6 +954,18 @@ def _take_impl(
     # over: on failure the context deletes this rank's blobs through it.
     storage = url_to_storage_plugin_in_event_loop(path, event_loop, storage_options)
     abort_ctx.storage = storage
+    try:
+        from .storage_plugin import storage_plugin_label
+
+        telemetry.current().meta["plugin"] = storage_plugin_label(storage)
+    except Exception:
+        pass
+    storage = _open_journal(
+        storage, event_loop, rank, comm.world_size, take_id, incremental_from, abort_ctx
+    )
+    progress_monitor = _start_observability(
+        mark.rec, comm, take_id, path, abort_ctx, multi
+    )
     late_checksums: Optional[_LateChecksums] = None
     entries: Manifest = dict(manifest)
     write_reqs = []
@@ -793,9 +998,11 @@ def _take_impl(
 
     # Keep only the replicated requests the plan gives this rank,
     # before anything is staged or batched: the device slab pack then
-    # holds this rank's members only.
+    # holds this rank's members only. The others' are kept aside, unstaged,
+    # for a degraded commit to adopt.
+    dropped_replicated: Dict[str, List] = {}
     if multi and replicated_entry_paths:
-        write_reqs = filter_assigned_write_reqs(
+        write_reqs, dropped_replicated = filter_assigned_write_reqs(
             entries, write_reqs, replicated_entry_paths, assignment, rank
         )
 
@@ -807,6 +1014,11 @@ def _take_impl(
     # eligible standalone blobs after batching. Never fails a take.
     compress.apply_take_policy(write_reqs, storage, event_loop)
     abort_ctx.write_paths = [wr.path for wr in write_reqs]
+    if progress_monitor is not None:
+        # The denominator of the heartbeat's byte progress: payload bytes.
+        progress_monitor.set_bytes_planned(
+            sum(wr.buffer_stager.get_planned_bytes() for wr in write_reqs)
+        )
     if incremental_from is None:
         # Standalone tensor blobs hash on the write path, overlapping
         # other requests' disk time; slab members hash inside their
@@ -847,10 +1059,12 @@ def _take_impl(
         stage_eagerly = lambda wr: not getattr(  # noqa: E731
             wr.buffer_stager, "defer_checksums", False
         )
+    memory_budget = get_process_memory_budget_bytes(comm, local_world_size=local_world_size)
+    mark("prepare", write_reqs=len(write_reqs))
     pending = sync_execute_write_reqs(
         write_reqs,
         storage,
-        get_process_memory_budget_bytes(comm, local_world_size=local_world_size),
+        memory_budget,
         event_loop,
         prioritize_staging=is_async_snapshot and not pipelined,
         pipelined_staging=pipelined,
@@ -863,7 +1077,29 @@ def _take_impl(
         # copies, staged now.
         if not freeze_device_sources(pending.scheduler.unstaged_stagers()):
             run_on_loop(event_loop, pending.scheduler.stage_all())
+    mark("stage", write_reqs=len(write_reqs))
+    if (
+        multi
+        and abort_ctx.liveness is not None
+        and incremental_from is None
+        and get_rank_failure_policy() == "degrade"
+    ):
+        # Everything a degraded commit needs is final here, before the
+        # manifest gather (the first wait a dead peer can strand). An
+        # async take also freezes the units it may adopt, as its own: a
+        # degraded snapshot must hold the state at the call, not what
+        # the caller wrote in place after it. (tpusnap arms this for
+        # synchronous takes only.) Incremental takes never degrade: their
+        # dedup decisions reference per-rank base views.
+        if is_async_snapshot:
+            _freeze_for_adoption(dropped_replicated, event_loop)
+        abort_ctx.degrade = _DegradeContext(
+            comm=comm, take_id=take_id, storage=storage, event_loop=event_loop,
+            entries=entries, dropped_replicated=dropped_replicated,
+            assignment=assignment, memory_budget=memory_budget, pending_io_work=pending,
+        )
     global_manifest = _gather_manifest(entries, comm)
+    mark("manifest_gather")
     metadata = SnapshotMetadata(
         version=__version__,
         world_size=comm.world_size,
@@ -873,7 +1109,127 @@ def _take_impl(
         # so readers never parse roots out of location strings.
         base_roots=_referenced_base_roots(global_manifest, base_root_candidates) or None,
     )
-    return pending, metadata, path, storage, late_checksums, live_until_drained
+    mark("metadata")
+    tele_commit = _TelemetryCommit(mark.rec, comm, take_id, progress=progress_monitor)
+    abort_ctx.tele_commit = tele_commit
+    return pending, metadata, path, storage, late_checksums, live_until_drained, tele_commit
+
+
+def _open_journal(
+    storage: StoragePlugin,
+    event_loop: asyncio.AbstractEventLoop,
+    rank: int,
+    world_size: int,
+    take_id: str,
+    incremental_from: Optional[str],
+    abort_ctx: _TakeAbortContext,
+) -> StoragePlugin:
+    """The take's crash-safe lifecycle, as tpusnap opens it: if the path
+    holds a torn take (a journal, no metadata), load its completion
+    records for salvage; wrap the plugin in the journaling layer; rank 0
+    writes the journal marker before any blob write, and every rank its
+    record file (seeded with the salvage records, so a retake that
+    crashes early still leaves them). Returns the journaling plugin, which
+    the abort context then owns."""
+    from .lifecycle import (
+        JournalingStoragePlugin,
+        TakeJournal,
+        load_salvage_records,
+        read_journal,
+        write_journal,
+    )
+
+    journal_enabled = not is_journal_disabled()
+    salvage_records = None
+    # Every rank that may hold a record here: a retake over a torn take
+    # of a larger world must still clear the torn ranks' files.
+    clear_ws = world_size
+    prior = read_journal(storage, event_loop) if journal_enabled else None
+    if prior is not None:
+        clear_ws = max(clear_ws, prior.world_size)
+        try:
+            files = storage.sync_list_with_sizes(event_loop)
+        except Exception:
+            files = None
+        # Salvage needs the listing (each record is checked against the
+        # blob present) and never applies over committed metadata.
+        if files is not None and SNAPSHOT_METADATA_FNAME not in files:
+            salvage_records = load_salvage_records(
+                storage, event_loop, prior.world_size, files=files
+            )
+            if salvage_records:
+                logger.info(
+                    "Torn take %s found: %d completed blob record(s) loaded for salvage",
+                    prior.take_id[:8], len(salvage_records),
+                )
+    storage = JournalingStoragePlugin(storage, rank, salvage_records)
+    storage.clear_world_size = clear_ws
+    abort_ctx.storage = storage
+    if journal_enabled:
+        if rank == 0:
+            write_journal(
+                storage,
+                event_loop,
+                TakeJournal(
+                    take_id=take_id, world_size=world_size, started_at=time.time(),
+                    incremental_from=incremental_from, version=__version__,
+                ),
+            )
+        try:
+            storage.sync_seed_record_file(event_loop)
+        except Exception:
+            logger.warning("Failed to create journal record file (non-fatal)", exc_info=True)
+        abort_ctx.journal_world_size = clear_ws
+    return storage
+
+
+def _start_observability(
+    rec: Optional["telemetry.TakeTelemetry"],
+    comm: Communicator,
+    take_id: str,
+    path: str,
+    abort_ctx: _TakeAbortContext,
+    multi: bool,
+):
+    """The heartbeat pump and stall watchdog (telemetry on), the flight
+    recorder's take destinations and its flush on the pump, and, with
+    several processes, this rank's liveness lease on the pump and the
+    lease monitor in every wait. Best-effort like tpusnap's: a failure
+    here logs and the take goes on. Returns the progress monitor."""
+    progress_monitor = None
+    if rec is not None and rec.enabled:
+        try:
+            from .progress import start_take_monitor
+
+            progress_monitor = start_take_monitor(rec, comm, take_id, path)
+            abort_ctx.progress = progress_monitor
+        except Exception:
+            logger.warning("Failed to start progress monitor (non-fatal)", exc_info=True)
+    try:
+        from .progress import local_root_of
+
+        frec = _flight.recorder()
+        frec.configure_take(comm.rank, take_id, comm.world_size, path, local_root_of(path))
+        if progress_monitor is not None and frec.enabled:
+            progress_monitor.add_tick_hook(_flight.make_tick_hook(frec))
+    except Exception:
+        logger.warning("Failed to configure flight recorder (non-fatal)", exc_info=True)
+    if multi and progress_monitor is not None and progress_monitor.kv is not None:
+        ttl = get_liveness_ttl_s()
+        if ttl > 0:
+            try:
+                lease = LeasePublisher(progress_monitor.kv, take_id, comm.rank)
+                lease.publish()  # alive now, not one tick later
+                liveness = LivenessMonitor(
+                    progress_monitor.kv, take_id, comm.rank, comm.world_size, ttl_s=ttl
+                )
+                progress_monitor.add_tick_hook(lease.make_tick_hook())
+                progress_monitor.set_liveness_probe(liveness.dead_ranks)
+                progress_monitor.set_left_probe(liveness.left_ranks)
+                abort_ctx.arm_liveness(lease, liveness)
+            except Exception:
+                logger.warning("Failed to arm rank-liveness leases (non-fatal)", exc_info=True)
+    return progress_monitor
 
 
 def _commit(
@@ -884,13 +1240,21 @@ def _commit(
     late_checksums: Optional["_LateChecksums"],
     abort_ctx: _TakeAbortContext,
     event_loop: asyncio.AbstractEventLoop,
+    tele_commit: "_TelemetryCommit",
 ) -> bool:
-    """A sync take's drain and two-phase commit: writes drained and late
-    checksums published on every rank, barrier, every rank patches its
-    manifest copy, rank 0 writes the metadata, barrier, rank 0 deletes
-    the take's KV keys. Returns whether this rank's manifest copy is the
+    """A sync take's drain and two-phase commit: writes drained, late
+    checksums and the telemetry summary published, this rank's trace
+    written, on every rank; barrier; every rank patches its manifest copy
+    and folds the rollup; rank 0 writes the metadata; barrier; rank 0
+    deletes the take's KV keys, then clears the journal (strictly after
+    the metadata). Returns whether this rank's manifest copy is the
     committed one (a non-leader whose patch failed reads the file)."""
+    tele = tele_commit.tele
+    drain_start = tele.now() if tele is not None else 0.0
     pending.sync_complete(event_loop)
+    if tele is not None:
+        tele.record_span("io_drain", drain_start, tele.now() - drain_start, phase=True)
+    prep_start = tele.now() if tele is not None else None
     if is_durable_commit_enabled():
         # Every rank makes its own dirents durable before the commit
         # barrier: rank 0's metadata fsync covers only the directories
@@ -898,20 +1262,23 @@ def _commit(
         storage.sync_flush_created_dirs(event_loop)
     if late_checksums is not None:
         late_checksums.publish()
+    tele_commit.persist(storage, event_loop, abort_ctx, prep_start)
     comm.barrier()
     meta_cached = True
-    if late_checksums is not None:
-        try:
+    try:
+        if late_checksums is not None:
             late_checksums.apply(metadata.manifest)
-        except Exception:
-            if comm.rank == 0:
-                raise
-            logger.warning(
-                "Non-leader late-checksum patch failed; the snapshot handle "
-                "reads the committed metadata instead",
-                exc_info=True,
-            )
+        if not tele_commit.apply(metadata):
             meta_cached = False
+    except Exception:
+        if comm.rank == 0:
+            raise
+        logger.warning(
+            "Non-leader late-checksum patch failed; the snapshot handle "
+            "reads the committed metadata instead",
+            exc_info=True,
+        )
+        meta_cached = False
     if comm.rank == 0:
         abort_ctx.mark_commit_started()
         _write_metadata(storage, metadata, event_loop)
@@ -921,9 +1288,34 @@ def _commit(
     if comm.rank == 0:
         if late_checksums is not None:
             late_checksums.cleanup()
-        if abort_ctx.monitor is not None:
-            abort_ctx.monitor.clear()
+        tele_commit.cleanup()
+    if tele is not None:
+        tele.meta["completed"] = True
+    tele_commit.finish_progress()
+    _flight.recorder().end_take("committed")
+    if comm.rank == 0:
+        _finish_commit(storage, event_loop, abort_ctx, comm.world_size)
     return meta_cached
+
+
+def _finish_commit(
+    storage: StoragePlugin,
+    event_loop: asyncio.AbstractEventLoop,
+    abort_ctx: _TakeAbortContext,
+    world_size: int,
+) -> None:
+    """Rank 0, after the metadata write and the last barrier: clear the
+    take journal (a crash before this leaves valid metadata with a stale
+    journal, which fsck calls committed and gc reclaims), the abort
+    records and the leases."""
+    if not is_journal_disabled():
+        from .lifecycle import clear_journal
+
+        clear_journal(storage, event_loop, getattr(storage, "clear_world_size", world_size))
+    if abort_ctx.monitor is not None:
+        abort_ctx.monitor.clear()
+    if abort_ctx.lease is not None:
+        abort_ctx.lease.cleanup(world_size)
 
 
 def _gather_manifest(entries: Manifest, comm: Communicator) -> Manifest:
@@ -1037,6 +1429,434 @@ class _LateChecksums:
         _get_kv_store(self.comm).delete_prefix(self._prefix(), keys=self._keys())
 
 
+class _TelemetryCommit:
+    """Carries each rank's telemetry through the commit, as
+    :class:`_LateChecksums` carries its checksums (tpusnap's
+    ``_TelemetryCommit``):
+
+    - ``persist`` (every rank, writes drained, before the commit
+      barrier): freeze the recorder, write this rank's Chrome trace to
+      ``.tpusnap/telemetry/rank_<k>.json`` through the take's storage,
+      and publish its summary under a take-scoped KV key;
+    - ``apply`` (after the barrier's arrive: every rank published): fold
+      the cross-rank rollup into ``metadata.extras["telemetry"]``;
+    - ``cleanup`` (rank 0, after the last barrier) and ``discard`` (abort)
+      delete the keys.
+
+    Best-effort throughout: telemetry never fails a take."""
+
+    def __init__(
+        self,
+        tele: Optional["telemetry.TakeTelemetry"],
+        comm: Communicator,
+        take_id: Optional[str],
+        progress=None,
+    ) -> None:
+        self.tele = tele
+        self.comm = comm
+        self.take_id = take_id
+        self.progress = progress
+        self._summary: Optional[Dict[str, Any]] = None
+
+    def finish_progress(self, state: str = "committed") -> None:
+        """The final heartbeat (100 % at commit), then the pump stops."""
+        if self.progress is not None:
+            try:
+                self.progress.finish(state)
+            except Exception:
+                logger.debug("progress finish failed", exc_info=True)
+
+    def _prefix(self) -> str:
+        return f"tpusnap_tele/{self.take_id}/"
+
+    def _key(self, rank: int) -> str:
+        return f"{self._prefix()}{rank}"
+
+    def _keys(self) -> List[str]:
+        return [self._key(r) for r in range(self.comm.world_size)]
+
+    def _active(self) -> bool:
+        return self.comm.world_size > 1 and self.take_id is not None
+
+    def persist(
+        self,
+        storage: StoragePlugin,
+        event_loop: asyncio.AbstractEventLoop,
+        abort_ctx: Optional[_TakeAbortContext] = None,
+        prep_start: Optional[float] = None,
+    ) -> None:
+        if self.tele is None:
+            return
+        try:
+            self.tele.finalize()
+            if prep_start is not None:
+                # The tail between the drain and this freeze, so that the
+                # phases tile the persisted wall-clock.
+                self.tele.record_span(
+                    "commit_prep", prep_start,
+                    max(self.tele.take_wall_s - prep_start, 0.0), phase=True,
+                )
+            self._summary = self.tele.summary()
+        except Exception:
+            logger.warning("Telemetry summary failed (non-fatal)", exc_info=True)
+            return
+        if self.tele.enabled:
+            trace_path = telemetry.telemetry_rank_path(self.tele.rank)
+            if abort_ctx is not None:
+                abort_ctx.write_paths.append(trace_path)
+            try:
+                storage.sync_write(
+                    WriteIO(path=trace_path, buf=self.tele.to_json().encode("utf-8")),
+                    event_loop,
+                )
+            except Exception:
+                logger.warning(
+                    "Failed to persist telemetry trace %r (non-fatal)", trace_path,
+                    exc_info=True,
+                )
+        if self._active():
+            import pickle
+
+            try:
+                _get_kv_store(self.comm).set(
+                    self._key(self.comm.rank), pickle.dumps(self._summary)
+                )
+            except Exception:
+                logger.warning("Failed to publish telemetry summary (non-fatal)", exc_info=True)
+
+    def apply(self, metadata: SnapshotMetadata) -> bool:
+        """Fold the rollup into this rank's metadata copy. A non-leader
+        whose KV read came back incomplete returns False without folding
+        (its caller then reads the committed file)."""
+        if self.tele is None:
+            return True
+        summaries = []
+        if self._active():
+            import pickle
+
+            try:
+                blobs = _get_kv_store(self.comm).try_get_dir(self._prefix(), keys=self._keys())
+                for _, raw in sorted((blobs or {}).items()):
+                    try:
+                        summaries.append(pickle.loads(raw))
+                    except Exception:
+                        pass
+            except Exception:
+                summaries = []
+            if self.comm.rank != 0 and len(summaries) < self.comm.world_size:
+                return False
+        if not summaries and self._summary is not None:
+            summaries = [self._summary]
+        try:
+            rollup = telemetry.rollup_summaries(summaries)
+        except Exception:
+            logger.warning("Telemetry rollup failed (non-fatal)", exc_info=True)
+            return self.comm.rank == 0
+        if rollup:
+            metadata.extras = dict(metadata.extras or {})
+            metadata.extras["telemetry"] = rollup
+        return True
+
+    def cleanup(self) -> None:
+        if self._active():
+            try:
+                _get_kv_store(self.comm).delete_prefix(self._prefix(), keys=self._keys())
+            except Exception:
+                logger.debug("telemetry KV cleanup failed (non-fatal)", exc_info=True)
+
+    def discard(self) -> None:
+        if self._active():
+            key = self._key(self.comm.rank)
+            try:
+                _get_kv_store(self.comm).delete_prefix(key, keys=[key])
+            except Exception:
+                pass
+
+
+# ----------------------------------------------------- degraded commit
+
+
+class _PrestagedStager(BufferStager):
+    """A write request's bytes staged at the call of an async take (a
+    unit the rank may have to adopt): stages the held buffer."""
+
+    frozen = True
+
+    def __init__(self, buf, cost: int, planned: int) -> None:
+        self._buf = buf
+        self._cost = cost
+        self._planned = planned
+
+    async def stage_buffer(self, executor=None):
+        buf, self._buf = self._buf, None
+        return buf
+
+    def get_staging_cost_bytes(self) -> int:
+        return self._cost
+
+    def get_planned_bytes(self) -> int:
+        return self._planned
+
+
+def _freeze_for_adoption(
+    dropped: Dict[str, List], event_loop: asyncio.AbstractEventLoop
+) -> None:
+    """Make the replicated units this rank may adopt independent of the
+    caller's in-place updates after an async take returns: CUDA sources
+    are copied on the card (``freeze_device_sources``), as the rank's own
+    are; what cannot be (CPU tensors, objects, no room on the card) is
+    staged now into host memory the take owns (clones, not COW views)."""
+    reqs = [wr for unit in sorted(dropped) for wr in dropped[unit]]
+    if not reqs:
+        return
+    for wr in reqs:
+        if hasattr(wr.buffer_stager, "force_clone"):
+            wr.buffer_stager.force_clone = True
+    freeze_device_sources([wr.buffer_stager for wr in reqs])
+    for wr in reqs:
+        st = wr.buffer_stager
+        if st.frozen:
+            continue
+        buf = run_on_loop(event_loop, st.stage_buffer(None))
+        wr.buffer_stager = _PrestagedStager(
+            buf, st.get_staging_cost_bytes(), st.get_planned_bytes()
+        )
+
+
+class _DegradeContext:
+    """What the survivors of a rank failure need to finish a replicated-
+    only take without it: this rank's manifest entries (annotated once
+    its writes drain), the partition plan, and this rank's unstaged (or,
+    for an async take, frozen) requests for the replicated units assigned
+    to other ranks, the same bytes on every rank."""
+
+    def __init__(
+        self,
+        comm: Communicator,
+        take_id: str,
+        storage: StoragePlugin,
+        event_loop: asyncio.AbstractEventLoop,
+        entries: Manifest,
+        dropped_replicated: Dict[str, List],
+        assignment: Dict[str, int],
+        memory_budget: int,
+        pending_io_work: PendingIOWork,
+    ) -> None:
+        self.comm = comm
+        self.take_id = take_id
+        self.storage = storage
+        self.event_loop = event_loop
+        self.entries = entries
+        self.dropped_replicated = dropped_replicated
+        self.assignment = assignment
+        self.memory_budget = memory_budget
+        self.pending_io_work = pending_io_work
+
+
+def _degrade_eligible(per_rank_entries: List[Manifest]) -> Optional[str]:
+    """None when every survivor's leaf entries are replicated (then the
+    dead rank's bytes exist on every survivor); otherwise why the take
+    cannot degrade: a sharded or per-rank entry means the dead rank held
+    unique state."""
+    from .manifest import PrimitiveEntry
+
+    for entries in per_rank_entries:
+        for path, entry in entries.items():
+            if is_container_entry(entry) or is_replicated(entry):
+                continue
+            if isinstance(entry, PrimitiveEntry):
+                return (
+                    f"{path!r} is a per-rank primitive (not replicated-glob-"
+                    "marked); the dead rank's value is unknowable"
+                )
+            return f"{path!r} is {type(entry).__name__}: the dead rank held unique state"
+    return None
+
+
+def _degraded_prefix(take_id: str) -> str:
+    return f"tpusnap_degraded/{take_id}"
+
+
+def _maybe_degraded_commit(
+    abort_ctx: Optional[_TakeAbortContext], exc: RankFailedError
+) -> Optional[SnapshotMetadata]:
+    """The commit paths' ``except RankFailedError``: the degraded metadata
+    when the policy is ``degrade`` and the recovery context is armed,
+    None otherwise. Raises when the degraded commit was tried and could
+    not complete; the caller then aborts to a torn directory."""
+    if (
+        abort_ctx is None
+        or abort_ctx.degrade is None
+        or abort_ctx.liveness is None
+        or get_rank_failure_policy() != "degrade"
+    ):
+        return None
+    return _degraded_commit(abort_ctx, exc)
+
+
+def _degraded_commit(abort_ctx: _TakeAbortContext, exc: RankFailedError) -> SnapshotMetadata:
+    """Complete a replicated-only take on the surviving ranks (tpusnap's
+    protocol, KV and storage traffic only, legal on the async commit's
+    thread):
+
+    1. each survivor drains its writes, publishes its manifest entries and
+       meets the others in a survivor-set ``LinearBarrier`` (the dead set
+       excluded from the lease watcher);
+    2. eligibility: every survivor leaf must be replicated, else raise
+       (abort to torn);
+    3. adoption: the dead ranks' units go round-robin to the survivors
+       (``reassign_dead_units``); each adopter stages and writes its own
+       copies (journaled as usual) and publishes the adopted entries;
+    4. every survivor builds the same manifest, the smallest survivor
+       commits it with ``extras["degraded"]``, a last barrier gates the
+       journal and KV cleanup.
+
+    A survivor whose view of the dead set differs waits in a barrier the
+    others never join and aborts at its timeout: the degraded commit
+    fails safe to torn, never to a wrong manifest."""
+    import pickle
+
+    ctx = abort_ctx.degrade
+    liveness = abort_ctx.liveness
+    comm, rank = ctx.comm, ctx.comm.rank
+    dead = sorted(set(exc.ranks) | set(liveness.expired()))
+    live = sorted(set(range(comm.world_size)) - set(dead))
+    if rank not in live or not dead:
+        raise exc
+    leader = live[0]
+    logger.warning(
+        "tpusnap degraded commit: rank(s) %s died during take %s; %d survivor(s) "
+        "completing it (leader: rank %d)",
+        dead, ctx.take_id[:8], len(live), leader,
+    )
+    _flight.record("degraded_commit", op="start", dead_ranks=dead)
+    kv = _get_kv_store(comm)
+    prefix = _degraded_prefix(ctx.take_id)
+    watchers = [liveness.watcher(exclude=set(dead))]
+    if abort_ctx.monitor is not None:
+        watchers.append(abort_ctx.monitor.check)
+
+    def barrier(name: str) -> None:
+        b = LinearBarrier(
+            kv, f"{prefix}/{name}", rank, comm.world_size, ranks=live, watchers=watchers
+        )
+        b.arrive()
+        b.depart()
+
+    def gather(sub: str) -> Dict[int, bytes]:
+        keys = [f"{prefix}/{sub}/{r}" for r in live]
+        blobs = kv.try_get_dir(f"{prefix}/{sub}/", keys=keys) or {}
+        out = {}
+        for r, key in zip(live, keys):
+            # The barrier proved the publish: a key missing from the dir
+            # read gets a bounded per-key read, and an unreadable one
+            # raises (fail safe to torn).
+            out[r] = blobs[key] if key in blobs else kv.get(key, timeout_sec=120.0)
+        return out
+
+    # 1. This rank's entries carry their write-path checksums once its
+    # writes have drained.
+    if not ctx.pending_io_work.drained():
+        ctx.pending_io_work.sync_complete(ctx.event_loop)
+    kv.set(f"{prefix}/m/{rank}", pickle.dumps(ctx.entries))
+    barrier("b1")
+    per_rank: List[Manifest] = [{} for _ in range(comm.world_size)]
+    for r, raw in gather("m").items():
+        per_rank[r] = pickle.loads(raw)
+
+    # 2. Eligibility, the same verdict on every survivor.
+    reason = _degrade_eligible([per_rank[r] for r in live])
+    if reason is not None:
+        _flight.record("degraded_commit", op="refused", reason=reason)
+        raise RankFailedError(
+            dead, ctx.take_id, detail=f"degrade refused: {reason}; aborting to a torn state"
+        ) from exc
+
+    # 3. Adoption.
+    adoption = reassign_dead_units(ctx.assignment, dead, live)
+    my_units = sorted(u for u, w in adoption.items() if w == rank)
+    my_reqs = [wr for u in my_units for wr in ctx.dropped_replicated.get(u, [])]
+    adopted_bytes = 0
+    if my_reqs:
+        adopted_bytes = sum(wr.buffer_stager.get_planned_bytes() for wr in my_reqs)
+        sync_execute_write_reqs(
+            my_reqs, ctx.storage, ctx.memory_budget, ctx.event_loop
+        ).sync_complete(ctx.event_loop)
+    adopted_payload = {}
+    for u in my_units:
+        entry = ctx.entries.get(u.partition("::")[0])
+        if entry is not None:
+            adopted_payload[u] = entry
+    kv.set(f"{prefix}/a/{rank}", pickle.dumps(adopted_payload))
+    barrier("b2")
+
+    # 4. The same degraded manifest on every survivor. Replicated entries
+    # consolidate onto rank 0's tree; if rank 0 died, the leader's
+    # (identical) manifest stands in for it.
+    if 0 in dead:
+        per_rank[0] = per_rank[leader]
+    global_manifest = consolidate_replicated_entries(per_rank)
+    n_adopted = 0
+    for _r, raw in sorted(gather("a").items()):
+        for unit, entry in sorted(pickle.loads(raw).items()):
+            path, _, chunk = unit.partition("::")
+            gkey = f"0/{path}"
+            if gkey not in global_manifest:
+                continue
+            n_adopted += 1
+            if chunk:
+                # Chunk grain: only the dead writer's chunk is replaced.
+                idx = int(chunk)
+                cur = global_manifest[gkey]
+                if hasattr(cur, "chunks") and idx < len(cur.chunks):
+                    cur.chunks[idx] = entry.chunks[idx]
+            else:
+                # The dead writer's version may point into a slab it never
+                # wrote: the adopter's entry describes the blob it wrote.
+                global_manifest[gkey] = entry
+    metadata = SnapshotMetadata(
+        version=__version__,
+        world_size=comm.world_size,
+        manifest=global_manifest,
+        created_at=time.time(),
+        extras={
+            "degraded": {
+                "dead_ranks": dead,
+                "live_ranks": live,
+                "adopted_units": sorted(adoption),
+                "adopters": {u: w for u, w in sorted(adoption.items())},
+            }
+        },
+    )
+    telemetry.incr("degraded.adopted_bytes", adopted_bytes)
+    telemetry.incr("degraded.adopted_units", len(my_units))
+    if rank == leader:
+        abort_ctx.mark_commit_started()
+        _write_metadata(ctx.storage, metadata, ctx.event_loop)
+    barrier("b3")
+    if rank == leader:
+        _finish_commit(ctx.storage, ctx.event_loop, abort_ctx, comm.world_size)
+        # The normal commit's cleanup never ran: sweep the take's KV
+        # transports and the degraded protocol's own keys.
+        ws = range(comm.world_size)
+        for p, keys in (
+            (prefix + "/", [f"{prefix}/{s}/{r}" for s in ("m", "a") for r in ws]),
+            (f"tpusnap_late_cs/{ctx.take_id}/", [f"tpusnap_late_cs/{ctx.take_id}/{r}" for r in ws]),
+            (f"tpusnap_tele/{ctx.take_id}/", [f"tpusnap_tele/{ctx.take_id}/{r}" for r in ws]),
+        ):
+            try:
+                kv.delete_prefix(p, keys=keys)
+            except Exception:
+                logger.debug("degraded KV cleanup failed", exc_info=True)
+    _flight.record("degraded_commit", op="committed", dead_ranks=dead, adopted=n_adopted)
+    logger.warning(
+        "tpusnap degraded commit: take %s committed by %d survivor(s); rank(s) %s's "
+        "%d replicated unit(s) adopted (%d bytes by rank %d)",
+        ctx.take_id[:8], len(live), dead, n_adopted, adopted_bytes, rank,
+    )
+    return metadata
+
+
 def _get_kv_store(comm: Communicator) -> KVStore:
     """A ``MemoryKVStore`` for one process; above that, the KV store over
     the communicator's store (or, for a communicator that wraps another,
@@ -1089,7 +1909,7 @@ def _relative_ref_prefix(base_path: str, new_path: str) -> str:
     for url in (base_path, new_path):
         scheme = url.split("://", 1)[0].lower() if "://" in url else ""
         if scheme.startswith("tier+"):
-            raise _not_ported(f"the write-back tier URL {url!r}", "A8")
+            raise _not_ported(f"the write-back tier URL {url!r}", "A8b")
     a, b = urlsplit(base_path), urlsplit(new_path)
     if a.scheme != b.scheme or a.netloc != b.netloc:
         raise ValueError(
@@ -1179,6 +1999,7 @@ def load_snapshot(
     come back as CPU tensors, primitives and pickled objects as values."""
     out: Dict[str, Any] = {}
     budget = memory_budget_bytes or get_process_memory_budget_bytes()
+    refuse_unported_hooks()
     with Snapshot(path, storage_options) as snap:
         with snap._op_lock:
             event_loop, storage = snap._resources()
@@ -1211,6 +2032,7 @@ def _read_and_inflate(
     storage: StoragePlugin,
     memory_budget: int,
     event_loop: asyncio.AbstractEventLoop,
+    mark: Optional["telemetry.PhaseMarker"] = None,
 ) -> Any:
     """Prepare reads (against targets when given), merge them per slab,
     execute under the budget, inflate."""
@@ -1226,9 +2048,12 @@ def _read_and_inflate(
         )
         read_reqs.extend(reqs)
         futures[logical_path] = fut
-    sync_execute_read_reqs(
-        batch_read_requests(read_reqs), storage, memory_budget, event_loop
-    )
+    read_reqs = batch_read_requests(read_reqs)
+    if mark is not None:
+        mark("restore.prepare", reqs=len(read_reqs))
+    sync_execute_read_reqs(read_reqs, storage, memory_budget, event_loop)
+    if mark is not None:
+        mark("restore.read", reqs=len(read_reqs))
     flattened = {p: fut.obj for p, fut in futures.items()}
     container_manifest = {
         p: e for p, e in key_manifest.items() if is_container_entry(e)
@@ -1244,6 +2069,7 @@ def _load_stateful(
     storage: StoragePlugin,
     memory_budget: int,
     event_loop: asyncio.AbstractEventLoop,
+    mark: Optional["telemetry.PhaseMarker"] = None,
 ) -> None:
     local_manifest = _key_manifest(get_manifest_for_rank(metadata, rank), key)
     if not local_manifest:
@@ -1253,10 +2079,14 @@ def _load_stateful(
     # placement, DTensor placements, in-place destinations).
     _, target_flattened = flatten(stateful.state_dict(), prefix=key)
     handle_sharded_elasticity(local_manifest, target_flattened)
+    if mark is not None:
+        mark("restore.targets", key=key)
     restored = _read_and_inflate(
-        key, local_manifest, target_flattened, storage, memory_budget, event_loop
+        key, local_manifest, target_flattened, storage, memory_budget, event_loop, mark=mark
     )
     stateful.load_state_dict(restored)
+    if mark is not None:
+        mark("restore.load", key=key)
 
 
 # ------------------------------------------------------------- async work
@@ -1337,8 +2167,10 @@ class PendingSnapshot(_BackgroundWork):
         live_until_drained: bool,
         late_checksums: Optional[_LateChecksums],
         abort_ctx: _TakeAbortContext,
+        tele_commit: Optional[_TelemetryCommit] = None,
     ) -> None:
         self.path = path
+        self._tele_commit = tele_commit
         self._pending_io_work = pending_io_work
         self._metadata = metadata
         self._storage = storage
@@ -1384,27 +2216,87 @@ class PendingSnapshot(_BackgroundWork):
         # the communicator's wait watcher for a newer take. The commit
         # keeps abort awareness through the barriers' watchers.
         abort_ctx.disarm()
+        progress = tele_commit.progress if tele_commit is not None else None
+        if progress is not None:
+            # The commit waits in the LinearBarrier now: the stall
+            # watchdog names the ranks missing from it.
+            progress.add_attribution(self._barrier.current_missing)
+        self._tele = tele_commit.tele if tele_commit is not None else None
+        if self._tele is not None:
+            # The blocked window, recorded before the drain thread starts;
+            # the recorder's process-global slot is released for a newer
+            # take (the drain records through a thread-local overlay).
+            blocked_s = self._tele.now()
+            self._tele.meta["async_blocked_s"] = round(blocked_s, 6)
+            self._tele.record_span("async_blocked", 0.0, blocked_s)
+            telemetry.release_global(self._tele)
         self._start()
 
     def _body(self) -> None:
+        # A peer's death surfaces from the barrier waits as
+        # RankFailedError. Under TPUSNAP_RANK_FAILURE=degrade the
+        # survivors complete the take from the units they froze at the
+        # call; a refused or failed degrade re-raises into the abort path
+        # (torn, salvageable).
+        with telemetry.use(self._tele):
+            try:
+                self._body_impl()
+            except RankFailedError as rank_exc:
+                degraded = _maybe_degraded_commit(self._abort_ctx, rank_exc)
+                if degraded is None:
+                    raise
+                self._commit_degraded(degraded)
+
+    def _commit_degraded(self, metadata: SnapshotMetadata) -> None:
+        self._metadata = metadata
+        try:
+            self._comm.gc_consumed_keys(self._gc_epoch)
+        except Exception:
+            logger.debug("store gc after the degraded commit failed", exc_info=True)
+        if self._tele is not None:
+            self._tele.meta["completed"] = True
+        if self._tele_commit is not None:
+            self._tele_commit.finish_progress()
+        _flight.recorder().end_take("committed")
+        snapshot = Snapshot(self.path, self._storage_options, self._comm)
+        snapshot._metadata = metadata  # every survivor built the same one
+        self._snapshot = snapshot
+
+    def _body_impl(self) -> None:
+        tele = self._tele
+        drain_start = tele.now() if tele is not None else 0.0
         self._pending_io_work.sync_complete(self._event_loop)
+        if tele is not None:
+            tele.record_span("io_drain", drain_start, tele.now() - drain_start, phase=True)
+        prep_start = tele.now() if tele is not None else None
         if is_durable_commit_enabled():
             # As in the sync take: this rank's dirents before the barrier.
             self._storage.sync_flush_created_dirs(self._event_loop)
         if self._late_checksums is not None:
             self._late_checksums.publish()
+        if self._tele_commit is not None:
+            self._tele_commit.persist(
+                self._storage, self._event_loop, self._abort_ctx, prep_start
+            )
         self._barrier.arrive()
         if self._comm.rank == 0:
             # Every rank arrived, so every rank published.
             if self._late_checksums is not None:
                 self._late_checksums.apply(self._metadata.manifest)
+            if self._tele_commit is not None:
+                self._tele_commit.apply(self._metadata)
             self._abort_ctx.mark_commit_started()
             _write_metadata(self._storage, self._metadata, self._event_loop)
         self._barrier.depart()
         meta_cached = True
-        if self._comm.rank != 0 and self._late_checksums is not None:
+        if self._comm.rank != 0:
             try:
-                self._late_checksums.apply(self._metadata.manifest)
+                if self._late_checksums is not None:
+                    self._late_checksums.apply(self._metadata.manifest)
+                if self._tele_commit is not None and not self._tele_commit.apply(
+                    self._metadata
+                ):
+                    meta_cached = False
             except Exception:
                 logger.warning(
                     "Non-leader late-checksum patch failed; the snapshot handle "
@@ -1414,11 +2306,14 @@ class PendingSnapshot(_BackgroundWork):
                 meta_cached = False
         if self._post_barrier is not None:
             self._post_barrier.arrive()
-            if self._comm.rank == 0 and self._late_checksums is not None:
-                self._late_checksums.cleanup()
+            if self._comm.rank == 0:
+                if self._late_checksums is not None:
+                    self._late_checksums.cleanup()
+                if self._tele_commit is not None:
+                    self._tele_commit.cleanup()
             self._post_barrier.depart()
-        if self._comm.rank == 0 and self._abort_ctx.monitor is not None:
-            self._abort_ctx.monitor.clear()
+        if self._comm.rank == 0:
+            _finish_commit(self._storage, self._event_loop, self._abort_ctx, self._comm.world_size)
         # Every rank departed, so every rank consumed the take's gathers
         # and the prefix broadcast: release their keys now (no further
         # barrier runs on this communicator for this take). Store deletes
@@ -1427,6 +2322,11 @@ class PendingSnapshot(_BackgroundWork):
             self._comm.gc_consumed_keys(self._gc_epoch)
         except Exception:
             logger.debug("store gc after the async commit failed", exc_info=True)
+        if tele is not None:
+            tele.meta["completed"] = True
+        if self._tele_commit is not None:
+            self._tele_commit.finish_progress()
+        _flight.recorder().end_take("committed")
         snapshot = Snapshot(self.path, self._storage_options, self._comm)
         if meta_cached:
             snapshot._metadata = self._metadata
@@ -1442,10 +2342,13 @@ class PendingSnapshot(_BackgroundWork):
             self._barrier.report_error(exc)
 
     def _cleanup(self) -> None:
+        self._abort_ctx.stop_progress()
         try:
             self._storage.sync_close(self._event_loop)
         finally:
             self._event_loop.close()
+            if self._tele is not None:
+                telemetry.end_take(self._tele)
 
     def staged(self) -> bool:
         """Whether the caller may now change the snapshotted state in

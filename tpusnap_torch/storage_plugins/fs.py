@@ -189,6 +189,25 @@ class FSStoragePlugin(StoragePlugin):
     async def delete(self, path: str) -> None:
         await self._run(os.remove, os.path.join(self.root, path))
 
+    async def list_with_sizes(self) -> Optional[dict]:
+        """``{relative_path: size}`` of every regular file under the root
+        (fsck, gc and salvage); a missing root lists as empty."""
+
+        def work():
+            out = {}
+            root = os.path.abspath(self.root)
+            for dirpath, _dirnames, filenames in os.walk(root):
+                for name in filenames:
+                    full = os.path.join(dirpath, name)
+                    rel = os.path.relpath(full, root).replace(os.sep, "/")
+                    try:
+                        out[rel] = os.path.getsize(full)
+                    except OSError:
+                        continue  # deleted during the walk
+            return out
+
+        return await self._run(work)
+
     async def close(self) -> None:
         if self._executor is not None:
             self._executor.shutdown(wait=True)
