@@ -160,16 +160,55 @@ Phases, in order:
              three of each in turns after a warm-up round; the
              distributed phase also times its take at a 0.5 s and a
              0.02 s heartbeat and with telemetry off.
+23. delta  — Snapshot.stream of a fresh flagship's train state
+             (cadence 0.5 s, TPUSNAP_DELTA_MAX_CHAIN=4, compression off)
+             while it trains 12 Adam steps paced to 0.25 s, mark_step()
+             after each; a device clone of the state at every boundary.
+             Every member is restored into a fresh model as it commits
+             and must be its boundary bit for bit (compaction retires
+             the superseded ones). Two commit_now() with no step between:
+             the second writes 0 payload bytes; one embedding row
+             changed: at most one 16 MiB checksum tile. One step from the
+             head and from its clone give the same loss. Then
+             free-running streams (no mark_step) while training on the
+             default stream and under a side stream: every tensor of
+             every member equals that tensor at some boundary. Prints the
+             seconds each capture blocked mark_step, step times with and
+             without a stream, each member's payload bytes, the members
+             retired by compaction.
+24. delta_elastic — two ranks on the card, each a full replica of the
+             lifecycle model, replicated=["**"], TPUSNAP_LIVENESS_TTL_S=2,
+             TPUSNAP_RANK_FAILURE=degrade: a clean two-rank epoch, every
+             tensor changed in place, then rank 1 SIGKILLed at its first
+             blob write of the next epoch; rank 0 commits that epoch
+             degraded and streams on alone; the head restores bit for
+             bit. Prints the detection seconds, the adopted bytes and
+             each member's world from extras["delta"]["world"].
+25. tier   — the 4 GiB bulk through tier+local=<a>+remote=chaos+fs://<b>
+             while every remote op fails for 10 s (an outage), beside a
+             plain take; the background drain converges once the outage
+             ends (durable marker); gc --evict-local (retention 0); a
+             restore through the tier URL from the remote, bit for bit.
+             Then the train state through a tier, and 5 train steps while
+             its drain runs against 5 without. Both tiers are on the one
+             local disk.
+26. cas    — two job ids take the lifecycle model's train state into two
+             directories with one TPUSNAP_CAS_DIR (batching off: slab
+             blobs are named per take and never dedup): the second
+             publishes 0 bytes and the store holds the state once; each
+             restores into CUDA tensors in place, bit for bit; one is
+             deleted and gc_store keeps the shared blobs; the other still
+             restores.
 
 Launch counts (in all and by route) are set to 0 just before each path
 that runs the model — train + snapshot, async_train, incremental, each
 rank of distributed, sharded and layouts, sharded's parent, moe, the
-lifecycle model with crash and chaos, and rank 0 of the sync and async
-degrade worlds — and read just after it: the kernels phase's comparison
-launches do not count.
-Every main-path launch must take the wgmma route. The incremental and
-transforms phases run with compression off, so their byte counts are the
-tensors' own.
+lifecycle model with crash and chaos, rank 0 of the sync and async
+degrade worlds, delta, and tier with cas — and read just after it: the
+kernels phase's comparison launches do not count.
+Every main-path launch must take the wgmma route. The incremental,
+transforms and the four A8b phases run with compression off, so their
+byte counts are the tensors' own.
 """
 
 from __future__ import annotations
@@ -2859,6 +2898,468 @@ def phase_lifecycle_ab(ctx: dict, workdir: str) -> dict:
             "card": ctx["card"]}
 
 
+# ------------------------------------------------------------------- A8b
+
+
+def _members_of(root: str) -> list:
+    """(name, path, metadata) of every committed member under a stream
+    root, oldest first."""
+    from tpusnap_torch.delta import resolve_chain
+    from tpusnap_torch.inspect import load_snapshot_metadata
+
+    rep = resolve_chain(root)
+    return [(m.name, os.path.join(root, m.name), load_snapshot_metadata(os.path.join(root, m.name)))
+            for m in sorted(rep.members, key=lambda m: (m.seq or 0)) if m.state == "committed"]
+
+
+def _restore_member(path: str, fresh) -> dict:
+    """``path`` restored into ``fresh`` in place; its train state by path."""
+    from tpusnap_torch import Snapshot, StateDict
+
+    Snapshot(path).restore({"train": StateDict(**fresh.train_state())})
+    return dict(_leaves(fresh.train_state()))
+
+
+def _timed_steps(model, tokens, n: int, pace_s: float = 0.0, after=None) -> list:
+    """``n`` train steps, each timed until the training stream has run it
+    (not the whole device: a capture's copies on side streams are not the
+    step's); ``after(i)`` runs after step ``i`` (outside the timing); the
+    loop sleeps to ``pace_s`` a step."""
+    import torch
+
+    times = []
+    for i in range(n):
+        t0 = time.perf_counter()
+        model.train_step(tokens, learning_rate=1e-3)
+        torch.cuda.current_stream().synchronize()
+        times.append(time.perf_counter() - t0)
+        if after is not None:
+            after(i)
+        rest = pace_s - (time.perf_counter() - t0)
+        if rest > 0:
+            time.sleep(rest)
+    return times
+
+
+_DELTA_STEPS = 12
+# Each training step is paced to this many seconds (a step plus its data
+# wait), so the 12 steps span several 0.5 s cadences.
+_DELTA_PACE_S = 0.25
+
+
+def _free_running(model, tokens, root: str, side) -> dict:
+    """A stream with no mark_step while the model trains on ``side`` (or
+    the default stream): every tensor of every member must equal that
+    tensor at some step boundary."""
+    import contextlib
+
+    import torch
+
+    from tpusnap_torch import Snapshot, StateDict
+
+    seen = []  # a device clone of the state at each boundary, in stream order
+
+    def note(_i=None):
+        seen.append(_clone_state(model))
+
+    scope = torch.cuda.stream(side) if side is not None else contextlib.nullcontext()
+    with scope:
+        note()
+        stream = Snapshot.stream(root, {"train": StateDict(**model.train_state())}, cadence_s=0.5)
+        step_s = _timed_steps(model, tokens, _DELTA_STEPS, _DELTA_PACE_S, after=note)
+        stream.close(final_commit=False)
+    stream.raise_if_failed()
+    members = _members_of(root)
+    if len(members) < 3:
+        raise AssertionError(f"free-running stream committed only {len(members)} members")
+    fresh = model.__class__(model.config, device="cuda", seed=SEED + 11)
+    mixed = 0
+    for name, path, _ in members:
+        got = _restore_member(path, fresh)
+        which = set()
+        for p, t in got.items():
+            at = [i for i, b in enumerate(seen) if torch.equal(t, b[p])]
+            if not at:
+                raise AssertionError(f"free-running {name}: {p} is at no step boundary")
+            which.add(at[0])
+        mixed += len(which) > 1
+    del fresh, seen
+    torch.cuda.empty_cache()
+    return {"members": len(members), "members_mixing_boundaries": mixed,
+            "step_s": step_s, "stream_commits": stream.stats["commits"]}
+
+
+def phase_delta(ctx: dict, workdir: str) -> dict:
+    """Snapshot.stream of the flagship's train state while it trains:
+    mark_step captures at every due boundary, compaction past a chain of
+    4, an unchanged and a one-row micro-commit, every member restored
+    bit-exact to its boundary; then free-running streams on the default
+    stream and under a side stream, blob grain."""
+    import torch
+
+    from tpusnap_torch import Snapshot, StateDict
+    from tpusnap_torch.knobs import override_compress, override_delta_max_chain
+    from tpusnap_torch.models import Transformer
+    from tpusnap_torch.ops import flash_attention as fa
+
+    t_phase = time.perf_counter()
+    cfg = ctx["cfg"]
+    model = Transformer(cfg, device="cuda", seed=SEED + 21)
+    tokens = _tokens(cfg, 8, SEED + 21)
+    state_bytes = sum(t.numel() * t.element_size() for _, t in _leaves(model.train_state()))
+    out = {"phase": "delta", "state_bytes": state_bytes,
+           "tensors": len(list(_leaves(model.train_state())))}
+    out["step_s_no_stream"] = _timed_steps(model, tokens, 5)
+    root = os.path.join(workdir, "delta")
+    # Optimizer step -> device clones of the state at that step (the
+    # one-row change adds a second state at the last step).
+    boundaries = collections.defaultdict(list)
+
+    def keep(_i=None):
+        boundaries[int(model.opt_state["step"])].append(_clone_state(model))
+
+    blocked = []
+    # Every member is restored into a fresh model as soon as it is
+    # committed (compaction retires the superseded ones) and must be its
+    # boundary bit for bit: the optimizer's step counter names it.
+    fresh = Transformer(cfg, device="cuda", seed=SEED + 22)
+    checked = {}
+
+    def check_members():
+        from tpusnap_torch.delta import resolve_chain
+
+        for m in resolve_chain(root).members:
+            if m.state != "committed" or m.name in checked:
+                continue
+            got = _restore_member(os.path.join(root, m.name), fresh)
+            step = int(got["opt/step"])
+            if not any(all(torch.equal(t, want[p]) for p, t in got.items())
+                       for want in boundaries[step]):
+                raise AssertionError(f"delta member {m.name} is not the state at step {step}")
+            checked[m.name] = {"name": m.name, "step": step, "payload_bytes": m.payload_bytes,
+                               "state_bytes": state_bytes}
+
+    with override_compress(mode="off"), override_delta_max_chain(4):
+        keep()
+        t0 = time.perf_counter()
+        stream = Snapshot.stream(root, {"train": StateDict(**model.train_state())}, cadence_s=0.5)
+        out["base_s"] = time.perf_counter() - t0
+
+        def mark(i):
+            keep()
+            n = stream.stats["mark_step_captures"]
+            t0 = time.perf_counter()
+            stream.mark_step()
+            if stream.stats["mark_step_captures"] > n:
+                blocked.append({"step": int(model.opt_state["step"]),
+                                "mark_step_s": time.perf_counter() - t0,
+                                "capture_blocked_s": stream.stats["last_capture_blocked_s"]})
+            check_members()
+
+        out["step_s_streaming"] = _timed_steps(model, tokens, _DELTA_STEPS, _DELTA_PACE_S, mark)
+        out["captures"] = blocked
+        if len(blocked) < 2:
+            raise AssertionError(f"only {len(blocked)} mark_step captures in {_DELTA_STEPS} steps")
+        # The payload a commit wrote is read from the stream's own count:
+        # a compaction at that commit materializes the member afterwards.
+        stream.commit_now()  # catches up with the steps since the last capture
+        check_members()
+        stream.commit_now()
+        check_members()
+        out["unchanged_commit_bytes"] = stream.stats["last_commit_bytes"]
+        if out["unchanged_commit_bytes"] != 0:
+            raise AssertionError(f"an unchanged micro-commit wrote {out['unchanged_commit_bytes']}")
+        with torch.no_grad():
+            model.embed[3].add_(1.0)
+        keep()  # the one-row state: the step counter is unchanged
+        tile = int(os.environ.get("TPUSNAP_TILE_CHECKSUM_BYTES", 16 << 20))
+        row_limit = min(tile, model.embed.numel() * model.embed.element_size())
+        stream.commit_now()
+        check_members()
+        out["one_row_commit_bytes"] = stream.stats["last_commit_bytes"]
+        if not 0 < out["one_row_commit_bytes"] <= row_limit:
+            raise AssertionError(
+                f"a one-row change wrote {out['one_row_commit_bytes']} bytes (limit {row_limit})")
+        stream.close(final_commit=False)
+        stream.raise_if_failed()
+    out["compactions"] = stream.stats["compactions"]
+    out["max_chain"] = 4
+    members = _members_of(root)
+    out["members"] = [checked[name] for name in sorted(checked)]
+    out["retired_by_compaction"] = sorted(set(checked) - {name for name, _, _ in members})
+    if stream.stats["compactions"] < 1:
+        raise AssertionError(f"no compaction past a chain of 4: {stream.stats}")
+    if len(checked) != stream.stats["commits"]:
+        raise AssertionError(f"checked {len(checked)} of {stream.stats['commits']} members")
+    # One step from the head (the one-row state) and one from its clone.
+    witness = Transformer(cfg, device="cuda", seed=SEED + 23)
+    step = int(model.opt_state["step"])
+    out["post_restore_loss"] = _check_restore(members[-1][1], boundaries[step][-1], fresh,
+                                              witness, _tokens(cfg, 8, SEED + 24))
+    del fresh, witness, boundaries
+    torch.cuda.empty_cache()
+    out["free_running"] = {
+        "default_stream": _free_running(model, tokens, os.path.join(workdir, "delta_free"), None),
+        "side_stream": _free_running(model, tokens, os.path.join(workdir, "delta_side"),
+                                     torch.cuda.Stream()),
+    }
+    out["flash_launches"] = fa.launches
+    shutil.rmtree(workdir + "/delta", ignore_errors=True)
+    out.update(seconds=time.perf_counter() - t_phase, bit_exact=True, card=ctx["card"])
+    return out
+
+
+_ELASTIC_LINE = "delta_elastic_rank "
+
+
+def _delta_elastic_rank(edir: str, state_file: str) -> None:
+    """One rank of the elastic stream: the flagship's train state as a
+    full replica on each rank, ``replicated=["**"]``; one clean two-rank
+    epoch, then rank 1 is SIGKILLed at its first blob write of the next
+    epoch; rank 0 finishes that epoch degraded and streams on alone; the
+    head restores bit for bit."""
+    import torch
+
+    import tpusnap_torch.storage_plugins.fs as fs_mod
+    from tpusnap_torch import Snapshot, StateDict, telemetry
+    from tpusnap_torch.delta import resolve_chain
+    from tpusnap_torch.models import Transformer, TransformerConfig
+
+    comm = _rank_comm("delta_elastic")
+    cfg = TransformerConfig()
+    model = _model_from(cfg, state_file)
+    root = os.path.join(edir, "stream")
+    marker = os.path.join(edir, "killed_at")
+    armed = [False]
+    if comm.rank == 1:
+        orig_write = fs_mod.FSStoragePlugin.write
+
+        async def write(plugin, write_io):
+            await orig_write(plugin, write_io)
+            if armed[0] and not write_io.path.startswith(".tpusnap/"):
+                with open(marker, "w") as f:
+                    f.write(repr(time.time()))
+                os.kill(os.getpid(), 9)
+
+        fs_mod.FSStoragePlugin.write = write
+
+    def wait(pred, what, limit=240.0):
+        t0 = time.monotonic()
+        while not pred():
+            if time.monotonic() - t0 > limit:
+                raise AssertionError(f"rank {comm.rank}: no {what} in {limit} s")
+            time.sleep(0.02)
+
+    stream = Snapshot.stream(root, {"train": StateDict(**model.train_state())},
+                             cadence_s=0.5, replicated=["**"])
+    wait(lambda: stream.stats["commits"] >= 2, "base and first epoch")
+    # The same in-place change of every tensor on both replicas right
+    # after a commit: the next epoch has blobs to write on both ranks.
+    with torch.no_grad():
+        for _, t in _leaves(model.train_state()):
+            t.add_(1)
+    torch.cuda.synchronize()
+    armed[0] = True
+    if comm.rank == 1:
+        time.sleep(600)
+        os._exit(3)  # the hooked write kills this process first
+    a0 = telemetry.counter_value("degraded.adopted_bytes")
+    wait(lambda: stream.stats["degraded_epochs"] >= 1, "degraded epoch")
+    detected = time.time()
+    after = stream.stats["commits"]
+    wait(lambda: stream.stats["commits"] > after, "solo epoch")
+    if stream.members != [0]:
+        raise AssertionError(f"members after the death: {stream.members}")
+    stream.close(final_commit=False)
+    rep = resolve_chain(root)
+    if not rep.head or rep.torn_tail:
+        raise AssertionError(rep.summary())
+    worlds = [{"member": m.name, "world": m.world, "degraded": bool(m.degraded)}
+              for m in rep.members if m.state == "committed"]
+    want = _clone_state(model)
+    fresh = Transformer(cfg, device="cuda", seed=SEED + 31)
+    got = _restore_member(rep.head_path, fresh)
+    for p, t in got.items():
+        if not torch.equal(t, want[p]):
+            raise AssertionError(f"elastic head: {p} differs")
+    with open(marker) as f:
+        killed_at = float(f.read())
+    print(_ELASTIC_LINE + json.dumps({
+        "detect_s": detected - killed_at,
+        "adopted_bytes": telemetry.counter_value("degraded.adopted_bytes") - a0,
+        "worlds": worlds, "epochs": stream.stats["epochs"],
+        "degraded_epochs": stream.stats["degraded_epochs"], "summary": rep.summary(),
+        "bit_exact": True,
+    }), flush=True)
+    os._exit(0)  # the process group's exit barrier would wait on the dead peer
+
+
+def phase_delta_elastic(ctx: dict, workdir: str) -> dict:
+    t_phase = time.perf_counter()
+    edir = os.path.join(workdir, "delta_elastic")
+    os.makedirs(edir)
+    env = dict(_LIFE_ENV, TPUSNAP_RANK_FAILURE="degrade", TPUSNAP_COMPRESS="off")
+    result = _run_worlds(_delta_elastic_rank, ["replicated"],
+                         lambda _c: [edir, ctx["life_state_file"]], env,
+                         _ELASTIC_LINE)["replicated"]
+    if result["adopted_bytes"] <= 0 or result["degraded_epochs"] < 1:
+        raise AssertionError(f"delta_elastic: {result}")
+    shutil.rmtree(edir)
+    result.update(phase="delta_elastic", ttl_s=_LIFE_TTL_S,
+                  seconds=time.perf_counter() - t_phase, card=ctx["card"])
+    return result
+
+
+def phase_tier(ctx: dict, workdir: str) -> dict:
+    """The write-back tier (both tiers on the one local disk): the 4 GiB
+    bulk taken through a tier whose remote is in an outage, beside a
+    plain take; the drain converges once the outage ends; local eviction;
+    a restore through the tier URL from the remote. Then the train state
+    through the tier, and train steps while its drain runs."""
+    import torch
+
+    from tpusnap_torch import Snapshot, StateDict, faults, gc_snapshot, telemetry, tiering
+    from tpusnap_torch.knobs import override_compress, override_tier_outage
+
+    t_phase = time.perf_counter()
+    out = {"phase": "tier", "disk": "local and remote tiers share one local disk"}
+    bulk = _bulk_tensors()
+    nbytes = sum(t.numel() * t.element_size() for t in bulk.values())
+    plain = os.path.join(workdir, "tier_plain")
+    with override_compress(mode="off"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        Snapshot.take(plain, {"bulk": StateDict(bulk)})
+        out["plain_take_s"] = time.perf_counter() - t0
+    shutil.rmtree(plain)
+    url = (f"tier+local={os.path.join(workdir, 'tier_local')}"
+           f"+remote=chaos+fs://{os.path.join(workdir, 'tier_remote')}/bulk")
+    spec = tiering.parse_tier_url(url)
+    # Every remote op fails for the first 10 s of the drain: an outage.
+    opts = {"fault_plan": faults.FaultPlan(outage=("*", 0.0, 10.0))}
+    ep0 = telemetry.counter_value("tier.degraded_episodes")
+    with override_compress(mode="off"), override_tier_outage(
+            threshold=1, backoff_cap_s=0.5, op_deadline_s=0.5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        Snapshot.take(url, {"bulk": StateDict(bulk)}, storage_options=opts)
+        out["outage_take_s"] = time.perf_counter() - t0
+        out["durability_after_take"] = tiering.tier_state_of_dir(spec.local_dir)["durability"]
+        t0 = time.perf_counter()
+        if not tiering.drain_manager().wait_idle(timeout=300):
+            raise AssertionError("the tier drain did not finish")
+        out["drain_s"] = time.perf_counter() - t0
+    out["degraded_episodes"] = telemetry.counter_value("tier.degraded_episodes") - ep0
+    st = tiering.tier_state_of_dir(spec.local_dir)
+    if st["durability"] != "remote-durable" or st["lag_bytes"] != 0 or out["degraded_episodes"] < 1:
+        raise AssertionError(f"tier: {st}, {out}")
+    with override_tier_outage(local_retention_s=0):
+        gc = gc_snapshot(spec.local_dir, dry_run=False, evict_local=True)
+    out["evicted_bytes"] = gc.bytes_reclaimed
+    if gc.errors or gc.bytes_reclaimed < nbytes:
+        raise AssertionError(f"tier eviction reclaimed {gc.bytes_reclaimed} of {nbytes}")
+    f0 = telemetry.counter_value("tier.remote_fallback_reads")
+    targets = StateDict({k: torch.zeros_like(v) for k, v in bulk.items()})
+    t0 = time.perf_counter()
+    Snapshot(url).restore({"bulk": targets})
+    out["evicted_restore_s"] = time.perf_counter() - t0
+    out["remote_reads"] = telemetry.counter_value("tier.remote_fallback_reads") - f0
+    for k, v in bulk.items():
+        if not torch.equal(targets[k], v):
+            raise AssertionError(f"tier: {k} differs after the restore from the remote")
+    del bulk, targets
+    out.update(bytes=nbytes, outage_over_plain=out["outage_take_s"] / out["plain_take_s"])
+
+    model, tokens = ctx["life_model"], ctx["tokens"]
+    out["step_s_no_drain"] = _timed_steps(model, tokens, 5)
+    turl = (f"tier+local={os.path.join(workdir, 'tier_local')}"
+            f"+remote=fs://{os.path.join(workdir, 'tier_remote')}/train")
+    with override_compress(mode="off"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        Snapshot.take(turl, {"train": StateDict(**model.train_state())})
+        out["train_take_s"] = time.perf_counter() - t0
+        out["step_s_during_drain"] = _timed_steps(model, tokens, 5)
+        out["drain_busy_after_steps"] = not tiering.drain_manager().wait_idle(timeout=0)
+        if not tiering.drain_manager().wait_idle(timeout=300):
+            raise AssertionError("the train state's drain did not finish")
+    if tiering.tier_state_of_dir(tiering.parse_tier_url(turl).local_dir)["durability"] \
+            != "remote-durable":
+        raise AssertionError("the train state's tier is not remote-durable")
+    shutil.rmtree(os.path.join(workdir, "tier_local"))
+    shutil.rmtree(os.path.join(workdir, "tier_remote"))
+    out.update(seconds=time.perf_counter() - t_phase, bit_exact=True, card=ctx["card"])
+    return out
+
+
+def phase_cas(ctx: dict, workdir: str) -> dict:
+    """Two job ids take the same train state into two directories with
+    one TPUSNAP_CAS_DIR (batching off: slab blobs are named per take and
+    never dedup): the second publishes nothing; each restores into CUDA
+    tensors in place; deleting one and collecting the store keeps the
+    shared blobs."""
+    import torch
+
+    from tpusnap_torch import Snapshot, StateDict, telemetry
+    from tpusnap_torch.cas import BLOBS_DIR, gc_store
+    from tpusnap_torch.knobs import (
+        override_batching_disabled,
+        override_cas,
+        override_compress,
+        override_job_id,
+    )
+    from tpusnap_torch.models import Transformer
+
+    t_phase = time.perf_counter()
+    model, cfg = ctx["life_model"], ctx["cfg"]
+    state_bytes = sum(t.numel() * t.element_size() for _, t in _leaves(model.train_state()))
+    store = os.path.join(workdir, "cas_store")
+    want = _clone_state(model)
+    out = {"phase": "cas", "state_bytes": state_bytes, "jobs": {}}
+
+    def store_bytes():
+        d = os.path.join(store, BLOBS_DIR)
+        return sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+
+    with override_cas(store), override_batching_disabled(True), override_compress(mode="off"):
+        for job in ("job_a", "job_b"):
+            b0 = telemetry.counter_value("cas.bytes_published")
+            s0 = telemetry.counter_value("cas.dedup_bytes_saved")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with override_job_id(job):
+                Snapshot.take(os.path.join(workdir, job), {"train": StateDict(**model.train_state())})
+            out["jobs"][job] = {
+                "take_s": time.perf_counter() - t0,
+                "bytes_published": telemetry.counter_value("cas.bytes_published") - b0,
+                "dedup_bytes_saved": telemetry.counter_value("cas.dedup_bytes_saved") - s0,
+            }
+        if out["jobs"]["job_b"]["bytes_published"] != 0:
+            raise AssertionError(f"the second job published bytes: {out['jobs']}")
+        out["store_bytes"] = store_bytes()
+        out["twice_state_bytes"] = 2 * state_bytes
+        # Once: at most the state's bytes (equal tensors share a blob).
+        if not 0 < out["store_bytes"] <= state_bytes:
+            raise AssertionError(f"the store holds {out['store_bytes']} bytes of {state_bytes}")
+        fresh = Transformer(cfg, device="cuda", seed=SEED + 41)
+        witness = Transformer(cfg, device="cuda", seed=SEED + 42)
+        for job in ("job_a", "job_b"):
+            out["jobs"][job]["post_restore_loss"] = _check_restore(
+                os.path.join(workdir, job), want, fresh, witness, _tokens(cfg, 8, SEED + 43))
+        shutil.rmtree(os.path.join(workdir, "job_a"))
+        gc = gc_store(store, dry_run=False, grace_s=0.0)
+        out["gc_swept"] = len(gc.reclaimed)
+        if gc.errors or store_bytes() != out["store_bytes"]:
+            raise AssertionError(f"gc_store swept shared blobs: {gc.reclaimed} {gc.errors}")
+        _check_restore(os.path.join(workdir, "job_b"), want, fresh, witness,
+                       _tokens(cfg, 8, SEED + 44))
+    del fresh, witness
+    shutil.rmtree(store)
+    shutil.rmtree(os.path.join(workdir, "job_b"))
+    out.update(seconds=time.perf_counter() - t_phase, bit_exact=True, card=ctx["card"])
+    return out
+
+
 def _reset_launches() -> None:
     from tpusnap_torch.ops import flash_attention as fa
 
@@ -2943,6 +3444,14 @@ def main() -> int:
             r = degrade_line["cases"][c]
             paths[f"degrade {c} rank 0"] = (r["flash_launches"], r["flash_routes"])
         emit(phase_lifecycle_ab(ctx, workdir))
+        _reset_launches()
+        emit(phase_delta(ctx, workdir))
+        paths["delta"] = (fa.launches, dict(fa.route_launches))
+        emit(phase_delta_elastic(ctx, workdir))
+        _reset_launches()
+        emit(phase_tier(ctx, workdir))
+        emit(phase_cas(ctx, workdir))
+        paths["tier+cas"] = (fa.launches, dict(fa.route_launches))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     for path, (launches, routes) in paths.items():

@@ -3,7 +3,9 @@ version, snapshot round trips of CUDA tensors (chunked ones too), async
 takes followed at once by in-place updates, async restores, two ranks
 sharing the card (replicated state, and DTensor state restored in place),
 host-offloaded (pinned) state restored in place and kept pinned, the MoE
-flagship training, and embedding tables with pinned DTensor shards.
+flagship training, embedding tables with pinned DTensor shards, delta
+stream captures (at mark_step, and free-running under a side stream),
+and CUDA state through the write-back tier and the CAS store.
 
 Every test here carries the ``cuda`` marker and skips without a card (the
 kernels have no CPU mode). The file imports neither JAX nor ``tpusnap``,
@@ -896,3 +898,148 @@ def test_dtoh_span_closes_when_the_copy_completes(gen, tmp_path):
     dtoh = telemetry.LAST_TAKE_SUMMARY["stages"]["dtoh"]
     # 128 MiB over PCIe takes milliseconds; an enqueue takes microseconds.
     assert dtoh["count"] == 1 and dtoh["total_s"] > 1e-3, dtoh
+
+
+# --------------------------------------------------------------- delta
+
+
+def _stream_state(gen, n=4, numel=1 << 20):
+    """Tensors an in-place optimizer updates, and the step counter that
+    names the boundary a capture holds."""
+    state = {f"w{i}": torch.randn((numel,), generator=gen, device="cuda") for i in range(n)}
+    state["step"] = torch.zeros((), dtype=torch.int64, device="cuda")
+    return state
+
+
+def _step(state, spin_cycles=0):
+    """One in-place step: each tensor written by one kernel (``copy_``);
+    ``spin_cycles`` of device time between tensors widen the window in
+    which a free-running capture lands mid-step."""
+    for k, t in state.items():
+        if k == "step":
+            t.add_(1)
+        else:
+            t.copy_(t * 0.999 + 0.001)
+        if spin_cycles:
+            torch.cuda._sleep(spin_cycles)
+
+
+def _members(root):
+    from tpusnap_torch.delta import resolve_chain
+
+    rep = resolve_chain(root)
+    return [os.path.join(root, m.name) for m in rep.members if m.state == "committed"]
+
+
+def _restored(path, like):
+    target = {k: torch.zeros_like(v) for k, v in like.items()}
+    Snapshot(path).restore({"s": StateDict(target)})
+    return target
+
+
+def test_mark_step_capture_is_the_boundary_bit_for_bit(gen, tmp_path):
+    """Captures taken inside mark_step hold the whole state at that step
+    boundary, bit for bit (tolerance 0), and the training thread blocks
+    only for their staging."""
+    import time
+
+    root = str(tmp_path / "stream")
+    state = _stream_state(gen)
+    boundaries = {0: {k: v.clone() for k, v in state.items()}}
+    stream = Snapshot.stream(root, {"s": StateDict(state)}, cadence_s=0.1)
+    for _ in range(30):
+        _step(state, spin_cycles=1 << 16)
+        boundaries[int(state["step"])] = {k: v.clone() for k, v in state.items()}
+        stream.mark_step()
+        time.sleep(0.02)
+    stream.close(final_commit=False)
+    stream.raise_if_failed()
+    assert stream.stats["mark_step_captures"] >= 2, stream.stats
+    assert stream.stats["max_capture_blocked_s"] > 0
+    for path in _members(root):
+        got = _restored(path, state)
+        want = boundaries[int(got["step"])]
+        for k in state:
+            assert torch.equal(got[k], want[k]), (path, k)
+
+
+def test_free_running_capture_under_side_stream_holds_each_tensor_at_a_boundary(gen, tmp_path):
+    """Training on a side stream, no mark_step: the worker thread's
+    captures copy the state in that stream's order, so every tensor of
+    every member is whole at some step boundary (blob grain, tolerance
+    0), though a member may mix boundaries. Each step adds 1 to every
+    element of 64 MiB int32 tensors, so a tensor at a boundary is
+    constant and a copy torn by a step's write is not. The host runs
+    tens of milliseconds ahead of the card, as a training loop does, so
+    the writes a capture must not see are already queued when it runs;
+    batching is off, so each tensor's copy to the host (milliseconds)
+    is the window such a write could tear."""
+    import time
+
+    from tpusnap_torch.knobs import override_batching_disabled
+
+    root = str(tmp_path / "stream")
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side), override_batching_disabled(True):
+        state = {f"w{i}": torch.zeros((16 << 20,), dtype=torch.int32, device="cuda") for i in range(4)}
+        stream = Snapshot.stream(root, {"s": StateDict(state)}, cadence_s=0.1, max_chain=1000)
+        t_end, steps = time.monotonic() + 2.0, 0
+        while time.monotonic() < t_end:
+            for t in state.values():
+                t.add_(1)
+            torch.cuda._sleep(1 << 21)
+            steps += 1
+            if steps % 40 == 0:
+                side.synchronize()
+        side.synchronize()
+        stream.close(final_commit=False)
+    stream.raise_if_failed()
+    members = _members(root)
+    assert len(members) >= 3, members
+    for path in members:
+        got = _restored(path, state)
+        for k, t in got.items():
+            first = int(t[0])
+            assert 0 <= first <= steps and torch.equal(t, torch.full_like(t, first)), (path, k)
+
+
+def test_tier_take_and_restore_of_cuda_state_after_eviction(gen, tmp_path, monkeypatch):
+    """CUDA state through the write-back tier: drained to the remote,
+    evicted locally, restored through the tier URL from the remote into
+    CUDA tensors in place, bit for bit."""
+    from tpusnap_torch import gc_snapshot, telemetry
+    from tpusnap_torch.tiering import drain_snapshot, parse_tier_url
+
+    monkeypatch.setenv("TPUSNAP_TIER_DRAIN", "0")
+    url = f"tier+local={tmp_path / 'cache'}+remote=fs://{tmp_path / 'remote'}/snap"
+    state = _stream_state(gen)
+    Snapshot.take(url, {"s": StateDict(state)})
+    assert drain_snapshot(url).state == "durable"
+    gc_snapshot(parse_tier_url(url).local_dir, dry_run=False, evict_local=True)
+    before = telemetry.counter_value("tier.remote_fallback_reads")
+    target = {k: torch.zeros_like(v) for k, v in state.items()}
+    ptrs = {k: v.data_ptr() for k, v in target.items()}
+    Snapshot(url).restore({"s": StateDict(target)})
+    assert telemetry.counter_value("tier.remote_fallback_reads") > before
+    for k, v in state.items():
+        assert target[k].data_ptr() == ptrs[k] and torch.equal(target[k], v), k
+
+
+def test_cas_restore_in_place(gen, tmp_path):
+    """Two CAS-composed takes of the same CUDA state store it once; each
+    restores into CUDA tensors in place, bit for bit."""
+    from tpusnap_torch.knobs import override_batching_disabled, override_cas
+
+    state = _stream_state(gen)
+    store = str(tmp_path / "store")
+    with override_cas(store), override_batching_disabled(True):
+        for job in ("a", "b"):
+            Snapshot.take(str(tmp_path / job), {"s": StateDict(state)})
+        blobs = os.listdir(os.path.join(store, "blobs"))
+        assert len(blobs) == len(state)
+        for job in ("a", "b"):
+            target = {k: torch.zeros_like(v) for k, v in state.items()}
+            ptrs = {k: v.data_ptr() for k, v in target.items()}
+            Snapshot(str(tmp_path / job)).restore({"s": StateDict(target)})
+            for k, v in state.items():
+                assert target[k].data_ptr() == ptrs[k] and torch.equal(target[k], v), (job, k)

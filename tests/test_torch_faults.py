@@ -7,9 +7,9 @@ schedule.
 Every end-to-end case holds the two invariants of the chaos layer: the
 retry middleware converges (take, restore and verify succeed bit-exact
 through ``chaos+fs://`` with at least one transient error per storage
-op) and a committed snapshot scrubs clean whatever the fault schedule.
-The object-store and fsspec cases are refused by name: those backends
-are not ported.
+op) and a committed snapshot scrubs clean whatever the fault schedule,
+for the local filesystem, the fsspec bridge and the s3 plugin (on a
+stub client).
 """
 
 import asyncio
@@ -315,10 +315,10 @@ def test_chaos_fs_roundtrip_seed_sweep(tmp_path, seed):
 
 @pytest.mark.chaos
 def test_chaos_fsspec_memory_roundtrip(tmp_path):
-    """The fsspec backend is not ported: its chaos URL is refused by name."""
+    """The fsspec bridge (an in-memory filesystem) converges under chaos
+    like the local one."""
     plan = FaultPlan(seed=3, transient_per_op=1, short_reads=True)
-    with pytest.raises(NotImplementedError, match="A8b"):
-        _chaos_roundtrip("chaos+fsspec+memory://chaos_mem_snap", _chaos_opts(plan), 3)
+    _chaos_roundtrip("chaos+fsspec+memory://chaos_mem_snap", _chaos_opts(plan), 3)
 
 
 @pytest.mark.chaos
@@ -374,12 +374,31 @@ def test_bandwidth_throttled_snapshot_roundtrips(tmp_path):
 
 @pytest.mark.chaos
 def test_chaos_s3_stub_ops(tmp_path):
-    """The s3 backend is not ported: its chaos URL is refused by name."""
-    with pytest.raises(NotImplementedError, match="A8b"):
-        Snapshot.take(
-            "chaos+s3://bucket/prefix", {"m": StateDict(**_state(5, n_arrays=1))},
-            storage_options=_chaos_opts(FaultPlan(seed=5, transient_per_op=1)),
-        )
+    """The s3 plugin's ops converge under chaos through the retry
+    middleware (a stub client: aiobotocore is not installed here)."""
+    from test_torch_cloud import StubS3Client
+
+    from tpusnap_torch.storage_plugins.s3 import S3StoragePlugin
+
+    raw = S3StoragePlugin("bucket/prefix")
+    raw._client = StubS3Client()
+    plugin = RetryingStoragePlugin(
+        FaultInjectionStoragePlugin(raw, FaultPlan(seed=5, transient_per_op=1, short_reads=True)),
+        RetryPolicy(backoff_base_sec=0.01),
+    )
+    blobs = {f"o{i}": os.urandom(10_000 + i) for i in range(6)}
+
+    async def go():
+        await asyncio.gather(*(plugin.write(WriteIO(path=k, buf=v)) for k, v in blobs.items()))
+        for k, v in blobs.items():
+            read_io = ReadIO(path=k)
+            await plugin.read(read_io)
+            assert read_io.buf.getvalue() == v, k
+        ranged = ReadIO(path="o0", byte_range=(100, 900))
+        await plugin.read(ranged)
+        assert ranged.buf.getvalue() == blobs["o0"][100:900]
+
+    _run(go())
 
 
 @pytest.mark.chaos
@@ -447,8 +466,34 @@ def test_chaos_composition_keeps_in_place_reads(tmp_path):
 @pytest.mark.parametrize(
     "url", ["tier+local=/tmp/a+remote=s3://b/a", "cas+fs:///tmp/a", "gs://b/a", "chaos+s3://b/a"]
 )
-def test_unported_schemes_refused_by_name(url):
-    from tpusnap_torch.storage_plugin import url_to_storage_plugin
+def test_unported_schemes_refused_by_name(url, tmp_path):
+    """The schemes this test once saw refused now compose in tpusnap's
+    order (tier, CAS, gcs handling its own retries, chaos under retry)
+    instead of writing locally."""
+    from tpusnap_torch.cas import CASStoragePlugin
+    from tpusnap_torch.knobs import override_cas
+    from tpusnap_torch.storage_plugin import InstrumentedStoragePlugin, url_to_storage_plugin
+    from tpusnap_torch.storage_plugins.gcs import GCSStoragePlugin
+    from tpusnap_torch.storage_plugins.s3 import S3StoragePlugin
+    from tpusnap_torch.tiering import TieredStoragePlugin
 
-    with pytest.raises(NotImplementedError, match="A8b"):
-        url_to_storage_plugin(url)
+    # A gcs emulator endpoint: no credentials are looked up.
+    opts = {"api_endpoint": "http://127.0.0.1:9"} if url.startswith("gs:") else None
+    with override_cas(str(tmp_path / "store")):
+        plugin = url_to_storage_plugin(url, opts)
+    base = plugin
+    while getattr(base, "inner", None) is not None and not isinstance(
+        base, (TieredStoragePlugin, CASStoragePlugin)
+    ):
+        base = base.inner
+    want = {
+        "tier+": TieredStoragePlugin, "cas+fs": CASStoragePlugin,
+        "gs:": GCSStoragePlugin, "chaos+s3": S3StoragePlugin,
+    }
+    assert isinstance(base, next(v for k, v in want.items() if url.startswith(k)))
+    if url.startswith("chaos+"):
+        assert isinstance(plugin, RetryingStoragePlugin)
+        assert isinstance(plugin.inner, InstrumentedStoragePlugin)
+        assert isinstance(plugin.inner.inner, FaultInjectionStoragePlugin)
+    if url.startswith("gs:"):
+        assert plugin.handles_own_retries and not isinstance(plugin, RetryingStoragePlugin)

@@ -41,6 +41,8 @@ def test_every_module_imports_without_jax_or_tpusnap():
         "models.embedding", "models.layout",
         "telemetry", "flight", "progress", "retry", "faults", "lifecycle",
         "liveness", "rss_profiler", "storage_plugin",
+        "tiering", "cas", "delta", "storage_plugins.s3", "storage_plugins.gcs",
+        "storage_plugins.fsspec",
     ):
         assert f"tpusnap_torch.{name}" in modules
     code = (

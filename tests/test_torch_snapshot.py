@@ -250,28 +250,38 @@ def test_slab_layout_matches_tpusnap_byte_for_byte(tmp_path):
     ["tier_incremental_from", "stream", "s3_url", "metrics_export", "history"],
 )
 def test_unported_features_raise(tmp_path, monkeypatch, call):
+    """The telemetry consumers of A9 are refused by their knobs, never
+    ignored. The A8b features this test once saw refused now work: an
+    incremental take over a tier URL, a delta stream, and an ``s3://``
+    take, which needs ``aiobotocore`` (absent here) and says so before
+    anything is written."""
     path = str(tmp_path / "snap")
     state = {"s": StateDict(x=torch.ones(2))}
-    match = None
     if call in ("metrics_export", "history"):
-        # A telemetry consumer the port does not have is refused by its
-        # knob, never ignored.
         knob = {"metrics_export": ("TPUSNAP_METRICS_EXPORT", "prom"),
                 "history": ("TPUSNAP_HISTORY", "1")}[call]
         monkeypatch.setenv(*knob)
-        fn = lambda: Snapshot.take(path, state)  # noqa: E731
-        match = f"{knob[0]}.*A9"
-    elif call == "tier_incremental_from":
-        base = "tier+local=" + str(tmp_path / "base") + "+remote=s3://bucket/base"
-        fn = lambda: Snapshot.take(path, state, incremental_from=base)  # noqa: E731
-        match = "A8"
-    elif call == "stream":
-        fn = lambda: Snapshot.stream(path, state)  # noqa: E731
+        with pytest.raises(NotImplementedError, match=f"{knob[0]}.*A9"):
+            Snapshot.take(path, state)
+        assert not os.path.exists(os.path.join(path, ".snapshot_metadata"))
+        return
+    if call == "s3_url":
+        with pytest.raises(RuntimeError, match="requires aiobotocore"):
+            Snapshot.take("s3://bucket/snap", state)
+        return
+    if call == "tier_incremental_from":
+        monkeypatch.setenv("TPUSNAP_TIER_DRAIN", "0")
+        tier = "tier+local=" + str(tmp_path / "cache") + "+remote=fs://" + str(tmp_path / "remote")
+        Snapshot.take(tier + "/base", state)
+        state["s"]["x"][1] = 5.0
+        Snapshot.take(path, state, incremental_from=tier + "/base")
     else:
-        fn = lambda: Snapshot.take("s3://bucket/snap", state)  # noqa: E731
-    with pytest.raises(NotImplementedError, match=match):
-        fn()
-    assert not os.path.exists(os.path.join(path, ".snapshot_metadata"))
+        with Snapshot.stream(path, state, cadence_s=3600) as stream:
+            state["s"]["x"][1] = 5.0
+            path = stream.commit_now().path
+    target = {"s": StateDict(x=torch.zeros(2))}
+    Snapshot(path).restore(target)
+    assert torch.equal(target["s"]["x"], torch.tensor([1.0, 5.0]))
 
 
 def test_incremental_from_writes_only_changed_blobs(tmp_path):

@@ -19,7 +19,11 @@ save-time transforms (``cast_on_save``), ``Snapshot.verify``/``materialize``
 host-offloaded state in pinned CPU memory (``to_host_offload``,
 ``to_device``, ``is_host_resident``, ``supports_host_offload``), staged
 with no device-to-host copy; ``PytreeState`` for any pytree of tensors;
-and the two model families (``tpusnap_torch.models``): the flagship
+storage beyond the local filesystem (``s3://``, ``gs://``,
+``fsspec+<protocol>://``), the write-back tier (``tier+local=...+remote=...``)
+and the content-addressed store (``cas+fs://``, ``TPUSNAP_CAS_DIR``);
+delta streams of micro-commits (``Snapshot.stream``, ``DeltaStream``,
+``resolve_chain``); and the two model families (``tpusnap_torch.models``): the flagship
 transformer, dense or MoE, at its dp/fsdp/tp/ep layouts, whose attention
 forward runs a hand-written Hopper kernel (``tpusnap_torch.ops``), and
 the embedding-table collection with pinned tables and row-wise Adagrad.
@@ -54,11 +58,18 @@ from .io_preparers.sharded import is_sharded  # noqa: F401
 from .manifest_ops import get_available_entries  # noqa: F401
 from .pytree_state import PytreeState  # noqa: F401
 from .retention import apply_retention  # noqa: F401
+from .delta import (  # noqa: F401
+    DeltaChainReport,
+    DeltaStream,
+    resolve_chain,
+)
 from .transforms import cast_on_save  # noqa: F401
 
 __all__ = [
     "__version__",
     "AppState",
+    "DeltaChainReport",
+    "DeltaStream",
     "FaultPlan",
     "FsckReport",
     "GCReport",
@@ -84,6 +95,7 @@ __all__ = [
     "is_sharded",
     "load_snapshot",
     "metrics_sink",
+    "resolve_chain",
     "supports_host_offload",
     "to_device",
     "to_host_offload",

@@ -346,6 +346,65 @@ class StoreComm(Communicator):
         return result
 
 
+class SubsetComm(StoreComm):
+    """Collectives over a subset of a store's world: the communicator
+    each epoch of an elastic delta stream (``delta``) takes its
+    micro-commit on, so the survivors of a dead or departed rank keep
+    taking multi-rank snapshots without it, and a joiner is folded in by
+    being listed.
+
+    The subset works by re-ranking: ``rank`` and ``world_size`` give this
+    process's position among ``members`` (sorted global ranks), so every
+    loop over ``range(world_size)`` (arrive keys, gather slots, the
+    leader) stays as it is. ``global_rank`` and ``global_ranks`` keep the
+    global identity.
+
+    Two rules differ from ``StoreComm``:
+
+    - ``namespace`` is required and must be the same on every member, one
+      per epoch: the process-global instance counter cannot agree once
+      the processes have built different numbers of communicators;
+    - barriers always poll arrive keys: the counter barrier's ``add``
+      would count any process of the world that used the same key.
+    """
+
+    def __init__(
+        self,
+        members: List[int],
+        namespace: str,
+        store=None,
+        global_rank: Optional[int] = None,
+        timeout_ms: Optional[int] = None,
+    ) -> None:
+        if store is None:
+            import torch.distributed as dist
+
+            store = _default_group_store()
+            global_rank = dist.get_rank()
+        if global_rank is None:
+            raise ValueError("SubsetComm over an explicit store needs global_rank")
+        ranks = sorted(int(m) for m in members)
+        if len(set(ranks)) != len(ranks):
+            raise ValueError(f"duplicate members: {members}")
+        if global_rank not in ranks:
+            raise ValueError(f"process {global_rank} is not a member of {members}")
+        super().__init__(
+            store, ranks.index(global_rank), len(ranks),
+            timeout_ms=timeout_ms, namespace=namespace,
+        )
+        self.global_rank = global_rank
+        self.global_ranks = ranks
+
+    def _barrier(self) -> None:
+        seq = self._next_seq()
+        prefix = f"{self._namespace()}/b{seq}"
+        flight.record("barrier_enter", op=prefix)
+        keys = self._polling_barrier(prefix, self._deadline())
+        flight.record("barrier_exit", op=prefix)
+        self._flush_gc()
+        self._defer_gc(keys)
+
+
 def _sanitize_ns(ns: str) -> str:
     """Escape everything outside [A-Za-z0-9_-]."""
     return re.sub(r"[^A-Za-z0-9_-]", lambda m: f"%{ord(m.group(0)):02x}", ns)

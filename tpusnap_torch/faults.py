@@ -295,6 +295,9 @@ class FaultInjectionStoragePlugin(StoragePlugin):
     def in_place_read_overhead_bytes(self, nbytes: int) -> int:
         return self.inner.in_place_read_overhead_bytes(nbytes)
 
+    def drain_in_flight(self) -> None:
+        self.inner.drain_in_flight()
+
     def classify_transient(self, exc: BaseException) -> bool:
         # The retry wrapper asks the plugin it wraps; delegate to the
         # real backend's classifier (InjectedFaultError is a

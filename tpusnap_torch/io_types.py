@@ -18,7 +18,9 @@ from __future__ import annotations
 
 import abc
 import asyncio
+import contextlib
 import io
+import threading
 from concurrent.futures import Executor
 from dataclasses import dataclass, field
 from typing import Callable, Generic, Optional, Tuple, TypeVar, Union
@@ -37,10 +39,13 @@ PROGRESS_DIR = SIDECAR_PREFIX + "progress"  # heartbeat records
 TELEMETRY_DIR = SIDECAR_PREFIX + "telemetry"  # per-rank Chrome traces
 PROBE_DIR = SIDECAR_PREFIX + "probe"  # compression policy's write probe
 FLIGHT_DIR = SIDECAR_PREFIX + "flight"  # flight-recorder event logs
-# Written by tpusnap's write-back tiering and content-addressed store
-# (not ported yet); named here so fsck classifies such directories the
-# way tpusnap does.
+# Write-back tiering (``tiering``): the upload journal a tiered take
+# keeps in its local tier — per-blob CRC32C+XXH64 evidence of what is
+# proven remote, and the durability state ("pending", "durable").
 UPLOAD_JOURNAL_PATH = SIDECAR_PREFIX + "upload_journal"
+# Content-addressed store (``cas``): per-rank ref records a CAS-composed
+# snapshot keeps instead of private payload copies (manifest location ->
+# (nbytes, CRC32C, XXH64), the shared blob's key).
 CAS_REFS_DIR = SIDECAR_PREFIX + "cas_refs"
 
 
@@ -87,6 +92,11 @@ class ReadIO:
     in_place: bool = False
     crc32c: Optional[int] = None
     crc_algo: Optional[str] = None
+    # Where a redirected read's bytes came from: "cas" for a read the
+    # content-addressed layer served from the shared store,
+    # "evicted-read-through" for a tiered local miss served by the
+    # remote. None for ordinary reads.
+    source: Optional[str] = None
 
 
 class BufferStager(abc.ABC):
@@ -157,6 +167,35 @@ class StoragePlugin(abc.ABC):
 
     def in_place_read_overhead_bytes(self, nbytes: int) -> int:
         return nbytes
+
+    # Middleware markers the scheme registry reads
+    # (``storage_plugin.url_to_storage_plugin``): ``wants_retry_middleware``
+    # asks for the whole-op retry wrapper (``retry``);
+    # ``handles_own_retries`` marks plugins that retry at a finer grain
+    # themselves (gcs, per chunk) and must not be wrapped twice.
+    wants_retry_middleware: bool = False
+    handles_own_retries: bool = False
+
+    def _submit_tracked(self, executor, fn):
+        """Run ``fn`` on ``executor``, tracked for ``drain_in_flight``:
+        plugins route thread-offloaded work that writes into caller-owned
+        buffers through this."""
+        inflight = self.__dict__.setdefault("_tracked_inflight", set())
+        future = executor.submit(fn)
+        inflight.add(future)
+        future.add_done_callback(inflight.discard)
+        return asyncio.wrap_future(future)
+
+    def drain_in_flight(self) -> None:
+        """Block until the worker-thread I/O offloaded through
+        ``_submit_tracked`` has finished: cancelling a task does not stop
+        its executor work, which may still be writing into an in-place
+        destination after an aborted read."""
+        import concurrent.futures
+
+        pending = list(self.__dict__.get("_tracked_inflight", ()))
+        if pending:
+            concurrent.futures.wait(pending)
 
     def classify_transient(self, exc: BaseException) -> bool:
         """Whether ``exc`` from this backend is worth retrying."""
@@ -233,10 +272,37 @@ class StoragePlugin(abc.ABC):
         _run(self.close(), event_loop)
 
 
+# Joining a thread from a GC finalizer can deadlock (the collection may
+# run inside a starting thread's ``Thread._set_tstate_lock``, which holds
+# the lock the join's ``_stop`` takes again). Explicit closes join — an
+# aborting take relies on close to quiesce its I/O threads — and only the
+# finalizer path opts out, through this thread-local flag.
+_finalizer_close = threading.local()
+
+
+@contextlib.contextmanager
+def finalizer_close_scope():
+    """Mark plugin ``close()`` calls on this thread as finalizer-driven:
+    executor shutdowns and worker joins are skipped."""
+    prior = getattr(_finalizer_close, "active", False)
+    _finalizer_close.active = True
+    try:
+        yield
+    finally:
+        _finalizer_close.active = prior
+
+
+def close_may_join() -> bool:
+    """Whether a ``close()`` may join threads (False only inside
+    :func:`finalizer_close_scope`)."""
+    return not getattr(_finalizer_close, "active", False)
+
+
 def shutdown_plugin_executor(executor) -> None:
-    """Join a plugin's thread pool on close: no straggler write survives
-    the close that an aborting take's deletes follow."""
-    executor.shutdown(wait=True)
+    """Join a plugin's thread pool on an explicit close (no straggler
+    write survives the close that an aborting take's deletes follow); a
+    finalizer-driven close does not wait."""
+    executor.shutdown(wait=close_may_join())
 
 
 def run_on_loop(event_loop: asyncio.AbstractEventLoop, coro):

@@ -29,6 +29,16 @@ _TILE_CHECKSUM_ENV_VAR = "TPUSNAP_TILE_CHECKSUM_BYTES"
 _STAGE_THREADS_ENV_VAR = "TPUSNAP_STAGE_THREADS"
 _COMPRESS_ENV_VAR = "TPUSNAP_COMPRESS"
 _CAS_DIR_ENV_VAR = "TPUSNAP_CAS_DIR"
+_CAS_GRACE_ENV_VAR = "TPUSNAP_CAS_GRACE_S"
+_CAS_LEASE_TTL_ENV_VAR = "TPUSNAP_CAS_LEASE_TTL_S"
+_CAS_REMOTE_ENV_VAR = "TPUSNAP_CAS_REMOTE"
+_DELTA_CADENCE_ENV_VAR = "TPUSNAP_DELTA_CADENCE_S"
+_DELTA_MAX_CHAIN_ENV_VAR = "TPUSNAP_DELTA_MAX_CHAIN"
+_TIER_DRAIN_ENV_VAR = "TPUSNAP_TIER_DRAIN"
+_TIER_OP_DEADLINE_ENV_VAR = "TPUSNAP_TIER_OP_DEADLINE_S"
+_TIER_OUTAGE_THRESHOLD_ENV_VAR = "TPUSNAP_TIER_OUTAGE_THRESHOLD"
+_TIER_BACKOFF_CAP_ENV_VAR = "TPUSNAP_TIER_BACKOFF_CAP_S"
+_TIER_LOCAL_RETENTION_ENV_VAR = "TPUSNAP_TIER_LOCAL_RETENTION_S"
 _ASYNC_STAGE_WINDOW_ENV_VAR = "TPUSNAP_ASYNC_STAGE_WINDOW_BYTES"
 _ASYNC_COW_ENV_VAR = "TPUSNAP_ASYNC_COW"
 _STAGING_POOL_ENV_VAR = "TPUSNAP_STAGING_POOL_BYTES"
@@ -295,7 +305,76 @@ def get_rank_failure_policy() -> str:
 
 
 def get_cas_dir() -> Optional[str]:
+    """The shared content-addressed blob store (``cas``): a directory or
+    a storage URL every CAS-composed take publishes payload blobs into,
+    keyed by their (CRC32C, XXH64) pair. When set, a plain ``fs`` take
+    is composed with the CAS layer (as ``cas+fs://`` is). Unset: off."""
     return os.environ.get(_CAS_DIR_ENV_VAR) or None
+
+
+def get_cas_grace_s() -> float:
+    """Grace window of the store's mark-and-sweep gc: unmarked blobs,
+    stale intents, torn ``.tmp.*`` leftovers and stale roots are swept
+    only once at least this old (a young one may be a publisher whose
+    ref record has not landed yet)."""
+    return max(0.0, _get_float_env(_CAS_GRACE_ENV_VAR, 900.0))
+
+
+def get_cas_lease_ttl_s() -> float:
+    """TTL of the store's gc lock lease: a second sweeper is refused
+    while a live lease exists; an abandoned one is stealable this old."""
+    return max(0.5, _get_float_env(_CAS_LEASE_TTL_ENV_VAR, 60.0))
+
+
+def get_cas_remote() -> Optional[str]:
+    """Remote mirror of the store: the tier drain uploads each unique
+    blob once to ``<remote>/blobs/<key>`` and store reads fall back to
+    it for evicted blobs. Unset: the store is local only."""
+    return os.environ.get(_CAS_REMOTE_ENV_VAR) or None
+
+
+def get_delta_cadence_s() -> float:
+    """Default micro-commit cadence of a delta stream (``Snapshot.stream``
+    without ``cadence_s``): one journaled incremental snapshot per
+    interval bounds the recovery point. Floor 0.1 s."""
+    return max(0.1, _get_float_env(_DELTA_CADENCE_ENV_VAR, 5.0))
+
+
+def get_delta_max_chain() -> int:
+    """Chain length past which a delta stream compacts: the head is
+    materialized into a self-contained base and the superseded members
+    retired. Clamped to [2, 1024]."""
+    return max(2, min(1024, _get_int_env(_DELTA_MAX_CHAIN_ENV_VAR, 8)))
+
+
+def is_tier_drain_enabled() -> bool:
+    """Background drain of the write-back tier: on by default (a tiered
+    take commits locally and an uploader thread drains it to the remote).
+    ``0`` leaves takes ``local-committed`` until drained explicitly."""
+    return os.environ.get(_TIER_DRAIN_ENV_VAR, "1") != "0"
+
+
+def get_tier_op_deadline_s() -> float:
+    """Per-op retry deadline of the uploader's remote plugin: past it the
+    retry layer gives up and the uploader's outage circuit takes over."""
+    return max(0.05, _get_float_env(_TIER_OP_DEADLINE_ENV_VAR, 60.0))
+
+
+def get_tier_outage_threshold() -> int:
+    """Consecutive failed remote uploads before the uploader's circuit
+    opens (degraded mode: capped, jittered backoff between probes)."""
+    return max(1, _get_int_env(_TIER_OUTAGE_THRESHOLD_ENV_VAR, 3))
+
+
+def get_tier_backoff_cap_s() -> float:
+    """Cap on the uploader's backoff between probes during an outage."""
+    return max(0.05, _get_float_env(_TIER_BACKOFF_CAP_ENV_VAR, 30.0))
+
+
+def get_tier_local_retention_s() -> float:
+    """``gc --evict-local`` reclaims a remote-durable snapshot's local
+    blobs only once its durable marker is at least this old (0: at once)."""
+    return max(0.0, _get_float_env(_TIER_LOCAL_RETENTION_ENV_VAR, 0.0))
 
 
 def is_journal_disabled() -> bool:
@@ -548,4 +627,52 @@ def override_liveness(ttl_s: Optional[float] = None, policy: Optional[str] = Non
             stack.enter_context(_override_env(_LIVENESS_TTL_ENV_VAR, str(ttl_s)))
         if policy is not None:
             stack.enter_context(_override_env(_RANK_FAILURE_ENV_VAR, policy))
+        yield
+
+
+@contextlib.contextmanager
+def override_delta_max_chain(n: int) -> Generator[None, None, None]:
+    with _override_env(_DELTA_MAX_CHAIN_ENV_VAR, str(n)):
+        yield
+
+
+@contextlib.contextmanager
+def override_tier_outage(
+    threshold: Optional[int] = None,
+    backoff_cap_s: Optional[float] = None,
+    op_deadline_s: Optional[float] = None,
+    local_retention_s: Optional[float] = None,
+) -> Generator[None, None, None]:
+    """Override the write-back tier's outage and retention knobs in one
+    scope (None leaves one as it is)."""
+    with contextlib.ExitStack() as stack:
+        for name, value in (
+            (_TIER_OUTAGE_THRESHOLD_ENV_VAR, threshold),
+            (_TIER_BACKOFF_CAP_ENV_VAR, backoff_cap_s),
+            (_TIER_OP_DEADLINE_ENV_VAR, op_deadline_s),
+            (_TIER_LOCAL_RETENTION_ENV_VAR, local_retention_s),
+        ):
+            if value is not None:
+                stack.enter_context(_override_env(name, str(value)))
+        yield
+
+
+@contextlib.contextmanager
+def override_cas(
+    store_dir: Optional[str],
+    grace_s: Optional[float] = None,
+    lease_ttl_s: Optional[float] = None,
+    remote: Optional[str] = None,
+) -> Generator[None, None, None]:
+    """Point the content-addressed store at ``store_dir`` (None: off),
+    with optional gc grace, lease TTL and remote overrides."""
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(_override_env(_CAS_DIR_ENV_VAR, store_dir))
+        for name, value in (
+            (_CAS_GRACE_ENV_VAR, grace_s),
+            (_CAS_LEASE_TTL_ENV_VAR, lease_ttl_s),
+            (_CAS_REMOTE_ENV_VAR, remote),
+        ):
+            if value is not None:
+                stack.enter_context(_override_env(name, str(value)))
         yield

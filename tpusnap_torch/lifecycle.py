@@ -1,10 +1,9 @@
 """Crash-safe snapshot lifecycle: take journal, fsck/GC, salvage-resume.
 
-Counterpart of tpusnap/lifecycle.py for the local filesystem: the same
-journal family, evidence format and fsck states (docs/format.md), so
-either package classifies and salvages the other's torn take. A
-directory of tpusnap's write-back tier or content-addressed store is
-refused by name (ROADMAP.md A8b).
+Counterpart of tpusnap/lifecycle.py: the same journal family, evidence
+format and fsck states (docs/format.md), with the write-back tier's
+durability states and the content-addressed store's verdicts, so either
+package classifies, salvages and collects the other's snapshots.
 
 The two-phase commit proves ``metadata exists ⟺ snapshot restores
 bit-exact`` — but says nothing about the OTHER side of a crash. This
@@ -79,7 +78,7 @@ __all__ = [
 ]
 
 _SIDECAR_PREFIX = SIDECAR_PREFIX  # canonical definition: io_types
-# Heartbeat records (tpusnap.progress): observability-only — ignored by
+# Heartbeat records (tpusnap_torch.progress): observability-only — ignored by
 # fsck's empty/foreign decision, legit in committed snapshots.
 _PROGRESS_SIDECAR_PREFIX = PROGRESS_DIR + "/"
 # Roofline probe streams (scheduler._ProbeRunner, TPUSNAP_PROBE=1):
@@ -87,7 +86,7 @@ _PROGRESS_SIDECAR_PREFIX = PROGRESS_DIR + "/"
 # must not make an aborted dir unreusable) but NOT legit post-commit —
 # in a committed snapshot a leftover is an orphan gc reclaims.
 _PROBE_SIDECAR_PREFIX = PROBE_DIR + "/"
-# Flight-recorder event logs (tpusnap.flight): observability-only, the
+# Flight-recorder event logs (tpusnap_torch.flight): observability-only, the
 # same class as heartbeats — legit in committed snapshots (the black
 # box of the take that produced them) and exempt from the empty/foreign
 # decision (an aborted/killed take's forensic breadcrumb is the whole
@@ -104,7 +103,7 @@ def dual_hash_evidence(buf) -> Tuple[int, str, str]:
     ``(nbytes, "<algo>:<8-hex>", "<algo>:<16-hex>")`` from ONE fused
     CRC32C+XXH64 pass. The one evidence rule shared by incremental
     dedup, salvage-resume and the write-back upload journal
-    (:mod:`tpusnap.tiering`): a 32-bit CRC alone leaves a ~2^-32
+    (:mod:`tpusnap_torch.tiering`): a 32-bit CRC alone leaves a ~2^-32
     silent-collision channel, the 64-bit lane closes it."""
     from .knobs import get_native_copy_threads
 
@@ -137,7 +136,7 @@ class TakeJournal:
     started_at: float
     incremental_from: Optional[str] = None
     version: str = ""
-    # Delta-chain membership (tpusnap.delta): the stream id, this
+    # Delta-chain membership (tpusnap_torch.delta): the stream id, this
     # micro-commit's sequence number and its parent member name — what
     # lets fsck/timeline name the in-flight delta state of a take that
     # never committed (a committed member carries the same fields in
@@ -386,6 +385,9 @@ class JournalingStoragePlugin(StoragePlugin):
     def in_place_read_overhead_bytes(self, nbytes: int) -> int:
         return self.inner.in_place_read_overhead_bytes(nbytes)
 
+    def drain_in_flight(self) -> None:
+        self.inner.drain_in_flight()
+
     def classify_transient(self, exc: BaseException) -> bool:
         from .retry import default_classify_transient
 
@@ -455,6 +457,10 @@ class JournalingStoragePlugin(StoragePlugin):
             )
             await self._record(write_io.path, triple)
             return
+        # Hand the fused-pass evidence down the chain: a CAS layer below
+        # keys the shared-store blob on exactly this triple instead of
+        # paying a second hash pass over the same bytes.
+        write_io.dedup_triple = triple
         await self.inner.write(write_io)
         # Completion evidence exists the moment the record lands; the
         # flight event mirrors it so the post-mortem timeline shows
@@ -479,7 +485,9 @@ class JournalingStoragePlugin(StoragePlugin):
 
     async def close(self) -> None:
         if self._executor is not None:
-            # Explicit closes join the hash worker (quiescence).
+            # Finalizer-safe join policy (io_types): explicit closes
+            # join the hash worker (quiescence), GC-finalizer closes
+            # must not (a Thread._set_tstate_lock self-deadlock).
             from .io_types import shutdown_plugin_executor
 
             shutdown_plugin_executor(self._executor)
@@ -518,6 +526,34 @@ class FsckReport:
     # for this snapshot's own files.
     referenced_files: int = 0
     missing_referenced: List[str] = field(default_factory=list)
+    # Write-back tiering (tpusnap_torch.tiering): the two-state durability
+    # ladder when this directory is a tiered snapshot's LOCAL tier —
+    # "local-committed" (upload journal present, drain pending) or
+    # "remote-durable" (the durable marker was written after the last
+    # remote blob + remote metadata verify). None = not tiered.
+    durability: Optional[str] = None
+    tier_remote: Optional[str] = None
+    # remote-durable only: referenced blobs absent LOCALLY because gc
+    # evicted them past the durable marker — restorable through the
+    # tier's remote fallback, so they are NOT counted as missing.
+    evicted: List[str] = field(default_factory=list)
+    # Delta-chain membership of this directory, when it is (or was
+    # becoming) a micro-commit of a delta stream: {"stream", "seq",
+    # "parent"} from the committed metadata's extras (committed) or
+    # the take journal (torn) — what makes a torn tail explainable as
+    # "micro-commit N over member X" instead of an anonymous torn take.
+    delta: Optional[Dict[str, Any]] = None
+    # Content-addressed store (tpusnap_torch.cas): ref records this snapshot
+    # holds instead of private payload copies. ``cas_resolved`` are
+    # referenced locations whose shared blob the store verifiably holds
+    # (they are NOT missing even though the snapshot dir has no such
+    # file); ``cas_dangling`` are refs whose blob the store has LOST —
+    # restore-breaking, the one CAS state that exits nonzero (4).
+    cas_store: Optional[str] = None
+    cas_refs: int = 0
+    cas_dedup_bytes: int = 0
+    cas_resolved: List[str] = field(default_factory=list)
+    cas_dangling: List[str] = field(default_factory=list)
     # The listing this classification was computed from (None when the
     # backend cannot list) — reused by gc so one fsck+gc pays one walk.
     files: Optional[Dict[str, int]] = field(default=None, repr=False)
@@ -552,6 +588,31 @@ class FsckReport:
                     "mid-take; their replicated writes were adopted by "
                     "the survivors]"
                 )
+            if self.cas_refs:
+                s += (
+                    f" [CAS: {self.cas_refs} ref(s) into "
+                    f"{self.cas_store or 'unknown store'}, "
+                    f"{self.cas_dedup_bytes} bytes deduplicated"
+                    + (
+                        f"; {len(self.cas_dangling)} DANGLING ref(s) — "
+                        "the store lost blob(s) this snapshot needs"
+                        if self.cas_dangling
+                        else ""
+                    )
+                    + "]"
+                )
+            if self.durability is not None:
+                s += f" [{self.durability}"
+                if self.durability == "local-committed" and self.tier_remote:
+                    s += f" — cloud drain to {self.tier_remote} pending"
+                elif self.tier_remote:
+                    s += f" at {self.tier_remote}"
+                if self.evicted:
+                    s += (
+                        f"; {len(self.evicted)} local blob(s) evicted, "
+                        "restorable from the remote tier"
+                    )
+                s += "]"
         elif self.state == "torn":
             s += (
                 f" — take {self.journal.take_id[:8]} world_size="
@@ -562,6 +623,22 @@ class FsckReport:
                 if self.journal is not None
                 else ""
             )
+        if self.delta:
+            seq = self.delta.get("seq")
+            parent = self.delta.get("parent")
+            if self.state == "torn":
+                s += (
+                    f" [torn delta micro-commit seq {seq}"
+                    + (f" over {parent!r}" if parent else "")
+                    + " — recovery lands on the last committed increment;"
+                    " retake/gc like any torn take]"
+                )
+            else:
+                s += (
+                    f" [delta increment seq {seq}"
+                    + (f", parent {parent!r}" if parent else "")
+                    + "]"
+                )
         return s
 
 
@@ -602,20 +679,6 @@ def _is_legit_sidecar(path: str) -> bool:
         )
         and ".tmp." not in path.rsplit("/", 1)[-1]
     )
-
-
-def _refuse_unported_layout(path: str, files: Dict[str, int]) -> None:
-    """A committed snapshot of tpusnap's write-back tier or content-
-    addressed store keeps its blobs elsewhere; the port cannot resolve
-    them yet, so it refuses rather than report them missing."""
-    if UPLOAD_JOURNAL_PATH in files or any(
-        p.startswith(CAS_REFS_DIR + "/") for p in files
-    ):
-        raise NotImplementedError(
-            f"{path!r} is a tiered or content-addressed snapshot; tiering and "
-            "the content-addressed store are not ported to tpusnap_torch yet "
-            "(ROADMAP.md item A8b)"
-        )
 
 
 def fsck_snapshot(
@@ -704,6 +767,11 @@ def _fsck_impl(
             report.detail = str(e)
             return report
         report.state = "committed"
+        from .manifest_ops import delta_chain_fields
+
+        delta_fields = delta_chain_fields(report.metadata)
+        if delta_fields is not None:
+            report.delta = dict(delta_fields)
         referenced = _referenced_locations(report.metadata)
         report.referenced_files = len(referenced)
         if report.journal is not None:
@@ -711,15 +779,65 @@ def _fsck_impl(
                 "stale journal present (crash between metadata commit and "
                 "journal clear) — reclaimable via gc"
             )
-        _refuse_unported_layout(path, files)
+        # Write-back tiering: the upload journal carries the durability
+        # ladder of a tiered snapshot's local tier.
+        from .tiering import durability_of_journal, read_upload_journal
+
+        tier_journal = read_upload_journal(storage, event_loop)
+        report.durability = durability_of_journal(tier_journal)
+        if tier_journal is not None:
+            report.tier_remote = tier_journal.get("remote")
         if report.listing_supported:
             report.missing_referenced = sorted(
                 loc for loc in referenced if loc not in files
             )
+            if (
+                report.missing_referenced
+                and report.durability == "remote-durable"
+            ):
+                # Past the durable marker, a locally-absent referenced
+                # blob is an EVICTED hot-cache entry, not data loss: a
+                # restore through the tier URL reads it from the remote
+                # (fsck the remote URL to verify the cloud copy itself).
+                report.evicted = report.missing_referenced
+                report.missing_referenced = []
+            # Content-addressed refs: a referenced location held as a
+            # CAS ref has no private file here BY DESIGN — resolve it
+            # against the shared store before calling it missing. The
+            # probe is a DEEP store check even when a composed CAS
+            # plugin synthesized the location into the listing: the
+            # synthetic entry proves a ref exists, not that the store
+            # still holds the blob (a sweep may have raced it away —
+            # the one restore-breaking CAS state, "dangling ref").
+            from .cas import blob_exists_in_store, blob_key as _cas_key
+            from .cas import read_refs, resolve_store_url
+
+            cas_refs, cas_store = read_refs(storage, event_loop)
+            if cas_refs:
+                report.cas_store = cas_store or resolve_store_url()
+                report.cas_refs = len(cas_refs)
+                missing = set(report.missing_referenced)
+                for loc in sorted(set(cas_refs) & referenced):
+                    rec = cas_refs[loc]
+                    missing.discard(loc)
+                    if blob_exists_in_store(
+                        report.cas_store, _cas_key(tuple(rec))
+                    ):
+                        report.cas_resolved.append(loc)
+                        report.cas_dedup_bytes += int(rec[0])
+                    else:
+                        report.cas_dangling.append(loc)
+                report.missing_referenced = sorted(missing)
             if report.missing_referenced:
                 report.detail = (
                     f"{len(report.missing_referenced)} referenced blob(s) "
                     "missing from storage — the snapshot will not restore"
+                )
+            if report.cas_dangling:
+                report.detail = (
+                    f"{len(report.cas_dangling)} CAS ref(s) DANGLING — "
+                    f"the store at {report.cas_store!r} no longer holds "
+                    "their blobs; the snapshot will not restore"
                 )
             report.orphans = {
                 p: sz
@@ -732,6 +850,40 @@ def _fsck_impl(
 
     if journal_file_exists:
         report.state = "torn"
+        if report.journal is not None and report.journal.stream:
+            # A torn delta micro-commit: the journal names the stream,
+            # sequence number and parent — recovery is "restore the
+            # last committed increment", never this directory.
+            report.delta = dict(report.journal.stream)
+            world = report.journal.stream.get("world")
+            ranks = (
+                world.get("ranks") if isinstance(world, dict) else None
+            )
+            if (
+                isinstance(ranks, list)
+                and ranks
+                and report.listing_supported
+            ):
+                # Multi-rank epoch: name the GLOBAL rank(s) whose
+                # per-rank evidence never landed — whose writes the
+                # tear interrupted (journal virtual rank v maps to
+                # global ranks[v]).
+                have = {
+                    v
+                    for v in range(len(ranks))
+                    if journal_rank_path(v) in files
+                }
+                missing = [
+                    int(ranks[v])
+                    for v in range(len(ranks))
+                    if v not in have
+                ]
+                if missing:
+                    report.detail = (
+                        "torn multi-rank micro-commit: journal evidence "
+                        f"missing from global rank(s) {missing} (world "
+                        f"{ranks})"
+                    )
         if report.journal is not None:
             # Already existence/size-filtered against the listing — what
             # a salvage-retake will actually consider (empty on backends
@@ -798,6 +950,101 @@ def _fsck_impl(
 # ----------------------------------------------------------------------- gc
 
 
+def _evictable_local_blobs(
+    path: str,
+    fsck: FsckReport,
+    storage: StoragePlugin,
+    event_loop: asyncio.AbstractEventLoop,
+) -> Dict[str, int]:
+    """The referenced local payload blobs ``gc --evict-local`` may
+    reclaim from a tiered snapshot's local tier. Refuses (raises)
+    unless the snapshot is ``remote-durable`` AND the durable marker
+    has aged past the hot-local-cache retention window — the tiering
+    gc safety rule."""
+    import time as _time
+
+    from .knobs import get_tier_local_retention_s
+    from .tiering import read_upload_journal
+
+    if fsck.durability is None:
+        raise RuntimeError(
+            f"{path!r} is not a tiered snapshot (no upload journal); "
+            "--evict-local only applies to write-back tier local dirs"
+        )
+    if fsck.durability != "remote-durable":
+        raise RuntimeError(
+            f"{path!r} is {fsck.durability}: its blobs are NOT yet proven "
+            "remote — refusing to evict the only durable copy (run "
+            "`tiering.drain_snapshot` to convergence first)"
+        )
+    journal = read_upload_journal(storage, event_loop) or {}
+    retention = get_tier_local_retention_s()
+    durable_at = journal.get("durable_at")
+    if retention > 0:
+        age = (
+            _time.time() - durable_at
+            if isinstance(durable_at, (int, float))
+            else 0.0
+        )
+        if age < retention:
+            raise RuntimeError(
+                f"{path!r} became remote-durable only {age:.0f}s ago; "
+                f"TPUSNAP_TIER_LOCAL_RETENTION_S={retention:g} keeps the "
+                "hot local cache that long — re-run later or lower the "
+                "retention window"
+            )
+    from .snapshot import SNAPSHOT_METADATA_FNAME
+
+    referenced = (
+        _referenced_locations(fsck.metadata) if fsck.metadata else set()
+    )
+    files = fsck.files or {}
+    evictable = {
+        p: sz
+        for p, sz in sorted(files.items())
+        if p in referenced
+        and p != SNAPSHOT_METADATA_FNAME
+        and not p.startswith(_SIDECAR_PREFIX)
+    }
+    if fsck.cas_refs:
+        # CAS interplay: payload locations held as refs occupy no local
+        # bytes here — their blobs live in the SHARED store, and this
+        # snapshot's own upload journal proves nothing about them. A
+        # composed listing synthesizes them into ``files``, so naive
+        # eviction would delete the REF (dropping the gc liveness root
+        # other restores rely on). Exclude them — and refuse outright
+        # unless the store's upload journal proves every ref'd blob
+        # remote: post-eviction this directory restores from remotes,
+        # and a ref'd blob with no store-remote evidence would have NO
+        # durable copy backing this snapshot's claim.
+        from .cas import blob_key as _cas_key
+        from .cas import read_refs, resolve_store_url, store_remote_evidence
+
+        cas_refs, cas_store = read_refs(storage, event_loop)
+        store_url = cas_store or resolve_store_url()
+        ref_locs = set(cas_refs) & referenced
+        keys = {_cas_key(tuple(cas_refs[loc])) for loc in ref_locs}
+        proven, _remote = (
+            store_remote_evidence(store_url, keys)
+            if store_url
+            else (set(), None)
+        )
+        unproven = sorted(keys - proven)
+        if unproven:
+            raise RuntimeError(
+                f"{path!r} holds {len(ref_locs)} CAS ref(s) into "
+                f"{store_url!r} but the STORE's upload journal proves "
+                f"only {len(proven)}/{len(keys)} of their blobs remote "
+                "— a snapshot's own durable marker does not cover "
+                "shared blobs; run `cas.drain_store` to "
+                "convergence first"
+            )
+        evictable = {
+            p: sz for p, sz in evictable.items() if p not in ref_locs
+        }
+    return evictable
+
+
 @dataclass
 class GCReport:
     path: str
@@ -826,6 +1073,7 @@ def gc_snapshot(
     storage_options: Optional[Dict[str, Any]] = None,
     dry_run: bool = True,
     reclaim_torn: bool = False,
+    evict_local: bool = False,
 ) -> GCReport:
     """Reclaim files a reader can never reach.
 
@@ -839,9 +1087,29 @@ def gc_snapshot(
       everything including the journal, returning the path to empty.
     - **corrupt-metadata / foreign**: always refused; an operator must
       decide (restore the metadata from a replica, or delete manually).
+    - ``evict_local=True`` additionally reclaims a tiered snapshot's
+      LOCAL payload blobs — permitted only past ``remote-durable``
+      (the one gc safety rule tiering adds: a blob may leave the local
+      tier only once the upload journal's durable marker proves the
+      remote holds the whole snapshot), and only once the marker is
+      older than the ``TPUSNAP_TIER_LOCAL_RETENTION_S`` hot-cache
+      window. Metadata and the upload journal are never evicted, so
+      the directory keeps classifying as remote-durable and reads
+      through the tier URL fall back to the remote.
+
     ``dry_run=True`` (the default) only reports what would be deleted.
     tpusnap's ``python -m tpusnap gc`` does the same to the same files."""
     from .storage_plugin import url_to_storage_plugin_in_event_loop
+
+    if evict_local:
+        # Eviction deletes from the LOCAL tier only: through a tier URL
+        # the composed plugin would propagate deletes to the remote —
+        # destroying the very durability that licenses the eviction.
+        from .tiering import parse_tier_url
+
+        spec = parse_tier_url(path)
+        if spec is not None:
+            path = spec.local_dir
 
     event_loop = asyncio.new_event_loop()
     try:
@@ -858,6 +1126,10 @@ def gc_snapshot(
                 )
             if fsck.state == "committed":
                 targets = dict(fsck.orphans)
+                if evict_local:
+                    targets.update(
+                        _evictable_local_blobs(path, fsck, storage, event_loop)
+                    )
             elif fsck.state == "torn":
                 if not reclaim_torn:
                     raise RuntimeError(
@@ -884,6 +1156,9 @@ def gc_snapshot(
             ordered = sorted(
                 targets, key=lambda p: (p == JOURNAL_FNAME, p)
             )
+            # (tpusnap orders an eviction cold-first from its access
+            # ledgers, which come with A9; without them it uses this
+            # name order too.)
             done: Dict[str, int] = {}
             for p in ordered:
                 if (
@@ -905,6 +1180,23 @@ def gc_snapshot(
                 except Exception as e:
                     report.errors.append(f"{p}: {e}")
             report.reclaimed = done
+            if fsck.state == "committed" and fsck.cas_refs:
+                # Prune ref-record entries the committed manifest does
+                # not reference (a superseded retake's strands): they
+                # pin shared-store blobs nothing will ever read. The
+                # manifest is immutable, so this is as safe as the
+                # orphan deletes above.
+                from .cas import prune_refs
+
+                pruned = prune_refs(
+                    storage,
+                    event_loop,
+                    _referenced_locations(fsck.metadata),
+                )
+                if pruned:
+                    logger.info(
+                        "gc %s: pruned %d stale CAS ref(s)", path, pruned
+                    )
             return report
         finally:
             storage.sync_close(event_loop)

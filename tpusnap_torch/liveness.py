@@ -139,6 +139,13 @@ class LeasePublisher:
 
         return hook
 
+    def leave(self) -> None:
+        """Terminal publish for a graceful departure (a preemption notice
+        honoured, an elastic scale-down): the rank neither committed nor
+        failed. Observers never expire it and never raise
+        :class:`RankFailedError` for it."""
+        self.publish(state="left")
+
     def cleanup(self, world_size: int = 1) -> None:
         """Best-effort removal of the whole take's lease prefix (leader
         calls this after a successful commit, mirroring the abort- and

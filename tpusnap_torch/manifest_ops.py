@@ -98,6 +98,45 @@ def get_available_entries(metadata: SnapshotMetadata, rank: int) -> Manifest:
     return get_manifest_for_rank(metadata, rank)
 
 
+def delta_chain_fields(metadata: SnapshotMetadata):
+    """The delta-chain fields of a committed snapshot (``extras["delta"]``:
+    stream id, ``seq``, ``parent`` member name), or None for a snapshot
+    that is not a stream member. The one place chain membership is
+    decoded (fsck, retention and ``delta``)."""
+    d = (getattr(metadata, "extras", None) or {}).get("delta")
+    if isinstance(d, dict) and isinstance(d.get("seq"), int):
+        return d
+    return None
+
+
+def external_reference_depth(manifest: Manifest) -> int:
+    """The most parent (``..``) hops any blob location in ``manifest``
+    takes. Incremental writers point each location at the member that
+    holds the bytes, so a delta-chain member has depth at most 1 however
+    long the chain."""
+    from .manifest import ChunkedTensorEntry, ObjectEntry, ShardedEntry, TensorEntry
+
+    def tensors(entry: Entry):
+        if isinstance(entry, (TensorEntry, ObjectEntry)):
+            yield entry
+        elif isinstance(entry, ChunkedTensorEntry):
+            for c in entry.chunks:
+                yield c.tensor
+        elif isinstance(entry, ShardedEntry):
+            for s in entry.shards:
+                yield s.tensor
+
+    depth = 0
+    for entry in manifest.values():
+        for t in tensors(entry):
+            segs = t.location.split("/")
+            i = 0
+            while i < len(segs) and segs[i] == "..":
+                i += 1
+            depth = max(depth, i)
+    return depth
+
+
 def handle_sharded_elasticity(
     local_manifest: Manifest, target_flattened: Dict[str, object]
 ) -> None:

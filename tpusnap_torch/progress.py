@@ -89,9 +89,18 @@ def progress_rank_path(rank: int) -> str:
 def local_root_of(path: str) -> Optional[str]:
     """The local directory a snapshot URL writes into, or None for
     non-local backends (heartbeat files and ``watch`` are local-fs
-    only; the KV heartbeat covers the rest)."""
+    only; the KV heartbeat covers the rest). A write-back tier URL
+    writes its sidecars in its local tier."""
     from urllib.parse import urlsplit
 
+    from .tiering import parse_tier_url
+
+    try:
+        spec = parse_tier_url(path)
+    except ValueError:
+        return None
+    if spec is not None:
+        return spec.local_dir
     u = urlsplit(path)
     scheme = u.scheme
     if scheme.startswith("chaos+"):

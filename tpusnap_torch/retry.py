@@ -202,6 +202,9 @@ class RetryingStoragePlugin(StoragePlugin):
     def in_place_read_overhead_bytes(self, nbytes: int) -> int:
         return self.inner.in_place_read_overhead_bytes(nbytes)
 
+    def drain_in_flight(self) -> None:
+        self.inner.drain_in_flight()
+
     # --- retry core -------------------------------------------------------
 
     async def _gate(self, exc: Exception, attempt: int, op: str, path: str) -> None:

@@ -675,6 +675,11 @@ async def execute_read_reqs(
             dispatch_reads()
     except BaseException:
         await _cancel_and_drain(read_tasks | consume_tasks)
+        # Cancelling a task does not stop its executor work: a cloud
+        # plugin's thread may still be writing into a caller-owned
+        # in-place destination. Wait it out before the error reaches the
+        # caller.
+        await asyncio.get_running_loop().run_in_executor(None, storage.drain_in_flight)
         raise
     finally:
         executor.shutdown(wait=True)

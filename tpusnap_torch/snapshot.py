@@ -104,11 +104,16 @@ in tpusnap's order and with its on-disk names (docs/format.md):
 - ``chaos+fs://`` paths run under the fault plan and the retry
   middleware (``storage_plugin``).
 
-Left out so far, each raising ``NotImplementedError`` when asked for
-rather than being ignored (ROADMAP.md lists them): write-back tiering,
-the content-addressed store, cloud storage and the delta stream (A8b),
-and the consumers of the take's telemetry: metrics export, history,
-SLO, fleet, tuner and access ledger (A9), refused by their knobs.
+Storage beyond the local filesystem composes as in tpusnap
+(``storage_plugin``): ``s3://``, ``gs://`` and ``fsspec+<protocol>://``;
+the write-back tier ``tier+local=<dir>+remote=<url>://`` (``tiering``:
+a take commits locally and drains to the remote in the background); the
+content-addressed store (``cas+fs://`` or ``TPUSNAP_CAS_DIR``: ``cas``).
+``Snapshot.stream`` opens a delta stream of micro-commits (``delta``).
+
+Left out so far, refused by their knobs rather than ignored (ROADMAP.md
+item A9): the consumers of the take's telemetry — metrics export,
+history, SLO, fleet, tuner and access ledger.
 """
 
 from __future__ import annotations
@@ -195,12 +200,6 @@ logger = logging.getLogger(__name__)
 SNAPSHOT_METADATA_FNAME = ".snapshot_metadata"
 
 
-def _not_ported(feature: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{feature} is not ported to tpusnap_torch yet (ROADMAP.md item {item})"
-    )
-
-
 class Snapshot:
     """Handle on a snapshot. The event loop and storage plugin are
     created on first use and reused by restore/read_object/metadata;
@@ -263,6 +262,7 @@ class Snapshot:
         per_key_barrier: bool = False,
         incremental_from: Optional[str] = None,
         _custom_array_prepare_func: Optional[Any] = None,
+        _extras: Optional[Dict[str, Any]] = None,
         _record_dedup_hashes: bool = False,
     ) -> "Snapshot":
         """Write every stateful in ``app_state`` to ``path``. CUDA tensors
@@ -292,7 +292,9 @@ class Snapshot:
 
         ``_custom_array_prepare_func(logical_path, tensor, tracing)``
         transforms tensors at save time (``transforms.cast_on_save``); it
-        must keep the shape and be deterministic."""
+        must keep the shape and be deterministic. ``_extras`` is
+        caller data for ``metadata.extras`` (a delta stream's chain
+        fields); the commit's own additions land beside it."""
         comm = get_communicator(comm)
         refuse_unported_hooks()
         event_loop = asyncio.new_event_loop()
@@ -307,6 +309,7 @@ class Snapshot:
                     per_key_barrier=per_key_barrier,
                     array_prepare_func=_custom_array_prepare_func,
                     incremental_from=incremental_from,
+                    extras=_extras,
                     force_dedup_hashes=_record_dedup_hashes,
                 )
                 meta_cached = _commit(
@@ -355,7 +358,10 @@ class Snapshot:
         per_key_barrier: bool = False,
         incremental_from: Optional[str] = None,
         _custom_array_prepare_func: Optional[Any] = None,
+        _extras: Optional[Dict[str, Any]] = None,
         _record_dedup_hashes: bool = False,
+        _force_clone_staging: bool = False,
+        _stream_capture: bool = False,
     ) -> "PendingSnapshot":
         """``take`` that returns once the blocked window closes. The
         snapshot holds the state as of this call even if the caller then
@@ -368,7 +374,13 @@ class Snapshot:
         hashes) everything before it returns: its dedup decisions must be
         final before the manifest is. The commit of several processes
         runs over the KV store on the drain thread: no collective runs
-        off the calling thread."""
+        off the calling thread.
+
+        ``_force_clone_staging`` stages CPU tensors into take-owned
+        clones instead of COW views (a delta stream's micro-commits,
+        whose caller never calls ``wait_staged``); ``_stream_capture``
+        arms the degraded commit for this incremental take, which those
+        clones make safe (``delta``)."""
         comm = get_communicator(comm)
         refuse_unported_hooks()
         event_loop = asyncio.new_event_loop()
@@ -385,7 +397,10 @@ class Snapshot:
                 per_key_barrier=per_key_barrier,
                 array_prepare_func=_custom_array_prepare_func,
                 incremental_from=incremental_from,
+                extras=_extras,
                 force_dedup_hashes=_record_dedup_hashes,
+                force_clone_staging=_force_clone_staging,
+                stream_capture=_stream_capture,
             )
             # From here the event loop and storage belong to the drain
             # thread, which closes them.
@@ -404,8 +419,38 @@ class Snapshot:
             raise
 
     @classmethod
-    def stream(cls, *args, **kwargs):
-        raise _not_ported("the delta stream", "A8b")
+    def stream(
+        cls,
+        root: str,
+        app_state: AppState,
+        cadence_s: Optional[float] = None,
+        replicated: Optional[List[str]] = None,
+        storage_options: Optional[Dict[str, Any]] = None,
+        comm: Optional[Communicator] = None,
+        max_chain: Optional[int] = None,
+    ) -> "DeltaStream":
+        """Continuous delta checkpointing: open a ``delta.DeltaStream``
+        under ``root`` — a full base snapshot now, then one journaled
+        incremental micro-commit per ``cadence_s`` (default
+        ``TPUSNAP_DELTA_CADENCE_S``) that writes only the tiles and blobs
+        whose CRC32C+XXH64 pair changed. A crash recovers to the last
+        committed member (``delta.resolve_chain(root).head``), which
+        restores like any snapshot. Call ``mark_step()`` once per
+        training step to take each capture at a step boundary on the
+        training thread; the CUDA streams current on each state device
+        when this is called order every capture. ``close()`` the stream
+        (or use it as a context manager) to stop."""
+        from .delta import DeltaStream
+
+        return DeltaStream(
+            root,
+            app_state,
+            cadence_s=cadence_s,
+            replicated=replicated,
+            storage_options=storage_options,
+            comm=comm,
+            max_chain=max_chain,
+        )
 
     # --------------------------------------------------------------- restore
 
@@ -827,7 +872,10 @@ def _take_impl(
     per_key_barrier: bool = False,
     array_prepare_func: Optional[Any] = None,
     incremental_from: Optional[str] = None,
+    extras: Optional[Dict[str, Any]] = None,
     force_dedup_hashes: bool = False,
+    force_clone_staging: bool = False,
+    stream_capture: bool = False,
 ) -> Tuple[
     PendingIOWork, SnapshotMetadata, str, StoragePlugin, Optional["_LateChecksums"], bool,
     "_TelemetryCommit",
@@ -961,7 +1009,8 @@ def _take_impl(
     except Exception:
         pass
     storage = _open_journal(
-        storage, event_loop, rank, comm.world_size, take_id, incremental_from, abort_ctx
+        storage, event_loop, rank, comm.world_size, take_id, incremental_from, abort_ctx,
+        stream=(extras or {}).get("delta"),
     )
     progress_monitor = _start_observability(
         mark.rec, comm, take_id, path, abort_ctx, multi
@@ -1013,6 +1062,18 @@ def _take_impl(
     # One measured compress-or-bypass decision per take, armed on the
     # eligible standalone blobs after batching. Never fails a take.
     compress.apply_take_policy(write_reqs, storage, event_loop)
+    if force_clone_staging:
+        # Per-take clone staging (delta micro-commits): armed on this
+        # take's stagers, slab members included, never by a process-wide
+        # knob that would race other takes.
+        def _arm_clone(st):
+            if hasattr(st, "force_clone"):
+                st.force_clone = True
+            for m in getattr(st, "members", None) or []:
+                _arm_clone(m[2] if isinstance(m, tuple) else m)
+
+        for wr in write_reqs:
+            _arm_clone(wr.buffer_stager)
     abort_ctx.write_paths = [wr.path for wr in write_reqs]
     if progress_monitor is not None:
         # The denominator of the heartbeat's byte progress: payload bytes.
@@ -1081,7 +1142,7 @@ def _take_impl(
     if (
         multi
         and abort_ctx.liveness is not None
-        and incremental_from is None
+        and (incremental_from is None or stream_capture)
         and get_rank_failure_policy() == "degrade"
     ):
         # Everything a degraded commit needs is final here, before the
@@ -1090,13 +1151,18 @@ def _take_impl(
         # degraded snapshot must hold the state at the call, not what
         # the caller wrote in place after it. (tpusnap arms this for
         # synchronous takes only.) Incremental takes never degrade: their
-        # dedup decisions reference per-rank base views.
+        # dedup decisions reference per-rank base views. A stream capture
+        # is the exception, as in tpusnap: every member dedups against
+        # the same parent and its replicated state is the same on every
+        # member, so a survivor's view of a replicated entry is the dead
+        # rank's.
         if is_async_snapshot:
             _freeze_for_adoption(dropped_replicated, event_loop)
         abort_ctx.degrade = _DegradeContext(
             comm=comm, take_id=take_id, storage=storage, event_loop=event_loop,
             entries=entries, dropped_replicated=dropped_replicated,
             assignment=assignment, memory_budget=memory_budget, pending_io_work=pending,
+            extras=extras,
         )
     global_manifest = _gather_manifest(entries, comm)
     mark("manifest_gather")
@@ -1108,6 +1174,9 @@ def _take_impl(
         # The base roots the manifest's external references point into,
         # so readers never parse roots out of location strings.
         base_roots=_referenced_base_roots(global_manifest, base_root_candidates) or None,
+        # Caller data (a delta stream's chain fields); the commit's own
+        # additions (the telemetry rollup) land beside it.
+        extras=dict(extras) if extras else None,
     )
     mark("metadata")
     tele_commit = _TelemetryCommit(mark.rec, comm, take_id, progress=progress_monitor)
@@ -1123,6 +1192,7 @@ def _open_journal(
     take_id: str,
     incremental_from: Optional[str],
     abort_ctx: _TakeAbortContext,
+    stream: Optional[Dict[str, Any]] = None,
 ) -> StoragePlugin:
     """The take's crash-safe lifecycle, as tpusnap opens it: if the path
     holds a torn take (a journal, no metadata), load its completion
@@ -1162,6 +1232,13 @@ def _open_journal(
                     "Torn take %s found: %d completed blob record(s) loaded for salvage",
                     prior.take_id[:8], len(salvage_records),
                 )
+    # A CAS layer was built before the take knew its rank; its per-rank
+    # ref records need it.
+    from .cas import find_cas_plugin
+
+    cas_layer = find_cas_plugin(storage)
+    if cas_layer is not None:
+        cas_layer.rank = rank
     storage = JournalingStoragePlugin(storage, rank, salvage_records)
     storage.clear_world_size = clear_ws
     abort_ctx.storage = storage
@@ -1173,6 +1250,9 @@ def _open_journal(
                 TakeJournal(
                     take_id=take_id, world_size=world_size, started_at=time.time(),
                     incremental_from=incremental_from, version=__version__,
+                    # A killed micro-commit stays explainable as "seq N
+                    # over member X", not an anonymous torn take.
+                    stream=stream,
                 ),
             )
         try:
@@ -1641,8 +1721,10 @@ class _DegradeContext:
         assignment: Dict[str, int],
         memory_budget: int,
         pending_io_work: PendingIOWork,
+        extras: Optional[Dict[str, Any]] = None,
     ) -> None:
         self.comm = comm
+        self.extras = extras
         self.take_id = take_id
         self.storage = storage
         self.event_loop = event_loop
@@ -1819,14 +1901,15 @@ def _degraded_commit(abort_ctx: _TakeAbortContext, exc: RankFailedError) -> Snap
         world_size=comm.world_size,
         manifest=global_manifest,
         created_at=time.time(),
-        extras={
-            "degraded": {
+        extras=dict(
+            ctx.extras or {},
+            degraded={
                 "dead_ranks": dead,
                 "live_ranks": live,
                 "adopted_units": sorted(adoption),
                 "adopters": {u: w for u, w in sorted(adoption.items())},
-            }
-        },
+            },
+        ),
     )
     telemetry.incr("degraded.adopted_bytes", adopted_bytes)
     telemetry.incr("degraded.adopted_units", len(my_units))
@@ -1906,10 +1989,20 @@ def _relative_ref_prefix(base_path: str, new_path: str) -> str:
     """Relative reference from the NEW snapshot root to the BASE root
     (``"../step_1000"`` for siblings), so a tree of snapshots moves as a
     unit. Both must live on the same scheme and host."""
-    for url in (base_path, new_path):
-        scheme = url.split("://", 1)[0].lower() if "://" in url else ""
-        if scheme.startswith("tier+"):
-            raise _not_ported(f"the write-back tier URL {url!r}", "A8b")
+    # Tier URLs do not parse as URLs (the scheme embeds a path): the
+    # relative reference is computed between the local tier directories,
+    # and the mirror layout makes it hold in the remote tier too.
+    from .tiering import parse_tier_url
+
+    try:
+        spec = parse_tier_url(base_path)
+        if spec is not None:
+            base_path = spec.local_dir
+        spec = parse_tier_url(new_path)
+        if spec is not None:
+            new_path = spec.local_dir
+    except ValueError:
+        pass  # malformed tier URL: the plain-path error below names it
     a, b = urlsplit(base_path), urlsplit(new_path)
     if a.scheme != b.scheme or a.netloc != b.netloc:
         raise ValueError(

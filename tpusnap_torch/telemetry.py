@@ -116,6 +116,11 @@ class MetricsSink:
     def on_restore_summary(self, summary: Dict[str, Any]) -> None:
         pass
 
+    def on_tier_update(self, state: Dict[str, Any]) -> None:
+        """A write-back tier status refresh (``tiering``): upload lag in
+        bytes and seconds, degraded flag."""
+        pass
+
 
 _sinks: Tuple[MetricsSink, ...] = ()
 _sinks_lock = threading.Lock()
@@ -179,6 +184,11 @@ def _notify(method: str, *args) -> None:
                     method,
                     exc_info=True,
                 )
+
+
+def notify_tier_update(state: Dict[str, Any]) -> None:
+    """Fan one write-back tier status refresh out to every sink."""
+    _notify("on_tier_update", state)
 
 
 # ---------------------------------------------------- global counters
