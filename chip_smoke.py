@@ -198,14 +198,41 @@ Phases, in order:
              publishes 0 bytes and the store holds the state once; each
              restores into CUDA tensors in place, bit for bit; one is
              deleted and gc_store keeps the shared blobs; the other still
-             restores.
+             restores. The other job's snapshot and the store stay for cli.
+27. observe — every consumer of the take's telemetry on (history, the
+             Prometheus textfile and JSONL sinks, the SLO thresholds, the
+             fleet mirror, the access ledger, the roofline probe;
+             compression off): a fresh flagship trains, record_slo_step()
+             after each step; three sync takes and one async take of the
+             train state, a take and a restore of the 4 GiB bulk, two
+             restores of the train state in place (bit for bit), one
+             read_object. Checks one history event per completed take and
+             restore in tpusnap's shape, the strict textfile parse and
+             its gauges, the SLO sidecar and fleet record, the RPO gauge
+             reset at each commit, access coverage 1.0 for the restore
+             and below 1 for read_object, a write and a read probe
+             ceiling. Prints analyze's split of a train-state take and
+             restore and of the bulk's, the probe GB/s, estimate_rto
+             against the measured restores; the hooks' A/B (every hook
+             but the probe against all off, three takes each,
+             interleaved); an autotuned take whose history event carries
+             the plan id that `tune` prints.
+28. cli    — ``python -m tpusnap_torch`` in subprocesses on what observe,
+             crash (a copy of its torn take), tier (the remote-durable
+             train state), cas and delta left: every subcommand but lint,
+             each exit code held to the contract for that state (the
+             --check gates to the verdict the library gives for the same
+             files), watch --once on a take whose writes are held back;
+             then a child calls main() in process for info, verify, fsck
+             and cat and must leave torch.cuda.is_initialized() False.
+             Prints each command's exit code and seconds.
 
 Launch counts (in all and by route) are set to 0 just before each path
 that runs the model — train + snapshot, async_train, incremental, each
 rank of distributed, sharded and layouts, sharded's parent, moe, the
 lifecycle model with crash and chaos, rank 0 of the sync and async
-degrade worlds, delta, and tier with cas — and read just after it: the
-kernels phase's comparison launches do not count.
+degrade worlds, delta, tier with cas, and observe — and read just after
+it: the kernels phase's comparison launches do not count.
 Every main-path launch must take the wgmma route. The incremental,
 transforms and the four A8b phases run with compression off, so their
 byte counts are the tensors' own.
@@ -214,6 +241,8 @@ byte counts are the tensors' own.
 from __future__ import annotations
 
 import collections
+import contextlib
+import io
 import json
 import logging
 import os
@@ -2519,6 +2548,9 @@ def phase_crash(ctx: dict, workdir: str) -> dict:
     path = os.path.join(workdir, "crash_train")
     out["child_s"] = _run_crash_child("train", path, state_file)
     out["torn"] = _check_torn(path)
+    # The cli phase runs fsck, timeline and gc --torn on this torn take.
+    ctx["cli_torn"] = os.path.join(workdir, "cli_torn")
+    shutil.copytree(path, ctx["cli_torn"])
     want = _clone_state(model)
     out["retake"] = _salvage_retake(path, {"train": StateDict(**model.train_state())})
     fresh = Transformer(cfg, device="cuda", seed=SEED + 1)
@@ -3286,8 +3318,10 @@ def phase_tier(ctx: dict, workdir: str) -> dict:
     if tiering.tier_state_of_dir(tiering.parse_tier_url(turl).local_dir)["durability"] \
             != "remote-durable":
         raise AssertionError("the train state's tier is not remote-durable")
-    shutil.rmtree(os.path.join(workdir, "tier_local"))
-    shutil.rmtree(os.path.join(workdir, "tier_remote"))
+    # The remote-durable train state stays for the cli phase.
+    shutil.rmtree(spec.local_dir)
+    shutil.rmtree(os.path.join(workdir, "tier_remote", "bulk"))
+    ctx["cli_tier"] = tiering.parse_tier_url(turl).local_dir
     out.update(seconds=time.perf_counter() - t_phase, bit_exact=True, card=ctx["card"])
     return out
 
@@ -3354,10 +3388,469 @@ def phase_cas(ctx: dict, workdir: str) -> dict:
         _check_restore(os.path.join(workdir, "job_b"), want, fresh, witness,
                        _tokens(cfg, 8, SEED + 44))
     del fresh, witness
-    shutil.rmtree(store)
-    shutil.rmtree(os.path.join(workdir, "job_b"))
+    # job_b and the store stay for the cli phase.
+    ctx["cli_cas"] = (os.path.join(workdir, "job_b"), store)
     out.update(seconds=time.perf_counter() - t_phase, bit_exact=True, card=ctx["card"])
     return out
+
+
+# ------------------------------------------------- observe and the CLI
+
+_OBSERVE_TRAIN_TAKES = 3
+_AB_ROUNDS = 3
+# The history file's event shape (the keys every event carries, in
+# tpusnap's ``history.event_from_summary``): tpusnap's ``load_history``
+# reads a line it can parse as a JSON object whose ``kind`` is one of its
+# kinds; the port writes the same lines (held to tpusnap's on the CPU).
+_HISTORY_KEYS = {"v", "ts", "kind", "rank", "world_size", "wall_s", "bytes", "throughput_gbps"}
+
+
+class _env:
+    """Set environment knobs for a scope; restore the old values after."""
+
+    def __init__(self, **values):
+        self.values = values
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in self.values}
+        for k, v in self.values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = str(v)
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _take_report(path: str, kind: str = "take", heatmap: bool = False) -> dict:
+    """``analyze`` of one take (its persisted spans and rollup) or of the
+    last restore of ``path``: seconds and share per category. With
+    ``heatmap`` the readers' access ledgers join in, as the CLI's."""
+    from tpusnap_torch import Snapshot, access
+    from tpusnap_torch.__main__ import _heatmap_metadata
+    from tpusnap_torch.analyze import analyze
+    from tpusnap_torch.progress import load_restore_traces
+    from tpusnap_torch.telemetry import rollup_summaries
+
+    if kind == "take":
+        docs = {}
+        tdir = os.path.join(path, ".tpusnap", "telemetry")
+        for f in os.listdir(tdir):
+            if f.startswith("rank_") and f.endswith(".json"):
+                doc = json.load(open(os.path.join(tdir, f)))
+                docs[doc["summary"]["rank"]] = doc
+        rollup = (Snapshot(path).metadata.extras or {}).get("telemetry")
+    else:
+        docs = load_restore_traces(path)
+        rollup = rollup_summaries([d["summary"] for d in docs.values()])
+    hm = None
+    if heatmap:
+        records = access.load_ledger_records(path)
+        hm = access.compute_heatmap(records, _heatmap_metadata(path)) if records else None
+    report = analyze(rollup, docs, kind=kind, heatmap=hm)
+    att = report["attribution"]
+    return {
+        "wall_s": att["wall_s"],
+        "bound_by": report["bound_by"],
+        "attributed_s": att["attributed_s"],
+        "attributed_pct": att["attributed_pct"],
+        "busy_s": att["busy_s"],
+        "unattributed_s": att["unattributed_s"],
+        "coverage": att["coverage"],
+        "check_failed": report["check_failed"],
+    }
+
+
+def phase_observe(ctx: dict, workdir: str) -> dict:
+    """Every consumer of the take's telemetry on, the flagship training
+    between takes: three sync takes and one async take of the train
+    state, a take and a restore of the 4 GiB bulk, two restores of the
+    train state in place and one read_object; then the hooks' A/B and
+    an autotuned take."""
+    import torch
+
+    from tpusnap_torch import (
+        Snapshot,
+        StateDict,
+        access,
+        compress,
+        fleet,
+        history,
+        record_slo_step,
+        slo,
+    )
+    from tpusnap_torch.__main__ import _heatmap_metadata
+    from tpusnap_torch.__main__ import main as cli_main
+    from tpusnap_torch.metrics_export import parse_prometheus_textfile
+    from tpusnap_torch.models import Transformer
+
+    t_phase = time.perf_counter()
+    cfg, tokens = ctx["cfg"], ctx["tokens"]
+    root = os.path.join(workdir, "observe")
+    tele, metrics, fdir = (os.path.join(workdir, d) for d in ("observe_tele", "observe_metrics",
+                                                              "observe_fleet"))
+    os.makedirs(root)
+    job = "smoke-observe"
+    knobs_on = dict(
+        TPUSNAP_TELEMETRY_DIR=tele, TPUSNAP_HISTORY="1", TPUSNAP_METRICS_EXPORT="prom,jsonl",
+        TPUSNAP_METRICS_DIR=metrics, TPUSNAP_SLO_RPO_S="3600", TPUSNAP_SLO_RTO_S="3600",
+        TPUSNAP_FLEET_DIR=fdir, TPUSNAP_JOB_ID=job, TPUSNAP_ACCESS_LEDGER="1",
+        TPUSNAP_PROBE="1", TPUSNAP_COMPRESS="off",
+    )
+    out = {"phase": "observe", "knobs": sorted(knobs_on)}
+    slo.reset_tracker()
+    fleet.reset_publisher()
+    history._reset_process_state()
+    compress._reset_ceilings()
+    model = Transformer(cfg, device="cuda", seed=SEED + 51)
+    state_bytes = sum(t.numel() * t.element_size() for _, t in _leaves(model.train_state()))
+    prom_path = os.path.join(metrics, f"tpusnap_{job}_rank0.prom")
+
+    def step():
+        model.train_step(tokens, learning_rate=1e-3)
+        torch.cuda.synchronize()
+        record_slo_step(state_bytes)  # every parameter and moment moved
+
+    def gauges():
+        fams = parse_prometheus_textfile(open(prom_path).read())
+        return {name: next(iter(fams[name]["samples"].values()))
+                for name in ("tpusnap_rpo_seconds", "tpusnap_data_at_risk_bytes")}
+
+    with _env(**knobs_on):
+        takes, train_paths = [], []
+        for i in range(_OBSERVE_TRAIN_TAKES):
+            step()
+            step()
+            at_risk = slo.tracker().data_at_risk_bytes()
+            if at_risk != 2 * state_bytes:
+                raise AssertionError(f"record_slo_step: {at_risk} at risk, not 2 steps' bytes")
+            path = os.path.join(root, f"train_{i}")
+            want = _clone_state(model)
+            t0 = time.perf_counter()
+            Snapshot.take(path, {"train": StateDict(**model.train_state())})
+            takes.append(time.perf_counter() - t0)
+            train_paths.append((path, want))
+            g = gauges()
+            if g["tpusnap_data_at_risk_bytes"] != 0 or g["tpusnap_rpo_seconds"] > takes[-1] + 1.0:
+                raise AssertionError(f"the commit did not reset the SLO gauges: {g}")
+        out["train_take_s"] = takes
+        step()
+        apath = os.path.join(root, "train_async")
+        want_async = _clone_state(model)
+        t0 = time.perf_counter()
+        pending = Snapshot.async_take(apath, {"train": StateDict(**model.train_state())})
+        out["async_blocked_s"] = time.perf_counter() - t0
+        model.train_step(tokens, learning_rate=1e-3)  # in place, at once
+        pending.wait()
+        out["async_total_s"] = time.perf_counter() - t0
+        bulk = _bulk_tensors()
+        bulk_bytes = sum(t.numel() * t.element_size() for t in bulk.values())
+        bpath = os.path.join(workdir, "observe_bulk")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        Snapshot.take(bpath, {"bulk": StateDict(bulk)})
+        out["bulk_take_s"] = time.perf_counter() - t0
+        targets = StateDict({k: torch.zeros_like(v) for k, v in bulk.items()})
+        t0 = time.perf_counter()
+        Snapshot(bpath).restore({"bulk": targets})
+        out["bulk_restore_s"] = time.perf_counter() - t0
+        for k, v in bulk.items():
+            if not torch.equal(targets[k], v):
+                raise AssertionError(f"observe bulk: {k} differs after the restore")
+        out["bulk_take"] = _take_report(bpath)
+        out["bulk_restore"] = _take_report(bpath, "restore")
+        del bulk, targets
+        shutil.rmtree(bpath)
+        # Two restores of the last sync take into the live model, in place.
+        last, want = train_paths[-1]
+        restore_s = []
+        for _ in range(2):
+            ids = {p: t.data_ptr() for p, t in _leaves(model.train_state())}
+            target = StateDict(**model.train_state())
+            t0 = time.perf_counter()
+            Snapshot(last).restore({"train": target})
+            restore_s.append(time.perf_counter() - t0)
+            for p, t in _leaves(model.train_state()):
+                if t.data_ptr() != ids[p] or not torch.equal(t, want[p]):
+                    raise AssertionError(f"observe restore: {p} not in place or not bit-exact")
+            step()
+        out["train_restore_s"] = restore_s
+        out["train_take"] = _take_report(last)
+        out["train_restore"] = _take_report(last, "restore")
+        first, want0 = train_paths[0]
+        got = Snapshot(first).read_object("0/train/params/ln_f")
+        if not torch.equal(got, want0["params/ln_f"].cpu()):
+            raise AssertionError("observe read_object differs")
+
+        # What the hooks left.
+        events = history.load_history(os.path.join(tele, "history.jsonl"))
+        kinds = collections.Counter(e["kind"] for e in events)
+        n_takes, n_restores = _OBSERVE_TRAIN_TAKES + 2, 3
+        if kinds != {"take": n_takes, "restore": n_restores}:
+            raise AssertionError(f"history holds {dict(kinds)}, not {n_takes} takes and "
+                                 f"{n_restores} restores")
+        for e in events:
+            if not _HISTORY_KEYS <= set(e) or e["v"] != 1 or e.get("job_id") != job:
+                raise AssertionError(f"a history event lacks tpusnap's fields: {sorted(e)}")
+        train_events = [e for e in events if e["kind"] == "take" and e["bytes"] == state_bytes]
+        if len(train_events) != _OBSERVE_TRAIN_TAKES + 1:
+            raise AssertionError(
+                f"{len(train_events)} take events wrote exactly the state's {state_bytes} bytes")
+        fams = parse_prometheus_textfile(open(prom_path).read())
+        need = {"tpusnap_take_seconds", "tpusnap_restore_seconds", "tpusnap_takes_total",
+                "tpusnap_rpo_seconds", "tpusnap_data_at_risk_bytes",
+                "tpusnap_estimated_rto_seconds", "tpusnap_slo_breach",
+                "tpusnap_roofline_fraction", "tpusnap_restore_roofline_fraction"}
+        if not need <= set(fams):
+            raise AssertionError(f"the textfile lacks {sorted(need - set(fams))}")
+        jsonl = [json.loads(x) for x in open(os.path.join(metrics, "events.jsonl"))]
+        if collections.Counter(e["kind"] for e in jsonl) != kinds:
+            raise AssertionError("the JSONL sink's events differ from the history's")
+        sidecar = json.load(open(os.path.join(tele, "slo", "rank_0.json")))
+        record = json.load(open(os.path.join(fdir, f"{job}.json")))
+        if sidecar["breach"] != {"rpo": False, "rto": False} or record["job_id"] != job:
+            raise AssertionError(f"SLO sidecar {sidecar['breach']}, fleet record {record['job_id']}")
+        coverage = {}
+        for name, p in (("restore", last), ("read_object", first)):
+            hm = access.compute_heatmap(access.load_ledger_records(p), _heatmap_metadata(p))
+            coverage[name] = hm["coverage"]
+        if coverage["restore"] != 1.0 or not 0 < coverage["read_object"] < 1:
+            raise AssertionError(f"access coverage {coverage}")
+        ceilings = compress.pipe_ceilings_snapshot()
+        lanes = {lane: gbps for (_, lane), gbps in ceilings.items()}
+        if not {"write", "read"} <= set(lanes):
+            raise AssertionError(f"probe ceilings {ceilings}")
+        probe_w = [e["probe_write_gbps"] for e in events if e.get("probe_write_gbps")]
+        probe_r = [e["probe_read_gbps"] for e in events if e.get("probe_read_gbps")]
+        est = slo.estimate_rto(state_bytes, events, backend="FSStoragePlugin")
+        out.update(
+            history={"takes": kinds["take"], "restores": kinds["restore"],
+                     "events_per_jsonl": len(jsonl)},
+            access_coverage=coverage,
+            probe={"write_gbps": probe_w, "read_gbps": probe_r, "ceilings": lanes},
+            estimate_rto={"ok": est.ok, "seconds": est.seconds, "read_gbps": est.read_gbps,
+                          "n_baseline": est.n_baseline, "measured_restore_s": restore_s},
+            slo_sidecar={k: sidecar[k] for k in ("rpo_s", "data_at_risk_bytes",
+                                                 "snapshot_bytes", "estimated_rto_s")},
+            fleet_record=sorted(record),
+            state_bytes=state_bytes, bulk_bytes=bulk_bytes,
+        )
+
+    # The hooks' cost: every hook but the probe on, against all off,
+    # interleaved, the same train state each time.
+    hooks_on = dict(knobs_on, TPUSNAP_PROBE="0")
+    hooks_off = dict(TPUSNAP_TELEMETRY_DIR=tele, TPUSNAP_HISTORY="0", TPUSNAP_METRICS_EXPORT=None,
+                     TPUSNAP_METRICS_DIR=None, TPUSNAP_SLO_RPO_S=None, TPUSNAP_SLO_RTO_S=None,
+                     TPUSNAP_FLEET_DIR=None, TPUSNAP_JOB_ID=job, TPUSNAP_ACCESS_LEDGER="0",
+                     TPUSNAP_PROBE="0", TPUSNAP_COMPRESS="off")
+    ab = {"on": [], "off": []}
+    for i in range(_AB_ROUNDS):
+        for arm, env in (("on", hooks_on), ("off", hooks_off)) if i % 2 == 0 else (
+                ("off", hooks_off), ("on", hooks_on)):
+            path = os.path.join(workdir, f"observe_ab_{arm}_{i}")
+            with _env(**env):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                Snapshot.take(path, {"train": StateDict(**model.train_state())})
+                ab[arm].append(time.perf_counter() - t0)
+            shutil.rmtree(path)
+    out["ab_take_s"] = ab
+    out["ab_median_s"] = {k: statistics.median(v) for k, v in ab.items()}
+
+    # The tuner: the plan `tune` prints is the plan the autotuned take runs.
+    with _env(**knobs_on):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli_main(["tune", "--kind", "take", "--json", "--backend", "FSStoragePlugin",
+                           "--world-size", "1"])
+        printed = json.loads(buf.getvalue())
+        if rc != 0 or not printed["ok"]:
+            raise AssertionError(f"tune exited {rc}: {printed}")
+        with _env(TPUSNAP_AUTOTUNE="1"):
+            Snapshot.take(os.path.join(root, "train_tuned"),
+                          {"train": StateDict(**model.train_state())})
+        event = history.load_history(os.path.join(tele, "history.jsonl"))[-1]
+    tuned = event.get("tuned") or {}
+    if tuned.get("plan_id") != printed["plan_id"]:
+        raise AssertionError(f"the autotuned take ran plan {tuned}, tune printed {printed}")
+    out["tuned"] = tuned
+    ctx["observe"] = {"root": root, "tele": tele, "fleet": fdir, "metrics": metrics,
+                      "snapshot": last, "other": first}
+    out.update(seconds=time.perf_counter() - t_phase, card=ctx["card"])
+    return out
+
+
+def _cli_run(argv, env) -> dict:
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "tpusnap_torch", *argv], capture_output=True, text=True,
+        timeout=600, env=env, cwd=os.path.dirname(os.path.abspath(__file__)),
+    )
+    return {"rc": proc.returncode, "s": time.perf_counter() - t0,
+            "out": proc.stdout, "err": proc.stderr}
+
+
+_CLI_NO_CUDA = r"""
+import json, sys, torch
+from tpusnap_torch.__main__ import main
+snap, leaf = sys.argv[1], sys.argv[2]
+rcs = {c: main(a) for c, a in (("info", ["info", snap]), ("verify", ["verify", snap]),
+                                ("fsck", ["fsck", snap]), ("cat", ["cat", snap, leaf]))}
+print(json.dumps({"rcs": rcs, "cuda_initialized": torch.cuda.is_initialized()}))
+"""
+
+
+def phase_cli(ctx: dict, workdir: str) -> dict:
+    """``python -m tpusnap_torch`` in subprocesses on what the observe,
+    crash, tier, cas and delta phases left: every subcommand but lint,
+    each exit code held to tpusnap's contract for that state; then one
+    child calls ``main`` in process and must leave CUDA uninitialised."""
+    import threading
+
+    import torch
+
+    from tpusnap_torch import Snapshot, StateDict, slo
+    from tpusnap_torch.fleet import evaluate_fleet, fold_fleet, read_fleet_records
+    from tpusnap_torch.history import check_regression, load_history
+    from tpusnap_torch.storage_plugins import fs as fs_mod
+
+    t_phase = time.perf_counter()
+    obs = ctx["observe"]
+    snap, other = obs["snapshot"], obs["other"]
+    torn, tier, cas_snap, store, delta_root = (
+        ctx["cli_torn"], ctx["cli_tier"], ctx["cli_cas"][0], ctx["cli_cas"][1], ctx["cli_delta"])
+    env = dict(os.environ, TPUSNAP_TELEMETRY_DIR=obs["tele"], TPUSNAP_FLEET_DIR=obs["fleet"],
+               PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    env.pop("TPUSNAP_PROBE", None)
+    empty = os.path.join(workdir, "cli_empty")
+    os.makedirs(empty)
+    leaf = "0/train/params/ln_f"
+
+    # The verdicts each gate must report for this state, from the same
+    # library calls under the same environment.
+    with _env(TPUSNAP_TELEMETRY_DIR=obs["tele"], TPUSNAP_FLEET_DIR=obs["fleet"]):
+        reg = check_regression(load_history())
+        slo_verdict = slo.evaluate_records(slo.read_slo_records())["verdict"]
+        fleet_verdict = evaluate_fleet(fold_fleet(read_fleet_records(obs["fleet"])))["verdict"]
+        analyze_failed = _take_report(snap, heatmap=True)["check_failed"]
+    history_rc = 2 if reg.regressed else (0 if reg.ok else 3)
+    slo_rc = {"healthy": 0, "breach": 2}.get(slo_verdict, 3)
+    fleet_rc = 2 if fleet_verdict == "breach" else 0
+    analyze_rc = 2 if analyze_failed else 0
+
+    expect = [
+        ("info", ["info", snap], 0), ("ls", ["ls", "-l", snap], 0),
+        ("verify", ["verify", snap], 0), ("cat", ["cat", snap, leaf], 0),
+        ("diff", ["diff", "-q", other, snap], 2), ("trace", ["trace", snap], 0),
+        ("trace --restore", ["trace", "--restore", snap], 0),
+        ("history", ["history"], 0), ("history --check", ["history", "--check"], history_rc),
+        ("analyze", ["analyze", snap], 0), ("analyze --check", ["analyze", "--check", snap],
+                                            analyze_rc),
+        ("tune", ["tune", "--kind", "take"], 0),
+        ("timeline", ["timeline", snap], 0), ("timeline torn", ["timeline", torn], 4),
+        ("fsck", ["fsck", snap], 0), ("fsck torn", ["fsck", torn], 4),
+        ("fsck empty", ["fsck", empty], 3), ("gc", ["gc", snap], 0),
+        ("gc --evict-local", ["gc", "--evict-local", tier], 0),
+        ("drain --status", ["drain", "--status", tier], 0),
+        ("drain nothing", ["drain", empty], 3),
+        ("fsck --store", ["fsck", "--store", store], 0),
+        ("gc --store", ["gc", "--store", store], 0),
+        ("info cas", ["info", cas_snap], 0), ("info delta root", ["info", delta_root], 0),
+        ("fsck delta root", ["fsck", delta_root], 0),
+        ("slo", ["slo"], 0), ("slo --check", ["slo", "--check"], slo_rc),
+        ("fleet", ["fleet"], 0), ("fleet --check", ["fleet", "--check"], fleet_rc),
+        ("heatmap", ["heatmap", snap], 0),
+        ("retain --dry-run", ["retain", obs["root"], "--keep", "2", "--dry-run"], 0),
+    ]
+    results = {}
+    with ThreadPoolExecutor(max_workers=6) as pool:
+        futures = {name: pool.submit(_cli_run, argv, env) for name, argv, _ in expect}
+    for name, _argv, rc in expect:
+        r = futures[name].result()
+        results[name] = {"rc": r["rc"], "s": round(r["s"], 3)}
+        if r["rc"] != rc:
+            raise AssertionError(f"`{name}` exited {r['rc']}, not {rc}:\n{r['out'][-2000:]}"
+                                 f"\n{r['err'][-2000:]}")
+    checks = {"drain --status": "remote-durable", "fsck": "committed", "info cas": "cas:",
+              "info delta root": "HEAD", "cat": f"# float32[{ctx['cfg'].d_model}]",
+              "fsck torn": "torn"}
+    for name, text in checks.items():
+        if text not in futures[name].result()["out"]:
+            raise AssertionError(f"`{name}` does not say {text!r}")
+    # Commands that change what they touch, in turn.
+    for name, argv, rc in (("materialize", ["materialize", snap], 0),
+                           ("drain", ["drain", tier], 0),
+                           ("gc --torn --force", ["gc", "--torn", "--force", torn], 0),
+                           ("fsck after gc --torn", ["fsck", torn], 3)):
+        r = _cli_run(argv, env)
+        results[name] = {"rc": r["rc"], "s": round(r["s"], 3)}
+        if r["rc"] != rc:
+            raise AssertionError(f"`{name}` exited {r['rc']}, not {rc}:\n{r['err'][-2000:]}")
+
+    # watch --once on a take in flight: its writes wait on a gate.
+    live = os.path.join(workdir, "cli_live")
+    gate, errors = threading.Event(), []
+    orig = fs_mod.FSStoragePlugin.write
+
+    async def held_write(self, write_io):
+        import asyncio
+
+        while not gate.is_set():
+            await asyncio.sleep(0.02)
+        await orig(self, write_io)
+
+    def take():
+        try:
+            with _env(TPUSNAP_HEARTBEAT_INTERVAL_S="0.1", TPUSNAP_TELEMETRY_DIR=obs["tele"]):
+                Snapshot.take(live, {"train": StateDict(**ctx["life_model"].train_state())})
+        except BaseException as e:  # raised below
+            errors.append(e)
+
+    fs_mod.FSStoragePlugin.write = held_write
+    t = threading.Thread(target=take)
+    t.start()
+    try:
+        deadline = time.monotonic() + 120
+        while not os.path.isdir(os.path.join(live, ".tpusnap", "progress")):
+            if time.monotonic() > deadline or not t.is_alive():
+                raise AssertionError("the live take never started its heartbeat")
+            time.sleep(0.05)
+        time.sleep(0.5)
+        r = _cli_run(["watch", live, "--once"], env)
+    finally:
+        gate.set()
+        fs_mod.FSStoragePlugin.write = orig
+        t.join(300)
+    if errors:
+        raise errors[0]
+    results["watch --once"] = {"rc": r["rc"], "s": round(r["s"], 3)}
+    if r["rc"] != 0 or "running" not in r["out"] or "not yet written" not in r["out"]:
+        raise AssertionError(f"watch --once on a live take:\n{r['out']}\n{r['err'][-2000:]}")
+
+    # main() in process: no CUDA context.
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", _CLI_NO_CUDA, snap, leaf], capture_output=True,
+                          text=True, timeout=600, env=env)
+    if proc.returncode != 0:
+        raise AssertionError(f"the in-process CLI child failed:\n{proc.stderr[-3000:]}")
+    child = json.loads(proc.stdout.strip().splitlines()[-1])
+    if child["cuda_initialized"] or set(child["rcs"].values()) != {0}:
+        raise AssertionError(f"in-process CLI: {child}")
+    results["in-process info/verify/fsck/cat"] = {"rc": child["rcs"],
+                                                  "s": round(time.perf_counter() - t0, 3)}
+    for p in (torn, empty, live, delta_root, cas_snap, store, obs["root"],
+              os.path.join(workdir, "tier_local"), os.path.join(workdir, "tier_remote")):
+        shutil.rmtree(p, ignore_errors=True)
+    return {"phase": "cli", "commands": results,
+            "gates": {"history --check": history_rc, "slo --check": slo_rc,
+                      "fleet --check": fleet_rc, "analyze --check": analyze_rc},
+            "cuda_initialized": child["cuda_initialized"],
+            "seconds": time.perf_counter() - t_phase, "card": ctx["card"]}
 
 
 def _reset_launches() -> None:
@@ -3394,6 +3887,10 @@ def main() -> int:
     emit({"phase": "device", "nvidia_smi": card, "name": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda})
     workdir = tempfile.mkdtemp(prefix="tpusnap_torch_smoke_")
+    # History, access ledgers, SLO sidecars and restore traces are on by
+    # default: keep them in the run's own directory (child processes
+    # inherit it), unless the caller chose one.
+    os.environ.setdefault("TPUSNAP_TELEMETRY_DIR", os.path.join(workdir, "telemetry"))
     try:
         emit(phase_build())
         result = phase_kernels()
@@ -3452,6 +3949,11 @@ def main() -> int:
         emit(phase_tier(ctx, workdir))
         emit(phase_cas(ctx, workdir))
         paths["tier+cas"] = (fa.launches, dict(fa.route_launches))
+        ctx["cli_delta"] = os.path.join(workdir, "delta_free")
+        _reset_launches()
+        emit(phase_observe(ctx, workdir))
+        paths["observe"] = (fa.launches, dict(fa.route_launches))
+        emit(phase_cli(ctx, workdir))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     for path, (launches, routes) in paths.items():

@@ -5,7 +5,7 @@ intent/ref/grace state machine under a fake clock; the gc lease; SIGKILL
 at the CAS chaos windows converging under fsck and gc; a publisher
 against a gc sweeper in another process with zero lost blobs; and
 ``gc --evict-local`` with CAS refs. The CLI cases (``gc --store``,
-``info``) wait for A9 (ROADMAP.md).
+``info``, ``fsck --store``) are in tests/test_torch_cli.py.
 """
 
 import json
@@ -226,7 +226,7 @@ def test_refcount_cache_divergence_detected_and_rederived(tmp_path):
 
 def test_dangling_ref_is_the_exit4_state(tmp_path):
     # The library half; the CLI's exit codes (4 dangling, 3 not a
-    # store) come with A9.
+    # store) are held by tests/test_torch_cli.py.
     store = _mk_store(str(tmp_path / "store"))
     snap = str(tmp_path / "snap")
     _put_ref_snapshot(store, snap, "0/w", b"vanished content")

@@ -5,7 +5,9 @@ sharing the card (replicated state, and DTensor state restored in place),
 host-offloaded (pinned) state restored in place and kept pinned, the MoE
 flagship training, embedding tables with pinned DTensor shards, delta
 stream captures (at mark_step, and free-running under a side stream),
-and CUDA state through the write-back tier and the CAS store.
+CUDA state through the write-back tier and the CAS store, ``analyze``
+and the restore's ``consume`` spans over CUDA copies, and the CLI
+leaving CUDA uninitialised.
 
 Every test here carries the ``cuda`` marker and skips without a card (the
 kernels have no CPU mode). The file imports neither JAX nor ``tpusnap``,
@@ -1043,3 +1045,107 @@ def test_cas_restore_in_place(gen, tmp_path):
             Snapshot(str(tmp_path / job)).restore({"s": StateDict(target)})
             for k, v in state.items():
                 assert target[k].data_ptr() == ptrs[k] and torch.equal(target[k], v), (job, k)
+
+
+# ------------------------------------------------ observability and the CLI
+
+
+def test_analyze_attributes_a_cuda_takes_dtoh_to_dtoh(gen, tmp_path):
+    """``analyze`` over a take of CUDA state: the device-to-host copies
+    are ``dtoh`` time, in the busy view and in the attribution."""
+    import glob
+    import json
+
+    from tpusnap_torch.analyze import analyze
+
+    state = {f"w{i}": torch.randn((8 << 20,), generator=gen, device="cuda") for i in range(4)}
+    torch.cuda.synchronize()
+    path = str(tmp_path / "snap")
+    Snapshot.take(path, {"s": StateDict(state)})
+    docs = {}
+    for p in glob.glob(os.path.join(path, ".tpusnap", "telemetry", "rank_*.json")):
+        doc = json.load(open(p))
+        docs[doc["summary"]["rank"]] = doc
+    rollup = json.load(open(os.path.join(path, ".snapshot_metadata")))["extras"]["telemetry"]
+    report = analyze(rollup, docs, kind="take")
+    att = report["attribution"]
+    assert att["busy_s"].get("dtoh", 0) > 1e-3, att
+    assert att["attributed_s"].get("dtoh", 0) > 0, att
+
+
+def test_restore_consume_spans_close_after_the_host_to_device_copy(gen, tmp_path):
+    """A CUDA restore target receives its bytes in pinned memory and
+    then a copy on the card: each ``consume`` span ends after that
+    copy's event completed, so ``analyze`` credits the copy to
+    ``consume`` and not to nothing."""
+    from tpusnap_torch import telemetry
+
+    state = {f"w{i}": torch.randn((8 << 20,), generator=gen, device="cuda") for i in range(2)}
+    path = str(tmp_path / "snap")
+    Snapshot.take(path, {"s": StateDict(state)})
+    copies_done, recorders = [], []
+    orig_copy, orig_begin = array_preparer._copy_into_target, telemetry.begin_restore
+
+    def begin(rank):
+        recorders.append(orig_begin(rank))
+        return recorders[-1]
+
+    def timed(target, host, ready):
+        # The copies run on the consume executor's threads: time them
+        # on the restore's recorder clock (the trace's).
+        orig_copy(target, host, ready)
+        copies_done.append(recorders[-1].now())
+
+    array_preparer._copy_into_target, telemetry.begin_restore = timed, begin
+    try:
+        target = {k: torch.zeros_like(v) for k, v in state.items()}
+        Snapshot(path).restore({"s": StateDict(target)})
+    finally:
+        array_preparer._copy_into_target, telemetry.begin_restore = orig_copy, orig_begin
+    for k in state:
+        assert torch.equal(target[k], state[k])
+    assert len(copies_done) == len(state) and len(recorders) == 1
+    from tpusnap_torch.progress import load_restore_traces
+
+    doc = load_restore_traces(path)[0]
+    spans = [
+        (ev["ts"] / 1e6, (ev["ts"] + ev["dur"]) / 1e6)
+        for ev in doc["traceEvents"]
+        if ev.get("name") == "consume" and ev.get("ph") == "X"
+    ]
+    assert spans  # one per read: the two tensors share a slab
+    # Each copy completed inside a consume span (the recorder's clock
+    # is the trace's), not after its span had closed.
+    for done in copies_done:
+        assert any(start <= done <= end + 1e-4 for start, end in spans), (done, spans)
+    consume = telemetry.LAST_RESTORE_SUMMARY["stages"]["consume"]
+    assert consume["total_s"] > 1e-3, consume
+
+
+def test_cli_leaves_cuda_uninitialised(gen, tmp_path):
+    """An operator runs the CLI beside a training job: ``info``,
+    ``verify``, ``fsck`` and ``cat`` of a snapshot of CUDA state open no
+    CUDA context."""
+    import subprocess
+    import sys
+
+    state = {"w": torch.randn((1 << 16,), generator=gen, device="cuda"), "n": 3}
+    path = str(tmp_path / "snap")
+    Snapshot.take(path, {"s": StateDict(state)})
+    code = (
+        "import sys, torch\n"
+        "from tpusnap_torch.__main__ import main\n"
+        "p = sys.argv[1]\n"
+        "rcs = [main(['info', p]), main(['verify', p]), main(['fsck', p]),\n"
+        "       main(['cat', p, '0/s/w']), main(['cat', p, '0/s/n'])]\n"
+        "assert rcs == [0, 0, 0, 0, 0], rcs\n"
+        "assert not torch.cuda.is_initialized()\n"
+        "print('UNINITIALISED')\n"
+    )
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, "-c", code, path], capture_output=True, text=True, timeout=300,
+        cwd=repo, env={**os.environ, "PYTHONPATH": repo},
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "UNINITIALISED" in proc.stdout

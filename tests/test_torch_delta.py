@@ -3,8 +3,8 @@ tpusnap's tests/test_delta.py case by case on CPU tensors: micro-commits,
 chain resolution, compaction, retention pinning, resume. An unchanged
 model streams zero payload bytes; a head restores the committed chain
 bit-identically (tolerance 0); step-gated captures land exactly on a
-``mark_step`` boundary. The SLO cases and the CLI halves wait for A9
-(ROADMAP.md); the CUDA capture order is held by tests/test_torch_cuda.py
+``mark_step`` boundary. The SLO cases and the CLI halves are in
+tests/test_torch_cli.py; the CUDA capture order is held by tests/test_torch_cuda.py
 and the smoke's ``delta`` phase.
 """
 
@@ -248,7 +248,8 @@ def test_resolve_chain_names_torn_tail_and_debris(tmp_path):
     assert fr.state == "torn"
     assert fr.delta and fr.delta["seq"] == 2
     assert "torn delta micro-commit seq 2" in fr.summary()
-    # (The root-level CLI half — fsck exit 4, info's chain — is A9's.)
+    # (The root-level CLI half — fsck exit 4, info's chain — is in
+    # tests/test_torch_cli.py.)
 
 
 def test_retention_pins_chain_of_kept_head(tmp_path):

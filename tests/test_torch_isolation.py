@@ -43,6 +43,8 @@ def test_every_module_imports_without_jax_or_tpusnap():
         "liveness", "rss_profiler", "storage_plugin",
         "tiering", "cas", "delta", "storage_plugins.s3", "storage_plugins.gcs",
         "storage_plugins.fsspec",
+        "metrics_export", "history", "access", "slo", "fleet", "analyze", "tune",
+        "__main__",
     ):
         assert f"tpusnap_torch.{name}" in modules
     code = (

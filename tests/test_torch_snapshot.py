@@ -245,25 +245,86 @@ def test_slab_layout_matches_tpusnap_byte_for_byte(tmp_path):
     assert slab(jax_path) == slab(port_path)
 
 
+_KNOB_CASES = (
+    "metrics_export", "history", "fleet_dir", "autotune", "slo_rpo", "slo_rto",
+    "access_ledger", "probe",
+)
+
+
+def _knob_case_works(call, tmp_path, monkeypatch, path, state):
+    """One of the eight knobs that were refused by name before the
+    telemetry consumers were ported: each now turns its consumer on, and
+    the take (and restore) shows it working."""
+    from tpusnap_torch import telemetry as ttele
+    from tpusnap_torch.history import load_history
+    from tpusnap_torch.metrics_export import parse_prometheus_textfile
+
+    tele_dir = str(tmp_path / "tele")
+    monkeypatch.setenv("TPUSNAP_TELEMETRY_DIR", tele_dir)
+    monkeypatch.setenv("TPUSNAP_JOB_ID", "knobjob")
+    env = {
+        "metrics_export": {"TPUSNAP_METRICS_EXPORT": "prom"},
+        "history": {"TPUSNAP_HISTORY": "1"},
+        "fleet_dir": {"TPUSNAP_FLEET_DIR": str(tmp_path / "fleet")},
+        "autotune": {"TPUSNAP_AUTOTUNE": "1"},
+        "slo_rpo": {"TPUSNAP_SLO_RPO_S": "3600"},
+        "slo_rto": {"TPUSNAP_SLO_RTO_S": "3600"},
+        "access_ledger": {"TPUSNAP_ACCESS_LEDGER": "1"},
+        "probe": {"TPUSNAP_PROBE": "1", "TPUSNAP_PROBE_BYTES": str(1 << 20)},
+    }[call]
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    Snapshot.take(path, state)
+    target = {"s": StateDict(x=torch.zeros(2))}
+    Snapshot(path).restore(target)
+    assert torch.equal(target["s"]["x"], state["s"]["x"])
+    if call == "metrics_export":
+        prom = os.path.join(tele_dir, "tpusnap_knobjob_rank0.prom")
+        fams = parse_prometheus_textfile(open(prom).read())
+        assert {"tpusnap_take_seconds", "tpusnap_restores_total"} <= set(fams)
+    elif call == "history":
+        kinds = [e["kind"] for e in load_history(os.path.join(tele_dir, "history.jsonl"))]
+        assert kinds == ["take", "restore"]
+    elif call == "fleet_dir":
+        rec = json.load(open(str(tmp_path / "fleet" / "knobjob.json")))
+        assert rec["job_id"] == "knobjob"
+    elif call == "autotune":
+        # Too little history for a plan: the take runs on the defaults
+        # and says nothing; the knob was read, not refused.
+        assert "tuned" not in (ttele.LAST_TAKE_SUMMARY.get("meta") or {})
+        events = load_history(os.path.join(tele_dir, "history.jsonl"))
+        assert [e["kind"] for e in events] == ["take", "restore"]
+    elif call in ("slo_rpo", "slo_rto"):
+        rec = json.load(open(os.path.join(tele_dir, "slo", "rank_0.json")))
+        key = "rpo_s" if call == "slo_rpo" else "rto_s"
+        assert rec["thresholds"][key] == 3600.0 and not rec["breach"][key[:3]]
+        assert rec["snapshot_bytes"] == 8 and rec["data_at_risk_bytes"] == 0
+    elif call == "access_ledger":
+        from tpusnap_torch import access
+
+        records = access.load_ledger_records(path)
+        assert [(r["lp"], r["loc"], r["range"], r["bytes"]) for r in records] == [
+            ("s/x", "0/s/x", [0, 8], 8)
+        ]
+    else:
+        probe = ttele.LAST_TAKE_SUMMARY.get("probe") or {}
+        assert probe.get("probes", 0) >= 1 and probe.get("write_gbps_p50", 0) > 0
+        assert ttele.LAST_RESTORE_SUMMARY.get("probe", {}).get("probes", 0) >= 1
+
+
 @pytest.mark.parametrize(
     "call",
-    ["tier_incremental_from", "stream", "s3_url", "metrics_export", "history"],
+    ["tier_incremental_from", "stream", "s3_url", *_KNOB_CASES],
 )
 def test_unported_features_raise(tmp_path, monkeypatch, call):
-    """The telemetry consumers of A9 are refused by their knobs, never
-    ignored. The A8b features this test once saw refused now work: an
-    incremental take over a tier URL, a delta stream, and an ``s3://``
-    take, which needs ``aiobotocore`` (absent here) and says so before
-    anything is written."""
+    """Features this test once saw refused now work: an incremental take
+    over a tier URL, a delta stream, an ``s3://`` take (which needs
+    ``aiobotocore``, absent here, and says so before anything is
+    written), and each knob of the telemetry consumers."""
     path = str(tmp_path / "snap")
     state = {"s": StateDict(x=torch.ones(2))}
-    if call in ("metrics_export", "history"):
-        knob = {"metrics_export": ("TPUSNAP_METRICS_EXPORT", "prom"),
-                "history": ("TPUSNAP_HISTORY", "1")}[call]
-        monkeypatch.setenv(*knob)
-        with pytest.raises(NotImplementedError, match=f"{knob[0]}.*A9"):
-            Snapshot.take(path, state)
-        assert not os.path.exists(os.path.join(path, ".snapshot_metadata"))
+    if call in _KNOB_CASES:
+        _knob_case_works(call, tmp_path, monkeypatch, path, state)
         return
     if call == "s3_url":
         with pytest.raises(RuntimeError, match="requires aiobotocore"):

@@ -14,7 +14,7 @@ tests/test_stream_elastic.py on CPU tensors over a two-rank gloo world
 Every wait is on an event (a commit count, a membership, a pause) or a
 lease deadline, bounded only to catch a hang; no assertion compares wall
 times. Restores are bit-exact (tolerance 0). The SLO gate and the CLI's
-chain and post-mortem reports wait for A9 (ROADMAP.md).
+chain and post-mortem reports are in tests/test_torch_cli.py.
 """
 
 import os

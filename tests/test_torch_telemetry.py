@@ -417,8 +417,8 @@ def test_take_records_tpusnap_span_and_phase_names(tmp_path):
     assert ps == js, (ps ^ js)
     assert {"stage_buffer", "storage_write", "checksum", "stage_window"} <= ps
     assert set(port_snap.metadata.extras["telemetry"]) == set(jax_snap.metadata.extras["telemetry"])
-    # tpusnap's summary also carries its SLO tracker's fields (not ported).
-    assert set(port_summary) == set(jax_summary) - {"slo"}
+    # Both summaries carry the SLO tracker's section.
+    assert set(port_summary) == set(jax_summary)
 
 
 def test_tpusnap_trace_cli_reads_a_port_snapshot(tmp_path, capsys):

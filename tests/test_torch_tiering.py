@@ -3,8 +3,9 @@ tpusnap's tests/test_tiering.py case by case on CPU tensors: the tier
 URL, the local commit with remote read-through, the crash-safe dual-hash
 upload journal and resume, chain-aware draining, the outage circuit,
 ``gc --evict-local`` and the crash matrix (SIGKILLed drain and eviction
-children). The cases whose subject is A9 (SLO gate, the CLI, history and
-Prometheus export) wait for it (ROADMAP.md). Every restore is bit-exact.
+children). The cases whose subject is the SLO gate, the CLI, history or
+Prometheus export are in tests/test_torch_cli.py. Every restore is
+bit-exact.
 """
 
 import json

@@ -23,7 +23,11 @@ storage beyond the local filesystem (``s3://``, ``gs://``,
 ``fsspec+<protocol>://``), the write-back tier (``tier+local=...+remote=...``)
 and the content-addressed store (``cas+fs://``, ``TPUSNAP_CAS_DIR``);
 delta streams of micro-commits (``Snapshot.stream``, ``DeltaStream``,
-``resolve_chain``); and the two model families (``tpusnap_torch.models``): the flagship
+``resolve_chain``); the consumers of every take's and restore's
+telemetry (Prometheus and JSONL export, the cross-run history, the SLO
+tracker, the fleet mirror, the access ledger, ``analyze``, the tuner and
+the in-take roofline probe) and the operator CLI, ``python -m
+tpusnap_torch``; and the two model families (``tpusnap_torch.models``): the flagship
 transformer, dense or MoE, at its dp/fsdp/tp/ep layouts, whose attention
 forward runs a hand-written Hopper kernel (``tpusnap_torch.ops``), and
 the embedding-table collection with pinned tables and row-wise Adagrad.
@@ -46,7 +50,33 @@ from .faults import FaultPlan, InjectedFaultError  # noqa: F401
 from .lifecycle import FsckReport, GCReport, fsck_snapshot, gc_snapshot  # noqa: F401
 from .liveness import RankFailedError  # noqa: F401
 from .retry import RetryPolicy  # noqa: F401
-from .telemetry import MetricsSink, metrics_sink  # noqa: F401
+from .telemetry import (  # noqa: F401
+    IOStats,
+    LogHistogram,
+    MetricsSink,
+    metrics_sink,
+    register_metrics_sink,
+    unregister_metrics_sink,
+)
+from .analyze import Attribution, attribute_spans  # noqa: F401
+from .metrics_export import JsonlEventSink, PrometheusTextfileSink  # noqa: F401
+from .history import (  # noqa: F401
+    RegressionReport,
+    check_regression,
+    load_history,
+    record_event,
+)
+from .flight import (  # noqa: F401
+    FlightRecorder,
+    estimate_skew,
+    load_flight_logs,
+    merge_timeline,
+    postmortem_verdict,
+)
+from .slo import RTOEstimate, SLOTracker, estimate_rto, read_slo_records  # noqa: F401
+from .slo import record_step as record_slo_step  # noqa: F401
+from .manifest import MetadataError  # noqa: F401
+from .rss_profiler import measure_rss_deltas  # noqa: F401
 from .host_offload import (  # noqa: F401
     is_host_resident,
     supports_host_offload,
@@ -68,6 +98,30 @@ from .transforms import cast_on_save  # noqa: F401
 __all__ = [
     "__version__",
     "AppState",
+    "Attribution",
+    "FlightRecorder",
+    "IOStats",
+    "JsonlEventSink",
+    "LogHistogram",
+    "MetadataError",
+    "PrometheusTextfileSink",
+    "RTOEstimate",
+    "RegressionReport",
+    "SLOTracker",
+    "attribute_spans",
+    "check_regression",
+    "estimate_rto",
+    "estimate_skew",
+    "load_flight_logs",
+    "load_history",
+    "measure_rss_deltas",
+    "merge_timeline",
+    "postmortem_verdict",
+    "read_slo_records",
+    "record_event",
+    "record_slo_step",
+    "register_metrics_sink",
+    "unregister_metrics_sink",
     "DeltaChainReport",
     "DeltaStream",
     "FaultPlan",

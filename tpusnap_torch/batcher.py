@@ -403,6 +403,14 @@ def batch_read_requests(read_reqs: List[ReadReq]) -> List[ReadReq]:
                     span_start,
                     [(tuple(r.byte_range), r.buffer_consumer) for r in reqs],
                 ),
+                # Each member keeps its own leaf and range in the access
+                # ledger, not the opaque spanning read.
+                access_parts=[
+                    (r.logical_path, r.byte_range[0], r.byte_range[1])
+                    for r in reqs
+                    if r.logical_path
+                ]
+                or None,
             )
         )
     return out

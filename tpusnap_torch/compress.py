@@ -9,13 +9,13 @@ tile-grain random access on the restore path.
 
 The policy is measured (``TPUSNAP_COMPRESS=auto``, the default): compress
 when the pipe's write ceiling is clearly slower than the codec's measured
-throughput, bypass when the disk outruns it. The ceiling comes from a
-one-shot mini-probe written through the take's own storage plugin under
-``PROBE_DIR`` (tpusnap also feeds it from its in-take roofline probes,
-which the port does not have yet). Codec throughput is measured once per
-process. Every checksum and dedup hash of a compressed blob is over the
-STORED (compressed) bytes. ``LAST_DECISION`` holds the last take's
-decision; tpusnap's telemetry and flight-recorder hooks are left out.
+throughput, bypass when the disk outruns it. The ceiling comes from the
+in-take roofline probes (``TPUSNAP_PROBE=1``: every sample lands here) or,
+with no sample yet, from a one-shot mini-probe written through the take's
+own storage plugin under ``PROBE_DIR``. Codec throughput is measured once
+per process. Every checksum and dedup hash of a compressed blob is over
+the STORED (compressed) bytes. The decision rides the take's telemetry
+meta (and so its history event); ``LAST_DECISION`` holds the last one.
 """
 
 from __future__ import annotations
@@ -86,10 +86,10 @@ def codec_elem(codec: str) -> int:
 
 # ---------------------------------------------------------------- ceilings
 
-# Process-global pipe ceilings by (storage label, lane), fed by the
-# policy mini-probe (the "write" lane; tpusnap's roofline probes also
-# fill a "read" lane). Newest sample wins: the ceiling is a live
-# measurement, not a config belief.
+# Process-global pipe ceilings by (storage label, lane), fed by every
+# roofline probe sample (``scheduler._ProbeRunner``: both its write and
+# its read leg) and by the policy mini-probe (the "write" lane). Newest
+# sample wins: the ceiling is a live measurement, not a config belief.
 _ceilings: Dict[Tuple[str, str], float] = {}
 _ceilings_lock = threading.Lock()
 
@@ -107,11 +107,12 @@ def pipe_ceiling_key(storage) -> str:
     import os
 
     from .io_types import StoragePlugin
+    from .storage_plugin import storage_plugin_label
 
+    label = storage_plugin_label(storage)
     base = storage
     while isinstance(getattr(base, "inner", None), StoragePlugin):
         base = base.inner
-    label = type(base).__name__
     root = getattr(base, "root", None)
     if root:
         p = os.path.abspath(str(root))
@@ -135,6 +136,13 @@ def note_pipe_ceiling(label: str, gbps: float, lane: str = "write") -> None:
         return
     with _ceilings_lock:
         _ceilings[(label, lane)] = float(gbps)
+
+
+def pipe_ceilings_snapshot() -> Dict[Tuple[str, str], float]:
+    """Copy of every (label, lane) ceiling known to this process: the
+    tune planner's view of what the probes have measured."""
+    with _ceilings_lock:
+        return dict(_ceilings)
 
 
 def pipe_ceiling(label: str, lane: str = "write") -> Optional[float]:

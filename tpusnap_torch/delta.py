@@ -621,6 +621,13 @@ class DeltaStream:
         else:
             self._open_solo()
 
+        try:
+            from . import slo as _slo
+
+            _slo.tracker().note_stream(self.cadence_s)
+        except Exception:
+            logger.debug("slo note_stream failed", exc_info=True)
+
         self._worker = threading.Thread(
             target=self._run, name="tpusnap-delta", daemon=True
         )
@@ -804,8 +811,14 @@ class DeltaStream:
         runs inline HERE, at a boundary, so it can never overlap an
         in-place mutation; the write + two-phase commit still drain in
         the background. ``bytes_changed`` (optional) feeds the SLO
-        tracker's exact data-at-risk tier (accepted and ignored until the
-        tracker is ported, ROADMAP.md item A9)."""
+        tracker's exact data-at-risk tier."""
+        if bytes_changed:
+            try:
+                from . import slo as _slo
+
+                _slo.record_step(bytes_changed)
+            except Exception:
+                pass
         capture = False
         with self._lock:
             self._step_gated = True
@@ -1514,13 +1527,21 @@ class DeltaStream:
         self._stop_observability()
 
     def _stop_observability(self) -> None:
-        """Idempotent teardown of the stream's observability footprint
-        (the stream's close record in the flight log), whatever stopped
-        the stream."""
+        """Idempotent teardown of the stream's observability footprint,
+        whatever stopped the stream: the SLO tracker's cadence gauge must
+        never advertise a live stream after it stopped (a failed
+        micro-commit included), and the flight log gets its close
+        record."""
         with self._lock:
             if self._observability_stopped:
                 return
             self._observability_stopped = True
+        try:
+            from . import slo as _slo
+
+            _slo.tracker().note_stream(None)
+        except Exception:
+            logger.debug("slo note_stream failed", exc_info=True)
         flight.record(
             "delta", op="stream_close", stream=self.stream_id,
             commits=self.stats["commits"],

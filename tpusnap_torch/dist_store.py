@@ -85,11 +85,14 @@ class TCPStoreKVStore(KVStore):
 
     - ``set`` overwrites, as tpusnap's store does since its lease and
       membership records rewrite one key.
-    - ``try_get`` never blocks: ``check`` before ``get`` (TCPStore's
-      ``get`` waits for a missing key until the store's timeout).
+    - ``try_get`` never blocks, even against a concurrent delete: it is a
+      ``compare_set`` of the key with a sentinel as both the expected and
+      the new value, which returns the value when the key exists and the
+      sentinel (writing nothing) when it does not. (``check`` then
+      ``get`` would block until the store's timeout on a key deleted in
+      between: TCPStore's ``get`` waits for a missing key.)
     - ``try_get_dir`` needs the caller's ``keys`` (TCPStore cannot list a
-      prefix): one ``check`` and one ``multi_get`` when all are present,
-      else one ``check`` per key and a ``multi_get`` of those present.
+      prefix) and reads each the way ``try_get`` does.
     - ``delete_prefix`` deletes the caller's ``keys`` under the prefix
       (TCPStore has no prefix delete); every caller knows the keys its
       protocol set."""
@@ -102,24 +105,24 @@ class TCPStoreKVStore(KVStore):
     def set(self, key: str, value: bytes) -> None:
         self._store.set(key, value)
 
+    _MISSING = b"\x00tpusnap-kv-missing\x00"
+
     def try_get(self, key: str) -> Optional[bytes]:
-        if not self._store.check([key]):
-            return None
-        return bytes(self._store.get(key))
+        value = bytes(self._store.compare_set(key, self._MISSING, self._MISSING))
+        return None if value == self._MISSING else value
 
     def try_get_dir(
         self, prefix: str, keys: Optional[Iterable[str]] = None
     ) -> Optional[Dict[str, bytes]]:
         if keys is None:
             return None
-        keys = [k for k in keys if k.startswith(prefix)]
-        if not keys:
-            return {}
-        if not self._store.check(keys):
-            keys = [k for k in keys if self._store.check([k])]
-            if not keys:
-                return {}
-        return {k: bytes(v) for k, v in zip(keys, self._store.multi_get(keys))}
+        out: Dict[str, bytes] = {}
+        for key in keys:
+            if key.startswith(prefix):
+                value = self.try_get(key)
+                if value is not None:
+                    out[key] = value
+        return out
 
     def delete_prefix(self, prefix: str, keys: Optional[Iterable[str]] = None) -> None:
         for key in [k for k in keys or () if k.startswith(prefix)]:

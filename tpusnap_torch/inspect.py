@@ -39,8 +39,10 @@ __all__ = [
     "base_root_of_location",
     "diff_snapshots",
     "entry_nbytes",
+    "entry_verifiable",
     "iter_blobs",
     "materialize_snapshot",
+    "rank_payload_nbytes",
     "verify_snapshot",
 ]
 
@@ -142,6 +144,35 @@ def entry_nbytes(entry: Entry) -> int:
     if isinstance(entry, ObjectEntry):
         return entry.nbytes or 0
     return 0
+
+
+def entry_verifiable(entry: Entry) -> bool:
+    """True when every stored byte of ``entry`` has a recorded checksum
+    (so a scrub can verify it; False for snapshots written with
+    TPUSNAP_DISABLE_CHECKSUM=1). Primitives and containers live inline in
+    the metadata and count as verifiable."""
+    if isinstance(entry, TensorEntry):
+        return entry.checksum is not None
+    if isinstance(entry, ChunkedTensorEntry):
+        return all(c.tensor.checksum is not None for c in entry.chunks)
+    if isinstance(entry, ShardedEntry):
+        return all(s.tensor.checksum is not None for s in entry.shards)
+    if isinstance(entry, ObjectEntry):
+        return entry.checksum is not None
+    return True
+
+
+def rank_payload_nbytes(metadata, rank: int) -> int:
+    """Total payload bytes of one rank's RESTORE VIEW — what a recovery
+    of this snapshot actually reads. The one definition both SLO
+    surfaces share (the tracker's commit anchor and the CLI's estimated
+    restore time), so they cannot silently diverge."""
+    from .manifest_ops import get_manifest_for_rank
+
+    view = get_manifest_for_rank(metadata, rank)
+    return sum(
+        entry_nbytes(e) for e in view.values() if not is_container_entry(e)
+    )
 
 
 def _tensor_blobs(path: str, entry: TensorEntry, detail: str = "") -> Iterator[_Blob]:
@@ -577,7 +608,8 @@ def _read_metadata(
     except Exception as e:
         raise RuntimeError(
             f"Failed to read snapshot metadata at {path} — not a "
-            "snapshot, or an aborted/incomplete one"
+            "snapshot, or an aborted/incomplete one (run "
+            "`python -m tpusnap_torch fsck` to classify)"
         ) from e
     return decode_metadata(read_io.buf.getvalue())
 

@@ -323,6 +323,7 @@ class ArrayBufferStager(BufferStager):
         source's pinned buffer — are released before the write."""
         codec = self.compress_codec
         entry = self.entry
+        rec = telemetry.current()
         mv = self._host_bytes()
         tile_rows, row_nbytes = _tile_geometry(entry, mv.nbytes)
         tile_nbytes = tile_rows * row_nbytes if tile_rows else mv.nbytes
@@ -347,13 +348,23 @@ class ArrayBufferStager(BufferStager):
         ):
             _adopt_base_location(entry, prev)
             _annotate_from_dedup_base(entry, prev)
+            telemetry.incr("compress.raw_dedup_skips", rec=rec)
             return SKIP_WRITE
         raw_nbytes = mv.nbytes
+        t0 = rec.now() if rec is not None else 0.0
         out, comp_sizes, crcs, xxhs = _native.compress_tiles(
             mv, tile_nbytes, codec_elem(codec), want_dedup,
             nthreads=get_native_copy_threads(),
         )
         del mv  # a CUDA source's pinned buffer goes back to its pool here
+        if rec is not None:
+            rec.record_span(
+                "compress", t0, rec.now() - t0, bytes=raw_nbytes, out_bytes=out.nbytes,
+                codec=codec,
+            )
+        telemetry.incr("compress.bytes_in", raw_nbytes, rec=rec)
+        telemetry.incr("compress.bytes_out", out.nbytes, rec=rec)
+        telemetry.incr("compress.blobs", rec=rec)
         _annotate_compressed(entry, codec, raw_nbytes, comp_sizes, crcs, tile_rows, xxhs)
         if raw_hash is not None:
             # Skip evidence for the next increment's raw-hash fast path.
@@ -1097,6 +1108,7 @@ class ArrayIOPreparer:
                 buffer_consumer=consumer,
                 into=consumer.into,
                 want_crc=consumer.into is not None and _want_crc(entry),
+                logical_path=logical_path,
             )
         ], fut
 
@@ -1169,6 +1181,7 @@ class ArrayIOPreparer:
                     into=consumer.into_mv,
                     want_crc=consumer.into_mv is not None
                     and tile_checksum is not None,
+                    logical_path=logical_path,
                 )
             )
         return read_reqs, fut
@@ -1241,6 +1254,7 @@ class ArrayIOPreparer:
                     byte_range=(base + offsets[g0], base + offsets[g1 - 1] + sizes[g1 - 1]),
                     buffer_consumer=consumer,
                     want_crc=expected is not None,
+                    logical_path=logical_path,
                 )
             )
         return read_reqs, fut
@@ -1255,6 +1269,9 @@ class _CompressedDestination:
         self.obj_out = obj_out
         self.ready = ready
         self.codec_elem = codec_elem(entry.codec)
+        # The restore's recorder (prepared under it): each group's
+        # decompress is a ``restore.decode`` span, as in tpusnap.
+        self._tele = telemetry.current()
         self.device_bytes: Optional[torch.Tensor] = None
         self.host_out: Optional[torch.Tensor] = None
         self.host_mv = writable_byte_view(obj_out, entry.dtype, entry.shape)
@@ -1274,18 +1291,28 @@ class _CompressedDestination:
         """Decompress one group's stored tiles into raw bytes
         [raw_start, raw_end) of the destination."""
         threads = get_native_copy_threads()
+        if self.device_bytes is None and self.host_mv is None:
+            return
+        tele = self._tele if self._tele is not None and self._tele.enabled else None
+        start = tele.now() if tele is not None else 0.0
+        pinned = None
         if self.device_bytes is not None:
             pinned = torch.empty(raw_end - raw_start, dtype=torch.uint8, pin_memory=True)
-            _native.decompress_tiles(
-                mv, comp_sizes, tile_raw, raw_end - raw_start, self.codec_elem,
-                memoryview(pinned.numpy()), nthreads=threads,
+            dst = memoryview(pinned.numpy())
+        else:
+            dst = self.host_mv[raw_start:raw_end]
+        _native.decompress_tiles(
+            mv, comp_sizes, tile_raw, raw_end - raw_start, self.codec_elem, dst,
+            nthreads=threads,
+        )
+        if tele is not None:
+            tele.record_span(
+                "restore.decode", start, tele.now() - start,
+                path=self.entry.location, bytes=mv.nbytes, raw_bytes=raw_end - raw_start,
             )
+        if pinned is not None:
+            # The host-to-device leg belongs to the enclosing consume span.
             _copy_into_target(self.device_bytes[raw_start:raw_end], pinned, self.ready)
-        elif self.host_mv is not None:
-            _native.decompress_tiles(
-                mv, comp_sizes, tile_raw, raw_end - raw_start, self.codec_elem,
-                self.host_mv[raw_start:raw_end], nthreads=threads,
-            )
 
     def result(self):
         if self.in_place:

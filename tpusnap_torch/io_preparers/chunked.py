@@ -244,6 +244,7 @@ class ChunkedArrayIOPreparer:
                 logical_path=f"{logical_path or chunk.tensor.location} (chunk @ row {r0})",
             )
             for rr in reqs:
+                rr.logical_path = logical_path
                 rr.buffer_consumer = _ChunkCompletion(
                     rr.buffer_consumer, remaining, fut, dest, obj_out, in_place, ready
                 )

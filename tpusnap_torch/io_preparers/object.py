@@ -119,4 +119,6 @@ class ObjectIOPreparer:
             checksum=entry.checksum,
             location=logical_path or entry.location,
         )
-        return [ReadReq(path=entry.location, buffer_consumer=consumer)], fut
+        return [
+            ReadReq(path=entry.location, buffer_consumer=consumer, logical_path=logical_path)
+        ], fut

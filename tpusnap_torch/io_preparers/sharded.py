@@ -299,6 +299,7 @@ class ShardedArrayIOPreparer:
                     # Checksum computed inside the storage plugin's read;
                     # the consumer verifies the value without a re-read.
                     want_crc=_want_crc(saved.tensor),
+                    logical_path=logical_path,
                 )
             )
         for piece in assembler.pieces:

@@ -23,7 +23,7 @@ import io
 import threading
 from concurrent.futures import Executor
 from dataclasses import dataclass, field
-from typing import Callable, Generic, Optional, Tuple, TypeVar, Union
+from typing import Callable, Generic, List, Optional, Tuple, TypeVar, Union
 
 BufferType = Union[bytes, bytearray, memoryview]
 
@@ -155,6 +155,14 @@ class ReadReq:
     # dispatched (a pinned buffer for a CUDA target).
     into: Union[memoryview, Callable[[], memoryview], None] = None
     want_crc: bool = False
+    # Access-ledger attribution: the manifest path this read serves (the
+    # storage ``path`` is a blob location, shared across leaves). Empty:
+    # unattributed (metadata traffic).
+    logical_path: str = ""
+    # A merged spanning read keeps each member's attribution here:
+    # [(logical_path, start, end), ...] in blob coordinates. None: the
+    # read serves exactly ``logical_path`` over ``byte_range``.
+    access_parts: Optional[List[Tuple[str, int, int]]] = None
 
 
 class StoragePlugin(abc.ABC):

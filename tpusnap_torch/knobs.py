@@ -11,7 +11,8 @@ pool, ``TPUSNAP_COMPRESS=auto``).
 import contextlib
 import logging
 import os
-from typing import Generator, Optional
+import threading
+from typing import Dict, Generator, Optional
 
 logger = logging.getLogger(__name__)
 
@@ -63,6 +64,20 @@ _FLIGHT_FLUSH_ENV_VAR = "TPUSNAP_FLIGHT_FLUSH_S"
 _LIVENESS_TTL_ENV_VAR = "TPUSNAP_LIVENESS_TTL_S"
 _JOB_ID_ENV_VAR = "TPUSNAP_JOB_ID"
 _FAULT_SPEC_ENV_VAR = "TPUSNAP_FAULT_SPEC"
+_METRICS_EXPORT_ENV_VAR = "TPUSNAP_METRICS_EXPORT"
+_METRICS_DIR_ENV_VAR = "TPUSNAP_METRICS_DIR"
+_HISTORY_ENV_VAR = "TPUSNAP_HISTORY"
+_HISTORY_MAX_BYTES_ENV_VAR = "TPUSNAP_HISTORY_MAX_BYTES"
+_ACCESS_LEDGER_ENV_VAR = "TPUSNAP_ACCESS_LEDGER"
+_ACCESS_LEDGER_MAX_BYTES_ENV_VAR = "TPUSNAP_ACCESS_LEDGER_MAX_BYTES"
+_PROBE_ENV_VAR = "TPUSNAP_PROBE"
+_PROBE_INTERVAL_ENV_VAR = "TPUSNAP_PROBE_INTERVAL_BYTES"
+_PROBE_BYTES_ENV_VAR = "TPUSNAP_PROBE_BYTES"
+_AUTOTUNE_ENV_VAR = "TPUSNAP_AUTOTUNE"
+_SLO_RPO_ENV_VAR = "TPUSNAP_SLO_RPO_S"
+_SLO_RTO_ENV_VAR = "TPUSNAP_SLO_RTO_S"
+_SLO_STREAM_CADENCE_X_ENV_VAR = "TPUSNAP_SLO_STREAM_CADENCE_X"
+_FLEET_DIR_ENV_VAR = "TPUSNAP_FLEET_DIR"
 
 _DEFAULT_MAX_CHUNK_SIZE_BYTES = 512 * 1024 * 1024
 _DEFAULT_MAX_SHARD_SIZE_BYTES = 512 * 1024 * 1024
@@ -72,10 +87,72 @@ _DEFAULT_DIRECT_IO_CHUNK_BYTES = 32 * 1024 * 1024
 _DEFAULT_TILE_CHECKSUM_BYTES = 16 * 1024 * 1024
 _DEFAULT_ASYNC_STAGE_WINDOW_BYTES = 2 * 1024 * 1024 * 1024
 _DEFAULT_STAGING_POOL_BYTES = 4 * 1024 * 1024 * 1024
+# In-take roofline probes: one probe segment per this many payload bytes,
+# each writing (and reading back) this many raw bytes through the take's
+# own plugin stack (about 3 % of the take's I/O at the defaults).
+_DEFAULT_PROBE_INTERVAL_BYTES = 2 * 1024 * 1024 * 1024
+_DEFAULT_PROBE_BYTES = 64 * 1024 * 1024
+
+
+# ------------------------------------------------- tuned-plan overlay
+#
+# The tuner's seam (``TPUSNAP_AUTOTUNE=1``, ``tune.maybe_apply``): an
+# applied plan's knob values live here, one layer below the environment.
+# Every knob lookup goes through ``_env_get``, which reads the
+# environment first, so an explicitly set variable always beats the
+# tuner, and nothing of the plan leaks into ``os.environ`` (or into child
+# processes).
+_tuned_lock = threading.Lock()
+_tuned_overlay: Dict[str, str] = {}
+_tuned_plan_id: Optional[str] = None
+
+
+def apply_tuned_plan(plan_id: str, knobs: Dict[str, str]) -> Dict[str, str]:
+    """Install a tuner plan's knob values as the fallback layer. Knobs
+    the environment already sets are skipped (explicit env always wins).
+    Returns the subset applied: what the take or restore stamps into its
+    history event as ``tuned.knobs``."""
+    applied: Dict[str, str] = {}
+    with _tuned_lock:
+        global _tuned_plan_id
+        _tuned_overlay.clear()
+        for name, value in knobs.items():
+            if name in os.environ:
+                continue
+            _tuned_overlay[name] = str(value)
+            applied[name] = str(value)
+        _tuned_plan_id = plan_id if applied else None
+    return applied
+
+
+def clear_tuned_plan() -> None:
+    with _tuned_lock:
+        global _tuned_plan_id
+        _tuned_overlay.clear()
+        _tuned_plan_id = None
+
+
+def tuned_plan() -> Optional[Dict[str, object]]:
+    """The applied plan (``{plan_id, knobs}``) or None."""
+    with _tuned_lock:
+        if _tuned_plan_id is None or not _tuned_overlay:
+            return None
+        return {"plan_id": _tuned_plan_id, "knobs": dict(_tuned_overlay)}
+
+
+def _env_get(name: str, default: Optional[str] = None) -> Optional[str]:
+    """Knob lookup: the explicit environment first, then the applied
+    tuner plan, then the default."""
+    val = os.environ.get(name)
+    if val is not None:
+        return val
+    with _tuned_lock:
+        val = _tuned_overlay.get(name)
+    return val if val is not None else default
 
 
 def _get_int_env(name: str, default: int) -> int:
-    val = os.environ.get(name)
+    val = _env_get(name)
     if val is None:
         return default
     try:
@@ -86,7 +163,7 @@ def _get_int_env(name: str, default: int) -> int:
 
 
 def _get_float_env(name: str, default: float) -> float:
-    val = os.environ.get(name)
+    val = _env_get(name)
     if val is None:
         return default
     try:
@@ -97,7 +174,7 @@ def _get_float_env(name: str, default: float) -> float:
 
 
 def _flag(name: str) -> bool:
-    return os.environ.get(name, "0") == "1"
+    return _env_get(name, "0") == "1"
 
 
 def get_max_chunk_size_bytes() -> int:
@@ -182,7 +259,7 @@ def is_async_cow_enabled() -> bool:
     cloning them, and the write path re-hashes after the storage write; a
     mismatch (the caller mutated the tensor mid-take) fails the take.
     ``TPUSNAP_ASYNC_COW=0`` restores the defensive clone."""
-    return os.environ.get(_ASYNC_COW_ENV_VAR, "1") != "0"
+    return _env_get(_ASYNC_COW_ENV_VAR, "1") != "0"
 
 
 def get_staging_pool_bytes() -> int:
@@ -192,8 +269,12 @@ def get_staging_pool_bytes() -> int:
 
 
 def get_memory_budget_override_bytes() -> Optional[int]:
-    val = os.environ.get(_MEMORY_BUDGET_ENV_VAR)
-    return int(val) if val is not None else None
+    """``TPUSNAP_MAX_PER_RANK_MEMORY_BUDGET_BYTES`` when set to a
+    positive integer, else None (the budget is derived from host RAM)."""
+    if _env_get(_MEMORY_BUDGET_ENV_VAR) is None:
+        return None
+    val = _get_int_env(_MEMORY_BUDGET_ENV_VAR, -1)
+    return val if val > 0 else None
 
 
 _KNOWN_COMPRESS_MODES = ("auto", "on", "off", "lz4")
@@ -207,7 +288,7 @@ def get_compress_mode() -> str:
     every eligible blob, ``off`` bypasses, ``lz4`` pins the codec family
     (the same as ``on`` today). Unknown values warn once per process and
     fall back to ``auto``."""
-    raw = (os.environ.get(_COMPRESS_ENV_VAR) or "auto").strip().lower()
+    raw = (_env_get(_COMPRESS_ENV_VAR) or "auto").strip().lower()
     if raw not in _KNOWN_COMPRESS_MODES:
         if raw not in _warned_compress_modes:
             _warned_compress_modes.add(raw)
@@ -261,7 +342,7 @@ def get_node_name() -> str:
     and simulated multi-host tests)."""
     import socket
 
-    return os.environ.get(_NODE_NAME_ENV_VAR) or socket.gethostname()
+    return _env_get(_NODE_NAME_ENV_VAR) or socket.gethostname()
 
 
 def is_partitioner_disabled() -> bool:
@@ -290,7 +371,7 @@ def get_rank_failure_policy() -> str:
     ``abort`` (the default) or ``degrade`` (the survivors complete a
     take whose dead rank held only replicated writes). Unknown values
     warn once per process and fall back to ``abort``."""
-    raw = os.environ.get(_RANK_FAILURE_ENV_VAR, "abort").strip().lower()
+    raw = _env_get(_RANK_FAILURE_ENV_VAR, "abort").strip().lower()
     if raw not in _KNOWN_RANK_FAILURE_POLICIES:
         if raw not in _warned_rank_failure_policies:
             _warned_rank_failure_policies.add(raw)
@@ -309,7 +390,7 @@ def get_cas_dir() -> Optional[str]:
     a storage URL every CAS-composed take publishes payload blobs into,
     keyed by their (CRC32C, XXH64) pair. When set, a plain ``fs`` take
     is composed with the CAS layer (as ``cas+fs://`` is). Unset: off."""
-    return os.environ.get(_CAS_DIR_ENV_VAR) or None
+    return _env_get(_CAS_DIR_ENV_VAR) or None
 
 
 def get_cas_grace_s() -> float:
@@ -330,7 +411,7 @@ def get_cas_remote() -> Optional[str]:
     """Remote mirror of the store: the tier drain uploads each unique
     blob once to ``<remote>/blobs/<key>`` and store reads fall back to
     it for evicted blobs. Unset: the store is local only."""
-    return os.environ.get(_CAS_REMOTE_ENV_VAR) or None
+    return _env_get(_CAS_REMOTE_ENV_VAR) or None
 
 
 def get_delta_cadence_s() -> float:
@@ -351,7 +432,7 @@ def is_tier_drain_enabled() -> bool:
     """Background drain of the write-back tier: on by default (a tiered
     take commits locally and an uploader thread drains it to the remote).
     ``0`` leaves takes ``local-committed`` until drained explicitly."""
-    return os.environ.get(_TIER_DRAIN_ENV_VAR, "1") != "0"
+    return _env_get(_TIER_DRAIN_ENV_VAR, "1") != "0"
 
 
 def get_tier_op_deadline_s() -> float:
@@ -391,7 +472,7 @@ def is_telemetry_enabled() -> bool:
     (``telemetry``, ``progress``): on by default. ``TPUSNAP_TELEMETRY=0``
     turns spans, traces, heartbeats and rank-liveness leases off;
     counters stay on either way."""
-    return os.environ.get(_TELEMETRY_ENV_VAR, "1") != "0"
+    return _env_get(_TELEMETRY_ENV_VAR, "1") != "0"
 
 
 def get_stall_deadline_s() -> float:
@@ -412,7 +493,7 @@ def get_telemetry_dir() -> str:
     import tempfile
 
     uid = os.getuid() if hasattr(os, "getuid") else "u"
-    return os.environ.get(_TELEMETRY_DIR_ENV_VAR) or os.path.join(
+    return _env_get(_TELEMETRY_DIR_ENV_VAR) or os.path.join(
         tempfile.gettempdir(), f"tpusnap-telemetry-{uid}"
     )
 
@@ -421,7 +502,7 @@ def is_flight_enabled() -> bool:
     """The flight recorder (``flight``): a bounded ring of events flushed
     to ``.tpusnap/flight/`` at the heartbeat cadence. On by default;
     ``TPUSNAP_FLIGHT=0`` turns recording and flushing off."""
-    return os.environ.get(_FLIGHT_ENV_VAR, "1") != "0"
+    return _env_get(_FLIGHT_ENV_VAR, "1") != "0"
 
 
 def get_flight_ring_size() -> int:
@@ -453,7 +534,7 @@ def get_liveness_ttl_s() -> float:
 
 def get_explicit_job_id() -> Optional[str]:
     """``TPUSNAP_JOB_ID`` as configured (sanitized), or None when unset."""
-    raw = os.environ.get(_JOB_ID_ENV_VAR)
+    raw = _env_get(_JOB_ID_ENV_VAR)
     if not raw:
         return None
     clean = "".join(c if (c.isalnum() or c in "._-") else "-" for c in raw)
@@ -474,35 +555,138 @@ def get_job_id() -> str:
 def get_fault_spec() -> Optional[str]:
     """``TPUSNAP_FAULT_SPEC``: the fault plan a ``chaos+`` URL uses when
     its storage options carry none (``faults.FaultPlan``)."""
-    return os.environ.get(_FAULT_SPEC_ENV_VAR) or None
+    return _env_get(_FAULT_SPEC_ENV_VAR) or None
 
 
-# tpusnap's consumers of the take's telemetry that are not ported yet
-# (ROADMAP.md item A9): each knob, when the user sets it to turn its
-# consumer on, is refused by name rather than silently ignored.
-_UNPORTED_HOOK_KNOBS = (
-    ("TPUSNAP_METRICS_EXPORT", lambda v: v.strip() != "", "metrics export sinks"),
-    ("TPUSNAP_HISTORY", lambda v: v.strip() not in ("", "0"), "the cross-run history"),
-    ("TPUSNAP_FLEET_DIR", lambda v: v.strip() != "", "the fleet status mirror"),
-    ("TPUSNAP_AUTOTUNE", lambda v: v.strip() == "1", "the auto-tuner"),
-    ("TPUSNAP_SLO_RPO_S", lambda v: v.strip() != "", "the checkpoint-SLO tracker"),
-    ("TPUSNAP_SLO_RTO_S", lambda v: v.strip() != "", "the checkpoint-SLO tracker"),
-    ("TPUSNAP_ACCESS_LEDGER", lambda v: v.strip() not in ("", "0"), "the access ledger"),
-    ("TPUSNAP_PROBE", lambda v: v.strip() == "1", "the in-take roofline probe"),
-)
+_KNOWN_METRICS_FORMATS = ("prom", "jsonl")
+# Unknown format tokens already warned about: one typo must not warn at
+# every take for the job's whole life.
+_warned_metrics_formats: set = set()
 
 
-def refuse_unported_hooks() -> None:
-    """Raise ``NotImplementedError`` naming the first knob that asks for
-    a telemetry consumer the port does not have yet; with none of them
-    set, every such hook does nothing."""
-    for name, wants, what in _UNPORTED_HOOK_KNOBS:
-        val = os.environ.get(name)
-        if val is not None and wants(val):
-            raise NotImplementedError(
-                f"{name}={val!r} asks for {what}, which is not ported to "
-                "tpusnap_torch yet (ROADMAP.md item A9); unset it"
-            )
+def get_metrics_export() -> tuple:
+    """Metrics export formats (``metrics_export``), comma-separated:
+    ``prom`` (a Prometheus textfile rewritten atomically per take and
+    restore summary) and/or ``jsonl`` (one event line per summary,
+    rotation-bounded). Empty (the default) exports nothing; unknown
+    names warn once per process and are skipped."""
+    raw = _env_get(_METRICS_EXPORT_ENV_VAR, "") or ""
+    out = []
+    for tok in raw.replace(";", ",").split(","):
+        tok = tok.strip().lower()
+        if not tok:
+            continue
+        if tok not in _KNOWN_METRICS_FORMATS:
+            if tok not in _warned_metrics_formats:
+                _warned_metrics_formats.add(tok)
+                logger.warning(
+                    "Ignoring unknown %s format %r (known: %s)",
+                    _METRICS_EXPORT_ENV_VAR,
+                    tok,
+                    ", ".join(_KNOWN_METRICS_FORMATS),
+                )
+            continue
+        if tok not in out:
+            out.append(tok)
+    return tuple(out)
+
+
+def get_metrics_dir() -> str:
+    """Directory the export sinks write into: ``TPUSNAP_METRICS_DIR`` or
+    the telemetry dir (point it at node-exporter's textfile collector)."""
+    return _env_get(_METRICS_DIR_ENV_VAR) or get_telemetry_dir()
+
+
+def is_history_enabled() -> bool:
+    """Cross-run history (``history``): every completed take and restore
+    appends one summary line to ``TPUSNAP_TELEMETRY_DIR/history.jsonl``.
+    On by default; ``TPUSNAP_HISTORY=0`` turns the append off."""
+    return _env_get(_HISTORY_ENV_VAR, "1") != "0"
+
+
+def get_history_max_bytes() -> int:
+    """Size bound on history.jsonl: past it the oldest lines are
+    compacted away (atomic rewrite). Floor 64 KiB."""
+    return max(64 * 1024, _get_int_env(_HISTORY_MAX_BYTES_ENV_VAR, 4 * 1024 * 1024))
+
+
+def is_access_ledger_enabled() -> bool:
+    """Read-side access attribution (``access``): every restore and
+    ``read_object`` records which manifest leaves and byte ranges it
+    read, one JSONL line per read scope in
+    ``TPUSNAP_TELEMETRY_DIR/access/<digest>/<job_id>.jsonl``. On by
+    default; ``TPUSNAP_ACCESS_LEDGER=0`` turns it off, as does
+    ``TPUSNAP_TELEMETRY=0``."""
+    return _env_get(_ACCESS_LEDGER_ENV_VAR, "1") != "0" and is_telemetry_enabled()
+
+
+def get_access_ledger_max_bytes() -> int:
+    """Size bound on one reader's ledger file: past it the file rotates
+    to ``<name>.1``. Floor 64 KiB."""
+    return max(64 * 1024, _get_int_env(_ACCESS_LEDGER_MAX_BYTES_ENV_VAR, 8 * 1024 * 1024))
+
+
+def is_probe_enabled() -> bool:
+    """In-take roofline probes (``TPUSNAP_PROBE=1``, off by default):
+    between I/O windows the write and read schedulers write and read
+    back a few raw streams through the operation's own plugin stack, so
+    every take and restore measures its storage ceiling (its
+    ``roofline_fraction``). Needs telemetry on."""
+    return _env_get(_PROBE_ENV_VAR, "0") == "1"
+
+
+def is_autotune_enabled() -> bool:
+    """``TPUSNAP_AUTOTUNE=1`` (off by default): at take and restore
+    begin, the ``tune`` plan of this backend, kind and world size is
+    computed from the local history and applied through the tuned-plan
+    overlay; explicit env vars win. The applied knobs ride the history
+    event as ``tuned: {plan_id, knobs}``."""
+    return _env_get(_AUTOTUNE_ENV_VAR, "0") == "1"
+
+
+def get_probe_interval_bytes() -> int:
+    """Payload bytes between two probe segments. Floor 16 MiB."""
+    return max(
+        16 * 1024 * 1024, _get_int_env(_PROBE_INTERVAL_ENV_VAR, _DEFAULT_PROBE_INTERVAL_BYTES)
+    )
+
+
+def get_probe_bytes() -> int:
+    """Raw bytes one probe segment writes and reads back, split over a
+    few concurrent streams. Floor 1 MiB."""
+    return max(1024 * 1024, _get_int_env(_PROBE_BYTES_ENV_VAR, _DEFAULT_PROBE_BYTES))
+
+
+def get_slo_rpo_threshold_s() -> float:
+    """Recovery-point objective (``slo``): past this many seconds since
+    the last committed take, one edge-triggered ``slo_breach`` per
+    episode, and ``slo --check`` exits 2. ``0`` (default): unset."""
+    return max(0.0, _get_float_env(_SLO_RPO_ENV_VAR, 0.0))
+
+
+def get_slo_rto_threshold_s() -> float:
+    """Recovery-time objective (``slo``): breach when the history-derived
+    restore time of the last committed snapshot exceeds this. ``0``
+    (default): unset."""
+    return max(0.0, _get_float_env(_SLO_RTO_ENV_VAR, 0.0))
+
+
+def get_slo_stream_cadence_x() -> float:
+    """Stream-cadence gate of ``slo --check``: while a delta stream is
+    live, the time since its last commit must stay under this many
+    multiples of its cadence. ``0`` disables the gate; floor 1; default
+    3."""
+    val = _get_float_env(_SLO_STREAM_CADENCE_X_ENV_VAR, 3.0)
+    if val <= 0:
+        return 0.0
+    return max(1.0, val)
+
+
+def get_fleet_dir() -> Optional[str]:
+    """Shared cross-job status directory (``fleet``): rank 0 of every job
+    mirrors its heartbeat, SLO and tier state into ``<dir>/<job_id>.json``
+    on the heartbeat pump. Unset: off."""
+    return _env_get(_FLEET_DIR_ENV_VAR) or None
 
 
 @contextlib.contextmanager
@@ -676,3 +860,71 @@ def override_cas(
             if value is not None:
                 stack.enter_context(_override_env(name, str(value)))
         yield
+
+
+def override_metrics_export(formats: Optional[str]):
+    return _override_env(_METRICS_EXPORT_ENV_VAR, formats)
+
+
+def override_metrics_dir(path: Optional[str]):
+    return _override_env(_METRICS_DIR_ENV_VAR, path)
+
+
+def override_history_enabled(enabled: bool):
+    return _override_env(_HISTORY_ENV_VAR, "1" if enabled else "0")
+
+
+def override_history_max_bytes(nbytes: int):
+    return _override_env(_HISTORY_MAX_BYTES_ENV_VAR, str(nbytes))
+
+
+def override_access_ledger(enabled: bool):
+    return _override_env(_ACCESS_LEDGER_ENV_VAR, "1" if enabled else "0")
+
+
+def override_access_ledger_max_bytes(nbytes: int):
+    return _override_env(_ACCESS_LEDGER_MAX_BYTES_ENV_VAR, str(nbytes))
+
+
+@contextlib.contextmanager
+def override_slo_thresholds(
+    rpo_s: Optional[float] = None, rto_s: Optional[float] = None
+) -> Generator[None, None, None]:
+    """Override the SLO thresholds in one scope (None leaves one as it
+    is)."""
+    with contextlib.ExitStack() as stack:
+        if rpo_s is not None:
+            stack.enter_context(_override_env(_SLO_RPO_ENV_VAR, str(rpo_s)))
+        if rto_s is not None:
+            stack.enter_context(_override_env(_SLO_RTO_ENV_VAR, str(rto_s)))
+        yield
+
+
+def override_slo_stream_cadence_x(factor: float):
+    return _override_env(_SLO_STREAM_CADENCE_X_ENV_VAR, str(factor))
+
+
+def override_fleet_dir(path: Optional[str]):
+    """Point the fleet status mirror at ``path`` (None: off)."""
+    return _override_env(_FLEET_DIR_ENV_VAR, path)
+
+
+@contextlib.contextmanager
+def override_probe(
+    enabled: bool,
+    interval_bytes: Optional[int] = None,
+    probe_bytes: Optional[int] = None,
+) -> Generator[None, None, None]:
+    """Turn the in-take roofline probes on or off, with optional cadence
+    and size overrides in the same scope."""
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(_override_env(_PROBE_ENV_VAR, "1" if enabled else "0"))
+        if interval_bytes is not None:
+            stack.enter_context(_override_env(_PROBE_INTERVAL_ENV_VAR, str(interval_bytes)))
+        if probe_bytes is not None:
+            stack.enter_context(_override_env(_PROBE_BYTES_ENV_VAR, str(probe_bytes)))
+        yield
+
+
+def override_autotune(enabled: bool):
+    return _override_env(_AUTOTUNE_ENV_VAR, "1" if enabled else "0")

@@ -975,7 +975,7 @@ def _evictable_local_blobs(
         raise RuntimeError(
             f"{path!r} is {fsck.durability}: its blobs are NOT yet proven "
             "remote — refusing to evict the only durable copy (run "
-            "`tiering.drain_snapshot` to convergence first)"
+            "`tpusnap_torch drain` to convergence first)"
         )
     journal = read_upload_journal(storage, event_loop) or {}
     retention = get_tier_local_retention_s()
@@ -1036,7 +1036,7 @@ def _evictable_local_blobs(
                 f"{store_url!r} but the STORE's upload journal proves "
                 f"only {len(proven)}/{len(keys)} of their blobs remote "
                 "— a snapshot's own durable marker does not cover "
-                "shared blobs; run `cas.drain_store` to "
+                "shared blobs; run `tpusnap_torch drain --store` to "
                 "convergence first"
             )
         evictable = {
@@ -1156,9 +1156,26 @@ def gc_snapshot(
             ordered = sorted(
                 targets, key=lambda p: (p == JOURNAL_FNAME, p)
             )
-            # (tpusnap orders an eviction cold-first from its access
-            # ledgers, which come with A9; without them it uses this
-            # name order too.)
+            if evict_local and targets:
+                # Cold-first eviction: blobs no reader touched go before
+                # the fleet's hot tiles, so an interrupted eviction
+                # leaves the popular working set on the fast tier.
+                # Popularity comes from the access ledgers (the tier URL
+                # and its local dir digest alike); with no ledgers the
+                # name order stands.
+                try:
+                    from . import access
+
+                    counts = access.location_read_counts(
+                        access.load_ledger_records(path)
+                    )
+                except Exception:
+                    counts = {}
+                if counts:
+                    ordered = sorted(
+                        targets,
+                        key=lambda p: (p == JOURNAL_FNAME, counts.get(p, 0), p),
+                    )
             done: Dict[str, int] = {}
             for p in ordered:
                 if (

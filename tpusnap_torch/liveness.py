@@ -301,6 +301,12 @@ class LivenessMonitor:
                 flight.recorder().maybe_flush(force=True)
             except Exception:
                 logger.debug("rank_dead breadcrumb failed", exc_info=True)
+            try:
+                from . import slo as _slo
+
+                _slo.tracker().note_rank_dead([r])
+            except Exception:
+                logger.debug("rank_dead slo feed failed", exc_info=True)
             logger.warning(
                 "tpusnap liveness: rank %d's lease expired (> %.1fs stale) "
                 "during take %s — the rank is dead from rank %d's view",

@@ -17,8 +17,8 @@ exactly one rank, chosen greedily so that the write load balances:
   writer's version of each entry (which may have been slab-batched or
   deduplicated): ``consolidate_replicated_entries``.
 
-``reassign_dead_units`` (the degraded commit's adoption plan) belongs to
-the rank-failure path, which is not ported yet.
+``reassign_dead_units`` is the degraded commit's adoption plan (the
+rank-failure path, ``snapshot._degraded_commit``).
 """
 
 from __future__ import annotations

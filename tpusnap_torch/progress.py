@@ -86,6 +86,16 @@ def progress_rank_path(rank: int) -> str:
     return f"{PROGRESS_DIR}/rank_{rank}.json"
 
 
+def _fmt_short_bytes(n) -> str:
+    """Compact byte figure for the watch table's at-risk column."""
+    n = float(n)
+    for unit in ("B", "K", "M", "G", "T"):
+        if n < 1024 or unit == "T":
+            return f"{n:.0f}{unit}" if unit == "B" else f"{n:.1f}{unit}"
+        n /= 1024
+    return f"{n:.1f}T"
+
+
 def local_root_of(path: str) -> Optional[str]:
     """The local directory a snapshot URL writes into, or None for
     non-local backends (heartbeat files and ``watch`` are local-fs
@@ -179,6 +189,10 @@ class ProgressMonitor:
         # one) — the flight recorder's flush and the SLO tracker's
         # publisher ride here so their cadence shares this pump thread
         # instead of owning another.
+        # Optional small-dict provider folded into every published record
+        # under "slo" (``slo``): time since the last commit and data at
+        # risk ride the heartbeat that `watch` and the fleet fold read.
+        self._slo_provider: Optional[Callable[[], Optional[Dict[str, Any]]]] = None
         self._tick_hooks: List[Callable[[Optional[Dict[str, Any]]], None]] = []
         # Liveness probe (tpusnap.liveness): "which peer ranks' leases
         # have expired?" — folded into stall episodes (dead vs slow
@@ -231,6 +245,11 @@ class ProgressMonitor:
         """Register a callable the watchdog asks "which ranks are we
         waiting on?" when a stall fires (first non-empty answer wins)."""
         self._attributions.append(fn)
+
+    def set_slo_provider(self, fn: Callable[[], Optional[Dict[str, Any]]]) -> None:
+        """Register the SLO field provider (see ``_slo_provider``);
+        its exceptions are swallowed."""
+        self._slo_provider = fn
 
     def add_tick_hook(
         self, fn: Callable[[Optional[Dict[str, Any]]], None]
@@ -493,6 +512,13 @@ class ProgressMonitor:
             dead = [r for r in (dead or []) if r not in left] or None
         if dead:
             rec["dead_ranks"] = dead
+        if self._slo_provider is not None:
+            try:
+                slo = self._slo_provider()
+                if slo:
+                    rec["slo"] = slo
+            except Exception:
+                logger.debug("slo provider failed", exc_info=True)
         return rec
 
     # --- lifecycle ------------------------------------------------------
@@ -736,3 +762,66 @@ def load_restore_traces(snapshot_path: str) -> Dict[int, Dict[str, Any]]:
             except Exception:
                 continue
     return out
+
+
+# ------------------------------------------------------------ watch UI
+
+
+def render_watch_table(
+    records: List[Dict[str, Any]],
+    committed: bool,
+    stall_flag_s: float,
+    now: Optional[float] = None,
+) -> str:
+    """One frame of the ``watch`` table. ``stall_flag_s`` flags
+    ranks whose heartbeat has not advanced for that long (record
+    beat_age plus how stale the record itself is). The ``at-risk`` /
+    ``commit`` columns (from the record's ``slo`` sub-dict) show
+    EXPOSURE — bytes a crash right now would lose, and how long since
+    the last committed take — alongside progress."""
+    now = _wall() if now is None else now
+    lines = [
+        f"{'rank':>4}  {'state':<10} {'phase':<16} {'op':<20} "
+        f"{'%':>6} {'MB/s':>8} {'at-risk':>8} {'commit':>8} {'beat':>7}"
+    ]
+    for r in records:
+        staleness = max(0.0, now - r.get("ts", now))
+        age = r.get("beat_age_s", 0.0) + staleness
+        pct = r.get("percent")
+        flag = ""
+        if r.get("state") == "running" and age > stall_flag_s:
+            flag = "  ** STALLED?"
+        dead = r.get("dead_ranks")
+        if dead:
+            flag = f"  ** PEER DEAD {dead}" + flag
+        left = r.get("left_ranks")
+        if left:
+            flag = f"  ** PEER LEFT {left}" + flag
+        # With in-take probes on, express live MB/s against the latest
+        # self-measured ceiling — "600 MB/s (31% of ceiling)" answers
+        # "is that slow?" without leaving the table.
+        ceiling = r.get("probe_write_gbps")
+        mbps = r.get("mbps", 0.0)
+        if ceiling and mbps:
+            flag = f"  ({min(mbps / (ceiling * 1e3), 9.99):.0%} of ceiling)" + flag
+        slo = r.get("slo") or {}
+        at_risk = slo.get("data_at_risk_bytes")
+        at_risk_str = _fmt_short_bytes(at_risk) if at_risk is not None else "-"
+        # Time since the last COMMIT advances even while the record is
+        # stale — exposure grows in real time, unlike progress.
+        rpo = slo.get("rpo_s")
+        commit_str = f"{rpo + staleness:.0f}s" if rpo is not None else "-"
+        lines.append(
+            f"{r.get('rank', '?'):>4}  {r.get('state', '?'):<10} "
+            f"{(r.get('phase') or '-'):<16.16} {(r.get('op') or '-'):<20.20} "
+            f"{(f'{pct:.1f}' if pct is not None else '-'):>6} "
+            f"{mbps:>8.1f} {at_risk_str:>8} {commit_str:>8} {age:>6.1f}s{flag}"
+        )
+    if not records:
+        lines.append("(no heartbeat records yet)")
+    lines.append(
+        "metadata: committed"
+        if committed
+        else "metadata: not yet written (take in flight)"
+    )
+    return "\n".join(lines)

@@ -1,12 +1,13 @@
 """Async execution engine: budget-gated, pipelined staging and storage I/O.
 
 Counterpart of tpusnap/scheduler.py for takes (sync and async) and the
-restore, without the roofline probe and progress reporter. It records
-tpusnap's spans (``stage_buffer``, ``checksum_late``, ``storage_write``,
-``cow_verify``, ``budget_wait``, ``stage_window``, ``stage_blocked``,
-``storage_read``, ``consume``) and counters (``storage.bytes_written``,
-``scheduler.bytes_staged``, ...) into the take's or restore's
-``telemetry`` recorder:
+restore, without its progress reporter. It records tpusnap's spans
+(``stage_buffer``, ``checksum_late``, ``storage_write``, ``cow_verify``,
+``budget_wait``, ``stage_window``, ``stage_blocked``, ``storage_read``,
+``consume``, ``probe_roofline``) and counters (``storage.bytes_written``,
+``scheduler.bytes_staged``, ``probe.probes``, ...) into the take's or
+restore's ``telemetry`` recorder, and every read into the ambient
+``access`` ledger:
 
 - Write path (``_WriteScheduler``): each WriteReq moves ready_for_staging
   → staging → ready_for_io → io → done; a stager that returns
@@ -21,6 +22,11 @@ tpusnap's spans (``stage_buffer``, ``checksum_late``, ``storage_write``,
   ``take`` or on a background thread for ``async_take``.
 - Read path: read (≤16 in flight, budget-gated on consuming cost) ∥
   consume (deserialize + copy into the restore target, thread pool).
+- Roofline probes (``TPUSNAP_PROBE=1``, ``_ProbeRunner``): between I/O
+  windows, never inside an async take's blocked window and never beside
+  blob I/O, a few raw streams are written and read back through the
+  operation's own plugin stack; each sample feeds the compression
+  policy's pipe ceiling.
 - Memory budget = min(0.6 × available host RAM / ranks on this host,
   32 GB), overridable by ``TPUSNAP_MAX_PER_RANK_MEMORY_BUDGET_BYTES``.
 """
@@ -28,17 +34,20 @@ tpusnap's spans (``stage_buffer``, ``checksum_late``, ``storage_write``,
 from __future__ import annotations
 
 import asyncio
+import logging
 import os
 import threading
+import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Callable, List, Optional, Set
 
-from . import telemetry
+from . import access, flight, telemetry
 from ._staging_pool import release
 from .io_types import (
     SKIP_WRITE,
+    PROBE_DIR,
     BufferStager,
     ReadIO,
     ReadReq,
@@ -51,7 +60,10 @@ from .knobs import (
     get_async_stage_window_bytes,
     get_memory_budget_override_bytes,
     get_stage_threads,
+    is_probe_enabled,
 )
+
+logger = logging.getLogger(__name__)
 
 _MAX_IO_CONCURRENCY = 16
 _MAX_CPU_CONCURRENCY = max(1, min(4, os.cpu_count() or 4))
@@ -251,6 +263,150 @@ class PendingIOWork:
         run_on_loop(event_loop, self.scheduler._abort())
 
 
+class _ProbeRunner:
+    """In-take/in-restore roofline probes (``TPUSNAP_PROBE=1``):
+    between I/O windows — once per TPUSNAP_PROBE_INTERVAL_BYTES of
+    payload traffic, while no blob I/O is in flight — write (then read
+    back, then delete) TPUSNAP_PROBE_BYTES of raw data through the
+    operation's OWN storage plugin stack, across a few concurrent
+    streams, and record the aggregate throughput as a probe sample.
+    Each sample times BOTH legs: the take's summary derives
+    ``roofline_fraction`` from the write leg, the restore's
+    ``restore_roofline_fraction`` from the read leg — ceilings measured
+    seconds (not minutes) from the I/O they judge, immune to the
+    multi-minute drift of a disk measured in a separate session. On the
+    restore side the probe
+    still writes its own scratch (the snapshot's blobs are immutable),
+    under ``.tpusnap/probe/`` (journal-exempt sidecar space; a crash's
+    leftovers are orphan-visible to fsck/gc). Failures never fail the
+    take or restore — a failed probe is one missing sample."""
+
+    _STREAMS = 4
+
+    def __init__(
+        self,
+        storage: StoragePlugin,
+        rank: int,
+        tele: "telemetry.TakeTelemetry",
+    ) -> None:
+        from .knobs import get_probe_bytes, get_probe_interval_bytes
+
+        self.storage = storage
+        self.rank = rank
+        self.tele = tele
+        self.interval_bytes = get_probe_interval_bytes()
+        self.stream_bytes = max(get_probe_bytes() // self._STREAMS, 1 << 20)
+        self.bytes_since_probe = 0
+        self.ran = 0
+        self._buf: Optional[memoryview] = None
+        self._failed = False
+        from . import compress as _compress
+
+        try:
+            # Same device/bucket-scoped key the auto policy looks up —
+            # NOT the bare class label (two fs:// mounts with different
+            # bandwidth must not share a ceiling sample).
+            self._label = _compress.pipe_ceiling_key(storage)
+        except Exception:
+            self._label = ""
+
+    @property
+    def due(self) -> bool:
+        return not self._failed and self.bytes_since_probe >= self.interval_bytes
+
+    def note_written(self, nbytes: int) -> None:
+        self.bytes_since_probe += nbytes
+
+    def _buffer(self) -> memoryview:
+        if self._buf is None:
+            # Random-ish payload (tiled 1 MiB urandom block): constant
+            # fill could be flattered by host-side image compression
+            # and would not match what the take writes.
+            block = os.urandom(1 << 20)
+            reps = (self.stream_bytes + len(block) - 1) // len(block)
+            self._buf = memoryview(block * reps)[: self.stream_bytes]
+        return self._buf
+
+    def _path(self, i: int) -> str:
+        return f"{PROBE_DIR}/rank_{self.rank}_{i}.bin"
+
+    async def run(self) -> None:
+        """One probe segment. Caller guarantees no blob I/O in flight
+        (the scheduler parks its I/O gate until the window drains), so
+        the sample measures the engine, not contention with the take."""
+        self.bytes_since_probe = 0
+        start = self.tele.now()
+        nbytes = self.stream_bytes * self._STREAMS
+        try:
+            buf = self._buffer()
+            paths = [self._path(i) for i in range(self._STREAMS)]
+            t0 = time.monotonic()
+            await asyncio.gather(
+                *(self.storage.write(WriteIO(path=p, buf=buf)) for p in paths)
+            )
+            write_s = time.monotonic() - t0
+            t0 = time.monotonic()
+            await asyncio.gather(
+                *(self.storage.read(ReadIO(path=p)) for p in paths)
+            )
+            read_s = time.monotonic() - t0
+            await asyncio.gather(
+                *(self.storage.delete(p) for p in paths),
+                return_exceptions=True,
+            )
+        except Exception:
+            # One WARNING, then stand down for this take: a backend
+            # that cannot take probe traffic must not eat a retry storm.
+            # Best-effort cleanup of any stream that did land (a
+            # leftover would only be orphan debris for gc, but tidy is
+            # cheaper than debris).
+            self._failed = True
+            logger.warning(
+                "Rank %d: in-take roofline probe failed (non-fatal; "
+                "disabled for the rest of this take)",
+                self.rank,
+                exc_info=True,
+            )
+            try:
+                await asyncio.gather(
+                    *(
+                        self.storage.delete(self._path(i))
+                        for i in range(self._STREAMS)
+                    ),
+                    return_exceptions=True,
+                )
+            except Exception:
+                pass
+            return
+        elapsed = self.tele.now() - start
+        sample = {
+            "write_gbps": round(nbytes / max(write_s, 1e-9) / 1e9, 4),
+            "read_gbps": round(nbytes / max(read_s, 1e-9) / 1e9, 4),
+            "bytes": nbytes,
+            "elapsed_s": round(elapsed, 6),
+        }
+        self.ran += 1
+        # Feed the compression auto policy's ceiling registry: every
+        # probe sample keeps the pipe ceiling a live measurement, so
+        # the next take's compress-or-bypass decision is current.
+        from . import compress as _compress
+
+        _compress.note_pipe_ceiling(self._label, sample["write_gbps"])
+        _compress.note_pipe_ceiling(
+            self._label, sample["read_gbps"], lane="read"
+        )
+        self.tele.add_probe_sample(sample)
+        self.tele.record_span("probe_roofline", start, elapsed, **sample)
+        telemetry.incr("probe.probes", rec=self.tele)
+        telemetry.incr("probe.bytes_written", nbytes, rec=self.tele)
+        flight.record(
+            "probe",
+            write_gbps=sample["write_gbps"],
+            read_gbps=sample["read_gbps"],
+            bytes=nbytes,
+        )
+
+
 class _WriteScheduler:
     """Resumable budget-gated stage ∥ write engine behind every take
     (counterpart of tpusnap's, without its roofline probe, progress
@@ -282,8 +438,17 @@ class _WriteScheduler:
         pipelined_staging: bool = False,
         stage_eagerly: Optional[Callable[[WriteReq], bool]] = None,
         tele: Optional["telemetry.TakeTelemetry"] = None,
+        rank: int = 0,
     ) -> None:
         self.storage = storage
+        # In-take roofline probes: with an enabled recorder (their whole
+        # output is telemetry) and the opt-in knob.
+        self.probe: Optional[_ProbeRunner] = (
+            _ProbeRunner(storage, rank, tele)
+            if tele is not None and tele.enabled and is_probe_enabled()
+            else None
+        )
+        self.bytes_written = 0
         # Counters go to the take's recorder whatever the span knob says.
         self._counters = tele
         self.tele = tele if tele is not None and tele.enabled else None
@@ -365,11 +530,31 @@ class _WriteScheduler:
         # budget-starved (write completions are the only budget source).
         return bool(self.pipelines and not self.staging_tasks)
 
+    def _probe_may_run(self) -> bool:
+        # Never inside a pipelined take's blocked window: a probe there
+        # would bill its I/O to the time async_take blocks training.
+        return self.probe is not None and self.probe.due and not self.blocked
+
     def _dispatch_io(self) -> None:
+        if self._probe_may_run():
+            # Park new blob I/O: the in-flight window drains, the loop
+            # runs the probe against an idle engine, then reopens.
+            return
         if not self._io_gate_open():
             return
         while self.ready_for_io and len(self.io_tasks) < _MAX_IO_CONCURRENCY:
             self.io_tasks.add(asyncio.ensure_future(self.ready_for_io.pop(0).write()))
+
+    async def _maybe_probe(self) -> None:
+        """Run one due probe segment while no blob write is in flight."""
+        if self._probe_may_run() and not self.io_tasks:
+            await self.probe.run()
+
+    def _note_written(self, pipeline: "_WritePipeline") -> None:
+        self.budget += pipeline.buf_size
+        self.bytes_written += pipeline.buf_size
+        if self.probe is not None:
+            self.probe.note_written(pipeline.buf_size)
 
     def _first_window_done(self) -> bool:
         return not self.eager_pending and self.staged_cost_total >= self.first_window_target
@@ -440,9 +625,10 @@ class _WriteScheduler:
                         self.ready_for_io.append(pipeline)
                 else:
                     self.io_tasks.discard(task)
-                    self.budget += pipeline.buf_size
+                    self._note_written(pipeline)
             # Staging first: the I/O gate must see the refilled staging set.
             self._dispatch_staging()
+            await self._maybe_probe()
             self._dispatch_io()
         self._finish_staging()
 
@@ -484,13 +670,23 @@ class _WriteScheduler:
         try:
             await self._pump(stop_at_first_window=False)
             while self.io_tasks or self.ready_for_io:
+                await self._maybe_probe()
                 self._dispatch_io()
                 done, _ = await asyncio.wait(
                     self.io_tasks, return_when=asyncio.FIRST_COMPLETED
                 )
                 for task in done:
                     self.io_tasks.discard(task)
-                    self.budget += task.result().buf_size
+                    self._note_written(task.result())
+            if (
+                self.probe is not None
+                and self.probe.ran == 0
+                and not self.probe._failed
+                and self.bytes_written > 0
+            ):
+                # A take smaller than the probe interval still gets one
+                # sample: every probe-enabled take measures its ceiling.
+                await self.probe.run()
         except BaseException:
             await self._abort()
             raise
@@ -507,6 +703,7 @@ async def execute_write_reqs(
     prioritize_staging: bool = False,
     pipelined_staging: bool = False,
     stage_eagerly: Optional[Callable[[WriteReq], bool]] = None,
+    rank: int = 0,
 ) -> PendingIOWork:
     """Run the write engine to its blocked-window boundary and hand the
     rest back as :class:`PendingIOWork`: ``take`` drains it in the
@@ -519,6 +716,7 @@ async def execute_write_reqs(
         pipelined_staging=pipelined_staging,
         stage_eagerly=stage_eagerly,
         tele=telemetry.current(),
+        rank=rank,
     )
     await sched.run_blocked_window()
     return PendingIOWork(scheduler=sched)
@@ -532,6 +730,7 @@ def sync_execute_write_reqs(
     prioritize_staging: bool = False,
     pipelined_staging: bool = False,
     stage_eagerly: Optional[Callable[[WriteReq], bool]] = None,
+    rank: int = 0,
 ) -> PendingIOWork:
     return run_on_loop(
         event_loop,
@@ -542,6 +741,7 @@ def sync_execute_write_reqs(
             prioritize_staging=prioritize_staging,
             pipelined_staging=pipelined_staging,
             stage_eagerly=stage_eagerly,
+            rank=rank,
         ),
     )
 
@@ -552,9 +752,12 @@ class _ReadPipeline:
         read_req: ReadReq,
         storage: StoragePlugin,
         tele: Optional["telemetry.TakeTelemetry"] = None,
+        ledger: Optional["access.AccessLedger"] = None,
     ) -> None:
         self.read_req = read_req
         self.storage = storage
+        self.ledger = ledger
+        self.read_nbytes = 0
         self._counters = tele
         self.tele = tele if tele is not None and tele.enabled else None
         # Reads landing in the caller's own memory allocate no full-size
@@ -588,6 +791,7 @@ class _ReadPipeline:
             if tele is not None:
                 tele.op_exit(token)
         nbytes = self._read_nbytes()
+        self.read_nbytes = nbytes
         if tele is not None:
             tele.record_span(
                 "storage_read", start, tele.now() - start,
@@ -595,7 +799,27 @@ class _ReadPipeline:
             )
         telemetry.incr("storage.bytes_read", nbytes, rec=self._counters)
         telemetry.incr("storage.reads", rec=self._counters)
+        self._record_access(nbytes)
         return self
+
+    def _record_access(self, nbytes: int) -> None:
+        """Attribute this read to its manifest leaf (or, for a merged
+        spanning read, to each member leaf) in the ambient access
+        ledger. A plugin that redirected the read stamped its source
+        tier on the ReadIO."""
+        ledger = self.ledger
+        if ledger is None:
+            return
+        rr = self.read_req
+        source = self.read_io.source if self.read_io is not None else None
+        if rr.access_parts:
+            for lp, start, end in rr.access_parts:
+                ledger.record(lp, rr.path, start, end, end - start, source)
+            return
+        if not rr.logical_path:
+            return
+        start, end = rr.byte_range if rr.byte_range else (0, nbytes)
+        ledger.record(rr.logical_path, rr.path, start, end, nbytes, source)
 
     def _read_nbytes(self) -> int:
         rio = self.read_io
@@ -630,14 +854,18 @@ async def execute_read_reqs(
     read_reqs: List[ReadReq],
     storage: StoragePlugin,
     memory_budget_bytes: int,
+    rank: int = 0,
 ) -> None:
     executor = ThreadPoolExecutor(
         max_workers=_MAX_CPU_CONCURRENCY, thread_name_prefix="tpusnap-torch-consume"
     )
     tele = telemetry.current()
+    # The ambient access ledger (the restore and read_object scopes
+    # install one); None turns attribution off for this call.
+    ledger = access.current()
     pipelines = deque(
         sorted(
-            (_ReadPipeline(rr, storage, tele) for rr in read_reqs),
+            (_ReadPipeline(rr, storage, tele, ledger) for rr in read_reqs),
             key=lambda p: p.consuming_cost,
             reverse=True,
         )
@@ -645,10 +873,24 @@ async def execute_read_reqs(
     budget = memory_budget_bytes
     read_tasks: Set[asyncio.Task] = set()
     consume_tasks: Set[asyncio.Task] = set()
+    # In-restore roofline probes: the write side's runner, its cadence
+    # counted in payload bytes read. Its own scratch streams go under
+    # PROBE_DIR, never beside blob reads, and cost no memory budget.
+    probe = (
+        _ProbeRunner(storage, rank, tele)
+        if tele is not None and tele.enabled and is_probe_enabled()
+        else None
+    )
+    bytes_read = 0
 
     def dispatch_reads() -> None:
         nonlocal budget
         while pipelines and len(read_tasks) < _MAX_IO_CONCURRENCY:
+            if probe is not None and probe.due:
+                # Park new reads until the window drains and the probe
+                # has run: probe traffic beside blob reads would corrupt
+                # both the sample and the storage_read spans.
+                break
             head = pipelines[0]
             if head.consuming_cost > budget and (read_tasks or consume_tasks):
                 break
@@ -666,13 +908,23 @@ async def execute_read_reqs(
                 pipeline = task.result()
                 if task in read_tasks:
                     read_tasks.discard(task)
+                    bytes_read += pipeline.read_nbytes
+                    if probe is not None:
+                        probe.note_written(pipeline.read_nbytes)
                     consume_tasks.add(
                         asyncio.ensure_future(pipeline.consume(executor))
                     )
                 else:
                     consume_tasks.discard(task)
                     budget += pipeline.consuming_cost
+            if probe is not None and probe.due and not read_tasks:
+                # The read window drained (consumes are host work and do
+                # not touch the pipe): take the sample, then go on.
+                await probe.run()
             dispatch_reads()
+        if probe is not None and probe.ran == 0 and not probe._failed and bytes_read > 0:
+            # A restore smaller than the probe interval still measures once.
+            await probe.run()
     except BaseException:
         await _cancel_and_drain(read_tasks | consume_tasks)
         # Cancelling a task does not stop its executor work: a cloud
@@ -690,7 +942,8 @@ def sync_execute_read_reqs(
     storage: StoragePlugin,
     memory_budget_bytes: int,
     event_loop: asyncio.AbstractEventLoop,
+    rank: int = 0,
 ) -> None:
     run_on_loop(
-        event_loop, execute_read_reqs(read_reqs, storage, memory_budget_bytes)
+        event_loop, execute_read_reqs(read_reqs, storage, memory_budget_bytes, rank=rank)
     )

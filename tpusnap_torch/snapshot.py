@@ -111,9 +111,13 @@ a take commits locally and drains to the remote in the background); the
 content-addressed store (``cas+fs://`` or ``TPUSNAP_CAS_DIR``: ``cas``).
 ``Snapshot.stream`` opens a delta stream of micro-commits (``delta``).
 
-Left out so far, refused by their knobs rather than ignored (ROADMAP.md
-item A9): the consumers of the take's telemetry — metrics export,
-history, SLO, fleet, tuner and access ledger.
+Every take and restore feeds tpusnap's consumers of its telemetry, at
+tpusnap's seams: the export sinks and the cross-run history at its end
+(``telemetry``), the SLO tracker (``slo``: planned bytes, the commit
+anchor, the abort) and the fleet mirror (``fleet``) on the heartbeat
+pump, the access ledger (``access``) around every restore and
+``read_object``, and the tuner (``tune``, ``TPUSNAP_AUTOTUNE=1``) before
+any budget or knob is read.
 """
 
 from __future__ import annotations
@@ -133,7 +137,7 @@ from urllib.parse import urlsplit
 
 import torch
 
-from . import _native, compress, telemetry
+from . import _native, access, compress, telemetry
 from . import flight as _flight
 from .batcher import batch_read_requests, batch_write_requests
 from .comm import Communicator, get_communicator
@@ -160,7 +164,6 @@ from .knobs import (
     is_dedup_hash_recording_forced,
     is_durable_commit_enabled,
     is_journal_disabled,
-    refuse_unported_hooks,
 )
 from .liveness import LeasePublisher, LivenessMonitor, RankFailedError
 from .manifest import (
@@ -296,7 +299,6 @@ class Snapshot:
         caller data for ``metadata.extras`` (a delta stream's chain
         fields); the commit's own additions land beside it."""
         comm = get_communicator(comm)
-        refuse_unported_hooks()
         event_loop = asyncio.new_event_loop()
         abort_ctx = _TakeAbortContext(comm, event_loop)
         tele = telemetry.begin_take(comm.rank)
@@ -314,7 +316,7 @@ class Snapshot:
                 )
                 meta_cached = _commit(
                     pending, metadata, storage, comm, late_checksums, abort_ctx, event_loop,
-                    tele_commit,
+                    tele_commit, path,
                 )
             except RankFailedError as rank_exc:
                 # A peer died. Under TPUSNAP_RANK_FAILURE=degrade (with the
@@ -330,6 +332,9 @@ class Snapshot:
                     raise
                 metadata, meta_cached = degraded, True
                 tele.meta["completed"] = True
+                _record_slo_commit(
+                    tele, metadata, abort_ctx.degrade.take_id, path, comm.rank
+                )
                 abort_ctx.finish_progress("committed")
                 _flight.recorder().end_take("committed")
             except BaseException as e:
@@ -382,7 +387,6 @@ class Snapshot:
         arms the degraded commit for this incremental take, which those
         clones make safe (``delta``)."""
         comm = get_communicator(comm)
-        refuse_unported_hooks()
         event_loop = asyncio.new_event_loop()
         abort_ctx = _TakeAbortContext(comm, event_loop)
         tele = telemetry.begin_take(comm.rank)
@@ -469,7 +473,6 @@ class Snapshot:
         collectives inside ``load_state_dict``."""
         comm = get_communicator(self._comm)
         _validate_app_state(app_state)
-        refuse_unported_hooks()
         with self._op_lock:
             self._restore_locked(app_state, comm, per_key_barrier)
 
@@ -489,11 +492,31 @@ class Snapshot:
         tele = telemetry.begin_restore(comm.rank)
         tele.meta.update(path=self.path, world_size=comm.world_size)
         mark = telemetry.PhaseMarker(rec=tele, from_start=True)
+        # The access ledger's scope is the whole read path: every read
+        # attributes (leaf, byte range, source tier) to this reader. It
+        # is opened by hand, not by ``read_scope``, so that its flush
+        # runs after the telemetry wall has closed.
+        ledger = access.open_ledger(self.path, default_source=self._access_default_source())
         try:
             with telemetry.use(tele):
-                self._restore_instrumented(app_state, comm, per_key_barrier, memory_budget, mark)
+                with access.use(ledger):
+                    self._restore_instrumented(
+                        app_state, comm, per_key_barrier, memory_budget, mark
+                    )
             tele.meta["completed"] = True
         finally:
+            if ledger is not None:
+                # In-memory totals only: the summary needs them, the
+                # flush and the fleet publish wait until after finalize.
+                tele.meta["access"] = {
+                    "bytes_read": ledger.total_bytes,
+                    "reads": ledger.total_reads,
+                    "working_set_bytes": ledger.working_set_bytes(),
+                }
+            # The tuned overlay is scoped to the operation that applied it.
+            from .knobs import clear_tuned_plan
+
+            clear_tuned_plan()
             tele.finalize()
             telemetry.publish_restore_summary(tele.summary())
             if tele.enabled:
@@ -503,6 +526,12 @@ class Snapshot:
                     persist_restore_trace(tele, self.path)
                 except Exception:
                     logger.warning("Failed to persist restore trace (non-fatal)", exc_info=True)
+            if ledger is not None:
+                try:
+                    ledger.flush()
+                except Exception:
+                    logger.debug("access ledger flush failed", exc_info=True)
+                self._publish_access_stats(ledger)
 
     def _restore_instrumented(
         self,
@@ -513,6 +542,22 @@ class Snapshot:
         mark: "telemetry.PhaseMarker",
     ) -> None:
         event_loop, storage = self._resources()
+        try:
+            from .storage_plugin import storage_plugin_label
+
+            # The backend this restore reads (tier-aware): the history
+            # event's ``plugin``, what the SLO RTO estimate filters on.
+            telemetry.current().meta["plugin"] = storage_plugin_label(storage)
+        except Exception:
+            pass
+        # The tuner (TPUSNAP_AUTOTUNE=1) installs this cell's plan before
+        # the budget and knob reads below; the applied subset rides the
+        # summary into the history event.
+        from . import tune as _tune
+
+        tuned = _tune.maybe_apply("restore", storage=storage, world_size=comm.world_size)
+        if tuned:
+            telemetry.current().meta["tuned"] = tuned
         metadata = self._get_metadata(storage, event_loop)
         if memory_budget is None:
             memory_budget = get_process_memory_budget_bytes(comm)
@@ -600,8 +645,49 @@ class Snapshot:
                 logical_path=logical_path,
             )
             budget = memory_budget_bytes or get_process_memory_budget_bytes(comm)
-            sync_execute_read_reqs(read_reqs, storage, budget, event_loop)
+            # Random access is the lazy-serving path the heatmap credits:
+            # this object's reads get a scope of their own, so a partial
+            # reader shows with coverage below 1.
+            with access.read_scope(
+                self.path, default_source=self._access_default_source()
+            ) as ledger:
+                sync_execute_read_reqs(
+                    read_reqs, storage, budget, event_loop, rank=comm.rank
+                )
+            if ledger is not None:
+                self._publish_access_stats(ledger)
             return fut.obj
+
+    def _access_default_source(self) -> str:
+        """Source tier of the access records whose read carries no
+        explicit stamp (the tier and CAS layers stamp theirs)."""
+        try:
+            from .storage_plugin import storage_plugin_label
+
+            _, storage = self._resources()
+            return access.default_source_for_plugin(storage_plugin_label(storage))
+        except Exception:
+            return "local"
+
+    def _publish_access_stats(self, ledger) -> None:
+        """Fold a finished read scope's totals into this process's fleet
+        reader record (the reader side of ``fleet``). Never fails a
+        read."""
+        try:
+            from . import fleet
+            from .progress import _path_digest
+
+            snapshot_bytes = 0
+            if self._metadata is not None:
+                snapshot_bytes = access.snapshot_stored_nbytes(self._metadata)
+            fleet.note_reader_scope(
+                _path_digest(self.path),
+                snapshot_bytes,
+                ledger.total_bytes,
+                ledger.total_reads,
+            )
+        except Exception:
+            logger.debug("fleet reader stats publish failed", exc_info=True)
 
     # ------------------------------------------------------------- integrity
 
@@ -792,6 +878,14 @@ class _TakeAbortContext:
             return
         self._failed = True
         self.finish_progress("aborted")
+        # The SLO tracker drops the dead take's counters but keeps its
+        # exposure: nothing committed, so the planned bytes stay at risk.
+        try:
+            from . import slo as _slo
+
+            _slo.tracker().note_take_aborted()
+        except Exception:
+            pass
         try:
             _flight.record("abort", op=type(exc).__name__)
             _flight.recorder().end_take("aborted")
@@ -1008,6 +1102,14 @@ def _take_impl(
         telemetry.current().meta["plugin"] = storage_plugin_label(storage)
     except Exception:
         pass
+    # The tuner (TPUSNAP_AUTOTUNE=1) installs this cell's plan before the
+    # staging, window and budget knobs are read; explicit env vars win
+    # knob by knob, and the applied subset rides the history event.
+    from . import tune as _tune
+
+    tuned = _tune.maybe_apply("take", storage=storage, world_size=comm.world_size)
+    if tuned and telemetry.current() is not None:
+        telemetry.current().meta["tuned"] = tuned
     storage = _open_journal(
         storage, event_loop, rank, comm.world_size, take_id, incremental_from, abort_ctx,
         stream=(extras or {}).get("delta"),
@@ -1075,11 +1177,27 @@ def _take_impl(
         for wr in write_reqs:
             _arm_clone(wr.buffer_stager)
     abort_ctx.write_paths = [wr.path for wr in write_reqs]
+    planned_payload = sum(wr.buffer_stager.get_planned_bytes() for wr in write_reqs)
     if progress_monitor is not None:
         # The denominator of the heartbeat's byte progress: payload bytes.
-        progress_monitor.set_bytes_planned(
-            sum(wr.buffer_stager.get_planned_bytes() for wr in write_reqs)
+        progress_monitor.set_bytes_planned(planned_payload)
+    # Data at risk (``slo``): everything this take stages is at risk
+    # until its commit; an incremental take refines the figure from its
+    # dedup counters. Recorded with telemetry off too.
+    try:
+        from . import slo as _slo
+
+        rec = mark.rec
+        _slo.tracker().configure(rank, comm.world_size)
+        _slo.tracker().note_planned(
+            planned_payload,
+            incremental=incremental_from is not None,
+            live_counters=(lambda: rec.live_snapshot()["counters"]) if rec is not None else None,
+            # This take's commit makes the state of this instant durable.
+            take_id=take_id,
         )
+    except Exception:
+        logger.debug("slo note_planned failed", exc_info=True)
     if incremental_from is None:
         # Standalone tensor blobs hash on the write path, overlapping
         # other requests' disk time; slab members hash inside their
@@ -1130,6 +1248,7 @@ def _take_impl(
         prioritize_staging=is_async_snapshot and not pipelined,
         pipelined_staging=pipelined,
         stage_eagerly=stage_eagerly,
+        rank=rank,
     )
     abort_ctx.pending = pending
     if pipelined and not pending.staging_complete():
@@ -1309,6 +1428,24 @@ def _start_observability(
                 abort_ctx.arm_liveness(lease, liveness)
             except Exception:
                 logger.warning("Failed to arm rank-liveness leases (non-fatal)", exc_info=True)
+    if progress_monitor is not None:
+        # The SLO gauges (RPO, data at risk, estimated RTO) publish at the
+        # heartbeat cadence, and the ``slo`` sub-dict rides every
+        # heartbeat record; the fleet mirror (TPUSNAP_FLEET_DIR) rides the
+        # same pump.
+        try:
+            from . import slo as _slo
+
+            _slo.tracker().refresh_rto()
+            _slo.attach_to_take(progress_monitor, take_id, comm.rank, comm.world_size)
+        except Exception:
+            logger.warning("Failed to attach SLO tracker (non-fatal)", exc_info=True)
+        try:
+            from . import fleet as _fleet
+
+            _fleet.attach_to_take(progress_monitor)
+        except Exception:
+            logger.warning("Failed to attach fleet publisher (non-fatal)", exc_info=True)
     return progress_monitor
 
 
@@ -1321,6 +1458,7 @@ def _commit(
     abort_ctx: _TakeAbortContext,
     event_loop: asyncio.AbstractEventLoop,
     tele_commit: "_TelemetryCommit",
+    path: str,
 ) -> bool:
     """A sync take's drain and two-phase commit: writes drained, late
     checksums and the telemetry summary published, this rank's trace
@@ -1371,11 +1509,46 @@ def _commit(
         tele_commit.cleanup()
     if tele is not None:
         tele.meta["completed"] = True
+    _record_slo_commit(tele, metadata, tele_commit.take_id, path, comm.rank)
     tele_commit.finish_progress()
     _flight.recorder().end_take("committed")
     if comm.rank == 0:
         _finish_commit(storage, event_loop, abort_ctx, comm.world_size)
     return meta_cached
+
+
+def _record_slo_commit(
+    tele: Optional["telemetry.TakeTelemetry"],
+    metadata: SnapshotMetadata,
+    take_id: Optional[str],
+    path: str,
+    rank: int,
+) -> None:
+    """Anchor the SLO tracker on a definitive commit (every commit path
+    calls this after the metadata write, where ``completed`` is set):
+    close the interval, clear the data at risk, refresh the RTO estimate
+    against this rank's restore view, and fold the ``slo`` section into
+    the summary the history event records. Never fails a take."""
+    try:
+        from . import slo as _slo
+        from .inspect import rank_payload_nbytes
+
+        counters: Dict[str, int] = {}
+        incremental = False
+        if tele is not None:
+            counters = tele.live_snapshot()["counters"]
+            incremental = bool(tele.meta.get("incremental"))
+        section = _slo.tracker().record_commit(
+            take_id or "",
+            path,
+            rank_payload_nbytes(metadata, rank),
+            incremental=incremental,
+            counters=counters,
+        )
+        if tele is not None:
+            tele.meta["slo"] = section
+    except Exception:
+        logger.debug("slo commit record failed", exc_info=True)
 
 
 def _finish_commit(
@@ -1862,7 +2035,7 @@ def _degraded_commit(abort_ctx: _TakeAbortContext, exc: RankFailedError) -> Snap
     if my_reqs:
         adopted_bytes = sum(wr.buffer_stager.get_planned_bytes() for wr in my_reqs)
         sync_execute_write_reqs(
-            my_reqs, ctx.storage, ctx.memory_budget, ctx.event_loop
+            my_reqs, ctx.storage, ctx.memory_budget, ctx.event_loop, rank=rank
         ).sync_complete(ctx.event_loop)
     adopted_payload = {}
     for u in my_units:
@@ -2092,7 +2265,6 @@ def load_snapshot(
     come back as CPU tensors, primitives and pickled objects as values."""
     out: Dict[str, Any] = {}
     budget = memory_budget_bytes or get_process_memory_budget_bytes()
-    refuse_unported_hooks()
     with Snapshot(path, storage_options) as snap:
         with snap._op_lock:
             event_loop, storage = snap._resources()
@@ -2126,6 +2298,7 @@ def _read_and_inflate(
     memory_budget: int,
     event_loop: asyncio.AbstractEventLoop,
     mark: Optional["telemetry.PhaseMarker"] = None,
+    rank: int = 0,
 ) -> Any:
     """Prepare reads (against targets when given), merge them per slab,
     execute under the budget, inflate."""
@@ -2144,7 +2317,7 @@ def _read_and_inflate(
     read_reqs = batch_read_requests(read_reqs)
     if mark is not None:
         mark("restore.prepare", reqs=len(read_reqs))
-    sync_execute_read_reqs(read_reqs, storage, memory_budget, event_loop)
+    sync_execute_read_reqs(read_reqs, storage, memory_budget, event_loop, rank=rank)
     if mark is not None:
         mark("restore.read", reqs=len(read_reqs))
     flattened = {p: fut.obj for p, fut in futures.items()}
@@ -2175,7 +2348,8 @@ def _load_stateful(
     if mark is not None:
         mark("restore.targets", key=key)
     restored = _read_and_inflate(
-        key, local_manifest, target_flattened, storage, memory_budget, event_loop, mark=mark
+        key, local_manifest, target_flattened, storage, memory_budget, event_loop, mark=mark,
+        rank=rank,
     )
     stateful.load_state_dict(restored)
     if mark is not None:
@@ -2348,6 +2522,9 @@ class PendingSnapshot(_BackgroundWork):
             logger.debug("store gc after the degraded commit failed", exc_info=True)
         if self._tele is not None:
             self._tele.meta["completed"] = True
+        _record_slo_commit(
+            self._tele, metadata, self._abort_ctx.degrade.take_id, self.path, self._comm.rank
+        )
         if self._tele_commit is not None:
             self._tele_commit.finish_progress()
         _flight.recorder().end_take("committed")
@@ -2417,6 +2594,13 @@ class PendingSnapshot(_BackgroundWork):
             logger.debug("store gc after the async commit failed", exc_info=True)
         if tele is not None:
             tele.meta["completed"] = True
+        _record_slo_commit(
+            tele,
+            self._metadata,
+            self._tele_commit.take_id if self._tele_commit is not None else None,
+            self.path,
+            self._comm.rank,
+        )
         if self._tele_commit is not None:
             self._tele_commit.finish_progress()
         _flight.recorder().end_take("committed")

@@ -3,10 +3,10 @@
 Counterpart of tpusnap/telemetry.py, with the same span, phase and
 counter names, so a trace from either package reads the same (tpusnap's
 ``python -m tpusnap trace`` reads the port's). The device-to-host copy's
-``dtoh`` span closes when the copy's CUDA event has completed. The
-summary's consumers that are not ported (metrics export, history,
-tuner; ROADMAP.md A9) are refused by their knobs at the take
-(``knobs.refuse_unported_hooks``).
+``dtoh`` span closes when the copy's CUDA event has completed, and a
+restore's ``consume`` span when its host-to-device copy has. Each
+summary feeds the export sinks (``metrics_export``), the cross-run
+history (``history``) and, through them, the tuner (``tune``).
 
 The paper's core claims — overlapped DtoH and storage I/O, memory-budget
 driven scheduling, write load spread across ranks — are only verifiable
@@ -116,6 +116,12 @@ class MetricsSink:
     def on_restore_summary(self, summary: Dict[str, Any]) -> None:
         pass
 
+    def on_slo_update(self, state: Dict[str, Any]) -> None:
+        """A checkpoint-SLO state refresh (``slo``): RPO, data at risk,
+        estimated RTO, commit interval; pushed at heartbeat cadence while
+        a take runs and at every commit."""
+        pass
+
     def on_tier_update(self, state: Dict[str, Any]) -> None:
         """A write-back tier status refresh (``tiering``): upload lag in
         bytes and seconds, degraded flag."""
@@ -184,6 +190,12 @@ def _notify(method: str, *args) -> None:
                     method,
                     exc_info=True,
                 )
+
+
+def notify_slo_update(state: Dict[str, Any]) -> None:
+    """Fan one SLO state refresh out to every sink (the ``slo``
+    publisher's sink leg)."""
+    _notify("on_slo_update", state)
 
 
 def notify_tier_update(state: Dict[str, Any]) -> None:
@@ -807,6 +819,12 @@ def _begin_common() -> None:
     # reconcile env-driven export sinks (TPUSNAP_METRICS_EXPORT may
     # have changed since the last take; best-effort, never fatal).
     _reset_sink_warnings()
+    try:
+        from .metrics_export import install_env_sinks
+
+        install_env_sinks()
+    except Exception:
+        logger.warning("Failed to install metrics export sinks (non-fatal)", exc_info=True)
 
 
 def begin_take(rank: int) -> TakeTelemetry:
@@ -855,11 +873,26 @@ def end_take(rec: TakeTelemetry) -> None:
     summary: LAST_TAKE_SUMMARY, the sinks' on_take_summary, and — for
     COMPLETED takes only — one cross-run history event."""
     global LAST_TAKE_SUMMARY
+    # The tuner's overlay is scoped to the take that applied it (every
+    # take path, sync, async or aborted, ends here); knob reads after it
+    # see the plain environment. The summary still carries meta["tuned"].
+    try:
+        from .knobs import clear_tuned_plan
+
+        clear_tuned_plan()
+    except Exception:
+        pass
     rec.finalize()
     release_global(rec)
     summary = rec.summary()
     LAST_TAKE_SUMMARY = summary
     _notify("on_take_summary", summary)
+    try:
+        from .history import record_summary
+
+        record_summary("take", summary)
+    except Exception:
+        logger.debug("history record failed", exc_info=True)
 
 
 def publish_restore_summary(summary: Dict[str, Any]) -> None:
@@ -869,6 +902,12 @@ def publish_restore_summary(summary: Dict[str, Any]) -> None:
     global LAST_RESTORE_SUMMARY
     LAST_RESTORE_SUMMARY = summary
     _notify("on_restore_summary", summary)
+    try:
+        from .history import record_summary
+
+        record_summary("restore", summary)
+    except Exception:
+        logger.debug("history record failed", exc_info=True)
 
 
 @contextmanager

@@ -1277,7 +1277,7 @@ class DrainManager:
             except Exception:
                 logger.warning(
                     "background drain of %r failed (will not retry until "
-                    "the next take or an explicit `tiering.drain_snapshot`)",
+                    "the next take or an explicit `tpusnap_torch drain`)",
                     local_dir,
                     exc_info=True,
                 )
