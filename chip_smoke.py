@@ -14,15 +14,23 @@ Phases, in order:
 1. device  — the card's name and power limit (nvidia-smi).
 2. build   — g++ and nvcc builds, started together; their seconds, each
              kernel instantiation's registers and spill bytes (ptxas) and
-             HGMMA count (cuobjdump -sass). Fails if the D=64 bf16 wgmma
-             kernel spills or a wgmma kernel has no HGMMA instruction.
+             HGMMA count (cuobjdump -sass). Fails if the D=64 bf16 flash
+             or ring block wgmma kernel spills or a wgmma kernel has no
+             HGMMA instruction.
 3. kernels — every kernel of the port against its plain PyTorch version
              on the card at the main path's shape and at ragged and
              strided shapes, on the route each input takes, a bitwise
              repeat check, and the tensor-core kernel's time beside the
              simt kernel's, the plain version's, one PyTorch library
              call's as a yardstick, and the least time the card could take
-             for the same work.
+             for the same work. The ring block kernel at the flagship's
+             ring block (8, 512, 8, 64) bf16 as a diagonal, a past and a
+             future block with a non-trivial incoming carry (rows that
+             have seen nothing among them), the ring of one's single
+             block (8, 1024, 8, 64) from the empty carry, ragged f16/bf16 blocks at
+             offsets that cut tiles and f32 (simt), each held per element
+             to ``ring_attention.rounding_bound``; its past and diagonal
+             block times (no library call computes the carry).
 4. train   — the flagship transformer at its full default width trains
              5 Adam steps on the card; the attention forward must run
              the flash kernel n_layers x steps times.
@@ -122,7 +130,18 @@ Phases, in order:
              taken, then read dense with read_object and placed
              column-wise. The parent restores both world-2 snapshots into
              world 1 (2 -> 1), bit for bit, in place, pinning kept.
-18. crash  — the crash-safe take (every take journals itself, records
+18. ring   — the flagship at full width with use_ring_attention: two
+             ranks on the one card (gloo) each hold half of every
+             sequence; the group's loss must equal the single-process
+             dense model's within 1e-4 relative and each rank's logits
+             the dense model's per element within 0.2 (the ring of one's
+             too), rank 0 launching the ring block kernel 4 times (its
+             future blocks skipped) and rank 1 8 times. Then a ring-of-one replica trains 3 Adam
+             steps; its train state is taken and restored into a fresh
+             ring model and into a fresh dense model, each bit for bit
+             with Parameter identity and a post-restore step equal to a
+             witness's.
+19. crash  — the crash-safe take (every take journals itself, records
              telemetry and a flight log). A fresh flagship trained one
              step; its train state (saved to a file, setup) is loaded by
              a spawned child, which takes it through chaos+fs:// with
@@ -134,19 +153,19 @@ Phases, in order:
              process's .tmp debris. Then a child's async take of the
              4 GiB bulk, add_(1) at once, killed mid-drain: the retake
              restores the state at the call.
-19. chaos  — the train state through chaos+fs:// under a seeded plan
+20. chaos  — the train state through chaos+fs:// under a seeded plan
              (a transient error per op and every 5th op, 1 ms latency,
              torn writes), batching off: take and restore converge under
              retry (retries counted), the restore reads as many blobs in
              place as a plain path's; an async take under the plan with a
              train step at once holds the state at the call.
-20. liveness — three two-rank worlds at once (TPUSNAP_LIVENESS_TTL_S=2):
+21. liveness — three two-rank worlds at once (TPUSNAP_LIVENESS_TTL_S=2):
              rank 1 SIGKILLed by a hook in its process at its first
              stage, first blob write or commit barrier; rank 0 raises
              RankFailedError naming it within 3x the TTL (seconds
              printed), the merged flight timeline names rank 1, the
              directory is torn with salvage records.
-21. degrade — three two-rank worlds at once (TPUSNAP_RANK_FAILURE=
+22. degrade — three two-rank worlds at once (TPUSNAP_RANK_FAILURE=
              degrade): a replicated sync take whose rank 1 dies after its
              first blob write, committed by rank 0 (adopted bytes
              printed, extras["degraded"]); an async take with a train step
@@ -154,13 +173,13 @@ Phases, in order:
              on its first write) SIGKILLed: the committed snapshot equals
              the state at the call, bitwise; a Shard(0) DTensor take
              whose peer dies refuses to degrade and is torn.
-22. lifecycle_ab — printed, not gated: the bulk take and the train
+23. lifecycle_ab — printed, not gated: the bulk take and the train
              state's take and restore with the default layers against
              TPUSNAP_DISABLE_JOURNAL=1 TPUSNAP_TELEMETRY=0, compression off,
              three of each in turns after a warm-up round; the
              distributed phase also times its take at a 0.5 s and a
              0.02 s heartbeat and with telemetry off.
-23. delta  — Snapshot.stream of a fresh flagship's train state
+24. delta  — Snapshot.stream of a fresh flagship's train state
              (cadence 0.5 s, TPUSNAP_DELTA_MAX_CHAIN=4, compression off)
              while it trains 12 Adam steps paced to 0.25 s, mark_step()
              after each; a device clone of the state at every boundary.
@@ -176,7 +195,7 @@ Phases, in order:
              seconds each capture blocked mark_step, step times with and
              without a stream, each member's payload bytes, the members
              retired by compaction.
-24. delta_elastic — two ranks on the card, each a full replica of the
+25. delta_elastic — two ranks on the card, each a full replica of the
              lifecycle model, replicated=["**"], TPUSNAP_LIVENESS_TTL_S=2,
              TPUSNAP_RANK_FAILURE=degrade: a clean two-rank epoch, every
              tensor changed in place, then rank 1 SIGKILLed at its first
@@ -184,7 +203,7 @@ Phases, in order:
              degraded and streams on alone; the head restores bit for
              bit. Prints the detection seconds, the adopted bytes and
              each member's world from extras["delta"]["world"].
-25. tier   — the 4 GiB bulk through tier+local=<a>+remote=chaos+fs://<b>
+26. tier   — the 4 GiB bulk through tier+local=<a>+remote=chaos+fs://<b>
              while every remote op fails for 10 s (an outage), beside a
              plain take; the background drain converges once the outage
              ends (durable marker); gc --evict-local (retention 0); a
@@ -192,14 +211,14 @@ Phases, in order:
              Then the train state through a tier, and 5 train steps while
              its drain runs against 5 without. Both tiers are on the one
              local disk.
-26. cas    — two job ids take the lifecycle model's train state into two
+27. cas    — two job ids take the lifecycle model's train state into two
              directories with one TPUSNAP_CAS_DIR (batching off: slab
              blobs are named per take and never dedup): the second
              publishes 0 bytes and the store holds the state once; each
              restores into CUDA tensors in place, bit for bit; one is
              deleted and gc_store keeps the shared blobs; the other still
              restores. The other job's snapshot and the store stay for cli.
-27. observe — every consumer of the take's telemetry on (history, the
+28. observe — every consumer of the take's telemetry on (history, the
              Prometheus textfile and JSONL sinks, the SLO thresholds, the
              fleet mirror, the access ledger, the roofline probe;
              compression off): a fresh flagship trains, record_slo_step()
@@ -217,9 +236,10 @@ Phases, in order:
              but the probe against all off, three takes each,
              interleaved); an autotuned take whose history event carries
              the plan id that `tune` prints.
-28. cli    — ``python -m tpusnap_torch`` in subprocesses on what observe,
+29. cli    — ``python -m tpusnap_torch`` in subprocesses on what observe,
              crash (a copy of its torn take), tier (the remote-durable
-             train state), cas and delta left: every subcommand but lint,
+             train state), cas and delta left: every subcommand (lint
+             --check over the package's own source),
              each exit code held to the contract for that state (the
              --check gates to the verdict the library gives for the same
              files), watch --once on a take whose writes are held back;
@@ -232,8 +252,11 @@ that runs the model — train + snapshot, async_train, incremental, each
 rank of distributed, sharded and layouts, sharded's parent, moe, the
 lifecycle model with crash and chaos, rank 0 of the sync and async
 degrade worlds, delta, tier with cas, and observe — and read just after
-it: the kernels phase's comparison launches do not count.
-Every main-path launch must take the wgmma route. The incremental,
+it: the kernels phase's comparison launches do not count. The ring block
+kernel's counts (and its skipped future blocks) are set to 0 at the same
+points and read for each rank of the ring phase and for its replica
+(the dense model restored from the replica's snapshot counts as a flash
+path). Every main-path launch must take the wgmma route. The incremental,
 transforms and the four A8b phases run with compression off, so their
 byte counts are the tensors' own.
 """
@@ -251,6 +274,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -261,6 +285,8 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
 
 # The flagship transformer's attention shape: batch 8, seq 1024, 8 heads of 64.
 SLICE_SHAPE = (8, 1024, 8, 64)
+# One rank's block of it when two ranks split the sequence (the ring phase).
+RING_BLOCK_SHAPE = (8, 512, 8, 64)
 TRAIN_STEPS = 5
 SEED = 0
 
@@ -330,10 +356,19 @@ def attention_flops(shape, causal: bool) -> int:
 
 
 def _kernel_label(mangled: str) -> str:
-    """``wgmma<bf16,64>``-style label of a mangled flash kernel name."""
+    """``wgmma<bf16,64>``-style label of a mangled kernel name: ``wgmma`` and
+    ``simt`` for the flash kernels, ``ring_wgmma`` and ``ring_simt`` for the
+    ring block kernels (their source file's name is in every mangled name
+    of that file, so the kernel's own name is matched with its template
+    arguments' ``I``)."""
     import re
 
-    kind = "wgmma" if "flash_fwd_wgmma" in mangled else "simt"
+    if "ring_block_wgmmaI" in mangled:
+        kind = "ring_wgmma"
+    elif "ring_block_simtI" in mangled:
+        kind = "ring_simt"
+    else:
+        kind = "wgmma" if "flash_fwd_wgmma" in mangled else "simt"
     dtype = ("bf16" if "__nv_bfloat16" in mangled else "f16" if "6__half" in mangled
              else "f32")
     dim = re.search(r"Li(\d+)E", mangled)
@@ -391,10 +426,11 @@ def phase_build() -> dict:
     if _native.checksum_algorithm() != "crc32c":
         raise RuntimeError("native build missing: checksums would not be crc32c")
     hgmma = _hgmma_counts(fa._SO, fa._nvcc())
-    flagship = ptxas.get("wgmma<bf16,64>")
-    if not flagship or flagship.get("spill_stores", 1) or flagship.get("spill_loads", 1):
-        raise AssertionError(f"the D=64 bf16 wgmma kernel spills or is missing: {flagship}")
-    wgmma = {k: n for k, n in hgmma.items() if k.startswith("wgmma")}
+    for label in ("wgmma<bf16,64>", "ring_wgmma<bf16,64>"):
+        row = ptxas.get(label)
+        if not row or row.get("spill_stores", 1) or row.get("spill_loads", 1):
+            raise AssertionError(f"the D=64 bf16 kernel {label} spills or is missing: {row}")
+    wgmma = {k: n for k, n in hgmma.items() if k.split("<")[0].endswith("wgmma")}
     if not wgmma or not all(wgmma.values()):
         raise AssertionError(f"a tensor-core kernel has no HGMMA instruction: {hgmma}")
     for label, row in ptxas.items():
@@ -503,9 +539,12 @@ def phase_kernels() -> dict:
         simt_ms = time_ms(lambda: flash_attention(qm, km, vm, causal=True), reps)
     bound_ms, bound_by = attention_bound(SLICE_SHAPE, "bfloat16", True)
     flops = attention_flops(SLICE_SHAPE, True)
+    ring_row, ring_checks = _ring_block_kernel_checks(gen)
     return {
         "phase": "kernels",
         "checks": checks,
+        "ring_checks": ring_checks,
+        "ring_block_attend": ring_row,
         "bitwise_repeat": True,
         "flash_attention_fwd": {
             "shape": list(SLICE_SHAPE), "dtype": "bfloat16", "causal": True,
@@ -518,6 +557,138 @@ def phase_kernels() -> dict:
             "max_abs_err": checks[0]["max_abs_err"],
         },
     }
+
+
+def ring_block_bound(shape, dtype: str, pairs: int):
+    """(least ms, "bytes" or "operations") for one ring block step at
+    ``shape``: the larger of the bytes (q, k, v read once; the f32 carry
+    o, m and l read once and written once) over HBM and the operations
+    of the ``pairs`` (query, key) pairs the mask keeps (QK^T and PV, 2 per
+    multiply-add) over the peak rate of the inputs' type."""
+    b, s, h, d = shape
+    itemsize = {"bfloat16": 2, "float16": 2, "float32": 4}[dtype]
+    nbytes = 3 * b * s * h * d * itemsize + 2 * b * s * h * d * 4 + 4 * b * h * s * 4
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * 4 * b * h * d * pairs / PEAK_FLOPS[dtype]
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def _ring_carry(shape, gen):
+    """A non-trivial incoming carry for a ring block step: m around the
+    scores, l > 0, o random, and every 7th row (from row 1) one that has
+    seen nothing yet (m = -1e30, l = 0, o = 0)."""
+    import torch
+
+    b, s, h, d = shape
+    m = torch.randn((b, h, s), generator=gen, device="cuda")
+    l = torch.rand((b, h, s), generator=gen, device="cuda") * 2 + 0.5
+    o = torch.randn((b, s, h, d), generator=gen, device="cuda")
+    m[:, :, 1::7], l[:, :, 1::7], o[:, 1::7] = -1e30, 0.0, 0.0
+    return m, l, o
+
+
+def _ring_block_kernel_checks(gen):
+    """The ring block kernel against ``block_attend`` on the card: the
+    flagship's ring block (bf16, q, k, v head-split views of a fused qkv
+    like the model's) as a diagonal, a past and a future block with a
+    non-trivial incoming carry, the ring of one's single diagonal block
+    over the whole sequence from the empty carry (m = -1e30, l = o = 0)
+    as the ring-of-one replica runs it, then f16 ragged blocks at offsets
+    that cut tiles, and f32 (simt). Per element |new - plain| <= the carry's
+    rounding bound (``ring_attention.rounding_bound``: u (P |V|) for P's
+    rounding to the input type before P V, plus 1e-5 relative f32 slack
+    and 1e-6). A future block must be skipped, no launch, and leave the
+    carry bit for bit. Then the times of the past and the diagonal block
+    (CUDA-graph replays), the plain version's and the bound."""
+    import importlib
+
+    import torch
+
+    ra = importlib.import_module("tpusnap_torch.ops.ring_attention")
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    b, s, h, d = RING_BLOCK_SHAPE
+    cases = [
+        # shape, dtype, q_offset, k_offset, causal, qkv views, route
+        (RING_BLOCK_SHAPE, bf16, s, s, True, True, "wgmma"),
+        (RING_BLOCK_SHAPE, bf16, s, 0, True, True, "wgmma"),
+        (RING_BLOCK_SHAPE, bf16, 0, s, True, True, None),
+        (SLICE_SHAPE, bf16, 0, 0, True, True, "wgmma"),
+        ((2, 200, 3, 128), f16, 100, 164, True, False, "wgmma"),
+        ((2, 200, 3, 40), bf16, 237, 200, True, False, "wgmma"),
+        ((2, 300, 3, 64), bf16, 0, 0, False, False, "wgmma"),
+        ((1, 130, 2, 64), f32, 130, 130, True, False, "simt"),
+        ((1, 130, 2, 32), f32, 50, 90, True, False, "simt"),
+    ]
+    checks = []
+    with torch.no_grad():
+        for shape, dtype, q_off, k_off, causal, views, route in cases:
+            if views:
+                q, k, v = _qkv_views(shape, dtype, gen)
+            else:
+                q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                           for _ in range(3))
+            if shape == SLICE_SHAPE:  # the ring of one starts from the empty carry
+                carry = ra._init_carry(q)
+            else:
+                carry = _ring_carry(shape, gen)
+            before = [t.clone() for t in carry]
+            scale = shape[-1] ** -0.5
+            want = ra.block_attend(q, k, v, *before, q_off, k_off, scale, causal)
+            bounds = ra.rounding_bound(q, k, v, *before, q_off, k_off, scale, causal)
+            routes0, skips0 = dict(ra.route_launches), ra.skips
+            ra.attend_block(q, k, v, *carry, q_off, k_off, scale, causal)
+            torch.cuda.synchronize()
+            moved = {r: ra.route_launches[r] - routes0[r] for r in routes0}
+            if route is None:
+                if ra.skips != skips0 + 1 or any(moved.values()):
+                    raise AssertionError(f"a future block launched: {moved}")
+                if not all(torch.equal(a, c) for a, c in zip(carry, before)):
+                    raise AssertionError("a future block changed the carry")
+            elif moved != {r: int(r == route) for r in moved}:
+                raise AssertionError(f"ring block expected one {route} launch, got {moved}")
+            worst, errs = 0.0, {}
+            for name, got, ref, bound in zip("mlo", carry, want, bounds):
+                diff = (got - ref).abs()
+                errs[name] = diff.max().item()
+                worst = max(worst, (diff / bound).max().item())
+            if not worst <= 1.0:
+                raise AssertionError(
+                    f"ring block kernel ({route}) disagrees with block_attend at {shape} "
+                    f"{dtype} offsets ({q_off}, {k_off}) causal={causal}: max |err| {errs}, "
+                    f"{worst}x the allowed bound"
+                )
+            checks.append({
+                "shape": list(shape), "dtype": str(dtype).split(".")[-1],
+                "q_offset": q_off, "k_offset": k_off, "causal": causal,
+                "route": route or "skipped", "max_abs_err": errs,
+                "worst_err_over_bound": worst,
+            })
+        q, k, v = _qkv_views(RING_BLOCK_SHAPE, bf16, gen)
+        carry = _ring_carry(RING_BLOCK_SHAPE, gen)
+        first = [t.clone() for t in carry]
+        ra.attend_block(q, k, v, *first, s, 0, d**-0.5, True)
+        second = [t.clone() for t in carry]
+        ra.attend_block(q, k, v, *second, s, 0, d**-0.5, True)
+        if not all(torch.equal(x, y) for x, y in zip(first, second)):
+            raise AssertionError("two ring block launches on the same inputs differ")
+        reps = 30
+        ms = time_ms(lambda: ra.attend_block(q, k, v, *carry, s, 0, d**-0.5, True), reps)
+        diag_ms = time_ms(lambda: ra.attend_block(q, k, v, *carry, s, s, d**-0.5, True), reps)
+        plain_ms = time_ms(lambda: ra.block_attend(q, k, v, *carry, s, 0, d**-0.5, True), 10)
+    bound_ms, bound_by = ring_block_bound(RING_BLOCK_SHAPE, "bfloat16", s * s)
+    diag_bound_ms, _ = ring_block_bound(RING_BLOCK_SHAPE, "bfloat16", s * (s + 1) // 2)
+    row = {
+        "shape": list(RING_BLOCK_SHAPE), "dtype": "bfloat16", "route": "wgmma",
+        "ms": ms, "block": "past (every pair)", "diagonal_ms": diag_ms,
+        "diagonal_bound_ms": diag_bound_ms, "plain_ms": plain_ms, "library_ms": None,
+        "library": "none: no single PyTorch call returns the carry (m, l, o)",
+        "bound_ms": bound_ms, "bound_by": bound_by, "bound_share": bound_ms / ms,
+        "timed_launches": reps,
+        "max_abs_err": max(max(c["max_abs_err"].values()) for c in checks[:2]),
+        "ring_of_one_max_abs_err": checks[3]["max_abs_err"],
+        "bitwise_repeat": True,
+    }
+    return row, checks
 
 
 def _tokens(cfg, batch: int, seed: int):
@@ -2381,6 +2552,184 @@ _LIFE_ENV = {
 _CRASH_AFTER_WRITES = 10
 
 
+_RING_LINE = "ring_rank "
+# The ring's loss (the two ranks' group, and the ring of one) against the
+# single-process dense model's on the same weights and tokens, relative.
+# On an H100 (700 W): 1.0e-5 (group) and 1.4e-6 (ring of one), as both
+# round P to bf16, at a block's running maximum or the row's. The loss
+# alone moves little when a block is lost: the logits are held too.
+RING_LOSS_RTOL = 1e-4
+# Each rank's logits (and the ring of one's) against the dense model's at
+# the same positions, per element: the largest |difference| allowed. On
+# an H100 (700 W): 0.030, 0.042 and 0.031 on logits up to 5.8 in
+# magnitude.
+RING_LOGITS_ATOL = 0.2
+
+
+def _ring_rank(rdir: str) -> None:
+    """One rank of the ring phase's sequence-parallel forward (both ranks
+    on the one card, gloo): the flagship at full width with ring
+    attention, this rank's contiguous half of every sequence, the
+    group's next-token loss; then (its launches read) this rank's logits
+    against the dense model's at the same positions, per element.
+    Prints one line ``ring_rank {json}``."""
+    import importlib
+
+    import torch
+    import torch.distributed as dist
+
+    from tpusnap_torch.models import Transformer, TransformerConfig
+    from tpusnap_torch.ops import flash_attention as fa
+
+    ra = importlib.import_module("tpusnap_torch.ops.ring_attention")
+    if not torch.cuda.is_available():
+        raise AssertionError("a rank of the ring phase sees no CUDA device")
+    torch.cuda.set_device(0)
+    rank, n = dist.get_rank(), dist.get_world_size()
+    cfg = TransformerConfig(use_ring_attention=True)
+    model = Transformer(cfg, device="cuda", seed=SEED)
+    tokens = _tokens(cfg, 8, SEED)
+    blk = cfg.max_seq_len // n
+    mine = tokens[:, rank * blk : (rank + 1) * blk].contiguous()
+    _reset_launches()
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = model.loss(mine, ring_group=dist.group.WORLD)
+        torch.cuda.synchronize()
+        forward_s = time.perf_counter() - t0
+    out = {
+        "rank": rank, "loss": loss.item(), "forward_s": forward_s,
+        "ring_launches": ra.launches, "ring_routes": dict(ra.route_launches),
+        "ring_skips": ra.skips, "flash_launches": fa.launches,
+    }
+    with torch.no_grad():
+        got = model(mine, ring_group=dist.group.WORLD)
+        dense = Transformer(TransformerConfig(), device="cuda", seed=SEED)
+        want = dense(tokens)[:, rank * blk : (rank + 1) * blk]
+        out["logits_max_abs_err"] = (got - want).abs().max().item()
+        out["logits_max_abs"] = want.abs().max().item()
+    print(_RING_LINE + json.dumps(out), flush=True)
+
+
+def phase_ring(ctx: dict, workdir: str) -> dict:
+    """Ring attention at the flagship's full width. (1) Two ranks on the
+    one card split every sequence 512 + 512 and run the forward through
+    the ring block kernel (K/V rotating through pinned host buffers over
+    gloo): the group's loss must equal the single-process dense model's
+    (flash kernel) within RING_LOSS_RTOL, and each rank's logits the
+    dense model's at its positions within RING_LOGITS_ATOL per element,
+    as must the ring of one's over the whole sequence; rank 0 launches 4
+    (its future blocks skipped), rank 1 launches 8. (2) A ring-of-one replica trains
+    3 Adam steps, its train state is taken and restored into a fresh
+    ring model (bit for bit, Parameter identity, a post-restore step
+    equal to a witness's) and into a fresh dense model (sequence
+    parallelism is a layout of the computation, not of the state)."""
+    import importlib
+
+    import torch
+
+    from tpusnap_torch import Snapshot, StateDict
+    from tpusnap_torch.models import Transformer, TransformerConfig
+    from tpusnap_torch.test_utils import run_subprocess_world
+
+    ra = importlib.import_module("tpusnap_torch.ops.ring_attention")
+    t_phase = time.perf_counter()
+    rdir = os.path.join(workdir, "ring")
+    os.makedirs(rdir)
+    t0 = time.perf_counter()
+    outputs = run_subprocess_world(_ring_rank, world_size=2, args=[rdir], timeout=600)
+    world_s = time.perf_counter() - t0
+    ranks = []
+    for r, text in enumerate(outputs):
+        lines = [ln for ln in text.splitlines() if ln.startswith(_RING_LINE)]
+        if len(lines) != 1:
+            raise AssertionError(f"ring rank {r} printed no result:\n{text[-4000:]}")
+        ranks.append(json.loads(lines[0][len(_RING_LINE):]))
+    cfg_ring, cfg_dense = TransformerConfig(use_ring_attention=True), TransformerConfig()
+    expect = [(cfg_ring.n_layers, cfg_ring.n_layers), (2 * cfg_ring.n_layers, 0)]
+    for r, (launches, skips) in zip(ranks, expect):
+        if (r["ring_launches"], r["ring_skips"]) != (launches, skips):
+            raise AssertionError(
+                f"ring rank {r['rank']}: {r['ring_launches']} launches, {r['ring_skips']} "
+                f"skips; expected {launches} and {skips}"
+            )
+        if r["ring_routes"] != {"wgmma": launches, "simt": 0}:
+            raise AssertionError(f"ring rank {r['rank']} launches by route {r['ring_routes']}")
+        if r["flash_launches"]:
+            raise AssertionError(f"ring rank {r['rank']} launched the flash kernel")
+    if ranks[0]["loss"] != ranks[1]["loss"]:
+        raise AssertionError(f"the ranks' group losses differ: {ranks}")
+    tokens = _tokens(cfg_dense, 8, SEED)
+    with torch.no_grad():
+        dense, one = (Transformer(c, device="cuda", seed=SEED) for c in (cfg_dense, cfg_ring))
+        dense_loss, one_block_loss = dense.loss(tokens).item(), one.loss(tokens).item()
+        want = dense(tokens)
+        one_logits_err = (one(tokens) - want).abs().max().item()
+        del dense, one, want
+    group_loss = ranks[0]["loss"]
+    rel = abs(group_loss - dense_loss) / abs(dense_loss)
+    one_rel = abs(one_block_loss - dense_loss) / abs(dense_loss)
+    for what, loss, r in (("group", group_loss, rel), ("ring of one", one_block_loss, one_rel)):
+        if not (loss == loss and r <= RING_LOSS_RTOL):
+            raise AssertionError(
+                f"ring {what} loss {loss!r} vs dense {dense_loss!r}: relative "
+                f"{r} > {RING_LOSS_RTOL}"
+            )
+    logits_err = [r["logits_max_abs_err"] for r in ranks] + [one_logits_err]
+    if not all(e <= RING_LOGITS_ATOL for e in logits_err):
+        raise AssertionError(
+            f"ring logits vs dense, max |err| (rank 0, rank 1, ring of one): "
+            f"{logits_err} > {RING_LOGITS_ATOL}"
+        )
+
+    # (2) a ring-of-one replica trains, takes, restores into ring and dense.
+    _reset_launches()
+    model = Transformer(cfg_ring, device="cuda", seed=SEED + 11)
+    losses, step_s = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(model.train_step(tokens, learning_rate=1e-3).item())
+        step_s.append(time.perf_counter() - t0)
+    if not all(x == x and abs(x) != float("inf") for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"ring replica losses {losses}")
+    path = os.path.join(rdir, "replica")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    Snapshot.take(path, {"train": StateDict(**model.train_state())})
+    take_s = time.perf_counter() - t0
+    want = _clone_state(model)
+    ring_restore_s, ring_loss = _restore_and_check(
+        path, want, Transformer(cfg_ring, device="cuda", seed=SEED + 12),
+        Transformer(cfg_ring, device="cuda", seed=SEED + 13), tokens,
+    )
+    replica_launches, replica_routes = ra.launches, dict(ra.route_launches)
+    if replica_launches != cfg_ring.n_layers * 5 or replica_routes["simt"]:
+        raise AssertionError(
+            f"ring replica: {replica_launches} launches {replica_routes}; expected "
+            f"{cfg_ring.n_layers * 5} (3 steps, then one step of each restored model), all wgmma"
+        )
+    dense_restore_s, dense_step_loss = _restore_and_check(
+        path, want, Transformer(cfg_dense, device="cuda", seed=SEED + 14),
+        Transformer(cfg_dense, device="cuda", seed=SEED + 15), tokens,
+    )
+    shutil.rmtree(rdir)
+    return {
+        "phase": "ring", "config": "TransformerConfig(use_ring_attention=True), full width",
+        "ranks": ranks, "world_s": world_s, "group_loss": group_loss,
+        "dense_loss": dense_loss, "one_block_loss": one_block_loss,
+        "group_vs_dense_rel": rel, "one_block_vs_dense_rel": one_rel, "rtol": RING_LOSS_RTOL,
+        "logits_max_abs_err": logits_err, "logits_atol": RING_LOGITS_ATOL,
+        "replica_losses": losses, "replica_step_s": step_s, "take_s": take_s,
+        "ring_restore_s": ring_restore_s, "ring_post_restore_loss": ring_loss,
+        "dense_restore_s": dense_restore_s, "dense_post_restore_loss": dense_step_loss,
+        "replica_ring_launches": replica_launches, "replica_ring_routes": replica_routes,
+        "bit_exact": True, "parameter_identity": True,
+        "seconds": time.perf_counter() - t_phase, "card": ctx["card"],
+    }
+
+
 def _lifecycle_model(ctx: dict, workdir: str):
     """The flagship at full width from a seed, one Adam step (the flash
     kernel runs), its train state saved to a file (smoke setup) so that
@@ -3051,31 +3400,43 @@ def phase_delta(ctx: dict, workdir: str) -> dict:
         boundaries[int(model.opt_state["step"])].append(_clone_state(model))
 
     blocked = []
-    # Every member is restored into a fresh model as soon as it is
-    # committed (compaction retires the superseded ones) and must be its
-    # boundary bit for bit: the optimizer's step counter names it.
+    # Every member is restored into a fresh model once it is committed and
+    # must be its boundary bit for bit: the optimizer's step counter names
+    # it. The steps check after each step while the stream's worker
+    # commits in the background; a compaction (which retires the
+    # superseded members) first checks, on the worker, any member the
+    # steps have not reached yet.
     fresh = Transformer(cfg, device="cuda", seed=SEED + 22)
     checked = {}
+    check_lock = threading.Lock()
 
     def check_members():
         from tpusnap_torch.delta import resolve_chain
 
-        for m in resolve_chain(root).members:
-            if m.state != "committed" or m.name in checked:
-                continue
-            got = _restore_member(os.path.join(root, m.name), fresh)
-            step = int(got["opt/step"])
-            if not any(all(torch.equal(t, want[p]) for p, t in got.items())
-                       for want in boundaries[step]):
-                raise AssertionError(f"delta member {m.name} is not the state at step {step}")
-            checked[m.name] = {"name": m.name, "step": step, "payload_bytes": m.payload_bytes,
-                               "state_bytes": state_bytes}
+        with check_lock:
+            for m in resolve_chain(root).members:
+                if m.state != "committed" or m.name in checked:
+                    continue
+                got = _restore_member(os.path.join(root, m.name), fresh)
+                step = int(got["opt/step"])
+                if not any(all(torch.equal(t, want[p]) for p, t in got.items())
+                           for want in boundaries[step]):
+                    raise AssertionError(f"delta member {m.name} is not the state at step {step}")
+                checked[m.name] = {"name": m.name, "step": step,
+                                   "payload_bytes": m.payload_bytes, "state_bytes": state_bytes}
 
     with override_compress(mode="off"), override_delta_max_chain(4):
         keep()
         t0 = time.perf_counter()
         stream = Snapshot.stream(root, {"train": StateDict(**model.train_state())}, cadence_s=0.5)
         out["base_s"] = time.perf_counter() - t0
+        compact = stream._compact
+
+        def checked_compact(head_snap):
+            check_members()
+            compact(head_snap)
+
+        stream._compact = checked_compact
 
         def mark(i):
             keep()
@@ -3331,11 +3692,14 @@ def phase_cas(ctx: dict, workdir: str) -> dict:
     one TPUSNAP_CAS_DIR (batching off: slab blobs are named per take and
     never dedup): the second publishes nothing; each restores into CUDA
     tensors in place; deleting one and collecting the store keeps the
-    shared blobs."""
+    shared blobs. Also the cost of the publisher's check for a gc sweep
+    in flight (one per CAS payload write), with no sweep running."""
+    import asyncio
+
     import torch
 
     from tpusnap_torch import Snapshot, StateDict, telemetry
-    from tpusnap_torch.cas import BLOBS_DIR, gc_store
+    from tpusnap_torch.cas import BLOBS_DIR, CASStore, gc_store
     from tpusnap_torch.knobs import (
         override_batching_disabled,
         override_cas,
@@ -3359,6 +3723,8 @@ def phase_cas(ctx: dict, workdir: str) -> dict:
         for job in ("job_a", "job_b"):
             b0 = telemetry.counter_value("cas.bytes_published")
             s0 = telemetry.counter_value("cas.dedup_bytes_saved")
+            w0 = (telemetry.counter_value("cas.blobs_published")
+                  + telemetry.counter_value("cas.ref_hits"))
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             with override_job_id(job):
@@ -3367,9 +3733,22 @@ def phase_cas(ctx: dict, workdir: str) -> dict:
                 "take_s": time.perf_counter() - t0,
                 "bytes_published": telemetry.counter_value("cas.bytes_published") - b0,
                 "dedup_bytes_saved": telemetry.counter_value("cas.dedup_bytes_saved") - s0,
+                "payload_writes": telemetry.counter_value("cas.blobs_published")
+                + telemetry.counter_value("cas.ref_hits") - w0,
             }
         if out["jobs"]["job_b"]["bytes_published"] != 0:
             raise AssertionError(f"the second job published bytes: {out['jobs']}")
+
+        async def sweep_checks(n):
+            probe = CASStore(store)
+            t0 = time.perf_counter()
+            for _ in range(n):
+                await probe.wait_out_sweep(time.time())
+            took = time.perf_counter() - t0
+            await probe.plugin.close()
+            return took
+
+        out["sweep_check_us"] = 1e6 * asyncio.run(sweep_checks(1000)) / 1000
         out["store_bytes"] = store_bytes()
         out["twice_state_bytes"] = 2 * state_bytes
         # Once: at most the state's bytes (equal tensors share a blob).
@@ -3707,11 +4086,10 @@ print(json.dumps({"rcs": rcs, "cuda_initialized": torch.cuda.is_initialized()}))
 
 def phase_cli(ctx: dict, workdir: str) -> dict:
     """``python -m tpusnap_torch`` in subprocesses on what the observe,
-    crash, tier, cas and delta phases left: every subcommand but lint,
+    crash, tier, cas and delta phases left: every subcommand (lint over the
+    package's own source),
     each exit code held to tpusnap's contract for that state; then one
     child calls ``main`` in process and must leave CUDA uninitialised."""
-    import threading
-
     import torch
 
     from tpusnap_torch import Snapshot, StateDict, slo
@@ -3766,6 +4144,7 @@ def phase_cli(ctx: dict, workdir: str) -> dict:
         ("fleet", ["fleet"], 0), ("fleet --check", ["fleet", "--check"], fleet_rc),
         ("heatmap", ["heatmap", snap], 0),
         ("retain --dry-run", ["retain", obs["root"], "--keep", "2", "--dry-run"], 0),
+        ("lint --check", ["lint", "--check"], 0),
     ]
     results = {}
     with ThreadPoolExecutor(max_workers=6) as pool:
@@ -3854,10 +4233,16 @@ def phase_cli(ctx: dict, workdir: str) -> dict:
 
 
 def _reset_launches() -> None:
+    """Set the flash and ring block kernels' launch counts to 0."""
+    import importlib
+
     from tpusnap_torch.ops import flash_attention as fa
 
+    ra = importlib.import_module("tpusnap_torch.ops.ring_attention")
     fa.launches = 0
     fa.route_launches = dict.fromkeys(fa.route_launches, 0)
+    ra.launches = ra.skips = 0
+    ra.route_launches = dict.fromkeys(ra.route_launches, 0)
 
 
 def _check_routes(path: str, launches: int, routes: dict) -> None:
@@ -3930,6 +4315,17 @@ def main() -> int:
         for r in layouts_line["ranks"]:
             paths[f"layouts rank {r['rank']}"] = (r["flash_launches"], r["flash_routes"])
         _reset_launches()
+        ring_line = phase_ring(ctx, workdir)
+        emit(ring_line)
+        ring_paths = {
+            f"ring rank {r['rank']}": (r["ring_launches"], r["ring_routes"], r["ring_skips"])
+            for r in ring_line["ranks"]
+        }
+        ring_paths["ring replica"] = (
+            ring_line["replica_ring_launches"], ring_line["replica_ring_routes"], 0
+        )
+        paths["ring replica dense restore"] = (fa.launches, dict(fa.route_launches))
+        _reset_launches()
         ctx["life_model"], ctx["life_state_file"] = _lifecycle_model(ctx, workdir)
         emit(phase_crash(ctx, workdir))
         emit(phase_chaos(ctx, workdir))
@@ -3958,6 +4354,10 @@ def main() -> int:
         shutil.rmtree(workdir, ignore_errors=True)
     for path, (launches, routes) in paths.items():
         _check_routes(path, launches, routes)
+    for path, (launches, routes, _) in ring_paths.items():
+        if launches == 0 or routes != {"wgmma": launches, "simt": 0}:
+            raise AssertionError(f"{path}: ring block launches {launches} by route {routes}")
+    ring_row = result["ring_block_attend"]
     main_path_launches = sum(n for n, _ in paths.values())
     main_path_routes = {
         r: sum(routes[r] for _, routes in paths.values()) for r in ("wgmma", "simt")
@@ -3981,6 +4381,26 @@ def main() -> int:
         "tflops": kernel_row["tflops"],
         "bound_share": kernel_row["bound_share"],
         "simt_ms": kernel_row["simt_ms"],
+    }, {
+        "name": "ring_block_attend",
+        "route": "cuda",
+        "kernel_route": "wgmma",
+        "route_launches": {
+            r: sum(routes[r] for _, routes, _ in ring_paths.values()) for r in ("wgmma", "simt")
+        },
+        "source": "tpusnap_torch/csrc/ring_block_wgmma.cu",
+        "replaces": "tpusnap/ops/ring_attention.py:26",
+        "launches": sum(n for n, _, _ in ring_paths.values()),
+        "launches_by_path": {p: n for p, (n, _, _) in ring_paths.items()},
+        "skips_by_path": {p: k for p, (_, _, k) in ring_paths.items()},
+        "max_abs_err": ring_row["max_abs_err"],
+        "ms": ring_row["ms"],
+        "diagonal_ms": ring_row["diagonal_ms"],
+        "plain_ms": ring_row["plain_ms"],
+        "bound_ms": ring_row["bound_ms"],
+        "bound_by": ring_row["bound_by"],
+        "library_ms": None,
+        "bound_share": ring_row["bound_share"],
     }]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,8 @@
 """tpusnap_torch async takes and restores on CPU tensors: the pipelined
 write engine, the staging pool, COW and clone staging, RNG invariance,
 and cross-package restores. Mirrors of tests/test_staging_pool.py and
-tests/test_pipelined_staging.py (minus its telemetry-gated history test),
-with the port's objects in place of tpusnap's. Snapshots are bit-exact,
+tests/test_pipelined_staging.py, with the port's objects in place of
+tpusnap's. Snapshots are bit-exact,
 so every comparison has tolerance 0.
 
 CPU tensors take tpusnap's contract: under COW (the default) the caller
@@ -671,3 +671,39 @@ def test_port_async_take_restores_through_tpusnap(tmp_path, monkeypatch, cow):
     JaxSnapshot(path).restore({"m": targets})
     for k, v in state.items():
         assert np.asarray(targets[k]).tobytes() == _bytes(v), k
+
+
+# -------------------------------------------------- history/regression
+
+
+def test_async_blocked_s_recorded_and_gated(tmp_path):
+    """async_blocked_s lands in the take summary and the history event,
+    and `history --check` grades it as a duration (upward regressions
+    fire). Mirror of tests/test_pipelined_staging.py's case."""
+    from tpusnap_torch import check_regression, telemetry
+    from tpusnap_torch import history as hist
+    from tpusnap_torch.knobs import override_telemetry_dir
+
+    state = _state(n=2)
+    with override_telemetry_dir(str(tmp_path / "tele")):
+        hist._reset_process_state()
+        Snapshot.async_take(str(tmp_path / "s"), {"m": StateDict(state)}).wait()
+        assert isinstance(telemetry.LAST_TAKE_SUMMARY["async_blocked_s"], float)
+        events = hist.load_history()
+        takes = [e for e in events if e.get("kind") == "take"]
+        assert takes and isinstance(takes[-1].get("async_blocked_s"), float)
+
+        # Synthetic trend: a 2x slower blocked window must regress.
+        base = dict(takes[-1], cold=False)
+        evs = []
+        for i in range(5):
+            evs.append(dict(base, async_blocked_s=0.1, ts=i))
+        evs.append(dict(base, async_blocked_s=0.25, ts=9))
+        report = check_regression(
+            evs, kind="take", metric="async_blocked_s", min_baseline=3
+        )
+        assert report.ok and report.regressed, report.reason
+        ok = check_regression(
+            evs[:-1], kind="take", metric="async_blocked_s", min_baseline=3
+        )
+        assert ok.ok and not ok.regressed, ok.reason

@@ -524,6 +524,164 @@ def test_sigkill_mid_store_drain_resumes(tmp_path):
         assert os.path.exists(os.path.join(remote, blob_path(k)))
 
 
+def test_adopt_inside_a_sweeps_mark_to_delete_window_loses_no_blob(tmp_path, monkeypatch):
+    """The race behind the hammer's lost blobs (ROADMAP.md C10), forced:
+    a sweep marks with no ref to an old blob, a publisher then adopts
+    that blob (intent, ref, re-verify: the blob is still there, intent
+    cleared) and only then does the sweep delete it. The publisher waits
+    out a sweep that started before its ref landed before it re-verifies,
+    so it republishes and the location reads back."""
+    import asyncio
+    import threading
+
+    from tpusnap_torch.io_types import ReadIO, WriteIO
+
+    store = _mk_store(str(tmp_path / "store"))
+    snap = str(tmp_path / "snap")
+    data = b"adopt-me|" * 300
+    key = _put_blob(store, data)  # unreferenced: debris to a sweep
+    old = time.time() - 3600
+    os.utime(os.path.join(store, blob_path(key)), (old, old))
+    with knobs.override_cas(store):
+        plugin = url_to_storage_plugin(snap)
+
+    scanned = threading.Event()
+    real_scan = cas._scan_store
+
+    def scan_then_let_the_publisher_run(root, grace_s):
+        out = real_scan(root, grace_s)
+        scanned.set()
+        # Hold the delete until the publisher has cleared its intent (it
+        # has adopted, ref'd and re-verified), or 2 s: a publisher that
+        # waits for this sweep never clears it first.
+        end = time.monotonic() + 2.0
+        while time.monotonic() < end and not (
+            read_refs_dir(snap)[0] and not os.listdir(os.path.join(root, INTENTS_DIR))
+        ):
+            time.sleep(0.005)
+        return out
+
+    monkeypatch.setattr(cas, "_scan_store", scan_then_let_the_publisher_run)
+    reports = []
+    sweeper = threading.Thread(
+        target=lambda: reports.append(
+            gc_store(store, dry_run=False, grace_s=0.0, lease_ttl_s=30.0, owner="sweeper")
+        )
+    )
+    sweeper.start()
+    assert scanned.wait(10)
+
+    async def publish_and_read():
+        await plugin.write(WriteIO(path="0/w", buf=data))
+        read_io = ReadIO(path="0/w")
+        sweeper.join(timeout=10)
+        await plugin.read(read_io)
+        await plugin.close()
+        return read_io.buf.getvalue()
+
+    got = asyncio.run(publish_and_read())
+    sweeper.join(timeout=10)
+    assert not sweeper.is_alive()
+    assert blob_path(key) in reports[0].reclaimed  # the sweep did delete it
+    assert got == data
+    assert os.path.exists(os.path.join(store, blob_path(key)))
+
+
+def _dead_pid() -> int:
+    child = subprocess.Popen([sys.executable, "-c", "pass"])
+    child.wait()
+    return child.pid
+
+
+@pytest.mark.parametrize(
+    "case, started, owner, waits",
+    [
+        ("later_sweep", +1.0, "other-host:1", False),
+        ("dead_owner_here", -10.0, "dead", False),
+        ("live_sweep_elsewhere", -10.0, "other-host:1", True),
+        ("live_sweep_here", -10.0, "me", True),
+        ("lease_without_start", None, "other-host:1", True),
+    ],
+)
+def test_publisher_waits_only_for_a_sweep_that_may_have_missed_its_ref(
+    tmp_path, monkeypatch, case, started, owner, waits
+):
+    """The publisher's wait after its ref lands (ROADMAP.md C10) covers
+    only a live sweep that started before the ref: one whose lease was
+    written after it (its scan sees the ref), or whose owner is a process
+    of this host that no longer runs, is not waited on. A lease with no
+    start (tpusnap's gc writes none) is waited on until it goes."""
+    import asyncio
+
+    store = _mk_store(str(tmp_path / "store"))
+    now = 1_000_000.0
+    monkeypatch.setattr(cas, "_wall", lambda: now)
+    owner = {
+        "dead": f"{os.uname().nodename}:{_dead_pid()}",
+        "me": f"{os.uname().nodename}:{os.getpid()}",
+    }.get(owner, owner)
+    lease = {"owner": owner, "expires_at": now + 600.0}
+    if started is not None:
+        lease["started_at"] = now + started
+    with open(os.path.join(store, GC_LOCK_PATH), "w") as f:
+        json.dump(lease, f)
+
+    async def wait(timeout):
+        probe = cas.CASStore(store)
+        try:
+            await asyncio.wait_for(probe.wait_out_sweep(now), timeout)
+            return False
+        except asyncio.TimeoutError:
+            return True
+        finally:
+            await probe.plugin.close()
+
+    assert asyncio.run(wait(0.3 if waits else 30.0)) is waits
+
+
+def test_stale_unexpired_gc_lease_does_not_block_a_take(tmp_path):
+    """A gc killed before it released its lease leaves one that has not
+    expired (60 s by default): takes into the store go on, and restore."""
+    import threading
+
+    store = _mk_store(str(tmp_path / "store"))
+    with open(os.path.join(store, GC_LOCK_PATH), "w") as f:
+        json.dump({"owner": f"{os.uname().nodename}:{_dead_pid()}",
+                   "expires_at": time.time() + 3600.0,
+                   "started_at": time.time() - 1.0}, f)
+    s = _state(11)
+    errors = []
+
+    def take():
+        try:
+            with knobs.override_cas(store):
+                Snapshot.take(str(tmp_path / "snap"), s)
+        except BaseException as e:  # re-raised below
+            errors.append(e)
+
+    taker = threading.Thread(target=take, daemon=True)
+    taker.start()
+    taker.join(timeout=120)
+    assert not taker.is_alive(), "a stale gc lease blocked the take"
+    assert not errors, errors
+    out = _zeros()
+    with knobs.override_cas(store):
+        Snapshot(str(tmp_path / "snap")).restore(out)
+    _assert_eq(out, s)
+
+
+def test_gc_that_raises_releases_its_lease(tmp_path, monkeypatch):
+    store = _mk_store(str(tmp_path / "store"))
+
+    def broken_scan(root, grace_s):
+        raise OSError("scan failed")
+
+    monkeypatch.setattr(cas, "_scan_store", broken_scan)
+    with pytest.raises(OSError, match="scan failed"):
+        gc_store(store, dry_run=False, grace_s=60.0)
+    assert not os.path.exists(os.path.join(store, GC_LOCK_PATH))
+
+
 # ------------------------------------------------- 2-process hammer
 
 
@@ -550,8 +708,11 @@ def test_publisher_vs_gc_hammer_zero_lost_blobs(tmp_path):
         "        gc_store(store, dry_run=False, grace_s=0.5,\n"
         "                 lease_ttl_s=5.0, owner='hammer-gc')\n"
         "        sweeps += 1\n"
-        "        with open(beacon, 'w') as f:\n"
+        # Atomic: a reader must never see the truncated file (it would
+        # read 0 sweeps).
+        "        with open(beacon + '.tmp', 'w') as f:\n"
         "            f.write(str(sweeps))\n"
+        "        os.replace(beacon + '.tmp', beacon)\n"
         "    except RuntimeError:\n"
         "        pass\n"
         "    time.sleep(0.002)\n"

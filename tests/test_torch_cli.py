@@ -588,7 +588,7 @@ def test_postmortem_renders_left_ranks(capsys):
 # ------------------------------------------------ the rest of the commands
 
 
-def test_every_subcommand_but_lint_is_there(capsys):
+def test_every_subcommand_is_there(capsys):
     from tpusnap.__main__ import main as jax_main
 
     assert main(["--help"]) == 0
@@ -601,8 +601,8 @@ def test_every_subcommand_but_lint_is_there(capsys):
         return m.group(1).split(",")
 
     assert commands(ours) == commands(theirs)
-    assert main(["lint", "--check"]) == 1
-    assert "devtools" in capsys.readouterr().err
+    assert main(["lint", "--check"]) == 0
+    assert "0 finding(s)" in capsys.readouterr().out
 
 
 def test_watch_once_tails_a_take_in_flight(tmp_path):

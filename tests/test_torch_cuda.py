@@ -1149,3 +1149,125 @@ def test_cli_leaves_cuda_uninitialised(gen, tmp_path):
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "UNINITIALISED" in proc.stdout
+
+
+# ------------------------------------------------ ring attention's block kernel
+
+
+def _ring_module():
+    import importlib
+
+    return importlib.import_module("tpusnap_torch.ops.ring_attention")
+
+
+def _ring_carry(shape, gen):
+    """A random incoming carry; every 5th row has seen nothing yet."""
+    b, s, h, d = shape
+    m = torch.randn((b, h, s), generator=gen, device="cuda")
+    l = torch.rand((b, h, s), generator=gen, device="cuda") * 2 + 0.5
+    o = torch.randn((b, s, h, d), generator=gen, device="cuda")
+    m[:, :, ::5], l[:, :, ::5], o[:, ::5] = -1e30, 0.0, 0.0
+    return m, l, o
+
+
+_RING_CASES = [
+    # shape, dtype, q_offset, k_offset, causal, route
+    ((2, 256, 4, 64), torch.bfloat16, 256, 256, True, "wgmma"),
+    ((2, 256, 4, 64), torch.bfloat16, 256, 0, True, "wgmma"),
+    ((2, 200, 3, 128), torch.float16, 100, 164, True, "wgmma"),
+    ((2, 130, 2, 40), torch.bfloat16, 0, 0, False, "wgmma"),
+    ((1, 1, 2, 8), torch.bfloat16, 3, 3, True, "wgmma"),
+    ((1, 130, 2, 64), torch.float32, 130, 130, True, "simt"),
+    ((1, 130, 2, 32), torch.float32, 50, 90, True, "simt"),
+    ((1, 70, 2, 64), torch.float32, 0, 0, False, "simt"),
+]
+
+
+@pytest.mark.parametrize(
+    "shape,dtype,q_off,k_off,causal,route", _RING_CASES, ids=lambda x: str(x).replace(" ", "")
+)
+def test_ring_block_kernel_matches_plain(gen, shape, dtype, q_off, k_off, causal, route):
+    """The kernel's new carry against ``block_attend`` per element, within
+    ``rounding_bound`` (P rounded to the input type before P V; f32 slack),
+    on the route the inputs take."""
+    ra = _ring_module()
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(3))
+    carry = _ring_carry(shape, gen)
+    before = [t.clone() for t in carry]
+    scale = shape[-1] ** -0.5
+    want = ra.block_attend(q, k, v, *before, q_off, k_off, scale, causal)
+    bounds = ra.rounding_bound(q, k, v, *before, q_off, k_off, scale, causal)
+    routes = dict(ra.route_launches)
+    ra.attend_block(q, k, v, *carry, q_off, k_off, scale, causal)
+    torch.cuda.synchronize()
+    assert {r: ra.route_launches[r] - routes[r] for r in routes} == {
+        r: int(r == route) for r in routes
+    }
+    for name, got, ref, bound in zip("mlo", carry, want, bounds):
+        ratio = ((got - ref).abs() / bound).max().item()
+        assert ratio <= 1.0, f"{name}: worst element {ratio}x its bound"
+
+
+def test_ring_future_block_is_skipped_and_leaves_the_carry(gen):
+    ra = _ring_module()
+    q, k, v = (torch.randn((2, 64, 2, 64), generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    carry = _ring_carry((2, 64, 2, 64), gen)
+    before = [t.clone() for t in carry]
+    launches, skips = ra.launches, ra.skips
+    ra.attend_block(q, k, v, *carry, 0, 64, 0.125, True)
+    assert (ra.launches, ra.skips) == (launches, skips + 1)
+    assert all(torch.equal(a, b) for a, b in zip(carry, before))
+
+
+def test_ring_block_reads_fused_qkv_views_and_repeats_bitwise(gen):
+    ra = _ring_module()
+    q, k, v = _fused_views((2, 192, 4, 64), torch.bfloat16, gen)
+    carry = _ring_carry((2, 192, 4, 64), gen)
+    first, second = [t.clone() for t in carry], [t.clone() for t in carry]
+    ra.attend_block(q, k, v, *first, 192, 0, 0.125, True)
+    ra.attend_block(q, k, v, *second, 192, 0, 0.125, True)
+    want = ra.block_attend(q, k, v, *carry, 192, 0, 0.125, True)
+    bounds = ra.rounding_bound(q, k, v, *carry, 192, 0, 0.125, True)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    for got, ref, bound in zip(first, want, bounds):
+        assert ((got - ref).abs() / bound).max().item() <= 1.0
+
+
+def test_ring_block_kernel_refuses_what_it_cannot_take(gen):
+    ra = _ring_module()
+    q = torch.randn((1, 8, 2, 256), generator=gen, device="cuda").to(torch.bfloat16)
+    carry = _ring_carry((1, 8, 2, 256), gen)
+    with pytest.raises(ValueError, match="head_dim"):
+        ra.attend_block(q, q, q, *carry, 0, 0, 0.0625, True)
+    q = torch.randn((2, 8, 2, 64), generator=gen, device="cuda").to(torch.bfloat16)
+    m, l, o = _ring_carry((2, 8, 2, 64), gen)
+    strided = o.transpose(1, 2).contiguous().transpose(1, 2)  # o's values, (b, h, s, d) order
+    assert not strided.is_contiguous()
+    with pytest.raises(ValueError, match="contiguous"):
+        ra.attend_block(q, q, q, m, l, strided, 0, 0, 0.125, True)
+
+
+def test_ring_attention_one_block_matches_flash_reference(gen):
+    """One block through the kernel against plain causal attention, within
+    the flash kernel's own 16-bit rounding bound."""
+    ra = _ring_module()
+    q, k, v = _fused_views((2, 256, 4, 64), torch.bfloat16, gen)
+    launches = ra.launches
+    out = ra.ring_attention(q, k, v)
+    assert ra.launches == launches + 1
+    _assert_within_rounding_bound(out, q, k, v, True)
+
+
+def test_ring_model_trains_on_the_card(gen):
+    from tpusnap_torch.models import Transformer, TransformerConfig
+
+    ra = _ring_module()
+    cfg = TransformerConfig(vocab_size=512, d_model=128, n_heads=2, n_layers=2, d_ff=256,
+                            max_seq_len=128, use_ring_attention=True)
+    model = Transformer(cfg, device="cuda", seed=0)
+    tokens = torch.randint(0, 512, (2, 128), generator=gen, device="cuda")
+    launches = ra.launches
+    losses = [model.train_step(tokens, learning_rate=1e-2).item() for _ in range(3)]
+    assert losses[-1] < losses[0]
+    assert ra.launches == launches + 3 * cfg.n_layers

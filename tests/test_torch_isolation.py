@@ -44,7 +44,7 @@ def test_every_module_imports_without_jax_or_tpusnap():
         "tiering", "cas", "delta", "storage_plugins.s3", "storage_plugins.gcs",
         "storage_plugins.fsspec",
         "metrics_export", "history", "access", "slo", "fleet", "analyze", "tune",
-        "__main__",
+        "__main__", "devtools.lint", "devtools.lockwatch", "ops.ring_attention",
     ):
         assert f"tpusnap_torch.{name}" in modules
     code = (

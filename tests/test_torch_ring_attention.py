@@ -1,0 +1,311 @@
+"""tpusnap_torch.ops.ring_attention against tpusnap's ring attention.
+
+The same numpy inputs (f32, from a seed) go through tpusnap's
+``ring_attention`` (one block, or inside ``shard_map`` over the "fsdp"
+axis of a mesh on conftest's 8 CPU devices) and the port's (one block, or
+a ring of 2 or 4 gloo processes). Mirrors tests/test_models.py's ring
+cases (ring against dense, on a mesh, non-causal, gradients) with their
+atol 1e-5, and holds the plain block step ``block_attend`` against
+tpusnap's ``_block_attend`` at atol 1e-6 (the same f32 operations in
+another summation order): diagonal, past and future blocks with a random
+incoming carry and a row that has seen nothing yet. A future block leaves
+the carry exactly as it was. The kernels themselves run only on the card
+(tests/test_torch_cuda.py).
+
+The worlds are started once for the module; their processes import
+neither JAX nor tpusnap, so both are imported only where the parent uses
+them.
+"""
+
+import importlib
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from tpusnap_torch.ops.ring_attention import attend_block, block_attend, ring_attention
+
+# The module (its counters): ``tpusnap_torch.ops.ring_attention`` as an
+# attribute is the function the package exports.
+ra = importlib.import_module("tpusnap_torch.ops.ring_attention")
+
+# One intra-op thread: the suite runs beside other test processes, and
+# torch's default of one spinning thread per core starves their timing.
+torch.set_num_threads(1)
+
+_RING_SHAPE = (2, 16, 4, 8)  # b, global seq, h, d: blocks of 8 or 4 rows
+
+
+def _qkv(shape, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(shape).astype(np.float32) for _ in range(3)]
+
+
+def _dense(q, k, v, causal=True):
+    s = q.shape[1]
+    scores = np.einsum("bqhd,bkhd->bhqk", q, k) * q.shape[-1] ** -0.5
+    if causal:
+        scores = np.where(np.tril(np.ones((s, s), bool)), scores, -np.inf)
+    p = np.exp(scores - scores.max(-1, keepdims=True))
+    p /= p.sum(-1, keepdims=True)
+    return np.einsum("bhqk,bkhd->bqhd", p, v)
+
+
+def _jax_ring(q, k, v, ring: int, causal: bool):
+    """tpusnap's ring attention in ``shard_map`` with the sequence over an
+    "fsdp" axis of ``ring`` devices, as tpusnap's model calls it."""
+    import functools
+
+    import jax
+    from jax.sharding import Mesh, PartitionSpec as P
+
+    from tpusnap.models.transformer import _shard_map
+    from tpusnap.ops import ring_attention as jax_ring_attention
+
+    devices = np.asarray(jax.devices()[: 2 * ring]).reshape(1, ring, 2)
+    mesh = Mesh(devices, ("data", "fsdp", "tensor"))
+    spec = P("data", "fsdp", "tensor", None)
+    fn = jax.jit(
+        _shard_map(
+            functools.partial(jax_ring_attention, axis_name="fsdp", causal=causal),
+            mesh=mesh,
+            in_specs=(spec, spec, spec),
+            out_specs=spec,
+        )
+    )
+    return np.asarray(fn(q, k, v))
+
+
+def _ring_rank(inputs: str, out_dir: str) -> None:
+    """One rank of a gloo ring: this rank's block of q, k, v through the
+    port's ``ring_attention``, causal and not; the outputs and the kernel
+    counters saved for the parent."""
+    import torch.distributed as dist
+
+    rank, n = dist.get_rank(), dist.get_world_size()
+    data = np.load(inputs)
+    blk = data["q"].shape[1] // n
+    q, k, v = (
+        torch.from_numpy(np.ascontiguousarray(data[x][:, rank * blk : (rank + 1) * blk]))
+        for x in ("q", "k", "v")
+    )
+    skips0 = ra.skips
+    out = {}
+    for causal in (True, False):
+        out[f"causal={causal}"] = ring_attention(q, k, v, group=dist.group.WORLD, causal=causal).numpy()
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump({"launches": ra.launches, "skips": ra.skips - skips0}, f)
+
+
+@pytest.fixture(scope="module")
+def ring_worlds(tmp_path_factory):
+    """{world size: (global q, k, v, [per-rank outputs], [per-rank counters])}
+    from one 2-rank and one 4-rank world."""
+    from tpusnap_torch.test_utils import run_subprocess_world
+
+    root = tmp_path_factory.mktemp("ring")
+    q, k, v = _qkv(_RING_SHAPE, seed=11)
+    inputs = str(root / "qkv.npz")
+    np.savez(inputs, q=q, k=k, v=v)
+    worlds = {}
+    for n in (2, 4):
+        out_dir = root / f"world{n}"
+        out_dir.mkdir()
+        run_subprocess_world(_ring_rank, n, args=[inputs, str(out_dir)], timeout=240)
+        outs = [dict(np.load(out_dir / f"rank{r}.npz")) for r in range(n)]
+        counts = [json.loads((out_dir / f"rank{r}.json").read_text()) for r in range(n)]
+        worlds[n] = ((q, k, v), outs, counts)
+    return worlds
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "noncausal"])
+@pytest.mark.parametrize("n", [2, 4])
+def test_gloo_ring_matches_jax_shard_map_ring(ring_worlds, n, causal):
+    (q, k, v), outs, _ = ring_worlds[n]
+    want = _jax_ring(q, k, v, n, causal)
+    blk = q.shape[1] // n
+    for rank, out in enumerate(outs):
+        np.testing.assert_allclose(
+            out[f"causal={causal}"], want[:, rank * blk : (rank + 1) * blk], atol=1e-5,
+            err_msg=f"rank {rank} of {n}",
+        )
+    np.testing.assert_allclose(np.concatenate([o[f"causal={causal}"] for o in outs], 1),
+                               _dense(q, k, v, causal), atol=1e-5)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_gloo_ring_skips_future_blocks_without_a_launch(ring_worlds, n):
+    # Causal: rank r meets n - 1 - r future blocks; the non-causal pass
+    # skips none. A CPU ring launches no kernel.
+    _, _, counts = ring_worlds[n]
+    assert [c["skips"] for c in counts] == [n - 1 - r for r in range(n)]
+    assert all(c["launches"] == 0 for c in counts)
+
+
+def test_single_block_matches_dense():
+    q, k, v = _qkv((2, 16, 4, 8), seed=0)
+    out = ring_attention(*(torch.from_numpy(x) for x in (q, k, v)), causal=True)
+    np.testing.assert_allclose(out.numpy(), _dense(q, k, v), atol=1e-5)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "noncausal"])
+def test_single_block_matches_tpusnap(causal):
+    import jax.numpy as jnp
+
+    from tpusnap.ops import ring_attention as jax_ring_attention
+
+    q, k, v = _qkv((1, 8, 2, 4), seed=2)
+    want = np.asarray(jax_ring_attention(*(jnp.asarray(x) for x in (q, k, v)), causal=causal))
+    got = ring_attention(*(torch.from_numpy(x) for x in (q, k, v)), causal=causal).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5)
+
+
+def test_non_causal_matches_dense_softmax():
+    q, k, v = _qkv((1, 8, 2, 4), seed=3)
+    got = ring_attention(*(torch.from_numpy(x) for x in (q, k, v)), causal=False).numpy()
+    np.testing.assert_allclose(got, _dense(q, k, v, causal=False), atol=1e-5)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "noncausal"])
+def test_single_block_grads_match_jax(causal):
+    import jax
+    import jax.numpy as jnp
+
+    from tpusnap.ops import ring_attention as jax_ring_attention
+
+    q, k, v = _qkv((1, 8, 2, 4), seed=4)
+    w = np.random.default_rng(5).standard_normal(q.shape).astype(np.float32)
+    want = jax.grad(
+        lambda q, k, v: jnp.sum(jax_ring_attention(q, k, v, causal=causal) * w), argnums=(0, 1, 2)
+    )(*(jnp.asarray(x) for x in (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
+    (ring_attention(tq, tk, tv, causal=causal) * torch.from_numpy(w)).sum().backward()
+    for name, got, ref in zip("qkv", (tq.grad, tk.grad, tv.grad), want):
+        assert np.isfinite(got.numpy()).all()
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5, err_msg=name)
+
+
+def _carry(b, s, h, d, seed):
+    """A random incoming carry whose row 1 of every (batch, head) has seen
+    nothing yet (m = -1e30, l = 0, o = 0)."""
+    rng = np.random.default_rng(seed)
+    m = rng.standard_normal((b, h, s)).astype(np.float32)
+    l = rng.uniform(0.5, 3.0, (b, h, s)).astype(np.float32)
+    o = rng.standard_normal((b, s, h, d)).astype(np.float32)
+    m[:, :, 1], l[:, :, 1], o[:, 1] = -1e30, 0.0, 0.0
+    return m, l, o
+
+
+_BLOCKS = {"diagonal": (8, 8), "past": (8, 0), "future": (0, 8)}  # q_offset, k_offset
+
+
+@pytest.mark.parametrize("block", list(_BLOCKS))
+def test_block_attend_matches_tpusnap(block):
+    import jax.numpy as jnp
+
+    from tpusnap.ops.ring_attention import _block_attend
+
+    b, s, h, d = 2, 8, 3, 4
+    q, k, v = _qkv((b, s, h, d), seed=6)
+    m, l, o = _carry(b, s, h, d, seed=7)
+    q_off, k_off = _BLOCKS[block]
+    scale = d**-0.5
+    want = _block_attend(
+        *(jnp.asarray(x) for x in (q, k, v, m, l, o)),
+        q_off + jnp.arange(s), k_off + jnp.arange(s), scale, True,
+    )
+    t = [torch.from_numpy(x) for x in (q, k, v, m, l, o)]
+    got = block_attend(*t, q_off, k_off, scale, True)
+    for name, g, w in zip(("m", "l", "o"), got, want):
+        if block == "future":
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
+        else:
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-6, err_msg=name)
+    if block == "future":
+        for name, g, before in zip(("m", "l", "o"), got, (m, l, o)):
+            np.testing.assert_array_equal(g.numpy(), before, err_msg=name)
+    else:
+        # The row that had seen nothing now has a finite max and a sum.
+        assert (got[0][:, :, 1] > -1e29).all() and (got[1][:, :, 1] > 0).all()
+
+
+@pytest.mark.parametrize("block", list(_BLOCKS))
+def test_attend_block_updates_the_carry_in_place_on_the_cpu(block):
+    b, s, h, d = 2, 8, 3, 4
+    q, k, v = (torch.from_numpy(x) for x in _qkv((b, s, h, d), seed=8))
+    carry = [torch.from_numpy(x) for x in _carry(b, s, h, d, seed=9)]
+    q_off, k_off = _BLOCKS[block]
+    want = block_attend(q, k, v, *carry, q_off, k_off, 0.5, True)
+    ptrs = [t.data_ptr() for t in carry]
+    launches, skips = ra.launches, ra.skips
+    attend_block(q, k, v, *carry, q_off, k_off, 0.5, True)
+    assert [t.data_ptr() for t in carry] == ptrs
+    for g, w in zip(carry, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    assert ra.launches == launches  # a CPU tensor never launches
+    assert ra.skips == skips + (block == "future")
+
+
+def test_attend_block_rejects_a_carry_of_another_shape():
+    q, k, v = (torch.from_numpy(x) for x in _qkv((1, 8, 2, 4), seed=10))
+    m, l, o = (torch.from_numpy(x) for x in _carry(1, 8, 2, 4, seed=10))
+    with pytest.raises(ValueError, match="carry m"):
+        attend_block(q, k, v, m[:, :, :4], l, o, 0, 0, 0.5, True)
+    with pytest.raises(ValueError, match="carry o"):
+        attend_block(q, k, v, m, l, o.double(), 0, 0, 0.5, True)
+
+
+def test_ring_across_ranks_refuses_a_backward(monkeypatch):
+    # The refusal comes before any communication, so a two-rank group
+    # reported by the process group's queries reaches it without a world.
+    import torch.distributed as dist
+
+    q, k, v = (torch.from_numpy(x).requires_grad_(True) for x in _qkv((1, 8, 2, 4), seed=12))
+    monkeypatch.setattr(dist, "get_world_size", lambda group=None: 2)
+    monkeypatch.setattr(dist, "get_rank", lambda group=None: 0)
+    with pytest.raises(NotImplementedError, match="A7"):
+        ring_attention(q, k, v, group=object())
+
+
+def _modelled_kernel(q, k, v, m, l, o, q_off, k_off, scale, causal, lose_last_keys=0):
+    """``block_attend`` as the 16-bit kernel computes it: P rounded to the
+    input type before P V (l summed from P before rounding); optionally
+    with the last keys' P V terms lost."""
+    sq, sk = q.shape[1], k.shape[1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    mask = (q_off + torch.arange(sq))[:, None] >= (k_off + torch.arange(sk))[None, :]
+    if causal:
+        s = torch.where(mask, s, torch.full_like(s, -1e30))
+    m_new = torch.maximum(m, s.amax(-1))
+    alpha = torch.exp(m - m_new)
+    p = torch.exp(s - m_new[..., None])
+    if causal:
+        p = torch.where(mask, p, torch.zeros_like(p))
+    l_new = l * alpha + p.sum(-1)
+    p_pv = p.to(q.dtype).float()
+    if lose_last_keys:
+        p_pv[..., -lose_last_keys:] = 0
+    o_new = o * alpha.transpose(1, 2)[..., None] + torch.einsum("bhqk,bkhd->bqhd", p_pv, v.float())
+    return m_new, l_new, o_new
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("block", ["diagonal", "past"])
+def test_rounding_bound_holds_the_modelled_kernel_and_rejects_a_lost_tile(dtype, block):
+    """The bound the card holds the 16-bit kernel to: a kernel that rounds
+    P before P V stays within it; one that loses a 16-key step of P V does
+    not."""
+    b, s, h, d = 2, 64, 2, 32
+    q, k, v = (torch.from_numpy(x).to(dtype) for x in _qkv((b, s, h, d), seed=13))
+    carry = [torch.from_numpy(x) for x in _carry(b, s, h, d, seed=14)]
+    q_off, k_off = _BLOCKS[block][0] * 8, _BLOCKS[block][1] * 8
+    bounds = ra.rounding_bound(q, k, v, *carry, q_off, k_off, d**-0.5, True)
+    good = _modelled_kernel(q, k, v, *carry, q_off, k_off, d**-0.5, True)
+    bad = _modelled_kernel(q, k, v, *carry, q_off, k_off, d**-0.5, True, lose_last_keys=16)
+    want = block_attend(q, k, v, *carry, q_off, k_off, d**-0.5, True)
+    for got, ref, bound in zip(good, want, bounds):
+        assert ((got - ref).abs() / bound).max().item() <= 1.0
+    assert ((bad[2] - want[2]).abs() / bounds[2]).max().item() > 1.0

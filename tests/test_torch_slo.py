@@ -264,6 +264,11 @@ def _restore_event(wall_s, nbytes, read_s=None, rank=0):
 
 
 def test_estimate_rto_insufficient_history():
+    # estimate_rto falls back to any read ceiling in the registry: start
+    # from an empty one (ROADMAP.md C9).
+    from tpusnap_torch import compress
+
+    compress._reset_ceilings()
     est = estimate_rto(10**9, events=[_restore_event(1.0, 10**9)] * 2)
     assert not est.ok and est.n_baseline == 2
     assert "need 3" in est.reason
@@ -396,7 +401,10 @@ def test_rto_estimator_uses_own_rank(slo_env):
 def test_cli_exit_contract(slo_env, tmp_path):
     """slo --check: 0 healthy / 2 breach / 3 insufficient — unit leg of
     the contract ci_gate.sh exercises end-to-end."""
+    from tpusnap_torch import compress
     from tpusnap_torch.__main__ import main
+
+    compress._reset_ceilings()  # no probe ceiling to estimate from (C9)
 
     # (3) empty dir.
     assert main(["slo", "--check"]) == 3

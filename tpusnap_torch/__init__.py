@@ -36,6 +36,17 @@ and never ``tpusnap``. ROADMAP.md lists what is still to port.
 """
 
 from .version import __version__  # noqa: F401
+
+# Opt-in runtime lock-order watchdog (``TPUSNAP_LOCKCHECK=1``), installed
+# before the submodule imports below so every lock the package creates at
+# import time is tracked; off (the default) this costs one env read.
+from . import knobs as _knobs
+
+if _knobs.is_lockcheck_enabled():
+    from .devtools import lockwatch as _lockwatch
+
+    _lockwatch.install()
+
 from .state_dict import StateDict  # noqa: F401
 from .stateful import AppState, Stateful  # noqa: F401
 from .rng_state import RNGState  # noqa: F401

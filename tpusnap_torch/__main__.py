@@ -148,8 +148,17 @@ CPU tensors, and no command opens a CUDA context, so an operator can run
                         no records; ``watch --fleet`` tails the same
                         directory live)
 
-  lint                  not in this package yet: it prints so and
-                        exits 1 (ROADMAP.md, the devtools slice)
+  lint                  AST invariant checker over the package source
+                        (``tpusnap_torch/devtools/lint.py``): knob access
+                        only through knobs.py, monotonic-only clocks,
+                        canonical sidecar constants, no silent swallows
+                        in crash-safety modules, no blocking calls in
+                        scheduler coroutines, no finalizer-reachable
+                        joins, knob/doc drift — with per-line waivers
+                        (``# tpusnap: waive=<RULE> reason``);
+                        ``--check`` exits 2 on any unwaived finding
+                        (``--root`` lints another tree, ``--select``
+                        runs a rule subset, ``--json`` for machines)
 
 Exit codes: 0 success / clean, 1 usage or read error, 2 corruption found
 (or provably-different diff; history --check: regression; analyze
@@ -2269,12 +2278,9 @@ def cmd_cat(args) -> int:
 
 
 def cmd_lint(args) -> int:
-    print(
-        "error: lint is not in tpusnap_torch yet (ROADMAP.md, the devtools "
-        "slice); `python -m tpusnap lint` checks the JAX package",
-        file=sys.stderr,
-    )
-    return 1
+    from .devtools import lint as _lint
+
+    return _lint.main(args)
 
 
 def main(argv=None) -> int:
@@ -2772,12 +2778,15 @@ def main(argv=None) -> int:
 
     p = sub.add_parser(
         "lint",
-        help="not in this package yet (exits 1); the JAX package's "
-        "`python -m tpusnap lint` checks its own source",
+        help="AST invariant checker over the package source (knob "
+        "access, monotonic clocks, sidecar literals, silent swallows, "
+        "async blocking calls, finalizer joins, knob/doc drift); "
+        "--check exits 2 on findings",
     )
     p.add_argument(
         "--root", default=None, metavar="DIR",
-        help="package directory to lint",
+        help="package directory to lint (default: the tpusnap_torch "
+        "package)",
     )
     p.add_argument(
         "--select", default=None, metavar="RULES",

@@ -38,11 +38,15 @@ Crash-safety protocol (every window SIGKILL-safe and fsck-nameable):
    flushed — refs are the gc liveness roots, written strictly BEFORE
    the metadata commit (the CAS layer force-flushes them when the
    metadata write passes through);
-4. the publisher re-verifies the blob exists AFTER its ref landed and
-   republishes from the bytes it still holds if a concurrent sweep won
-   the race — the airtight closure of the adopt-then-ref window (the
-   intent record makes the race rare; the re-verify makes blob loss
-   impossible);
+4. the publisher waits out a sweep in flight that started before its
+   ref landed (its lease's ``started_at``: that sweep may have marked
+   before the ref and delete after it), then re-verifies the blob exists
+   and republishes from the bytes it still holds if a concurrent sweep
+   won the race — the closure of the adopt-then-ref window (the intent
+   record makes the race rare; the wait and the re-verify make blob loss
+   impossible: a sweep whose lease is written after the ref marks from a
+   scan that sees it). A lease whose owner is a process of this host
+   that no longer runs is abandoned and not waited on;
 5. the intent is cleared (a stale intent is swept after the grace
    window).
 
@@ -348,6 +352,32 @@ class CASStore:
     async def publish(self, key: str, buf: Any) -> None:
         await self.plugin.write_atomic(WriteIO(path=blob_path(key), buf=buf))
 
+    async def wait_out_sweep(self, ref_at: float) -> None:
+        """Return once no store gc can delete a blob whose ref landed by
+        ``ref_at`` (wall clock) without having marked it: the lease held
+        now is gone, replaced (a later sweep's mark phase), expired,
+        abandoned by a process of this host that no longer runs, or was
+        written after ``ref_at`` (its scan starts after the lease is
+        written, so it sees the ref). A sweep's deletions come from
+        marks taken under its lease, so a ref written before this call
+        is either seen by a later sweep or re-verified after this one's
+        deletions. Stores with no local root run no gc (``gc_store``
+        refuses them)."""
+        if self.local_root is None:
+            return
+        held = _read_lease(self.local_root)
+        while held is not None:
+            expires, started = held.get("expires_at"), held.get("started_at")
+            if not isinstance(expires, (int, float)) or expires <= _wall():
+                return
+            if isinstance(started, (int, float)) and started > ref_at:
+                return
+            if _lease_abandoned(held):
+                return
+            await asyncio.sleep(0.005)
+            if _read_lease(self.local_root) != held:
+                return
+
     async def write_intent(self, key: str, job: Optional[str]) -> str:
         owner = f"{os.getpid()}-{uuid.uuid4().hex[:8]}"
         path = f"{INTENTS_DIR}/{key}__{owner}"
@@ -635,10 +665,11 @@ class CASStoragePlugin(StoragePlugin):
         # evidence only after this returns).
         self._refs[write_io.path] = list(triple)
         await self._flush_refs()
-        # 4. adopt-then-ref race closure: re-verify AFTER the ref is
-        # durable; if a concurrent sweep won the window we still hold
-        # the bytes and republishing converges (the next mark phase
-        # sees our ref).
+        # 4. adopt-then-ref race closure: wait out a sweep that may have
+        # marked before the ref landed, then re-verify; if it won the
+        # window we still hold the bytes and republishing converges (the
+        # next mark phase sees our ref).
+        await store.wait_out_sweep(_wall())
         for _ in range(3):
             if await store.blob_exists(key):
                 break
@@ -1028,6 +1059,22 @@ def _read_lease(root: str) -> Optional[Dict[str, Any]]:
         return None
 
 
+def _lease_abandoned(lease: Dict[str, Any]) -> bool:
+    """True when the lease's owner (``gc_store``'s default
+    ``<nodename>:<pid>``) names a process of this host that no longer
+    runs: a gc killed before it released its lease."""
+    node, _, pid = str(lease.get("owner", "")).rpartition(":")
+    if node != os.uname().nodename or not pid.isdigit():
+        return False
+    try:
+        os.kill(int(pid), 0)
+    except ProcessLookupError:
+        return True
+    except OSError:
+        return False
+    return False
+
+
 def gc_store(
     store_url: str,
     dry_run: bool = True,
@@ -1072,6 +1119,7 @@ def gc_store(
         storage = url_to_storage_plugin_in_event_loop(
             store_url, event_loop, _store_options(storage_options)
         )
+        leased = False
         try:
             me = owner or f"{os.uname().nodename}:{os.getpid()}"
             if not dry_run:
@@ -1089,15 +1137,18 @@ def gc_store(
                         f"{lease['expires_at'] - now:.0f}s) — re-run "
                         "after it expires"
                     )
+                # started_at: publishers whose refs landed before it wait
+                # this sweep out (its scan may have missed them).
                 storage.sync_write_atomic(
                     WriteIO(
                         path=GC_LOCK_PATH,
                         buf=json.dumps(
-                            {"owner": me, "expires_at": now + ttl}
+                            {"owner": me, "expires_at": now + ttl, "started_at": now}
                         ).encode("utf-8"),
                     ),
                     event_loop,
                 )
+                leased = True
             (
                 blobs,
                 torn,
@@ -1155,15 +1206,18 @@ def gc_store(
                 )
             except Exception as e:
                 report.errors.append(f"{REFCOUNTS_PATH}: {e}")
-            try:
-                storage.sync_delete(GC_LOCK_PATH, event_loop)
-            except Exception:
-                logger.debug(
-                    "store gc lease release failed (expires on its own)",
-                    exc_info=True,
-                )
             return report
         finally:
+            # Released however the sweep ends: publishers wait on a held
+            # lease.
+            if leased:
+                try:
+                    storage.sync_delete(GC_LOCK_PATH, event_loop)
+                except Exception:
+                    logger.debug(
+                        "store gc lease release failed (expires on its own)",
+                        exc_info=True,
+                    )
             storage.sync_close(event_loop)
     finally:
         event_loop.close()

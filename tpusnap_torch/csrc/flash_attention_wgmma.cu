@@ -52,10 +52,12 @@
 
 #include "flash_attention.cuh"
 #include "hopper_ptx.cuh"
+#include "tma_host.cuh"
 
 namespace {
 
 using namespace tpusnap_ptx;
+using tpusnap_tma::make_map;
 using tpusnap_flash::Params;
 
 constexpr int kBlockQ = 128;                 // two warpgroups of 64 rows
@@ -375,61 +377,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// cuTensorMapEncodeTiled, looked up at run time so that the library needs
-// no -lcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr,
-                                                             12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(ptr)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A 4-D tensor map over one of q, k, v as (d, h, s, b) with its byte
-// strides; each box is 64 columns of d by `rows` rows of s, swizzled by
-// 128 bytes. A stride of a dim of size 1 is never followed: it is replaced
-// by the row's bytes, which TMA accepts.
-bool make_map(CUtensorMap* map, const void* base, int dtype, const Params& p, int b, int h,
-              int64_t st_b, int64_t st_s, int64_t st_h, int rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t row_bytes = cuuint64_t(p.d) * 2;
-  const cuuint64_t dims[4] = {cuuint64_t(p.d), cuuint64_t(h), cuuint64_t(p.s), cuuint64_t(b)};
-  const cuuint64_t strides[3] = {h > 1 ? cuuint64_t(st_h) * 2 : row_bytes,
-                                 p.s > 1 ? cuuint64_t(st_s) * 2 : row_bytes,
-                                 b > 1 ? cuuint64_t(st_b) * 2 : row_bytes};
-  const cuuint32_t box[4] = {64, 1, cuuint32_t(rows), 1};
-  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
-  const CUresult res = encode(
-      map, dtype == tpusnap_flash::kBFloat16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                                             : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
-      4, const_cast<void*>(base), dims, strides, box, elem_strides,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS;
-}
-
 template <typename T, int D>
 cudaError_t launch(const Params& p, int b, int h, int dtype, cudaStream_t stream) {
   CUtensorMap tm_q, tm_k, tm_v;
-  if (!make_map(&tm_q, p.q, dtype, p, b, h, p.q_b, p.q_s, p.q_h, kBlockQ) ||
-      !make_map(&tm_k, p.k, dtype, p, b, h, p.k_b, p.k_s, p.k_h, Tile<D>::kBlockK) ||
-      !make_map(&tm_v, p.v, dtype, p, b, h, p.v_b, p.v_s, p.v_h, Tile<D>::kBlockK))
+  if (!make_map(&tm_q, p.q, dtype, p.d, p.s, b, h, p.q_b, p.q_s, p.q_h, kBlockQ) ||
+      !make_map(&tm_k, p.k, dtype, p.d, p.s, b, h, p.k_b, p.k_s, p.k_h, Tile<D>::kBlockK) ||
+      !make_map(&tm_v, p.v, dtype, p.d, p.s, b, h, p.v_b, p.v_s, p.v_h, Tile<D>::kBlockK))
     return cudaErrorInvalidValue;
   const int smem = Tile<D>::kSmemBytes + 1024;  // + room to align to 1024
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_wgmma<T, D>,

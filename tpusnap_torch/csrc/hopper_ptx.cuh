@@ -1,6 +1,7 @@
 // Inline-PTX building blocks for Hopper (sm_90a): wgmma products, their
 // shared-memory descriptors, mbarriers and TMA tile loads. Used by
-// flash_attention_wgmma.cu; nothing here launches anything.
+// flash_attention_wgmma.cu and ring_block_wgmma.cu; nothing here launches
+// anything.
 #pragma once
 
 #include <cuda_bf16.h>

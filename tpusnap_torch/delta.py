@@ -985,6 +985,7 @@ class DeltaStream:
             # Joining is safe only on the explicit-close path: a
             # GC-finalizer close skips the join — the daemon worker
             # observes _closed and exits on its own.
+            # tpusnap: waive=TPS006 join is gated on close_may_join() above
             self._worker.join(timeout=60.0)
         # Drain a capture the worker may have exited without finalizing
         # (mark_step hand-off racing the shutdown).

@@ -264,7 +264,7 @@ def _process_rank() -> int:
         if dist.is_available() and dist.is_initialized():
             return int(dist.get_rank())
     except Exception:
-        pass
+        logger.debug("no torch.distributed rank; falling back to RANK", exc_info=True)
     try:
         return int(os.environ.get("RANK", "0"))
     except ValueError:
@@ -569,8 +569,8 @@ class FaultInjectionStoragePlugin(StoragePlugin):
                 try:
                     await self.inner.write(WriteIO(path=write_io.path, buf=torn))
                 except Exception:
-                    # The torn write itself may fail; the
-                    # InjectedFaultError below raises either way.
+                    # tpusnap: waive=TPS004 the torn write itself may
+                    # fail; the InjectedFaultError below raises either way
                     pass
                 raise InjectedFaultError(
                     f"injected torn write: {keep}/{len(write_io.buf)} bytes "
@@ -607,8 +607,8 @@ class FaultInjectionStoragePlugin(StoragePlugin):
 
                     read_io.buf = _io.BytesIO(data[: self._torn_len(len(data))])
                 except Exception:
-                    # The trial read may fail too; the
-                    # InjectedFaultError below raises either way.
+                    # tpusnap: waive=TPS004 the trial read may fail too;
+                    # the InjectedFaultError below raises either way
                     pass
                 raise InjectedFaultError(
                     f"injected short read: {read_io.path!r}"

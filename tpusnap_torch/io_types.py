@@ -307,10 +307,40 @@ def close_may_join() -> bool:
 
 
 def shutdown_plugin_executor(executor) -> None:
-    """Join a plugin's thread pool on an explicit close (no straggler
-    write survives the close that an aborting take's deletes follow); a
-    finalizer-driven close does not wait."""
-    executor.shutdown(wait=close_may_join())
+    """The one place the join-on-close policy lives: explicit closes
+    JOIN (abort-path quiescence — a straggler write thread surviving
+    close could recreate a just-deleted blob of an aborted take);
+    GC-finalizer closes must NOT — and must not even WAIT on the
+    executor's shutdown lock: ``ThreadPoolExecutor.shutdown`` blocks on
+    ``_shutdown_lock``, while ``submit`` holds its own ``_shutdown_lock``
+    and then the module's ``_global_shutdown_lock``. GC can fire this
+    finalizer on a thread that is inside executor B's ``submit``
+    (holding the global lock) while another thread is inside executor
+    A's ``submit`` (holding A's lock, waiting for the global one) — a
+    blocking shutdown of A here completes the AB/BA deadlock (the
+    lock-order watchdog, devtools/lockwatch.py, names this shape). So the
+    finalizer path replicates ``shutdown(wait=False)``'s body under a
+    TRYLOCK and leaves the executor to the interpreter's exit reaper
+    when the lock is contended (or the stdlib internals have moved).
+    Executor-owning plugins call this from ``close()``."""
+    if close_may_join():
+        executor.shutdown(wait=True)
+        return
+    lock = getattr(executor, "_shutdown_lock", None)
+    try:
+        if lock is None or not lock.acquire(False):
+            return
+        try:
+            executor._shutdown = True
+            # Wake idle workers blocked in _work_queue.get so they exit
+            # instead of parking until interpreter shutdown.
+            executor._work_queue.put(None)
+        finally:
+            lock.release()
+    except Exception:
+        # Unknown executor shape: taking no lock beats taking a risk —
+        # the interpreter joins surviving workers at exit.
+        return
 
 
 def run_on_loop(event_loop: asyncio.AbstractEventLoop, coro):

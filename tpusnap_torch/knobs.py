@@ -55,6 +55,7 @@ _DURABLE_COMMIT_ENV_VAR = "TPUSNAP_DURABLE_COMMIT"
 _RANK_FAILURE_ENV_VAR = "TPUSNAP_RANK_FAILURE"
 _DISABLE_JOURNAL_ENV_VAR = "TPUSNAP_DISABLE_JOURNAL"
 _TELEMETRY_ENV_VAR = "TPUSNAP_TELEMETRY"
+_LOCKCHECK_ENV_VAR = "TPUSNAP_LOCKCHECK"
 _STALL_DEADLINE_ENV_VAR = "TPUSNAP_STALL_DEADLINE_S"
 _HEARTBEAT_INTERVAL_ENV_VAR = "TPUSNAP_HEARTBEAT_INTERVAL_S"
 _TELEMETRY_DIR_ENV_VAR = "TPUSNAP_TELEMETRY_DIR"
@@ -465,6 +466,20 @@ def is_journal_disabled() -> bool:
     ``TPUSNAP_DISABLE_JOURNAL=1`` turns it off, for A/B measurement: a
     crashed take then reads as foreign and a retake starts from zero."""
     return _flag(_DISABLE_JOURNAL_ENV_VAR)
+
+
+def is_lockcheck_enabled() -> bool:
+    """Runtime lock-order watchdog (:mod:`tpusnap_torch.devtools.lockwatch`),
+    OPT-IN via ``TPUSNAP_LOCKCHECK=1``: every ``threading.Lock``/
+    ``RLock`` created after import is wrapped to record the per-thread
+    held-lock stack and a global lock-order graph; AB/BA cycles
+    (potential deadlocks) and locks held across storage I/O are
+    reported at process exit and via the lockwatch API. Off by default:
+    the instrumentation adds a pure-Python hop to every lock
+    acquisition. Read at import, before any tuner plan exists. The test
+    suite enables it so the whole suite doubles as a deadlock
+    detector."""
+    return os.environ.get(_LOCKCHECK_ENV_VAR, "0") == "1"
 
 
 def is_telemetry_enabled() -> bool:

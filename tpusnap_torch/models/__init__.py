@@ -7,7 +7,9 @@ layout the sharded preparer must round-trip over a
 torchrec DMP analog: row-, column- and table-wise layouts, host-offloaded
 tables in pinned memory, row-wise Adagrad state). Both keep tpusnap's
 parameter trees, so their snapshots restore across the two packages.
-Ring attention (sequence parallelism, ROADMAP.md item B3) is not ported.
+``TransformerConfig(use_ring_attention=True)`` runs the attention through
+``ops.ring_attention`` (sequence parallelism over a ``torch.distributed``
+group, forward only across ranks).
 """
 
 from .embedding import (  # noqa: F401

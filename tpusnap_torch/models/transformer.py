@@ -19,7 +19,14 @@ FFN is tpusnap's dense soft routing: softmax gates from the router, every
 expert applied to every token, the outputs summed by gate, all in the
 compute dtype. The attention forward runs the Hopper flash kernel for
 CUDA tensors (``attention_impl="auto"`` or ``"flash"``) and the plain
-version for CPU tensors or ``"reference"``.
+version for CPU tensors or ``"reference"``. With ``use_ring_attention``
+it runs ``ops.ring_attention`` instead: one block through the ring block
+kernel, or, given a ``ring_group`` (a ``torch.distributed`` group), this
+rank's contiguous block of the sequence against every rank's K/V, with
+RoPE on global positions and the next-token loss taken across the
+blocks' boundaries (sequence parallelism, tpusnap's ``shard_map`` over
+``"fsdp"``). Across ranks it runs forward only: its backward waits for the
+sharded train step (ROADMAP.md item A7).
 
 Layouts: ``param_specs()`` are tpusnap's ``PartitionSpec``s as tuples
 over a ``("data", "fsdp", "tensor")`` mesh (dp: replicated norms; fsdp
@@ -34,7 +41,7 @@ card per rank (ROADMAP.md item A7).
 
 Entry points run on the card: ``Transformer(cfg)`` places its parameters
 on ``cuda`` and raises when CUDA is absent; pass ``device="cpu"`` to run
-on the CPU. Ring attention (ROADMAP.md item B3) raises.
+on the CPU.
 """
 
 from __future__ import annotations
@@ -49,6 +56,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.flash_attention import flash_attention, flash_attention_reference
+from ..ops.ring_attention import ring_attention
 from .layout import make_mesh, map_specs, shard_tree, spec_placements
 
 __all__ = [
@@ -108,10 +116,6 @@ class Transformer(nn.Module):
         self, config: TransformerConfig, device=None, seed: int = 0
     ) -> None:
         super().__init__()
-        if config.use_ring_attention:
-            raise NotImplementedError(
-                "ring attention is not ported yet (ROADMAP.md item B3)"
-            )
         if config.d_model % config.n_heads:
             raise ValueError("d_model must be divisible by n_heads")
         self.config = config
@@ -222,28 +226,40 @@ class Transformer(nn.Module):
 
     # ----------------------------------------------------------- forward
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """Logits ``[batch, seq, vocab]`` in f32."""
+    def forward(self, tokens: torch.Tensor, ring_group=None) -> torch.Tensor:
+        """Logits ``[batch, seq, vocab]`` in f32. With ``ring_group`` (needs
+        ``use_ring_attention``), ``tokens`` is this rank's contiguous block
+        of the sequence (rank r holds positions ``r * seq ...``) and the
+        logits are the block's."""
         cfg = self.config
+        offset = 0
+        if ring_group is not None:
+            if not cfg.use_ring_attention:
+                raise ValueError("ring_group needs TransformerConfig(use_ring_attention=True)")
+            import torch.distributed as dist
+
+            offset = dist.get_rank(ring_group) * tokens.shape[1]
         x = F.embedding(tokens, self.embed).to(cfg.dtype)
         for i in range(cfg.n_layers):
             lp = {k: self.layers[k][i] for k in self.layer_keys}
-            x = x + self._attention(lp, _rmsnorm(x, lp["ln1"]))
+            x = x + self._attention(lp, _rmsnorm(x, lp["ln1"]), offset, ring_group)
             x = x + self._ffn(lp, _rmsnorm(x, lp["ln2"]))
         x = _rmsnorm(x, self.ln_f)
         # bf16 operands, products and sums in f32 (the JAX einsum's
         # preferred_element_type=f32): bf16 values are exact in f32.
         return x.float() @ self.unembed.to(cfg.dtype).float()
 
-    def _attention(self, lp, x):
+    def _attention(self, lp, x, offset, ring_group):
         cfg = self.config
         b, s, _ = x.shape
         qkv = x @ lp["wqkv"].to(cfg.dtype)
         shape = (b, s, cfg.n_heads, cfg.head_dim)
         q, k, v = (t.reshape(shape) for t in qkv.split(cfg.d_model, dim=-1))
-        q = _rope(q, cfg.rope_theta)
-        k = _rope(k, cfg.rope_theta)
-        if cfg.attention_impl == "reference":
+        q = _rope(q, cfg.rope_theta, offset)
+        k = _rope(k, cfg.rope_theta, offset)
+        if cfg.use_ring_attention:
+            out = ring_attention(q, k, v, group=ring_group, causal=True)
+        elif cfg.attention_impl == "reference":
             out = flash_attention_reference(q, k, v, causal=True)
         else:
             out = flash_attention(q, k, v, causal=True)
@@ -260,12 +276,34 @@ class Transformer(nn.Module):
         out = torch.einsum("bsef,efd->bsed", h, lp["w2e"].to(dtype))
         return torch.einsum("bsed,bse->bsd", out, gates)
 
-    def loss(self, tokens: torch.Tensor) -> torch.Tensor:
-        """Next-token cross-entropy (the last position predicts nothing)."""
-        logits = self(tokens)
-        logp = F.log_softmax(logits[:, :-1].float(), dim=-1)
-        nll = -logp.gather(-1, tokens[:, 1:, None])[..., 0]
-        return nll.mean()
+    def loss(self, tokens: torch.Tensor, ring_group=None) -> torch.Tensor:
+        """Next-token cross-entropy (the last position predicts nothing).
+        With ``ring_group``, ``tokens`` is this rank's block: each rank
+        scores its positions against the globally shifted targets (its
+        last position against the next rank's first token; the last rank
+        drops its last position) and every rank returns the mean over the
+        whole sequence."""
+        logits = self(tokens, ring_group)
+        if ring_group is None:
+            logp = F.log_softmax(logits[:, :-1].float(), dim=-1)
+            nll = -logp.gather(-1, tokens[:, 1:, None])[..., 0]
+            return nll.mean()
+        import torch.distributed as dist
+
+        n, rank = dist.get_world_size(ring_group), dist.get_rank(ring_group)
+        b, s = tokens.shape
+        # Through the host: gloo takes no CUDA tensors.
+        firsts = [torch.empty((b, 1), dtype=tokens.dtype) for _ in range(n)]
+        dist.all_gather(firsts, tokens[:, :1].cpu().contiguous(), group=ring_group)
+        if rank < n - 1:
+            targets = torch.cat([tokens[:, 1:], firsts[rank + 1].to(tokens.device)], dim=1)
+        else:
+            targets, logits = tokens[:, 1:], logits[:, :-1]
+        logp = F.log_softmax(logits.float(), dim=-1)
+        nll_sum = -logp.gather(-1, targets[..., None])[..., 0].sum()
+        total = nll_sum.detach().double().cpu().reshape(1)
+        dist.all_reduce(total, group=ring_group)
+        return (total[0] / (b * (n * s - 1))).float().to(tokens.device)
 
     # ---------------------------------------------------------- training
 
@@ -337,12 +375,13 @@ def _rmsnorm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return (xf * rms).to(x.dtype) * scale.to(x.dtype)
 
 
-def _rope(x: torch.Tensor, theta: float) -> torch.Tensor:
-    """Rotary embedding over global positions, on INTERLEAVED lanes
-    (``x[..., 0::2]``, ``x[..., 1::2]`` stacked back on the last axis), as
-    the JAX model does — not the half-split layout."""
+def _rope(x: torch.Tensor, theta: float, offset: int = 0) -> torch.Tensor:
+    """Rotary embedding over global positions (``offset`` is the first
+    one: a ring rank's block starts past the ranks before it), on
+    INTERLEAVED lanes (``x[..., 0::2]``, ``x[..., 1::2]`` stacked back on
+    the last axis), as the JAX model does — not the half-split layout."""
     b, s, h, d = x.shape
-    pos = torch.arange(s, device=x.device, dtype=torch.float32)
+    pos = torch.arange(offset, offset + s, device=x.device, dtype=torch.float32)
     freqs = theta ** (-torch.arange(0, d, 2, dtype=torch.float32, device=x.device) / d)
     ang = pos[:, None] * freqs[None, :]  # [s, d/2]
     cos = torch.cos(ang)[None, :, None, :]

@@ -1,0 +1,368 @@
+"""Ring attention: causal attention over a sequence split into contiguous
+blocks, one per rank, with a hand-written Hopper kernel for each block step.
+
+Counterpart of tpusnap/ops/ring_attention.py. Each rank holds one block of
+the sequence; K/V blocks rotate around the ring while every rank
+accumulates its queries' attention with an online softmax, so no rank ever
+holds the full sequence.
+
+- ``block_attend(q, k, v, m, l, o, q_offset, k_offset, scale, causal)`` is
+  the plain PyTorch version of ``_block_attend``: one online-softmax step
+  of a local query block against one K/V block, returning the new carry
+  ``(m, l, o)``. The CPU path and the tests use it; on the card it is only
+  the yardstick the kernel is held against.
+- ``attend_block(...)`` is the dispatch: it updates the carry in place. On
+  CUDA tensors it launches the kernel of ``csrc/ring_block_wgmma.cu``
+  (``_block_attend_kernel``) or raises; there is no fallback. On CPU
+  tensors it runs ``block_attend``. A causal block wholly in the queries'
+  future changes nothing and is skipped without a launch (``skips``).
+- ``ring_attention(q, k, v, group=None, causal=True, scale=None)``:
+  ``group=None`` is one block (``axis_name=None`` in tpusnap). With a
+  ``torch.distributed`` group of n ranks, K/V rotate ``i -> i + 1 mod n``
+  with ``isend``/``irecv`` for n steps; after ``step`` rotations a rank
+  holds the block of rank ``(rank - step) mod n``. The rotation goes
+  through host memory: gloo's ``send``/``recv`` take no CUDA tensors, and
+  ranks sharing one card cannot use NCCL. Each rotating CUDA block is
+  copied into a pinned host buffer, sent as bytes while the block step
+  runs on the card, and the received bytes are copied back. NCCL with one
+  card per rank waits for the four-card work (ROADMAP.md item A10b).
+- Gradients: with one block, a ``torch.autograd.Function`` whose backward
+  differentiates the plain version, as the port's flash attention does
+  (tpusnap has no backward kernel). The ring backward across ranks belongs
+  to the sharded train step, which waits for NCCL (ROADMAP.md item A7):
+  across ranks with ``requires_grad`` this raises ``NotImplementedError``.
+
+Routes, picked by ``flash_attention._route`` from dtype and strides and
+checked again in C: ``wgmma`` (bf16/f16 that TMA can describe) or
+``simt`` (f32 and other layouts); head_dim <= 128. The kernels live in the
+flash attention library (``flash_attention.build_library``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+from typing import Optional, Tuple
+
+import torch
+
+from . import flash_attention as _fa
+
+_NEG_INF = -1e30
+_MAX_HEAD_DIM = 128
+
+# Kernel launches made through ``attend_block`` in this process, in all and
+# by route, and the future blocks skipped without a launch.
+launches = 0
+route_launches = {"wgmma": 0, "simt": 0}
+skips = 0
+
+_fn = None
+_lock = threading.Lock()
+
+
+def _load():
+    global _fn
+    with _lock:
+        if _fn is None:
+            fn = _fa._load().tpusnap_ring_block_attend
+            fn.argtypes = [
+                ctypes.c_void_p,  # q
+                ctypes.c_void_p,  # k
+                ctypes.c_void_p,  # v
+                ctypes.c_void_p,  # o
+                ctypes.c_void_p,  # m
+                ctypes.c_void_p,  # l
+                ctypes.POINTER(ctypes.c_int64),  # 9 strides
+                ctypes.c_int,  # b
+                ctypes.c_int,  # s
+                ctypes.c_int,  # h
+                ctypes.c_int,  # d
+                ctypes.c_int64,  # q_offset
+                ctypes.c_int64,  # k_offset
+                ctypes.c_float,  # scale
+                ctypes.c_int,  # causal
+                ctypes.c_int,  # dtype code
+                ctypes.c_int,  # route code
+                ctypes.c_void_p,  # stream
+            ]
+            fn.restype = ctypes.c_int
+            _fn = fn
+        return _fn
+
+
+def block_attend(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    m: torch.Tensor,
+    l: torch.Tensor,
+    o: torch.Tensor,
+    q_offset: int,
+    k_offset: int,
+    scale: float,
+    causal: bool,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One online-softmax step against one K/V block (plain version of
+    ``_block_attend``). q: ``[b, sq, h, d]``; k, v: ``[b, sk, h, d]``; m, l:
+    ``[b, h, sq]`` f32; o: ``[b, sq, h, d]`` f32. ``q_offset``/``k_offset``
+    are the blocks' first global positions. Returns the new ``(m, l, o)``."""
+    sq, sk = q.shape[1], k.shape[1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    mask = None
+    if causal:
+        q_pos = q_offset + torch.arange(sq, device=q.device)
+        k_pos = k_offset + torch.arange(sk, device=q.device)
+        mask = q_pos[:, None] >= k_pos[None, :]
+        s = torch.where(mask, s, torch.full_like(s, _NEG_INF))
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    alpha = torch.exp(m - m_new)
+    p = torch.exp(s - m_new[..., None])
+    if mask is not None:
+        # A fully masked row keeps m_new == m == -1e30 and p == 1; zeroing
+        # by the mask keeps it contributing nothing.
+        p = torch.where(mask, p, torch.zeros_like(p))
+    l_new = l * alpha + p.sum(dim=-1)
+    pv = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+    o_new = o * alpha.transpose(1, 2)[..., None] + pv
+    return m_new, l_new, o_new
+
+
+# Unit roundoff u of P's rounding to the input type before P V.
+_ROUNDING = {torch.bfloat16: 2**-8, torch.float16: 2**-11, torch.float32: 0.0}
+# The f32 arithmetic's relative slack: exp2 on the special-function unit
+# (about 2**-22 relative) with the log2(e) scaling folded in, and the
+# tensor cores' summation order.
+_F32_SLACK = 1e-5
+
+
+def rounding_bound(q, k, v, m, l, o, q_offset: int, k_offset: int, scale: float, causal: bool):
+    """Per-element bounds ``(bm, bl, bo)`` on the kernel's new carry against
+    ``block_attend`` on the same inputs, in f32: m within f32 slack of |m|;
+    l within f32 slack of its terms (p is summed before rounding);
+    o within ``u * (P |V|)`` (P rounded to the input type before P V, as
+    ``flash_attention.rounding_bound`` allows the flash kernel) plus f32
+    slack of its terms. 1e-6 absolute covers values near 0."""
+    u = _ROUNDING[q.dtype]
+    m_new, p_sum, p_abs_v = block_attend(
+        q, k, v.abs(), m, torch.zeros_like(l), torch.zeros_like(o), q_offset, k_offset, scale, causal
+    )
+    alpha = torch.exp(m - m_new)
+    bm = _F32_SLACK * m_new.abs() + 1e-6
+    bl = _F32_SLACK * (alpha * l + p_sum) + 1e-6
+    bo = u * p_abs_v + _F32_SLACK * (alpha.transpose(1, 2)[..., None] * o.abs() + p_abs_v) + 1e-6
+    return bm, bl, bo
+
+
+def _check_block(q, k, v, m, l, o) -> None:
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dim() != 4:
+            raise ValueError(f"{name} must be [batch, seq, heads, head_dim], got {tuple(t.shape)}")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise ValueError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
+    if k.shape != v.shape or k.shape[0] != q.shape[0] or k.shape[2:] != q.shape[2:]:
+        raise ValueError(f"k, v {tuple(k.shape)} do not fit q {tuple(q.shape)}")
+    b, sq, h, _ = q.shape
+    for name, t, shape in (("m", m, (b, h, sq)), ("l", l, (b, h, sq)), ("o", o, tuple(q.shape))):
+        if tuple(t.shape) != shape or t.dtype != torch.float32:
+            raise ValueError(
+                f"carry {name} must be float32{list(shape)}, got {t.dtype}{list(t.shape)}"
+            )
+    devices = {t.device for t in (q, k, v, m, l, o)}
+    if len(devices) != 1:
+        raise ValueError(f"q, k, v and the carry lie on different devices: {devices}")
+
+
+def _block_attend_kernel(q, k, v, m, l, o, q_offset, k_offset, scale, causal) -> None:
+    """Launch the route's Hopper kernel on the current stream, updating
+    the carry in place (not synchronised). Raises on what it cannot take."""
+    global launches
+    b, s, h, d = q.shape
+    if q.dtype not in _fa._DTYPE_CODES:
+        raise ValueError(f"unsupported dtype {q.dtype} (float32, float16, bfloat16)")
+    if d > _MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {d} > {_MAX_HEAD_DIM}: the ring block kernel takes up to 128")
+    if k.shape != q.shape:
+        raise ValueError(
+            f"the ring block kernel takes K/V blocks of q's shape {tuple(q.shape)}, "
+            f"got {tuple(k.shape)}"
+        )
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.shape[-1] > 1 and t.stride(-1) != 1:
+            raise ValueError(f"{name} must be contiguous in head_dim (stride {t.stride(-1)})")
+    for name, t in (("m", m), ("l", l), ("o", o)):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"carry {name} must be contiguous from a 16-byte aligned base")
+    route = _fa._route(q, k, v, base_aligned=all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
+    fn = _load()
+    strides = (ctypes.c_int64 * 9)(*(t.stride(i) for t in (q, k, v) for i in range(3)))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            o.data_ptr(), m.data_ptr(), l.data_ptr(),
+            strides, b, s, h, d, int(q_offset), int(k_offset), float(scale),
+            1 if causal else 0, _fa._DTYPE_CODES[q.dtype], _fa._ROUTE_CODES[route], stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"ring block kernel launch failed: CUDA error {err} "
+            f"(route {route}, shape {tuple(q.shape)}, {q.dtype})"
+        )
+    launches += 1
+    route_launches[route] += 1
+
+
+def attend_block(q, k, v, m, l, o, q_offset: int, k_offset: int, scale: float, causal: bool) -> None:
+    """Update the carry ``(m, l, o)`` in place by one K/V block: the Hopper
+    kernel for CUDA tensors (or raise), ``block_attend`` for CPU tensors."""
+    global skips
+    _check_block(q, k, v, m, l, o)
+    if causal and k_offset >= q_offset + q.shape[1]:
+        skips += 1  # every key is in every query's future: alpha = 1, p = 0
+        return
+    if q.is_cuda:
+        _block_attend_kernel(q, k, v, m, l, o, q_offset, k_offset, scale, causal)
+        return
+    if q.device.type != "cpu":
+        raise ValueError(f"unsupported device {q.device}")
+    m_new, l_new, o_new = block_attend(q, k, v, m, l, o, q_offset, k_offset, scale, causal)
+    m.copy_(m_new)
+    l.copy_(l_new)
+    o.copy_(o_new)
+
+
+def _init_carry(q: torch.Tensor):
+    b, sq, h, _ = q.shape
+    m = torch.full((b, h, sq), _NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
+    o = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    return m, l, o
+
+
+def _finish(l: torch.Tensor, o: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    # l > 0 for causal (the diagonal attends) and non-causal rows alike;
+    # guarded as tpusnap does.
+    out = o / l.clamp_min(1e-20).transpose(1, 2)[..., None]
+    return out.to(dtype)
+
+
+def _one_block(q, k, v, causal: bool, scale: float) -> torch.Tensor:
+    m, l, o = _init_carry(q)
+    attend_block(q, k, v, m, l, o, 0, 0, scale, causal)
+    return _finish(l, o, q.dtype)
+
+
+def ring_attention_reference(q, k, v, causal: bool = True, scale: Optional[float] = None):
+    """The one-block ring in plain PyTorch (tpusnap's ``axis_name=None``
+    path): the backward differentiates it."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    m, l, o = _init_carry(q)
+    m, l, o = block_attend(q, k, v, m, l, o, 0, 0, scale, causal)
+    return _finish(l, o, q.dtype)
+
+
+class _RingBlock(torch.autograd.Function):
+    """Forward: one block through ``attend_block``. Backward: autograd of
+    the plain version, recomputed from q, k, v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        ctx.causal, ctx.scale = causal, scale
+        ctx.save_for_backward(q, k, v)
+        return _one_block(q, k, v, causal, scale)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            inputs = tuple(t.detach().requires_grad_(True) for t in (q, k, v))
+            out = ring_attention_reference(*inputs, ctx.causal, ctx.scale)
+            grads = torch.autograd.grad(out, inputs, grad_out)
+        return (*grads, None, None)
+
+
+class _Rotation:
+    """K/V moving one step around the ring, ``rank -> rank + 1``, as bytes
+    over the group's backend. CUDA blocks go through pinned host buffers
+    (gloo takes no CUDA tensors); CPU blocks are sent as they are."""
+
+    def __init__(self, group, like: torch.Tensor) -> None:
+        import torch.distributed as dist
+
+        self._dist = dist
+        self._group = group
+        n, rank = dist.get_world_size(group), dist.get_rank(group)
+        self._dst = dist.get_global_rank(group, (rank + 1) % n)
+        self._src = dist.get_global_rank(group, (rank - 1) % n)
+        self._cuda = like.is_cuda
+        pin = self._cuda
+        self._send = [torch.empty(like.shape, dtype=like.dtype, pin_memory=pin) for _ in range(2)]
+        self._recv = [torch.empty(like.shape, dtype=like.dtype, pin_memory=pin) for _ in range(2)]
+        self._works = []
+
+    def start(self, k: torch.Tensor, v: torch.Tensor) -> None:
+        """Send this rank's (k, v) on and post the receives of the
+        neighbour's; returns once the sends' bytes are in host memory."""
+        for buf, t in zip(self._send, (k, v)):
+            buf.copy_(t)  # from the card: synchronous, the bytes are final
+        dist = self._dist
+        self._works = []
+        for send, recv in zip(self._send, self._recv):
+            self._works.append(dist.isend(send.view(torch.uint8), self._dst, group=self._group))
+            self._works.append(dist.irecv(recv.view(torch.uint8), self._src, group=self._group))
+
+    def finish(self, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Wait for the exchange; the received (k, v) on ``device``."""
+        for work in self._works:
+            work.wait()
+        self._works = []
+        # Copies: the host buffers are reused by the next step.
+        return tuple(t.to(device, copy=True) for t in self._recv)
+
+
+def ring_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    group=None,
+    causal: bool = True,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Causal attention with the sequence split over the ranks of ``group``.
+
+    q, k, v: this rank's contiguous block ``[batch, seq_local, heads,
+    head_dim]`` of a global ``[batch, seq, heads, head_dim]``, rank r
+    holding positions ``r * seq_local ...``. ``group=None`` is one block
+    (plain attention through the block kernel). ``causal`` masks in global
+    positions; ``scale`` defaults to ``head_dim ** -0.5``. Returns this
+    rank's output block, q's shape and dtype."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if group is None:
+        return _RingBlock.apply(q, k, v, causal, scale)
+    import torch.distributed as dist
+
+    n, rank = dist.get_world_size(group), dist.get_rank(group)
+    if n == 1:
+        return _RingBlock.apply(q, k, v, causal, scale)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "ring attention across ranks has no backward yet: it comes with the "
+            "sharded train step, which waits for NCCL with one card per rank "
+            "(ROADMAP.md item A7); run the forward under torch.no_grad()"
+        )
+    sq = q.shape[1]
+    m, l, o = _init_carry(q)
+    rotation = _Rotation(group, k)
+    k_blk, v_blk = k, v
+    for step in range(n):
+        last = step == n - 1
+        if not last:
+            rotation.start(k_blk, v_blk)
+        src = (rank - step) % n
+        attend_block(q, k_blk, v_blk, m, l, o, rank * sq, src * sq, scale, causal)
+        if not last:
+            k_blk, v_blk = rotation.finish(q.device)
+    return _finish(l, o, q.dtype)

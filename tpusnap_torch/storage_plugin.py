@@ -28,6 +28,7 @@ import asyncio
 import time
 from typing import Any, Dict, Optional
 
+from .devtools import lockwatch as _lockwatch
 from .io_types import SIDECAR_PREFIX, ReadIO, StoragePlugin, WriteIO, run_on_loop
 
 _CHAOS_PREFIX = "chaos+"
@@ -117,6 +118,15 @@ class InstrumentedStoragePlugin(StoragePlugin):
     def drain_in_flight(self) -> None:
         self.inner.drain_in_flight()
 
+    @staticmethod
+    def _note_blocking(op: str) -> None:
+        """Lock-order watchdog hook (TPUSNAP_LOCKCHECK=1): record any
+        tracked lock the calling thread holds across this storage op — a
+        lock held for a disk or network round-trip is a starvation hazard
+        worth a name in the report. Disabled (the default) this is one
+        call and one None check."""
+        _lockwatch.note_blocking(f"storage_{op}")
+
     def _observe(self, op: str, path: str, t0: float, nbytes: int) -> None:
         if path.startswith(SIDECAR_PREFIX):
             return
@@ -129,11 +139,13 @@ class InstrumentedStoragePlugin(StoragePlugin):
 
     async def write(self, write_io: WriteIO) -> None:
         t0 = time.monotonic()
+        self._note_blocking("write")
         await self.inner.write(write_io)
         self._observe("write", write_io.path, t0, memoryview(write_io.buf).nbytes)
 
     async def write_atomic(self, write_io: WriteIO, durable: bool = False) -> None:
         t0 = time.monotonic()
+        self._note_blocking("write")
         await self.inner.write_atomic(write_io, durable=durable)
         self._observe("write", write_io.path, t0, memoryview(write_io.buf).nbytes)
 
@@ -150,6 +162,7 @@ class InstrumentedStoragePlugin(StoragePlugin):
 
     async def read(self, read_io: ReadIO) -> None:
         t0 = time.monotonic()
+        self._note_blocking("read")
         await self.inner.read(read_io)
         self._observe("read", read_io.path, t0, self._read_nbytes(read_io))
 

@@ -210,5 +210,7 @@ class FSStoragePlugin(StoragePlugin):
 
     async def close(self) -> None:
         if self._executor is not None:
-            self._executor.shutdown(wait=True)
+            from ..io_types import shutdown_plugin_executor
+
+            shutdown_plugin_executor(self._executor)
             self._executor = None
