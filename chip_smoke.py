@@ -15,22 +15,29 @@ Phases, in order:
 2. build   — g++ and nvcc builds, started together; their seconds, each
              kernel instantiation's registers and spill bytes (ptxas) and
              HGMMA count (cuobjdump -sass). Fails if the D=64 bf16 flash
-             or ring block wgmma kernel spills or a wgmma kernel has no
-             HGMMA instruction.
+             wgmma kernel or any ring block wgmma kernel spills, or a
+             wgmma kernel has no HGMMA instruction.
 3. kernels — every kernel of the port against its plain PyTorch version
              on the card at the main path's shape and at ragged and
              strided shapes, on the route each input takes, a bitwise
              repeat check, and the tensor-core kernel's time beside the
              simt kernel's, the plain version's, one PyTorch library
              call's as a yardstick, and the least time the card could take
-             for the same work. The ring block kernel at the flagship's
-             ring block (8, 512, 8, 64) bf16 as a diagonal, a past and a
+             for the same work. The ring block kernel in each carry mode
+             (first, middle, last, first+last) at the flagship's ring
+             block (8, 512, 8, 64) bf16 as a diagonal, a past and a
              future block with a non-trivial incoming carry (rows that
              have seen nothing among them), the ring of one's single
-             block (8, 1024, 8, 64) from the empty carry, ragged f16/bf16 blocks at
-             offsets that cut tiles and f32 (simt), each held per element
-             to ``ring_attention.rounding_bound``; its past and diagonal
-             block times (no library call computes the carry).
+             block (8, 1024, 8, 64), ragged f16/bf16 blocks at offsets
+             that cut tiles and f32 (simt), each held per element to
+             ``ring_attention.rounding_bound`` (the carry) or
+             ``finish_bound`` (a last mode's output), and to the modes'
+             two bitwise identities (first = middle from the empty carry,
+             last = middle then ``_finish``); every mode's past and
+             diagonal block timed warm and with the L2 flushed, beside its
+             plain version and, for first+last, SDPA. The ring of one's
+             whole forward (one first+last launch) timed beside the flash
+             kernel, SDPA and the attention bound.
 4. train   — the flagship transformer at its full default width trains
              5 Adam steps on the card; the attention forward must run
              the flash kernel n_layers x steps times.
@@ -135,8 +142,11 @@ Phases, in order:
              sequence; the group's loss must equal the single-process
              dense model's within 1e-4 relative and each rank's logits
              the dense model's per element within 0.2 (the ring of one's
-             too), rank 0 launching the ring block kernel 4 times (its
-             future blocks skipped) and rank 1 8 times. Then a ring-of-one replica trains 3 Adam
+             too), rank 0 launching the ring block kernel 4 times as
+             first+last (its future blocks skipped) and rank 1 8 times (4
+             first, 4 last). A train step split into forward and backward
+             (CUDA events), a ring-of-one model's beside a dense one's.
+             Then a ring-of-one replica trains 3 Adam
              steps; its train state is taken and restored into a fresh
              ring model and into a fresh dense model, each bit for bit
              with Parameter identity and a post-restore step equal to a
@@ -253,10 +263,10 @@ rank of distributed, sharded and layouts, sharded's parent, moe, the
 lifecycle model with crash and chaos, rank 0 of the sync and async
 degrade worlds, delta, tier with cas, and observe — and read just after
 it: the kernels phase's comparison launches do not count. The ring block
-kernel's counts (and its skipped future blocks) are set to 0 at the same
-points and read for each rank of the ring phase and for its replica
-(the dense model restored from the replica's snapshot counts as a flash
-path). Every main-path launch must take the wgmma route. The incremental,
+kernel's counts (by route and by carry mode, and its skipped future
+blocks) are set to 0 at the same points and read for each rank of the
+ring phase and for its replica (20 launches, all first+last; the dense
+model restored from the replica's snapshot counts as a flash path). Every main-path launch must take the wgmma route. The incremental,
 transforms and the four A8b phases run with compression off, so their
 byte counts are the tensors' own.
 """
@@ -332,6 +342,23 @@ def time_ms(fn, reps: int, warmup: int = 3) -> float:
         times.append(start.elapsed_time(end) / reps)
     del graph
     return statistics.median(times)
+
+
+def time_ms_cold(fn, reps: int, warmup: int = 3) -> float:
+    """Device time of one call of ``fn`` with the L2 cache flushed before
+    it: ``reps`` (flush, call) pairs captured in one CUDA graph, less
+    ``reps`` flushes alone in another (a flush zeroes 256 MiB, five times
+    the 50 MB L2); the median of 5 replays of each over ``reps``."""
+    import torch
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+
+    def both():
+        flush.zero_()
+        fn()
+
+    alone = time_ms(flush.zero_, reps, warmup)
+    return time_ms(both, reps, warmup) - alone
 
 
 def attention_bound(shape, dtype: str, causal: bool):
@@ -426,10 +453,11 @@ def phase_build() -> dict:
     if _native.checksum_algorithm() != "crc32c":
         raise RuntimeError("native build missing: checksums would not be crc32c")
     hgmma = _hgmma_counts(fa._SO, fa._nvcc())
-    for label in ("wgmma<bf16,64>", "ring_wgmma<bf16,64>"):
+    for label in ("wgmma<bf16,64>", "ring_wgmma<bf16,64>", "ring_wgmma<bf16,128>",
+                  "ring_wgmma<f16,64>", "ring_wgmma<f16,128>"):
         row = ptxas.get(label)
         if not row or row.get("spill_stores", 1) or row.get("spill_loads", 1):
-            raise AssertionError(f"the D=64 bf16 kernel {label} spills or is missing: {row}")
+            raise AssertionError(f"the kernel {label} spills or is missing: {row}")
     wgmma = {k: n for k, n in hgmma.items() if k.split("<")[0].endswith("wgmma")}
     if not wgmma or not all(wgmma.values()):
         raise AssertionError(f"a tensor-core kernel has no HGMMA instruction: {hgmma}")
@@ -539,12 +567,14 @@ def phase_kernels() -> dict:
         simt_ms = time_ms(lambda: flash_attention(qm, km, vm, causal=True), reps)
     bound_ms, bound_by = attention_bound(SLICE_SHAPE, "bfloat16", True)
     flops = attention_flops(SLICE_SHAPE, True)
-    ring_row, ring_checks = _ring_block_kernel_checks(gen)
+    ring_row, ring_checks, ring_identities = _ring_block_kernel_checks(gen)
     return {
         "phase": "kernels",
         "checks": checks,
         "ring_checks": ring_checks,
+        "ring_identities": ring_identities,
         "ring_block_attend": ring_row,
+        "ring_of_one_forward": _ring_of_one_forward(gen),
         "bitwise_repeat": True,
         "flash_attention_fwd": {
             "shape": list(SLICE_SHAPE), "dtype": "bfloat16", "causal": True,
@@ -559,15 +589,21 @@ def phase_kernels() -> dict:
     }
 
 
-def ring_block_bound(shape, dtype: str, pairs: int):
+def ring_block_bound(shape, dtype: str, pairs: int, mode: str = "middle"):
     """(least ms, "bytes" or "operations") for one ring block step at
-    ``shape``: the larger of the bytes (q, k, v read once; the f32 carry
-    o, m and l read once and written once) over HBM and the operations
-    of the ``pairs`` (query, key) pairs the mask keeps (QK^T and PV, 2 per
-    multiply-add) over the peak rate of the inputs' type."""
+    ``shape`` in carry ``mode``: the larger of the bytes (q, k, v read
+    once; the f32 carry o, m and l read once where the mode reads it and
+    written once where it writes it; the output in q's type written once
+    in the last modes) over HBM and the operations of the ``pairs``
+    (query, key) pairs the mask keeps (QK^T and PV, 2 per multiply-add)
+    over the peak rate of the inputs' type."""
     b, s, h, d = shape
     itemsize = {"bfloat16": 2, "float16": 2, "float32": 4}[dtype]
-    nbytes = 3 * b * s * h * d * itemsize + 2 * b * s * h * d * 4 + 4 * b * h * s * 4
+    carry = b * s * h * d * 4 + 2 * b * h * s * 4
+    passes = int(mode in ("middle", "last")) + int(mode in ("first", "middle"))
+    nbytes = 3 * b * s * h * d * itemsize + passes * carry
+    if mode in ("last", "first+last"):
+        nbytes += b * s * h * d * itemsize
     bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
     ops_ms = 1e3 * 4 * b * h * d * pairs / PEAK_FLOPS[dtype]
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
@@ -587,22 +623,60 @@ def _ring_carry(shape, gen):
     return m, l, o
 
 
+def _ring_call(ra, q, k, v, carry, out, q_off, k_off, scale, causal, mode):
+    """A call of ``attend_block`` in ``mode`` writing into the buffers
+    given: the carry (updated in place by middle, written by first, read
+    by last) and ``out`` (the last modes)."""
+    if mode == "first+last":
+        return lambda: ra.attend_block(q, k, v, None, None, None, q_off, k_off, scale, causal,
+                                       mode=mode, out=out)
+    last = out if mode == "last" else None
+    return lambda: ra.attend_block(q, k, v, *carry, q_off, k_off, scale, causal, mode=mode,
+                                   out=last)
+
+
+def _ring_plain(ra, q, k, v, carry, q_off, k_off, scale, causal, mode):
+    """The plain version of ``mode``: ``block_attend`` from ``carry`` (from
+    ``_init_carry`` in the first modes), then ``_finish`` in the last
+    modes; the new carry, or the output alone."""
+    start = ra._init_carry(q) if mode in ("first", "first+last") else carry
+    new = ra.block_attend(q, k, v, *start, q_off, k_off, scale, causal)
+    return (ra._finish(new[1], new[2], q.dtype),) if mode in ("last", "first+last") else new
+
+
+def _ring_bounds(ra, q, k, v, carry, q_off, k_off, scale, causal, mode):
+    """The per-element bounds a mode's results are held to against
+    ``_ring_plain``: ``rounding_bound`` on the new carry, ``finish_bound``
+    on an output."""
+    start = ra._init_carry(q) if mode in ("first", "first+last") else carry
+    args = (q, k, v, *start, q_off, k_off, scale, causal)
+    return (ra.finish_bound(*args),) if mode in ("last", "first+last") else ra.rounding_bound(*args)
+
+
 def _ring_block_kernel_checks(gen):
-    """The ring block kernel against ``block_attend`` on the card: the
-    flagship's ring block (bf16, q, k, v head-split views of a fused qkv
-    like the model's) as a diagonal, a past and a future block with a
-    non-trivial incoming carry, the ring of one's single diagonal block
-    over the whole sequence from the empty carry (m = -1e30, l = o = 0)
-    as the ring-of-one replica runs it, then f16 ragged blocks at offsets
-    that cut tiles, and f32 (simt). Per element |new - plain| <= the carry's
-    rounding bound (``ring_attention.rounding_bound``: u (P |V|) for P's
-    rounding to the input type before P V, plus 1e-5 relative f32 slack
-    and 1e-6). A future block must be skipped, no launch, and leave the
-    carry bit for bit. Then the times of the past and the diagonal block
-    (CUDA-graph replays), the plain version's and the bound."""
+    """The ring block kernel against its plain version on the card, in
+    each carry mode: the flagship's ring block (bf16, q, k, v head-split
+    views of a fused qkv like the model's) as a diagonal, a past and a
+    future block with a non-trivial incoming carry (rows that have seen
+    nothing among them), the ring of one's single block (8, 1024, 8, 64)
+    from the empty carry, f16/bf16 ragged blocks at offsets that cut tiles
+    and f32 (simt). Per element the new carry within
+    ``ring_attention.rounding_bound`` (u (P |V|) for P's rounding to the
+    input type before P V, plus 1e-5 relative f32 slack and 1e-6), and a
+    last mode's output within ``finish_bound`` (those bounds through o / l,
+    plus one ulp of the output type). A middle step over a future block is
+    skipped, no launch, the carry left bit for bit; the other modes launch
+    on it. A last step leaves the carry as it was. Then the two identities
+    the modes must keep on every case: first equals middle from
+    ``_init_carry`` and last equals middle followed by ``_finish``, bit
+    for bit. Then every mode's past and diagonal block timed warm and
+    with the L2 flushed (CUDA-graph replays), its plain version's time,
+    SDPA's for first+last on the diagonal (the same function), and the
+    bounds."""
     import importlib
 
     import torch
+    import torch.nn.functional as F
 
     ra = importlib.import_module("tpusnap_torch.ops.ring_attention")
     bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
@@ -611,15 +685,16 @@ def _ring_block_kernel_checks(gen):
         # shape, dtype, q_offset, k_offset, causal, qkv views, route
         (RING_BLOCK_SHAPE, bf16, s, s, True, True, "wgmma"),
         (RING_BLOCK_SHAPE, bf16, s, 0, True, True, "wgmma"),
-        (RING_BLOCK_SHAPE, bf16, 0, s, True, True, None),
+        (RING_BLOCK_SHAPE, bf16, 0, s, True, True, "wgmma"),  # future
         (SLICE_SHAPE, bf16, 0, 0, True, True, "wgmma"),
         ((2, 200, 3, 128), f16, 100, 164, True, False, "wgmma"),
         ((2, 200, 3, 40), bf16, 237, 200, True, False, "wgmma"),
         ((2, 300, 3, 64), bf16, 0, 0, False, False, "wgmma"),
+        ((2, 130, 2, 40), bf16, 0, 0, False, False, "wgmma"),  # staged carry, rows past s
         ((1, 130, 2, 64), f32, 130, 130, True, False, "simt"),
         ((1, 130, 2, 32), f32, 50, 90, True, False, "simt"),
     ]
-    checks = []
+    checks, identities = [], []
     with torch.no_grad():
         for shape, dtype, q_off, k_off, causal, views, route in cases:
             if views:
@@ -631,38 +706,68 @@ def _ring_block_kernel_checks(gen):
                 carry = ra._init_carry(q)
             else:
                 carry = _ring_carry(shape, gen)
-            before = [t.clone() for t in carry]
             scale = shape[-1] ** -0.5
-            want = ra.block_attend(q, k, v, *before, q_off, k_off, scale, causal)
-            bounds = ra.rounding_bound(q, k, v, *before, q_off, k_off, scale, causal)
-            routes0, skips0 = dict(ra.route_launches), ra.skips
-            ra.attend_block(q, k, v, *carry, q_off, k_off, scale, causal)
-            torch.cuda.synchronize()
-            moved = {r: ra.route_launches[r] - routes0[r] for r in routes0}
-            if route is None:
-                if ra.skips != skips0 + 1 or any(moved.values()):
-                    raise AssertionError(f"a future block launched: {moved}")
-                if not all(torch.equal(a, c) for a, c in zip(carry, before)):
-                    raise AssertionError("a future block changed the carry")
-            elif moved != {r: int(r == route) for r in moved}:
-                raise AssertionError(f"ring block expected one {route} launch, got {moved}")
-            worst, errs = 0.0, {}
-            for name, got, ref, bound in zip("mlo", carry, want, bounds):
-                diff = (got - ref).abs()
-                errs[name] = diff.max().item()
-                worst = max(worst, (diff / bound).max().item())
-            if not worst <= 1.0:
+            future = causal and k_off >= q_off + shape[1]
+            got = {}
+            for mode in ra.MODES:
+                bufs = [t.clone() for t in carry]
+                out = torch.empty(q.shape, dtype=dtype, device="cuda")
+                routes0, modes0, skips0 = dict(ra.route_launches), dict(ra.mode_launches), ra.skips
+                _ring_call(ra, q, k, v, bufs, out, q_off, k_off, scale, causal, mode)()
+                torch.cuda.synchronize()
+                moved = {r: ra.route_launches[r] - routes0[r] for r in routes0}
+                if mode == "middle" and future:
+                    if ra.skips != skips0 + 1 or any(moved.values()):
+                        raise AssertionError(f"a future middle block launched: {moved}")
+                    if not all(torch.equal(a, c) for a, c in zip(bufs, carry)):
+                        raise AssertionError("a future middle block changed the carry")
+                elif (moved != {r: int(r == route) for r in moved}
+                      or ra.mode_launches[mode] != modes0[mode] + 1):
+                    raise AssertionError(f"ring block {mode}: expected one {route} launch, "
+                                         f"got {moved}")
+                if mode == "last" and not all(torch.equal(a, c) for a, c in zip(bufs, carry)):
+                    raise AssertionError("a last step wrote the carry")
+                results = (out,) if mode in ("last", "first+last") else tuple(bufs)
+                got[mode] = results
+                want = _ring_plain(ra, q, k, v, carry, q_off, k_off, scale, causal, mode)
+                bounds = _ring_bounds(ra, q, k, v, carry, q_off, k_off, scale, causal, mode)
+                worst, errs = 0.0, {}
+                names = ("out",) if len(results) == 1 else ("m", "l", "o")
+                for name, g, ref, bound in zip(names, results, want, bounds):
+                    diff = (g.float() - ref.float()).abs()
+                    errs[name] = diff.max().item()
+                    worst = max(worst, (diff / bound).max().item())
+                if not worst <= 1.0:
+                    raise AssertionError(
+                        f"ring block kernel ({route}, {mode}) disagrees with its plain version "
+                        f"at {shape} {dtype} offsets ({q_off}, {k_off}) causal={causal}: max "
+                        f"|err| {errs}, {worst}x the allowed bound"
+                    )
+                checks.append({
+                    "shape": list(shape), "dtype": str(dtype).split(".")[-1],
+                    "q_offset": q_off, "k_offset": k_off, "causal": causal, "mode": mode,
+                    "route": "skipped" if mode == "middle" and future else route,
+                    "max_abs_err": errs, "worst_err_over_bound": worst,
+                })
+            # The identities, on the kernel's own results: first against
+            # middle from the empty carry, last (and first+last) against
+            # middle (from the empty carry) followed by _finish.
+            from_empty = [t.clone() for t in ra._init_carry(q)]
+            ra.attend_block(q, k, v, *from_empty, q_off, k_off, scale, causal)
+            finished = ra._finish(got["middle"][1], got["middle"][2], dtype)
+            finished_empty = ra._finish(from_empty[1], from_empty[2], dtype)
+            same = {
+                "first": all(torch.equal(a, c) for a, c in zip(got["first"], from_empty)),
+                "last": torch.equal(got["last"][0], finished),
+                "first+last": torch.equal(got["first+last"][0], finished_empty),
+            }
+            if not all(same.values()):
                 raise AssertionError(
-                    f"ring block kernel ({route}) disagrees with block_attend at {shape} "
-                    f"{dtype} offsets ({q_off}, {k_off}) causal={causal}: max |err| {errs}, "
-                    f"{worst}x the allowed bound"
+                    f"ring block modes differ bitwise from middle (+ _finish) at {shape} "
+                    f"{dtype} offsets ({q_off}, {k_off}): {same}"
                 )
-            checks.append({
-                "shape": list(shape), "dtype": str(dtype).split(".")[-1],
-                "q_offset": q_off, "k_offset": k_off, "causal": causal,
-                "route": route or "skipped", "max_abs_err": errs,
-                "worst_err_over_bound": worst,
-            })
+            identities.append({"shape": list(shape), "dtype": str(dtype).split(".")[-1],
+                               "q_offset": q_off, "k_offset": k_off, "bitwise": same})
         q, k, v = _qkv_views(RING_BLOCK_SHAPE, bf16, gen)
         carry = _ring_carry(RING_BLOCK_SHAPE, gen)
         first = [t.clone() for t in carry]
@@ -672,23 +777,91 @@ def _ring_block_kernel_checks(gen):
         if not all(torch.equal(x, y) for x, y in zip(first, second)):
             raise AssertionError("two ring block launches on the same inputs differ")
         reps = 30
-        ms = time_ms(lambda: ra.attend_block(q, k, v, *carry, s, 0, d**-0.5, True), reps)
-        diag_ms = time_ms(lambda: ra.attend_block(q, k, v, *carry, s, s, d**-0.5, True), reps)
-        plain_ms = time_ms(lambda: ra.block_attend(q, k, v, *carry, s, 0, d**-0.5, True), 10)
-    bound_ms, bound_by = ring_block_bound(RING_BLOCK_SHAPE, "bfloat16", s * s)
-    diag_bound_ms, _ = ring_block_bound(RING_BLOCK_SHAPE, "bfloat16", s * (s + 1) // 2)
+        out = torch.empty(q.shape, dtype=bf16, device="cuda")
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))  # [b, h, s, d] views
+        blocks = {"past": (s, 0, s * s), "diagonal": (s, s, s * (s + 1) // 2)}
+        modes = {}
+        for mode in ra.MODES:
+            row = {}
+            for block, (q_off, k_off, pairs) in blocks.items():
+                fn = _ring_call(ra, q, k, v, carry, out, q_off, k_off, d**-0.5, True, mode)
+                bound_ms, bound_by = ring_block_bound(RING_BLOCK_SHAPE, "bfloat16", pairs, mode)
+                cold = time_ms_cold(fn, reps)
+                row[block] = {"ms": time_ms(fn, reps), "cold_ms": cold, "bound_ms": bound_ms,
+                              "bound_by": bound_by, "bound_share": bound_ms / cold}
+            row["plain_ms"] = time_ms(
+                lambda: _ring_plain(ra, q, k, v, carry, s, 0, d**-0.5, True, mode), 10
+            )
+            modes[mode] = row
+        sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)  # noqa: E731
+        modes["first+last"]["library_ms"] = time_ms(sdpa, reps)
+        modes["first+last"]["library_cold_ms"] = time_ms_cold(sdpa, reps)
     row = {
         "shape": list(RING_BLOCK_SHAPE), "dtype": "bfloat16", "route": "wgmma",
-        "ms": ms, "block": "past (every pair)", "diagonal_ms": diag_ms,
-        "diagonal_bound_ms": diag_bound_ms, "plain_ms": plain_ms, "library_ms": None,
-        "library": "none: no single PyTorch call returns the carry (m, l, o)",
-        "bound_ms": bound_ms, "bound_by": bound_by, "bound_share": bound_ms / ms,
-        "timed_launches": reps,
-        "max_abs_err": max(max(c["max_abs_err"].values()) for c in checks[:2]),
-        "ring_of_one_max_abs_err": checks[3]["max_abs_err"],
+        "modes": modes, "timed_launches": reps,
+        "bound_share_from": "cold_ms (the L2 flushed before each launch)",
+        "library": "torch.nn.functional.scaled_dot_product_attention, is_causal=True, for "
+                   "first+last on the diagonal (the same function); none returns the carry",
+        "max_abs_err": max(max(c["max_abs_err"].values()) for c in checks
+                           if c["shape"] == list(RING_BLOCK_SHAPE)),
+        "ring_of_one_max_abs_err": [c["max_abs_err"] for c in checks
+                                    if c["shape"] == list(SLICE_SHAPE)],
         "bitwise_repeat": True,
     }
-    return row, checks
+    return row, checks, identities
+
+
+def _ring_of_one_forward(gen) -> dict:
+    """The ring of one's whole forward at the flagship's shape: what the
+    ring-of-one replica runs per layer, ``ring_attention(q, k, v,
+    group=None)`` on head-split views of a fused qkv under ``no_grad``,
+    everything it launches included (one first+last launch). Held per
+    element against its plain version (``ring_attention_reference``)
+    within ``finish_bound`` and against plain attention within the flash
+    kernel's rounding bound (the same function), then timed warm and with
+    the L2 flushed, beside the flash kernel and
+    ``F.scaled_dot_product_attention(is_causal=True)`` on the same
+    tensors, the plain version and the attention bound."""
+    import importlib
+
+    import torch
+    import torch.nn.functional as F
+
+    from tpusnap_torch.ops import flash_attention as fa
+
+    ra = importlib.import_module("tpusnap_torch.ops.ring_attention")
+    q, k, v = _qkv_views(SLICE_SHAPE, torch.bfloat16, gen)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))  # [b, h, s, d] views
+    reps = 30
+    calls = {
+        "ring_of_one": lambda: ra.ring_attention(q, k, v, group=None),
+        "flash": lambda: fa.flash_attention(q, k, v, causal=True),
+        "library": lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+    }
+    with torch.no_grad():
+        out = calls["ring_of_one"]()
+        diff = (out.float() - ra.ring_attention_reference(q, k, v).float()).abs()
+        bound = ra.finish_bound(q, k, v, *ra._init_carry(q), 0, 0, q.shape[-1] ** -0.5, True)
+        ratio = (diff / bound).max().item()
+        flash_ratio = ((out.float() - fa.flash_attention_reference(q, k, v, True).float()).abs()
+                       / fa.rounding_bound(q, k, v, True)).max().item()
+        if not (ratio <= 1.0 and flash_ratio <= 1.0):
+            raise AssertionError(f"ring of one vs its plain version: {ratio}x its bound; vs "
+                                 f"plain attention: {flash_ratio}x the flash bound")
+        warm = {name: time_ms(fn, reps) for name, fn in calls.items()}
+        cold = {name: time_ms_cold(fn, reps) for name, fn in calls.items()}
+        plain_ms = time_ms(lambda: ra.ring_attention_reference(q, k, v), 10)
+    bound_ms, bound_by = attention_bound(SLICE_SHAPE, "bfloat16", True)
+    return {
+        "shape": list(SLICE_SHAPE), "dtype": "bfloat16", "causal": True,
+        "max_abs_err": diff.max().item(), "worst_err_over_bound": ratio,
+        "worst_err_over_flash_bound": flash_ratio, "plain_ms": plain_ms,
+        "ms": warm["ring_of_one"], "flash_ms": warm["flash"], "library_ms": warm["library"],
+        "cold_ms": cold["ring_of_one"], "flash_cold_ms": cold["flash"],
+        "library_cold_ms": cold["library"],
+        "library": "torch.nn.functional.scaled_dot_product_attention, is_causal=True",
+        "bound_ms": bound_ms, "bound_by": bound_by, "timed_launches": reps,
+    }
 
 
 def _tokens(cfg, batch: int, seed: int):
@@ -2601,7 +2774,8 @@ def _ring_rank(rdir: str) -> None:
     out = {
         "rank": rank, "loss": loss.item(), "forward_s": forward_s,
         "ring_launches": ra.launches, "ring_routes": dict(ra.route_launches),
-        "ring_skips": ra.skips, "flash_launches": fa.launches,
+        "ring_modes": dict(ra.mode_launches), "ring_skips": ra.skips,
+        "flash_launches": fa.launches,
     }
     with torch.no_grad():
         got = model(mine, ring_group=dist.group.WORLD)
@@ -2610,6 +2784,28 @@ def _ring_rank(rdir: str) -> None:
         out["logits_max_abs_err"] = (got - want).abs().max().item()
         out["logits_max_abs"] = want.abs().max().item()
     print(_RING_LINE + json.dumps(out), flush=True)
+
+
+def _step_split(model, tokens, reps: int = 3) -> dict:
+    """Device milliseconds of a train step's forward (the loss) and
+    backward (every parameter's gradient), each between two CUDA events,
+    median of ``reps``; the gradients are dropped, so the model does not
+    change."""
+    import torch
+
+    leaves = list(model.parameters())
+    fwd, bwd = [], []
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        loss = model.loss(tokens)
+        ev[1].record()
+        torch.autograd.grad(loss, leaves)
+        ev[2].record()
+        ev[2].synchronize()
+        fwd.append(ev[0].elapsed_time(ev[1]))
+        bwd.append(ev[1].elapsed_time(ev[2]))
+    return {"forward_ms": statistics.median(fwd), "backward_ms": statistics.median(bwd)}
 
 
 def phase_ring(ctx: dict, workdir: str) -> dict:
@@ -2647,12 +2843,18 @@ def phase_ring(ctx: dict, workdir: str) -> dict:
             raise AssertionError(f"ring rank {r} printed no result:\n{text[-4000:]}")
         ranks.append(json.loads(lines[0][len(_RING_LINE):]))
     cfg_ring, cfg_dense = TransformerConfig(use_ring_attention=True), TransformerConfig()
-    expect = [(cfg_ring.n_layers, cfg_ring.n_layers), (2 * cfg_ring.n_layers, 0)]
-    for r, (launches, skips) in zip(ranks, expect):
-        if (r["ring_launches"], r["ring_skips"]) != (launches, skips):
+    layers = cfg_ring.n_layers
+    # Rank 0: its diagonal block alone (first+last); rank 1's block is in
+    # its future and skipped. Rank 1: its diagonal block first, rank 0's
+    # block (its past) last.
+    expect = [(layers, layers, {"first+last": layers}),
+              (2 * layers, 0, {"first": layers, "last": layers})]
+    for r, (launches, skips, modes) in zip(ranks, expect):
+        modes = {m: modes.get(m, 0) for m in ra.MODES}
+        if (r["ring_launches"], r["ring_skips"], r["ring_modes"]) != (launches, skips, modes):
             raise AssertionError(
-                f"ring rank {r['rank']}: {r['ring_launches']} launches, {r['ring_skips']} "
-                f"skips; expected {launches} and {skips}"
+                f"ring rank {r['rank']}: {r['ring_launches']} launches {r['ring_modes']}, "
+                f"{r['ring_skips']} skips; expected {launches} {modes} and {skips}"
             )
         if r["ring_routes"] != {"wgmma": launches, "simt": 0}:
             raise AssertionError(f"ring rank {r['rank']} launches by route {r['ring_routes']}")
@@ -2682,6 +2884,15 @@ def phase_ring(ctx: dict, workdir: str) -> dict:
             f"ring logits vs dense, max |err| (rank 0, rank 1, ring of one): "
             f"{logits_err} > {RING_LOGITS_ATOL}"
         )
+    # The split of a train step, a ring-of-one model's against a dense
+    # model's from the same seed on the same tokens, after a warm-up step
+    # each (before the replica's counts start).
+    step_split = {}
+    for name, cfg in (("ring_of_one", cfg_ring), ("dense", cfg_dense)):
+        split_model = Transformer(cfg, device="cuda", seed=SEED + 11)
+        split_model.train_step(tokens, learning_rate=1e-3)
+        step_split[name] = _step_split(split_model, tokens, reps=5)
+        del split_model
 
     # (2) a ring-of-one replica trains, takes, restores into ring and dense.
     _reset_launches()
@@ -2694,6 +2905,7 @@ def phase_ring(ctx: dict, workdir: str) -> dict:
         step_s.append(time.perf_counter() - t0)
     if not all(x == x and abs(x) != float("inf") for x in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"ring replica losses {losses}")
+
     path = os.path.join(rdir, "replica")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2705,10 +2917,13 @@ def phase_ring(ctx: dict, workdir: str) -> dict:
         Transformer(cfg_ring, device="cuda", seed=SEED + 13), tokens,
     )
     replica_launches, replica_routes = ra.launches, dict(ra.route_launches)
-    if replica_launches != cfg_ring.n_layers * 5 or replica_routes["simt"]:
+    replica_modes = dict(ra.mode_launches)
+    if (replica_launches != layers * 5 or replica_routes["simt"]
+            or replica_modes["first+last"] != replica_launches):
         raise AssertionError(
-            f"ring replica: {replica_launches} launches {replica_routes}; expected "
-            f"{cfg_ring.n_layers * 5} (3 steps, then one step of each restored model), all wgmma"
+            f"ring replica: {replica_launches} launches {replica_routes} {replica_modes}; "
+            f"expected {layers * 5} (3 steps, then one step of each restored model), all "
+            f"wgmma, all first+last"
         )
     dense_restore_s, dense_step_loss = _restore_and_check(
         path, want, Transformer(cfg_dense, device="cuda", seed=SEED + 14),
@@ -2725,6 +2940,7 @@ def phase_ring(ctx: dict, workdir: str) -> dict:
         "ring_restore_s": ring_restore_s, "ring_post_restore_loss": ring_loss,
         "dense_restore_s": dense_restore_s, "dense_post_restore_loss": dense_step_loss,
         "replica_ring_launches": replica_launches, "replica_ring_routes": replica_routes,
+        "replica_ring_modes": replica_modes, "step_split_ms": step_split,
         "bit_exact": True, "parameter_identity": True,
         "seconds": time.perf_counter() - t_phase, "card": ctx["card"],
     }
@@ -4243,6 +4459,7 @@ def _reset_launches() -> None:
     fa.route_launches = dict.fromkeys(fa.route_launches, 0)
     ra.launches = ra.skips = 0
     ra.route_launches = dict.fromkeys(ra.route_launches, 0)
+    ra.mode_launches = dict.fromkeys(ra.mode_launches, 0)
 
 
 def _check_routes(path: str, launches: int, routes: dict) -> None:
@@ -4318,11 +4535,13 @@ def main() -> int:
         ring_line = phase_ring(ctx, workdir)
         emit(ring_line)
         ring_paths = {
-            f"ring rank {r['rank']}": (r["ring_launches"], r["ring_routes"], r["ring_skips"])
+            f"ring rank {r['rank']}": (r["ring_launches"], r["ring_routes"], r["ring_skips"],
+                                       r["ring_modes"])
             for r in ring_line["ranks"]
         }
         ring_paths["ring replica"] = (
-            ring_line["replica_ring_launches"], ring_line["replica_ring_routes"], 0
+            ring_line["replica_ring_launches"], ring_line["replica_ring_routes"], 0,
+            ring_line["replica_ring_modes"],
         )
         paths["ring replica dense restore"] = (fa.launches, dict(fa.route_launches))
         _reset_launches()
@@ -4354,10 +4573,14 @@ def main() -> int:
         shutil.rmtree(workdir, ignore_errors=True)
     for path, (launches, routes) in paths.items():
         _check_routes(path, launches, routes)
-    for path, (launches, routes, _) in ring_paths.items():
+    for path, (launches, routes, _, _) in ring_paths.items():
         if launches == 0 or routes != {"wgmma": launches, "simt": 0}:
             raise AssertionError(f"{path}: ring block launches {launches} by route {routes}")
-    ring_row = result["ring_block_attend"]
+    ring_row, ring_one = result["ring_block_attend"], result["ring_of_one_forward"]
+    ring_modes = {
+        mode: sum(modes[mode] for _, _, _, modes in ring_paths.values())
+        for mode in ring_row["modes"]
+    }
     main_path_launches = sum(n for n, _ in paths.values())
     main_path_routes = {
         r: sum(routes[r] for _, routes in paths.values()) for r in ("wgmma", "simt")
@@ -4382,25 +4605,34 @@ def main() -> int:
         "bound_share": kernel_row["bound_share"],
         "simt_ms": kernel_row["simt_ms"],
     }, {
+        # The ring of one's launch (first+last at the flagship's shape, 20
+        # of the main path's launches) gives the row's numbers; "modes"
+        # has each mode's at the two-rank block (8, 512, 8, 64).
         "name": "ring_block_attend",
         "route": "cuda",
         "kernel_route": "wgmma",
         "route_launches": {
-            r: sum(routes[r] for _, routes, _ in ring_paths.values()) for r in ("wgmma", "simt")
+            r: sum(routes[r] for _, routes, _, _ in ring_paths.values())
+            for r in ("wgmma", "simt")
         },
         "source": "tpusnap_torch/csrc/ring_block_wgmma.cu",
         "replaces": "tpusnap/ops/ring_attention.py:26",
-        "launches": sum(n for n, _, _ in ring_paths.values()),
-        "launches_by_path": {p: n for p, (n, _, _) in ring_paths.items()},
-        "skips_by_path": {p: k for p, (_, _, k) in ring_paths.items()},
-        "max_abs_err": ring_row["max_abs_err"],
-        "ms": ring_row["ms"],
-        "diagonal_ms": ring_row["diagonal_ms"],
-        "plain_ms": ring_row["plain_ms"],
-        "bound_ms": ring_row["bound_ms"],
-        "bound_by": ring_row["bound_by"],
-        "library_ms": None,
-        "bound_share": ring_row["bound_share"],
+        "launches": sum(n for n, _, _, _ in ring_paths.values()),
+        "launches_by_path": {p: n for p, (n, _, _, _) in ring_paths.items()},
+        "launches_by_mode": ring_modes,
+        "skips_by_path": {p: k for p, (_, _, k, _) in ring_paths.items()},
+        "max_abs_err": max(ring_row["max_abs_err"], ring_one["max_abs_err"]),
+        "ms": ring_one["ms"],
+        "cold_ms": ring_one["cold_ms"],
+        "ms_of": "first+last at (8, 1024, 8, 64): ring_attention(q, k, v, group=None)",
+        "plain_ms": ring_one["plain_ms"],
+        "bound_ms": ring_one["bound_ms"],
+        "bound_by": ring_one["bound_by"],
+        "library_ms": ring_one["library_ms"],
+        "bound_share": ring_one["bound_ms"] / ring_one["cold_ms"],
+        "modes": {
+            mode: {**row, "launches": ring_modes[mode]} for mode, row in ring_row["modes"].items()
+        },
     }]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

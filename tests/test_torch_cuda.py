@@ -1271,3 +1271,91 @@ def test_ring_model_trains_on_the_card(gen):
     losses = [model.train_step(tokens, learning_rate=1e-2).item() for _ in range(3)]
     assert losses[-1] < losses[0]
     assert ra.launches == launches + 3 * cfg.n_layers
+
+
+def _ring_mode_run(ra, q, k, v, carry, q_off, k_off, scale, causal, mode):
+    """The kernel in ``mode`` on fresh buffers: the new carry (first,
+    middle) or the output (last modes)."""
+    bufs = [t.clone() for t in carry]
+    if mode in ("last", "first+last"):
+        out = torch.empty(q.shape, dtype=q.dtype, device="cuda")
+        given = bufs if mode == "last" else (None, None, None)
+        ra.attend_block(q, k, v, *given, q_off, k_off, scale, causal, mode=mode, out=out)
+        assert all(torch.equal(a, c) for a, c in zip(bufs, carry))  # the carry is not written
+        return (out,)
+    ra.attend_block(q, k, v, *bufs, q_off, k_off, scale, causal, mode=mode)
+    return tuple(bufs)
+
+
+@pytest.mark.parametrize("mode", ["first", "last", "first+last"])
+@pytest.mark.parametrize(
+    "shape,dtype,q_off,k_off,causal,route", _RING_CASES, ids=lambda x: str(x).replace(" ", "")
+)
+def test_ring_block_modes_match_plain(gen, shape, dtype, q_off, k_off, causal, route, mode):
+    """Each carry mode against its plain version per element: first's new
+    carry against ``block_attend`` from ``_init_carry`` within
+    ``rounding_bound``; the last modes' output against ``_finish`` of it
+    within ``finish_bound``; one launch on the route the inputs take."""
+    ra = _ring_module()
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(3))
+    carry = _ring_carry(shape, gen)
+    scale = shape[-1] ** -0.5
+    start = ra._init_carry(q) if mode in ("first", "first+last") else carry
+    args = (q, k, v, *start, q_off, k_off, scale, causal)
+    routes, modes = dict(ra.route_launches), dict(ra.mode_launches)
+    got = _ring_mode_run(ra, q, k, v, carry, q_off, k_off, scale, causal, mode)
+    torch.cuda.synchronize()
+    assert {r: ra.route_launches[r] - routes[r] for r in routes} == {
+        r: int(r == route) for r in routes
+    }
+    assert ra.mode_launches[mode] == modes[mode] + 1
+    if mode == "first":
+        want, bounds = ra.block_attend(*args), ra.rounding_bound(*args)
+    else:
+        _, l_new, o_new = ra.block_attend(*args)
+        want, bounds = (ra._finish(l_new, o_new, dtype),), (ra.finish_bound(*args),)
+    for g, ref, bound in zip(got, want, bounds):
+        ratio = ((g.float() - ref.float()).abs() / bound).max().item()
+        assert ratio <= 1.0, f"{mode}: worst element {ratio}x its bound"
+
+
+@pytest.mark.parametrize(
+    "shape,dtype,q_off,k_off,causal,route", _RING_CASES, ids=lambda x: str(x).replace(" ", "")
+)
+def test_ring_block_modes_keep_the_identities_bitwise(gen, shape, dtype, q_off, k_off, causal,
+                                                       route):
+    """The modes change what is read and written, never the arithmetic:
+    first equals middle from ``_init_carry``, last equals middle followed
+    by ``_finish``, first+last equals both, bit for bit."""
+    ra = _ring_module()
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(3))
+    carry = _ring_carry(shape, gen)
+    scale = shape[-1] ** -0.5
+    args = (q, k, v, q_off, k_off, scale, causal)
+
+    def run(carry, mode):
+        return _ring_mode_run(ra, *args[:3], carry, *args[3:], mode)
+
+    empty = ra._init_carry(q)
+    middle_from_empty, middle = run(empty, "middle"), run(carry, "middle")
+    assert all(torch.equal(a, c) for a, c in zip(run(carry, "first"), middle_from_empty))
+    assert torch.equal(run(carry, "last")[0], ra._finish(middle[1], middle[2], dtype))
+    assert torch.equal(run(carry, "first+last")[0],
+                       ra._finish(middle_from_empty[1], middle_from_empty[2], dtype))
+
+
+def test_ring_attention_on_the_card_fills_no_carry_and_runs_no_finish(gen, monkeypatch):
+    """The ring of one on the card is one first+last launch: no
+    ``_init_carry`` fill and no ``_finish`` pass around it."""
+    ra = _ring_module()
+    q, k, v = _fused_views((2, 256, 4, 64), torch.bfloat16, gen)
+    want = ra.ring_attention_reference(q, k, v)
+    bound = ra.finish_bound(q, k, v, *ra._init_carry(q), 0, 0, 64**-0.5, True)
+    for name in ("_init_carry", "_finish"):
+        monkeypatch.setattr(ra, name, lambda *a, name=name: pytest.fail(f"{name} ran"))
+    modes = dict(ra.mode_launches)
+    with torch.no_grad():
+        out = ra.ring_attention(q, k, v)
+    assert ra.mode_launches["first+last"] == modes["first+last"] + 1
+    assert out.dtype == q.dtype and out.shape == q.shape
+    assert ((out.float() - want.float()).abs() / bound).max().item() <= 1.0

@@ -570,7 +570,13 @@ def test_one_fleet_dir_holds_jobs_of_both_packages(tmp_path, monkeypatch):
     from tpusnap import Snapshot as JaxSnapshot
     from tpusnap import StateDict as JaxStateDict
     from tpusnap import fleet as jax_fleet
+    from tpusnap import tiering as jax_tiering
+    from tpusnap_torch import tiering
 
+    # A record folds in the process's tier status: start both packages
+    # idle, whatever an earlier test in this process left (C13).
+    monkeypatch.setattr(tiering, "_status", {"state": "idle"})
+    monkeypatch.setattr(jax_tiering, "_status", {"state": "idle"})
     fdir = str(tmp_path / "fleet")
     monkeypatch.setenv("TPUSNAP_FLEET_DIR", fdir)
     monkeypatch.setenv("TPUSNAP_TELEMETRY_DIR", str(tmp_path / "tele"))

@@ -4,7 +4,8 @@ Importing any ``tpusnap.*`` module runs ``tpusnap/__init__.py``, which
 imports JAX, so the port keeps its own copies of what it needs. The first
 test imports every module of the port in a fresh interpreter in which
 ``jax`` and ``tpusnap`` cannot be imported; the second scans the sources
-of the port and of ``chip_smoke.py`` for such imports.
+of the port, of ``chip_smoke.py`` and of ``ring_block_probe.py`` for such
+imports.
 """
 
 import os
@@ -81,6 +82,7 @@ def _sources():
             if f.endswith(".py"):
                 yield os.path.join(root, f)
     yield os.path.join(_REPO, "chip_smoke.py")
+    yield os.path.join(_REPO, "ring_block_probe.py")
 
 
 @pytest.mark.parametrize(

@@ -309,3 +309,145 @@ def test_rounding_bound_holds_the_modelled_kernel_and_rejects_a_lost_tile(dtype,
     for got, ref, bound in zip(good, want, bounds):
         assert ((got - ref).abs() / bound).max().item() <= 1.0
     assert ((bad[2] - want[2]).abs() / bounds[2]).max().item() > 1.0
+
+
+# ---------------------------------------------------------------- carry modes
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "noncausal"])
+@pytest.mark.parametrize("n", [1, 2, 4])
+def test_step_modes_start_once_and_finish_once_per_rank(n, causal):
+    for rank in range(n):
+        modes = ra._step_modes(rank, n, causal)
+        assert len(modes) == n
+        launched = [t for t, mode in enumerate(modes) if mode is not None]
+        # Causal: steps 0 ... rank launch (later ones hold future blocks).
+        assert launched == (list(range(rank + 1)) if causal else list(range(n)))
+        firsts = [t for t in launched if modes[t] in ("first", "first+last")]
+        lasts = [t for t in launched if modes[t] in ("last", "first+last")]
+        assert firsts == [launched[0]] and lasts == [launched[-1]]
+        if causal:
+            assert lasts == [rank]
+        assert all(modes[t] == "middle" for t in launched[1:-1])
+        assert (modes[launched[0]] == "first+last") == (len(launched) == 1)
+
+
+def test_step_modes_of_the_two_rank_flagship_ring():
+    # The smoke's ring phase: rank 0 runs its diagonal block alone, rank 1
+    # its diagonal first and rank 0's block last; a ring of one is one block.
+    assert ra._step_modes(0, 2, True) == ["first+last", None]
+    assert ra._step_modes(1, 2, True) == ["first", "last"]
+    assert ra._step_modes(0, 1, True) == ["first+last"]
+    assert ra._step_modes(2, 4, False) == ["first", "middle", "middle", "last"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("block", list(_BLOCKS))
+@pytest.mark.parametrize("mode", ra.MODES)
+def test_cpu_modes_equal_block_attend_and_finish_bitwise(mode, block, dtype):
+    """first: ``block_attend`` from ``_init_carry`` (the carry given is not
+    read); middle: from the carry; last: from the carry, then ``_finish``
+    into ``out`` (the carry stays); first+last: ``_init_carry``,
+    ``block_attend``, ``_finish``. Bit for bit, on the CPU path."""
+    b, s, h, d = 2, 8, 3, 4
+    q, k, v = (torch.from_numpy(x).to(dtype) for x in _qkv((b, s, h, d), seed=15))
+    carry = [torch.from_numpy(x) for x in _carry(b, s, h, d, seed=16)]
+    q_off, k_off = _BLOCKS[block]
+    start = ra._init_carry(q) if mode in ("first", "first+last") else carry
+    want = block_attend(q, k, v, *start, q_off, k_off, 0.5, True)
+    before = [t.clone() for t in carry]
+    bufs = [t.clone() for t in carry] if mode != "first" else [torch.full_like(t, 7.0) for t in carry]
+    out = torch.full(q.shape, 3.0, dtype=dtype) if mode in ("last", "first+last") else None
+    if mode == "first+last":
+        attend_block(q, k, v, None, None, None, q_off, k_off, 0.5, True, mode=mode, out=out)
+    else:
+        attend_block(q, k, v, *bufs, q_off, k_off, 0.5, True, mode=mode, out=out)
+    if out is not None:
+        assert torch.equal(out, ra._finish(want[1], want[2], dtype))
+        if mode == "last":
+            assert all(torch.equal(a, c) for a, c in zip(bufs, before))  # not written
+    else:
+        for g, w in zip(bufs, want):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "noncausal"])
+def test_one_block_is_one_first_and_last_step(causal):
+    # ring_attention(group=None) is _init_carry, block_attend and _finish,
+    # bit for bit, through the first+last mode (one mode launch on a card).
+    q, k, v = (torch.from_numpy(x) for x in _qkv((2, 16, 4, 8), seed=17))
+    modes = dict(ra.mode_launches)
+    got = ring_attention(q, k, v, causal=causal)
+    assert torch.equal(got, ra.ring_attention_reference(q, k, v, causal))
+    assert ra.mode_launches == modes  # a CPU tensor never launches
+
+
+def test_attend_block_refuses_what_a_mode_cannot_take():
+    q, k, v = (torch.from_numpy(x) for x in _qkv((1, 8, 2, 4), seed=18))
+    m, l, o = (torch.from_numpy(x) for x in _carry(1, 8, 2, 4, seed=18))
+    out = torch.empty_like(q)
+    with pytest.raises(ValueError, match="unknown carry mode"):
+        attend_block(q, k, v, m, l, o, 0, 0, 0.5, True, mode="second")
+    with pytest.raises(ValueError, match="out must be"):
+        attend_block(q, k, v, m, l, o, 0, 0, 0.5, True, mode="last")
+    with pytest.raises(ValueError, match="out must be"):
+        attend_block(q, k, v, m, l, o, 0, 0, 0.5, True, mode="last", out=out.double())
+    with pytest.raises(ValueError, match="only in the last modes"):
+        attend_block(q, k, v, m, l, o, 0, 0, 0.5, True, mode="first", out=out)
+    with pytest.raises(ValueError, match="carry m"):
+        attend_block(q, k, v, None, None, None, 0, 0, 0.5, True, mode="middle")
+    attend_block(q, k, v, None, None, None, 0, 0, 0.5, True, mode="first+last", out=out)
+    assert torch.equal(out, ra.ring_attention_reference(q, k, v, True, 0.5))
+
+
+def test_first_and_last_modes_still_write_over_a_future_block():
+    # Only a middle step over a future block is skipped: a first step
+    # there writes the empty carry, a last one the carry's output.
+    b, s, h, d = 1, 8, 2, 4
+    q, k, v = (torch.from_numpy(x) for x in _qkv((b, s, h, d), seed=19))
+    carry = [torch.from_numpy(x) for x in _carry(b, s, h, d, seed=19)]
+    skips = ra.skips
+    bufs = [torch.full_like(t, 5.0) for t in carry]
+    attend_block(q, k, v, *bufs, 0, 8, 0.5, True, mode="first")
+    assert all(torch.equal(a, c) for a, c in zip(bufs, ra._init_carry(q)))
+    out = torch.empty_like(q)
+    attend_block(q, k, v, *carry, 0, 8, 0.5, True, mode="last", out=out)
+    assert torch.equal(out, ra._finish(carry[1], carry[2], q.dtype))
+    assert ra.skips == skips
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("block", ["diagonal", "past"])
+def test_finish_bound_holds_the_modelled_kernel_and_rejects_a_lost_tile(dtype, block):
+    """The bound the card holds a last step's output to: the modelled
+    16-bit kernel's o / l, rounded to the output type, stays within it;
+    one that loses a 16-key step of P V does not."""
+    b, s, h, d = 2, 64, 2, 32
+    q, k, v = (torch.from_numpy(x).to(dtype) for x in _qkv((b, s, h, d), seed=20))
+    carry = [torch.from_numpy(x) for x in _carry(b, s, h, d, seed=21)]
+    q_off, k_off = _BLOCKS[block][0] * 8, _BLOCKS[block][1] * 8
+    args = (q, k, v, *carry, q_off, k_off, d**-0.5, True)
+    bound = ra.finish_bound(*args)
+    _, l_ref, o_ref = block_attend(*args)
+    want = ra._finish(l_ref, o_ref, dtype).float()
+    _, l_good, o_good = _modelled_kernel(*args)
+    _, l_bad, o_bad = _modelled_kernel(*args, lose_last_keys=16)
+    good = ra._finish(l_good, o_good, dtype).float()
+    bad = ra._finish(l_bad, o_bad, dtype).float()
+    assert ((good - want).abs() / bound).max().item() <= 1.0
+    assert ((bad - want).abs() / bound).max().item() > 1.0
+
+
+def test_one_block_backward_at_another_scale_matches_the_plain_block():
+    # The backward differentiates plain attention at the block's scale:
+    # the plain block step's gradients at that scale.
+    q, k, v = _qkv((1, 8, 2, 4), seed=22)
+    w = torch.from_numpy(np.random.default_rng(23).standard_normal(q.shape).astype(np.float32))
+    grads = []
+    for fn in (lambda *t: ring_attention(*t, scale=0.3),
+               lambda *t: ra.ring_attention_reference(*t, True, 0.3)):
+        ts = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+        (fn(*ts) * w).sum().backward()
+        grads.append([t.grad for t in ts])
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-6)

@@ -786,8 +786,15 @@ _RTO_CASES = {
 
 @pytest.mark.parametrize("case", sorted(_RTO_CASES))
 def test_estimate_rto_matches_tpusnap(case):
+    from tpusnap import compress as jax_compress
     from tpusnap.slo import estimate_rto as jax_estimate_rto
+    from tpusnap_torch import compress
 
+    # An estimate without enough restores falls back to the process's
+    # probe ceiling: start both packages without one, whatever an earlier
+    # test in this process left (C13).
+    compress._reset_ceilings()
+    jax_compress._reset_ceilings()
     events, kw = _RTO_CASES[case]
     for nbytes in (0, 10**9, 7 * 10**9 + 3):
         ours = estimate_rto(nbytes, events=events, **kw)

@@ -1,5 +1,5 @@
 // Inline-PTX building blocks for Hopper (sm_90a): wgmma products, their
-// shared-memory descriptors, mbarriers and TMA tile loads. Used by
+// shared-memory descriptors, mbarriers, TMA tile loads and stores. Used by
 // flash_attention_wgmma.cu and ring_block_wgmma.cu; nothing here launches
 // anything.
 #pragma once
@@ -231,6 +231,31 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const void* map, uint64_t
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
       : "memory");
+}
+
+// Copies shared memory into one box of a 4-D tensor map (the part of the
+// box inside the tensor); tracked by the issuing thread's bulk groups.
+__device__ __forceinline__ void tma_store_4d(const void* map, const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Waits until the issuing thread's committed bulk stores have read their
+// shared memory (it may be written again); their global writes may still
+// be in flight.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// Orders this thread's generic-proxy shared-memory writes before later
+// async-proxy (TMA) reads of them.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 }  // namespace tpusnap_ptx

@@ -12,11 +12,22 @@
 //   p_ij  = exp(s_ij - m'), 0 where masked;
 //   l'    = l * alpha + sum_j p_ij;  o' = o * alpha + sum_j p_ij v_j.
 //
-// The carry is updated in place and never normalised: ring_attention
-// divides by l once after the last block. Global positions enter as
-// delta = q_offset - k_offset (key j is masked for query i when
-// j > i + delta). A block wholly in the future changes nothing; the caller
-// skips it without a launch.
+// Global positions enter as delta = q_offset - k_offset (key j is masked
+// for query i when j > i + delta). A block wholly in the future changes
+// nothing; the caller skips such a middle step without a launch.
+//
+// Carry modes (the caller knows before a ring starts which of its steps
+// launch): middle reads the carry and writes it back in place; first
+// starts from the empty carry (m = -1e30, l = 0, o = 0) in registers and
+// reads none; last reads the carry and writes the output o' / max(l',
+// 1e-20) in q's type (IEEE division, round to nearest even: what
+// ring_attention's _finish computes) instead of the carry; first+last (a
+// ring of one) reads and writes no carry at all. The modes change what is
+// read and written, never the tile arithmetic: first equals middle from
+// the empty carry, and last equals middle followed by _finish, bit for
+// bit. In every mode but middle an item whose keys are all in the future
+// still takes one fully masked tile, which leaves the carry it starts from
+// as it is, so that its rows are written.
 //
 // Two kernels, one entry point; the route is picked in Python and checked
 // again here with the flash kernel's rule (wgmma_route in
@@ -24,27 +35,44 @@
 //
 // * wgmma (ring_block_wgmma below): bf16/f16 that a TMA tensor map can
 //   describe, d <= 128. The flash kernel's design (flash_attention_wgmma.cu)
-//   with the carry in place of a zero start and a normalising epilogue:
-//   persistent blocks, a producer warpgroup keeping a 3-slot K/V ring full
-//   with TMA, two consumer warpgroups of 64 query rows taking turns on the
-//   tensor cores, S = Q K^T by wgmma from shared memory and O += P V by
-//   wgmma with P (rounded to the input type, as the flash kernel does) from
-//   registers. Each thread reads its rows' m, l and o from the carry before
-//   the first tile and writes them back in f32 after the last. The flash
+//   with the carry: persistent blocks, a producer warp keeping a 3-slot
+//   K/V ring full with TMA, two consumer warpgroups of 64 query rows taking
+//   turns on the tensor cores, S = Q K^T by wgmma from shared memory and
+//   O += P V by wgmma with P (rounded to the input type, as the flash
+//   kernel does) from registers. At d <= 64 the carry moves through shared
+//   memory by TMA: the producer loads an item's incoming o (128 rows of
+//   f32 in 32-column boxes swizzled by 128 bytes) beside its Q tile, on
+//   Q's barrier, as soon as the consumers are done with the last item's Q,
+//   so that it arrives while they finish that item; each consumer
+//   warpgroup moves its rows into the accumulator layout while its first
+//   QK^T runs, and at the end stages its outgoing o (or the output) in
+//   shared memory for one TMA store, waiting for that store's reads only
+//   before it stages the next item's. m and l (512 bytes an item) are
+//   plain loads and stores. At d = 128 the K/V ring takes 224 KB and
+//   leaves no room: each thread reads and writes its rows' carry directly
+//   from the accumulator layout. The flash
 //   kernel keeps its own source, untouched, so that its build and numerics
-//   do not move; the tensor-map encoder below is a copy of its.
+//   do not move; the tensor-map encoder is shared (tma_host.cuh).
 // * simt (ring_block_simt below): f32, which has no tensor-core type that
 //   keeps the f32 tolerance, and 16-bit layouts TMA cannot describe. The
-//   flash SIMT kernel's tiling (flash_attention.cu) with the carry.
+//   flash SIMT kernel's tiling (flash_attention.cu) with the carry and the
+//   same modes, for correctness only.
 //
 // What bounds it on this card: at the flagship's ring block (b=8, s=512,
 // h=8, d=64, bf16) the least time is the bytes: 12.6 MB of q, k, v read
-// once, 16.8 MB of the f32 o carry read and written, 0.5 MB of m and l
-// read and written, 29.9 MB over HBM (8.9 us at 3.35 TB/s), against 2.2
-// GFLOP (diagonal block) or 4.3 GFLOP (past block) on the bf16 tensor
-// cores (2.2 or 4.3 us at 989 TFLOP/s). The f32 carry is most of the
-// bytes; this first version reads and writes it with 8-byte accesses from
-// the wgmma accumulator layout and makes no further effort to coalesce it.
+// once, plus what the mode moves of the f32 carry (16.8 MB of o and 0.5 MB
+// of m and l read and written in the middle mode; half of that in first;
+// in last half of that and 4.2 MB of output; only the output in
+// first+last): 29.9, 21.3, 25.5 and 16.8 MB over HBM (8.9, 6.4, 7.6 and
+// 5.0 us at 3.35 TB/s), against 2.2 GFLOP (diagonal block) or 4.3 GFLOP
+// (past block) on the bf16 tensor cores (2.2 or 4.3 us at 989 TFLOP/s).
+// The modes drop the carry passes that would otherwise run around the
+// kernel (the fill of the empty carry, the division after the last step).
+// Measured on the card, the bytes do not bound it: every mode runs at 2
+// to 4x its bytes bound with the L2 flushed, and the modes differ by less
+// than their bytes do. A consumer warpgroup's time goes to the softmax
+// (about a third), the epilogue, issuing the products and waiting for K/V
+// tiles (ring_block_probe.py).
 
 #include <cuda.h>  // CUtensorMap and its enums only: nothing links libcuda
 #include <cuda_bf16.h>
@@ -62,13 +90,19 @@ namespace {
 using namespace tpusnap_ptx;
 using tpusnap_tma::make_map;
 
+// Carry mode bits: kFirst reads no carry (it starts empty); kLast writes
+// the normalised output instead of the carry. Neither is the middle mode.
+constexpr int kFirst = 1;
+constexpr int kLast = 2;
+
 struct RingParams {
   const void* q;
   const void* k;
   const void* v;
-  float* o;  // [b, s, h, d], contiguous
-  float* m;  // [b, h, s], contiguous
-  float* l;  // [b, h, s], contiguous
+  float* o;   // [b, s, h, d], contiguous (unused in first+last)
+  float* m;   // [b, h, s], contiguous (unused in first+last)
+  float* l;   // [b, h, s], contiguous (unused in first+last)
+  void* out;  // [b, s, h, d] of q's type, contiguous (last modes only)
   // Element strides of the b, s and h dims of q, k, v (d is contiguous).
   int64_t q_b, q_s, q_h;
   int64_t k_b, k_s, k_h;
@@ -77,6 +111,7 @@ struct RingParams {
   int delta;  // q_offset - k_offset, clamped to [-s, s]
   float scale;
   int causal;
+  int mode;  // kFirst | kLast bits
 };
 
 __device__ __forceinline__ int64_t o_index(const RingParams& p, int h, int batch, int row,
@@ -111,7 +146,14 @@ struct Tile {
   static constexpr int kChunks = D / 64;
   static constexpr int kQBytes = kBlockQ * D * 2;
   static constexpr int kKVBytes = kBlockK * D * 2;
-  static constexpr int kTileBytes = kQBytes + 2 * kStages * kKVBytes;
+  // The carry through shared memory and TMA: at D = 64 only (at D = 128
+  // the K/V ring leaves no room for it).
+  static constexpr bool kStaged = D == 64;
+  static constexpr int kOChunks = D / 32;          // 32-column (128-byte) f32 boxes
+  static constexpr int kOBoxBytes = 64 * 32 * 4;  // one warpgroup's 64 rows of one box
+  static constexpr int kOInBytes = kStaged ? 2 * kOChunks * kOBoxBytes : 0;  // o in, 128 rows
+  static constexpr int kStageBytes = kStaged ? kOChunks * kOBoxBytes : 0;   // out, per warpgroup
+  static constexpr int kTileBytes = kQBytes + 2 * kStages * kKVBytes + kOInBytes + 2 * kStageBytes;
   static constexpr int kSmemBytes = kTileBytes + (2 + 3 * kStages) * 8;
 };
 
@@ -128,11 +170,21 @@ __device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// Byte offset of byte `byte` (< 128) of row `row` in a box of 128-byte rows
+// swizzled by 128 bytes from a 1024-byte aligned base: TMA's
+// CU_TENSOR_MAP_SWIZZLE_128B moves 16-byte unit u of row r to u ^ (r % 8).
+// The accumulator layout's 8 rows of a warp then fall on distinct units.
+__device__ __forceinline__ int swizzled(int row, int byte) {
+  return row * 128 + ((((byte >> 4) ^ row) & 7) << 4) + (byte & 15);
+}
+
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 1)
     ring_block_wgmma(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_k,
-                     const __grid_constant__ CUtensorMap tm_v, RingParams p, int b, int h) {
+                     const __grid_constant__ CUtensorMap tm_v,
+                     const __grid_constant__ CUtensorMap tm_o,
+                     const __grid_constant__ CUtensorMap tm_out, RingParams p, int b, int h) {
   using Cfg = Tile<D>;
   constexpr int kBlockK = Cfg::kBlockK;
   constexpr int kStages = Cfg::kStages;
@@ -145,15 +197,21 @@ __global__ void __launch_bounds__(kThreads, 1)
   uint8_t* sQ = smem;
   uint8_t* sK = sQ + Cfg::kQBytes;
   uint8_t* sV = sK + kStages * Cfg::kKVBytes;
+  uint8_t* sOin = sV + kStages * Cfg::kKVBytes;
+  uint8_t* sStage = sOin + Cfg::kOInBytes;
   uint64_t* bar_q = reinterpret_cast<uint64_t*>(smem + Cfg::kTileBytes);
   uint64_t* q_empty = bar_q + 1;
   uint64_t* full_k = q_empty + 1;
   uint64_t* full_v = full_k + kStages;
   uint64_t* empty = full_v + kStages;
+  const bool carry_in = !(p.mode & kFirst);
+  const bool last = p.mode & kLast;
+  const bool stage_in = Cfg::kStaged && carry_in;
 
   // Items are (128-row q tile, head, batch), longest first, in the flash
   // kernel's snake order. An item whose keys are all in the future has no
-  // tiles and is skipped by producer and consumers alike.
+  // tiles and is skipped by producer and consumers alike in the middle
+  // mode; the other modes give it one (fully masked) tile.
   const int nq = (p.s + kBlockQ - 1) / kBlockQ;
   const int n_items = nq * h * b;
   struct Item {
@@ -164,7 +222,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     w.q_block0 = (nq - 1 - i / (h * b)) * kBlockQ;
     w.head = (i % (h * b)) % h;
     w.batch = (i % (h * b)) / h;
-    w.n_tiles = (key_end(p, w.q_block0 + kBlockQ) + kBlockK - 1) / kBlockK;
+    w.n_tiles = max(p.mode ? 1 : 0, (key_end(p, w.q_block0 + kBlockQ) + kBlockK - 1) / kBlockK);
     return w;
   };
   auto item_of_round = [&](int rd) {
@@ -195,10 +253,17 @@ __global__ void __launch_bounds__(kThreads, 1)
         const Item w = item(item_of_round(rd));
         if (w.n_tiles == 0) continue;
         if (it > 0) mbar_wait(q_empty, (it - 1) & 1);
-        mbar_expect_tx(bar_q, Cfg::kQBytes);
+        mbar_expect_tx(bar_q, Cfg::kQBytes + (stage_in ? Cfg::kOInBytes : 0));
         for (int c = 0; c < Cfg::kChunks; ++c)
           tma_load_4d(sQ + c * kBlockQ * kRowBytes, &tm_q, bar_q, c * 64, w.head, w.q_block0,
                       w.batch);
+        if (stage_in) {
+          // o in, on Q's barrier (rows past s come as zeros).
+          for (int g = 0; g < 2; ++g)
+            for (int c = 0; c < Cfg::kOChunks; ++c)
+              tma_load_4d(sOin + (g * Cfg::kOChunks + c) * Cfg::kOBoxBytes, &tm_o, bar_q, c * 32,
+                          w.head, w.q_block0 + g * 64, w.batch);
+        }
         for (int t = 0; t < w.n_tiles; ++t, ++kv) {
           const int stage = kv % kStages;
           if (kv >= kStages) mbar_wait(&empty[stage], ((kv / kStages) + 1) & 1);
@@ -223,6 +288,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int col_lane = 2 * (lane % 4);
     const float scale_log2 = p.scale * kLog2e;
     const uint32_t q_addr = smem_addr(sQ) + wg * 64 * kRowBytes;
+    // This thread's two rows within its warpgroup's 64.
+    const int local_a = warp * 16 + lane / 4, local_b = local_a + 8;
+    uint8_t* stage = sStage + wg * Cfg::kStageBytes;
 
     float acc_s[kSRegs];
     float acc_o[kORegs];
@@ -262,6 +330,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     };
     auto turn_begin = [&]() { named_barrier_sync(1 + wg, kConsumerWarps * 32); };
     auto turn_end = [&]() { named_barrier_arrive(2 - wg, kConsumerWarps * 32); };
+    // The warpgroup's own 128 threads (the staging buffer's writers).
+    auto warpgroup_sync = [&]() { named_barrier_sync(3 + wg, 128); };
     auto release = [&](uint64_t* bar) {
       __syncwarp();
       if (lane == 0) mbar_arrive(bar);
@@ -314,8 +384,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       const Item w = item(item_of_round(rd));
       if (w.n_tiles == 0) continue;
       q_first = w.q_block0 + wg * 64;
-      row_a = q_first + warp * 16 + lane / 4;
-      row_b = row_a + 8;
+      row_a = q_first + local_a;
+      row_b = q_first + local_b;
       // Causal: tiles past the last key this warpgroup's rows may see hold
       // only masked keys. At least one tile is taken; if it is all masked,
       // alpha = 1 and p = 0 leave the carry exactly as it was.
@@ -324,24 +394,31 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int last_key = q_first + 63 + p.delta;
         n_own = last_key < 0 ? 1 : min(w.n_tiles, last_key / kBlockK + 1);
       }
-      // The carry in: m and l of rows row_a, row_b; o in the accumulator
-      // layout (pairs of columns as one 8-byte load).
+      // The carry in: m and l of rows row_a, row_b and, unless it comes
+      // staged with Q, o in the accumulator layout (pairs of columns as one
+      // 8-byte load), before the waits so that the loads are in flight
+      // while Q arrives. First reads none and starts from the empty carry,
+      // m = -1e30, l = 0, o = 0: what a middle step reads from a fill.
+      // (One predicated load rather than a branch for the first mode: the
+      // branch costs 28 bytes of spills at D = 128.)
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int row = r ? row_b : row_a;
-        const bool in = row < p.s;
+        const bool in = carry_in && row < p.s;
         m_run[r] = in ? p.m[ml_index(p, h, w.batch, w.head, row)] : -1e30f;
         l_run[r] = in && lane % 4 == 0 ? p.l[ml_index(p, h, w.batch, w.head, row)] : 0.f;
       }
+      if (!stage_in) {
 #pragma unroll
-      for (int j = 0; j < kORegs; j += 2) {
-        const int row = (j / 2) % 2 ? row_b : row_a;
-        const int col = (j / 4) * 8 + col_lane;
-        float2 v2 = make_float2(0.f, 0.f);
-        if (row < p.s && col < p.d)
-          v2 = *reinterpret_cast<const float2*>(p.o + o_index(p, h, w.batch, row, w.head, col));
-        acc_o[j] = v2.x;
-        acc_o[j + 1] = v2.y;
+        for (int j = 0; j < kORegs; j += 2) {
+          const int row = (j / 2) % 2 ? row_b : row_a;
+          const int col = (j / 4) * 8 + col_lane;
+          float2 v2 = make_float2(0.f, 0.f);
+          if (carry_in && row < p.s && col < p.d)
+            v2 = *reinterpret_cast<const float2*>(p.o + o_index(p, h, w.batch, row, w.head, col));
+          acc_o[j] = v2.x;
+          acc_o[j + 1] = v2.y;
+        }
       }
 
       mbar_wait(bar_q, it & 1);
@@ -349,6 +426,21 @@ __global__ void __launch_bounds__(kThreads, 1)
       turn_begin();
       issue_qk(0);
       turn_end();
+      if (stage_in) {
+        // o in from shared memory (it came with Q) while the first QK^T
+        // runs: from its swizzled boxes into the accumulator layout
+        // (conflict-free 8-byte reads).
+        const uint8_t* o_in = sOin + wg * Cfg::kOChunks * Cfg::kOBoxBytes;
+#pragma unroll
+        for (int j = 0; j < kORegs; j += 2) {
+          const int local = (j / 2) % 2 ? local_b : local_a;
+          const int col = (j / 4) * 8 + col_lane;
+          const float2 v2 = *reinterpret_cast<const float2*>(
+              o_in + (col / 32) * Cfg::kOBoxBytes + swizzled(local, (col % 32) * 4));
+          acc_o[j] = v2.x;
+          acc_o[j + 1] = v2.y;
+        }
+      }
       wgmma_wait<0>();
       fence_regs(acc_s);
       softmax(0, alpha);
@@ -372,6 +464,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int j = 0; j < kORegs; ++j) acc_o[j] *= alpha[(j / 2) % 2];
         round_p();
       }
+      // Q and the carry in are read: the producer may load the next item's.
       release(q_empty);
       turn_begin();
       issue_pv(n_own - 1);
@@ -389,39 +482,114 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       kv0 += w.n_tiles;
 
-      // The carry out, in f32 and unnormalised: full row sums, m and l
-      // by each row's first thread, o by pairs of columns.
+      // Full row sums; the carry's m and l (not in the last modes) by each
+      // row's first thread.
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
         l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
         const int row = r ? row_b : row_a;
-        if (row < p.s && lane % 4 == 0) {
+        if (!last && row < p.s && lane % 4 == 0) {
           p.m[ml_index(p, h, w.batch, w.head, row)] = m_run[r];
           p.l[ml_index(p, h, w.batch, w.head, row)] = l_run[r];
         }
       }
+      // Last: o / max(l, 1e-20) with IEEE rounding, then to T with round
+      // to nearest even, as _finish computes it.
+      float l_div[2];
 #pragma unroll
-      for (int j = 0; j < kORegs; j += 2) {
-        const int row = (j / 2) % 2 ? row_b : row_a;
-        const int col = (j / 4) * 8 + col_lane;
-        if (row < p.s && col < p.d)
-          *reinterpret_cast<float2*>(p.o + o_index(p, h, w.batch, row, w.head, col)) =
-              make_float2(acc_o[j], acc_o[j + 1]);
+      for (int r = 0; r < 2; ++r) l_div[r] = fmaxf(l_run[r], 1e-20f);
+      if (Cfg::kStaged) {
+        // Stage this warpgroup's 64 rows (the f32 carry in 32-column
+        // boxes, or the output in one 64-column box, both swizzled as
+        // their tensor maps say) and store them with one thread's TMA.
+        // The previous item's store must have read the buffer first.
+        const bool issuer = threadIdx.x % 128 == 0;
+        if (issuer) bulk_wait_read();
+        warpgroup_sync();
+#pragma unroll
+        for (int j = 0; j < kORegs; j += 2) {
+          const int r = (j / 2) % 2;
+          const int local = r ? local_b : local_a;
+          const int col = (j / 4) * 8 + col_lane;
+          if (last)
+            *reinterpret_cast<uint32_t*>(stage + swizzled(local, col * 2)) =
+                pack2<T>(__fdiv_rn(acc_o[j], l_div[r]), __fdiv_rn(acc_o[j + 1], l_div[r]));
+          else
+            *reinterpret_cast<float2*>(stage + (col / 32) * Cfg::kOBoxBytes +
+                                       swizzled(local, (col % 32) * 4)) =
+                make_float2(acc_o[j], acc_o[j + 1]);
+        }
+        fence_proxy_async();
+        warpgroup_sync();
+        if (issuer) {
+          if (last) {
+            tma_store_4d(&tm_out, stage, 0, w.head, q_first, w.batch);
+          } else {
+            for (int c = 0; c < Cfg::kOChunks; ++c)
+              tma_store_4d(&tm_o, stage + c * Cfg::kOBoxBytes, c * 32, w.head, q_first, w.batch);
+          }
+          bulk_commit();
+        }
+      } else {
+        // Direct: pairs of columns as one 8-byte (carry) or 4-byte
+        // (output) store.
+#pragma unroll
+        for (int j = 0; j < kORegs; j += 2) {
+          const int r = (j / 2) % 2;
+          const int row = r ? row_b : row_a;
+          const int col = (j / 4) * 8 + col_lane;
+          if (row >= p.s || col >= p.d) continue;
+          const int64_t at = o_index(p, h, w.batch, row, w.head, col);
+          if (last)
+            *reinterpret_cast<uint32_t*>(static_cast<T*>(p.out) + at) =
+                pack2<T>(__fdiv_rn(acc_o[j], l_div[r]), __fdiv_rn(acc_o[j + 1], l_div[r]));
+          else
+            *reinterpret_cast<float2*>(p.o + at) = make_float2(acc_o[j], acc_o[j + 1]);
+        }
       }
       ++it;
     }
+    if (Cfg::kStaged && threadIdx.x % 128 == 0) bulk_wait_read();  // before smem goes
     if (wg == 0) turn_begin();
   }
+}
+
+// A 4-D tensor map over the f32 carry o [b, s, h, d] (contiguous) as
+// (d, h, s, b): boxes of 32 columns (128 bytes) by 64 rows, swizzled by 128
+// bytes. d is a multiple of 8 on this route, so every stride is a multiple
+// of 16 bytes.
+bool make_o_map(CUtensorMap* map, float* base, int d, int s, int b, int h) {
+  const tpusnap_tma::EncodeTiled encode = tpusnap_tma::encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {cuuint64_t(d), cuuint64_t(h), cuuint64_t(s), cuuint64_t(b)};
+  const cuuint64_t strides[3] = {cuuint64_t(d) * 4, cuuint64_t(h) * d * 4,
+                                 cuuint64_t(s) * h * d * 4};
+  const cuuint32_t box[4] = {32, 1, 64, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, base, dims, strides, box, elem_strides,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <typename T, int D>
 cudaError_t launch_wgmma(const RingParams& p, int b, int h, int dtype, cudaStream_t stream) {
   CUtensorMap tm_q, tm_k, tm_v;
+  CUtensorMap tm_o = {}, tm_out = {};  // zeros where the mode uses none
   if (!make_map(&tm_q, p.q, dtype, p.d, p.s, b, h, p.q_b, p.q_s, p.q_h, kBlockQ) ||
       !make_map(&tm_k, p.k, dtype, p.d, p.s, b, h, p.k_b, p.k_s, p.k_h, Tile<D>::kBlockK) ||
       !make_map(&tm_v, p.v, dtype, p.d, p.s, b, h, p.v_b, p.v_s, p.v_h, Tile<D>::kBlockK))
     return cudaErrorInvalidValue;
+  if (Tile<D>::kStaged) {
+    const bool carry_in = !(p.mode & kFirst), last = p.mode & kLast;
+    const int64_t row_elems = int64_t(h) * p.d;
+    if ((carry_in || !last) && !make_o_map(&tm_o, p.o, p.d, p.s, b, h))
+      return cudaErrorInvalidValue;
+    if (last && !make_map(&tm_out, p.out, dtype, p.d, p.s, b, h, p.s * row_elems, row_elems,
+                          p.d, 64))
+      return cudaErrorInvalidValue;
+  }
   const int smem = Tile<D>::kSmemBytes + 1024;
   cudaError_t err = cudaFuncSetAttribute(ring_block_wgmma<T, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -431,7 +599,8 @@ cudaError_t launch_wgmma(const RingParams& p, int b, int h, int dtype, cudaStrea
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
   const int items = (p.s + kBlockQ - 1) / kBlockQ * h * b;
-  ring_block_wgmma<T, D><<<min(items, sms), kThreads, smem, stream>>>(tm_q, tm_k, tm_v, p, b, h);
+  ring_block_wgmma<T, D><<<min(items, sms), kThreads, smem, stream>>>(
+      tm_q, tm_k, tm_v, tm_o, tm_out, p, b, h);
   return cudaGetLastError();
 }
 
@@ -447,7 +616,8 @@ cudaError_t launch_wgmma_bucket(const RingParams& p, int b, int h, int dtype,
 // One CUDA block per (64-row q tile, head, batch), 8 warps of 8 rows; each
 // lane owns key columns lane and lane + 32 of a 64-key tile and output
 // columns lane + 32 c. Products and the softmax in f32 from shared memory,
-// masked scores at -1e30 as in _block_attend.
+// masked scores at -1e30 as in _block_attend. The carry modes as on the
+// wgmma route.
 
 constexpr int kSimtBlockQ = 64;
 constexpr int kSimtBlockK = 64;
@@ -461,6 +631,18 @@ constexpr float kNegInf = -1e30f;
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// Round to nearest even, as torch's casts do.
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float x) { return __float2half_rn(x); }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -493,7 +675,10 @@ __global__ void __launch_bounds__(kSimtThreads) ring_block_simt(RingParams p, in
   const int head = blockIdx.y;
   const int batch = blockIdx.z;
   const int k_end = key_end(p, q0 + kSimtBlockQ);
-  if (k_end == 0) return;  // every key is in this tile's future: the carry stays
+  // Every key is in this tile's future: the middle mode leaves the carry
+  // as it is; the others still write it (or the output).
+  if (k_end == 0 && p.mode == 0) return;
+  const bool carry_in = !(p.mode & kFirst);
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
@@ -512,7 +697,7 @@ __global__ void __launch_bounds__(kSimtThreads) ring_block_simt(RingParams p, in
 #pragma unroll
   for (int r = 0; r < kRowsPerWarp; ++r) {
     const int qi = q0 + row0 + r;
-    const bool in = qi < p.s;
+    const bool in = carry_in && qi < p.s;  // first: the empty carry
     m[r] = in ? p.m[ml_index(p, h, batch, head, qi)] : kNegInf;
     l[r] = in ? p.l[ml_index(p, h, batch, head, qi)] : 0.f;
 #pragma unroll
@@ -595,6 +780,17 @@ __global__ void __launch_bounds__(kSimtThreads) ring_block_simt(RingParams p, in
   for (int r = 0; r < kRowsPerWarp; ++r) {
     const int qi = q0 + row0 + r;
     if (qi >= p.s) continue;
+    if (p.mode & kLast) {  // o / max(l, 1e-20), IEEE rounding, as _finish
+      const float l_div = fmaxf(l[r], 1e-20f);
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        const int col = lane + 32 * c;
+        if (col < p.d)
+          static_cast<T*>(p.out)[o_index(p, h, batch, qi, head, col)] =
+              from_f32<T>(__fdiv_rn(acc[r][c], l_div));
+      }
+      continue;
+    }
     if (lane == 0) {
       p.m[ml_index(p, h, batch, head, qi)] = m[r];
       p.l[ml_index(p, h, batch, head, qi)] = l[r];
@@ -627,19 +823,29 @@ cudaError_t launch_simt_bucket(const RingParams& p, int b, int h, cudaStream_t s
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = float16, 2 = bfloat16 (of q, k, v; the carry is
-// f32). strides: 9 element strides, (b, s, h) of q, k and v in that order;
-// o, m and l are contiguous. q_offset, k_offset: the global positions of
-// the blocks' first rows. route: 0 = simt, 1 = wgmma; it must be the one
-// wgmma_route gives, or the call returns cudaErrorInvalidValue without
-// launching. Returns the CUDA error code of the launch (0 on success); the
-// kernel runs on `stream` and is not synchronised.
+// dtype: 0 = float32, 1 = float16, 2 = bfloat16 (of q, k, v and out; the
+// carry is f32). strides: 9 element strides, (b, s, h) of q, k and v in
+// that order; o, m, l and out are contiguous from 16-byte aligned bases.
+// q_offset, k_offset: the global positions of the blocks' first rows.
+// mode: 0 = middle, 1 = first, 2 = last, 3 = first+last (the kFirst and
+// kLast bits); o, m and l may be null in first+last, out must be given
+// exactly in the last modes. route: 0 = simt, 1 = wgmma; it must be the
+// one wgmma_route gives. A call that breaks these rules returns
+// cudaErrorInvalidValue without launching. Returns the CUDA error code of
+// the launch (0 on success); the kernel runs on `stream` and is not
+// synchronised.
 extern "C" int tpusnap_ring_block_attend(const void* q, const void* k, const void* v, float* o,
-                                         float* m, float* l, const int64_t* strides, int b,
-                                         int s, int h, int d, int64_t q_offset,
-                                         int64_t k_offset, float scale, int causal, int dtype,
-                                         int route, void* stream) {
+                                         float* m, float* l, void* out,
+                                         const int64_t* strides, int b, int s, int h, int d,
+                                         int64_t q_offset, int64_t k_offset, float scale,
+                                         int causal, int mode, int dtype, int route,
+                                         void* stream) {
   if (d < 1 || d > 128 || s < 1 || b < 1 || h < 1) return int(cudaErrorInvalidValue);
+  if (mode < 0 || mode > (kFirst | kLast)) return int(cudaErrorInvalidValue);
+  const bool uses_carry = mode != (kFirst | kLast);
+  if ((uses_carry && (o == nullptr || m == nullptr || l == nullptr)) ||
+      ((mode & kLast) != 0) != (out != nullptr))
+    return int(cudaErrorInvalidValue);
   RingParams p;
   p.q = q;
   p.k = k;
@@ -647,6 +853,8 @@ extern "C" int tpusnap_ring_block_attend(const void* q, const void* k, const voi
   p.o = o;
   p.m = m;
   p.l = l;
+  p.out = out;
+  p.mode = mode;
   p.q_b = strides[0];
   p.q_s = strides[1];
   p.q_h = strides[2];

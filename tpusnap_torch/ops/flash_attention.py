@@ -191,11 +191,18 @@ def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def flash_attention_reference(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    causal: bool = True,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Plain attention in f32 (counterpart of ``_attention_reference``)."""
+    """Plain attention in f32 (counterpart of ``_attention_reference``),
+    scores scaled by ``scale`` (``head_dim ** -0.5`` when None)."""
     b, s, h, d = q.shape
-    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (d**-0.5)
+    if scale is None:
+        scale = d**-0.5
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     if causal:
         mask = torch.tril(torch.ones((s, s), dtype=torch.bool, device=q.device))
         scores = torch.where(mask, scores, torch.full_like(scores, _NEG_INF))

@@ -11,11 +11,22 @@ holds the full sequence.
   of a local query block against one K/V block, returning the new carry
   ``(m, l, o)``. The CPU path and the tests use it; on the card it is only
   the yardstick the kernel is held against.
-- ``attend_block(...)`` is the dispatch: it updates the carry in place. On
-  CUDA tensors it launches the kernel of ``csrc/ring_block_wgmma.cu``
+- ``attend_block(..., mode="middle", out=None)`` is the dispatch. On CUDA
+  tensors it launches the kernel of ``csrc/ring_block_wgmma.cu``
   (``_block_attend_kernel``) or raises; there is no fallback. On CPU
-  tensors it runs ``block_attend``. A causal block wholly in the queries'
-  future changes nothing and is skipped without a launch (``skips``).
+  tensors it runs ``block_attend`` (with ``_init_carry`` and ``_finish``
+  as the mode says). The carry modes: ``"middle"`` updates ``(m, l, o)``
+  in place; ``"first"`` writes them from the empty carry without reading
+  them; ``"last"`` reads them and writes the output ``o / l`` in q's
+  dtype into ``out`` (the carry is not written); ``"first+last"`` (a ring
+  of one) touches no carry and writes ``out``. On the card the modes
+  replace the fill of the empty carry and the division after the last
+  step, and ``first`` equals ``middle`` from ``_init_carry``, ``last``
+  equals ``middle`` followed by ``_finish``, bit for bit. A causal block
+  wholly in the queries' future changes nothing: a middle step over it
+  is skipped without a launch (``skips``).
+- ``_step_modes(rank, n, causal)``: the mode of each of a ring's steps on
+  one rank, or None for a skipped one.
 - ``ring_attention(q, k, v, group=None, causal=True, scale=None)``:
   ``group=None`` is one block (``axis_name=None`` in tpusnap). With a
   ``torch.distributed`` group of n ranks, K/V rotate ``i -> i + 1 mod n``
@@ -25,10 +36,14 @@ holds the full sequence.
   ranks sharing one card cannot use NCCL. Each rotating CUDA block is
   copied into a pinned host buffer, sent as bytes while the block step
   runs on the card, and the received bytes are copied back. NCCL with one
-  card per rank waits for the four-card work (ROADMAP.md item A10b).
+  card per rank waits for the four-card work (ROADMAP.md item A10b). On
+  the card the carry is allocated with ``torch.empty`` only when a middle
+  or last step will read it, and never filled.
 - Gradients: with one block, a ``torch.autograd.Function`` whose backward
-  differentiates the plain version, as the port's flash attention does
-  (tpusnap has no backward kernel). The ring backward across ranks belongs
+  differentiates plain attention (``flash_attention_reference`` at the
+  block's scale: the same function as one block from the empty carry, with
+  fewer passes over the f32 scores than ``block_attend``), as the port's
+  flash attention does (tpusnap has no backward kernel). The ring backward across ranks belongs
   to the sharded train step, which waits for NCCL (ROADMAP.md item A7):
   across ranks with ``requires_grad`` this raises ``NotImplementedError``.
 
@@ -50,11 +65,16 @@ from . import flash_attention as _fa
 
 _NEG_INF = -1e30
 _MAX_HEAD_DIM = 128
+# The carry modes and their codes in the C interface (bit 0: no carry in;
+# bit 1: the output instead of the carry out).
+MODES = ("middle", "first", "last", "first+last")
+_MODE_CODES = {mode: code for code, mode in enumerate(MODES)}
 
-# Kernel launches made through ``attend_block`` in this process, in all and
-# by route, and the future blocks skipped without a launch.
+# Kernel launches made through ``attend_block`` in this process, in all, by
+# route and by mode, and the future blocks skipped without a launch.
 launches = 0
 route_launches = {"wgmma": 0, "simt": 0}
+mode_launches = dict.fromkeys(MODES, 0)
 skips = 0
 
 _fn = None
@@ -73,6 +93,7 @@ def _load():
                 ctypes.c_void_p,  # o
                 ctypes.c_void_p,  # m
                 ctypes.c_void_p,  # l
+                ctypes.c_void_p,  # out
                 ctypes.POINTER(ctypes.c_int64),  # 9 strides
                 ctypes.c_int,  # b
                 ctypes.c_int,  # s
@@ -82,6 +103,7 @@ def _load():
                 ctypes.c_int64,  # k_offset
                 ctypes.c_float,  # scale
                 ctypes.c_int,  # causal
+                ctypes.c_int,  # mode code
                 ctypes.c_int,  # dtype code
                 ctypes.c_int,  # route code
                 ctypes.c_void_p,  # stream
@@ -154,7 +176,28 @@ def rounding_bound(q, k, v, m, l, o, q_offset: int, k_offset: int, scale: float,
     return bm, bl, bo
 
 
-def _check_block(q, k, v, m, l, o) -> None:
+# Relative spacing of the output types: one ulp of x is at most eps |x|.
+_EPS = {torch.bfloat16: 2**-7, torch.float16: 2**-10, torch.float32: 2**-23}
+
+
+def finish_bound(q, k, v, m, l, o, q_offset: int, k_offset: int, scale: float, causal: bool):
+    """Per-element bound on a last step's output against ``_finish`` of
+    ``block_attend`` on the same inputs: the new carry's bounds
+    (``rounding_bound``) carried through the division, |d(o / l)| <=
+    (bo + |o / l| bl) / (l - bl), plus one ulp of the output type (both
+    sides round once to it, and may round apart). 1e-6 absolute covers
+    values near 0."""
+    _, l_new, o_new = block_attend(q, k, v, m, l, o, q_offset, k_offset, scale, causal)
+    _, bl, bo = rounding_bound(q, k, v, m, l, o, q_offset, k_offset, scale, causal)
+    ref = (o_new / l_new.clamp_min(1e-20).transpose(1, 2)[..., None]).abs()
+    l_low = (l_new - bl).clamp_min(1e-20).transpose(1, 2)[..., None]
+    div = (bo + ref * bl.transpose(1, 2)[..., None]) / l_low
+    return div + _EPS[q.dtype] * (ref + div) + 1e-6
+
+
+def _check_block(q, k, v, m, l, o, mode: str, out) -> None:
+    if mode not in _MODE_CODES:
+        raise ValueError(f"unknown carry mode {mode!r}: one of {MODES}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dim() != 4:
             raise ValueError(f"{name} must be [batch, seq, heads, head_dim], got {tuple(t.shape)}")
@@ -163,19 +206,28 @@ def _check_block(q, k, v, m, l, o) -> None:
     if k.shape != v.shape or k.shape[0] != q.shape[0] or k.shape[2:] != q.shape[2:]:
         raise ValueError(f"k, v {tuple(k.shape)} do not fit q {tuple(q.shape)}")
     b, sq, h, _ = q.shape
-    for name, t, shape in (("m", m, (b, h, sq)), ("l", l, (b, h, sq)), ("o", o, tuple(q.shape))):
-        if tuple(t.shape) != shape or t.dtype != torch.float32:
-            raise ValueError(
-                f"carry {name} must be float32{list(shape)}, got {t.dtype}{list(t.shape)}"
-            )
-    devices = {t.device for t in (q, k, v, m, l, o)}
+    tensors = [q, k, v]
+    if mode != "first+last":
+        for name, t, shape in (("m", m, (b, h, sq)), ("l", l, (b, h, sq)), ("o", o, tuple(q.shape))):
+            if t is None or tuple(t.shape) != shape or t.dtype != torch.float32:
+                got = None if t is None else f"{t.dtype}{list(t.shape)}"
+                raise ValueError(f"carry {name} must be float32{list(shape)}, got {got}")
+        tensors += [m, l, o]
+    if mode in ("last", "first+last"):
+        if out is None or out.shape != q.shape or out.dtype != q.dtype:
+            got = None if out is None else f"{out.dtype}{list(out.shape)}"
+            raise ValueError(f"out must be {q.dtype}{list(q.shape)} in mode {mode!r}, got {got}")
+        tensors.append(out)
+    elif out is not None:
+        raise ValueError(f"out is written only in the last modes, not in {mode!r}")
+    devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"q, k, v and the carry lie on different devices: {devices}")
 
 
-def _block_attend_kernel(q, k, v, m, l, o, q_offset, k_offset, scale, causal) -> None:
-    """Launch the route's Hopper kernel on the current stream, updating
-    the carry in place (not synchronised). Raises on what it cannot take."""
+def _block_attend_kernel(q, k, v, m, l, o, out, q_offset, k_offset, scale, causal, mode) -> None:
+    """Launch the route's Hopper kernel in carry mode ``mode`` on the
+    current stream (not synchronised). Raises on what it cannot take."""
     global launches
     b, s, h, d = q.shape
     if q.dtype not in _fa._DTYPE_CODES:
@@ -190,43 +242,62 @@ def _block_attend_kernel(q, k, v, m, l, o, q_offset, k_offset, scale, causal) ->
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.shape[-1] > 1 and t.stride(-1) != 1:
             raise ValueError(f"{name} must be contiguous in head_dim (stride {t.stride(-1)})")
-    for name, t in (("m", m), ("l", l), ("o", o)):
+    written = [] if mode == "first+last" else [("carry m", m), ("carry l", l), ("carry o", o)]
+    if out is not None:
+        written.append(("out", out))
+    for name, t in written:
         if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"carry {name} must be contiguous from a 16-byte aligned base")
+            raise ValueError(f"{name} must be contiguous from a 16-byte aligned base")
     route = _fa._route(q, k, v, base_aligned=all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
     fn = _load()
     strides = (ctypes.c_int64 * 9)(*(t.stride(i) for t in (q, k, v) for i in range(3)))
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            o.data_ptr(), m.data_ptr(), l.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(o), ptr(m), ptr(l), ptr(out),
             strides, b, s, h, d, int(q_offset), int(k_offset), float(scale),
-            1 if causal else 0, _fa._DTYPE_CODES[q.dtype], _fa._ROUTE_CODES[route], stream,
+            1 if causal else 0, _MODE_CODES[mode], _fa._DTYPE_CODES[q.dtype],
+            _fa._ROUTE_CODES[route], stream,
         )
     if err != 0:
         raise RuntimeError(
             f"ring block kernel launch failed: CUDA error {err} "
-            f"(route {route}, shape {tuple(q.shape)}, {q.dtype})"
+            f"(route {route}, mode {mode}, shape {tuple(q.shape)}, {q.dtype})"
         )
     launches += 1
     route_launches[route] += 1
+    mode_launches[mode] += 1
 
 
-def attend_block(q, k, v, m, l, o, q_offset: int, k_offset: int, scale: float, causal: bool) -> None:
-    """Update the carry ``(m, l, o)`` in place by one K/V block: the Hopper
-    kernel for CUDA tensors (or raise), ``block_attend`` for CPU tensors."""
+def attend_block(
+    q, k, v, m, l, o, q_offset: int, k_offset: int, scale: float, causal: bool,
+    mode: str = "middle", out: Optional[torch.Tensor] = None,
+) -> None:
+    """One ring step against one K/V block in carry mode ``mode``:
+    ``"middle"`` updates the carry ``(m, l, o)`` in place, ``"first"``
+    writes it from the empty carry, ``"last"`` reads it and writes the
+    output into ``out``, ``"first+last"`` needs no carry (pass None) and
+    writes ``out``. The Hopper kernel for CUDA tensors (or raise),
+    ``block_attend`` for CPU tensors."""
     global skips
-    _check_block(q, k, v, m, l, o)
-    if causal and k_offset >= q_offset + q.shape[1]:
+    _check_block(q, k, v, m, l, o, mode, out)
+    if mode == "middle" and causal and k_offset >= q_offset + q.shape[1]:
         skips += 1  # every key is in every query's future: alpha = 1, p = 0
         return
     if q.is_cuda:
-        _block_attend_kernel(q, k, v, m, l, o, q_offset, k_offset, scale, causal)
+        _block_attend_kernel(q, k, v, m, l, o, out, q_offset, k_offset, scale, causal, mode)
         return
     if q.device.type != "cpu":
         raise ValueError(f"unsupported device {q.device}")
-    m_new, l_new, o_new = block_attend(q, k, v, m, l, o, q_offset, k_offset, scale, causal)
+    carry = _init_carry(q) if mode in ("first", "first+last") else (m, l, o)
+    m_new, l_new, o_new = block_attend(q, k, v, *carry, q_offset, k_offset, scale, causal)
+    if out is not None:
+        out.copy_(_finish(l_new, o_new, q.dtype))
+        return
     m.copy_(m_new)
     l.copy_(l_new)
     o.copy_(o_new)
@@ -247,15 +318,33 @@ def _finish(l: torch.Tensor, o: torch.Tensor, dtype: torch.dtype) -> torch.Tenso
     return out.to(dtype)
 
 
+def _step_modes(rank: int, n: int, causal: bool) -> list:
+    """The carry mode of each of the ``n`` steps of a ring on ``rank``, or
+    None for a step it skips. At step t a rank holds the block of rank
+    ``(rank - t) mod n``; with ``causal`` that block is in its future for
+    every t > rank, so steps 0 ... rank launch; without it every step
+    does. The first launched step starts from the empty carry and the
+    last writes the output; a lone one does both."""
+    launched = [t for t in range(n) if not causal or t <= rank]
+    modes = [None] * n
+    for t in launched:
+        modes[t] = "middle"
+    if len(launched) == 1:
+        modes[launched[0]] = "first+last"
+    else:
+        modes[launched[0]], modes[launched[-1]] = "first", "last"
+    return modes
+
+
 def _one_block(q, k, v, causal: bool, scale: float) -> torch.Tensor:
-    m, l, o = _init_carry(q)
-    attend_block(q, k, v, m, l, o, 0, 0, scale, causal)
-    return _finish(l, o, q.dtype)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    attend_block(q, k, v, None, None, None, 0, 0, scale, causal, mode="first+last", out=out)
+    return out
 
 
 def ring_attention_reference(q, k, v, causal: bool = True, scale: Optional[float] = None):
     """The one-block ring in plain PyTorch (tpusnap's ``axis_name=None``
-    path): the backward differentiates it."""
+    path)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     m, l, o = _init_carry(q)
@@ -264,8 +353,10 @@ def ring_attention_reference(q, k, v, causal: bool = True, scale: Optional[float
 
 
 class _RingBlock(torch.autograd.Function):
-    """Forward: one block through ``attend_block``. Backward: autograd of
-    the plain version, recomputed from q, k, v."""
+    """Forward: one block through ``attend_block`` (``first+last``).
+    Backward: autograd of ``flash_attention_reference`` at the block's
+    scale, recomputed from q, k, v (one block from the empty carry is that
+    function, in fewer passes over the f32 scores)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):
@@ -278,7 +369,7 @@ class _RingBlock(torch.autograd.Function):
         q, k, v = ctx.saved_tensors
         with torch.enable_grad():
             inputs = tuple(t.detach().requires_grad_(True) for t in (q, k, v))
-            out = ring_attention_reference(*inputs, ctx.causal, ctx.scale)
+            out = _fa.flash_attention_reference(*inputs, ctx.causal, ctx.scale)
             grads = torch.autograd.grad(out, inputs, grad_out)
         return (*grads, None, None)
 
@@ -353,16 +444,27 @@ def ring_attention(
             "sharded train step, which waits for NCCL with one card per rank "
             "(ROADMAP.md item A7); run the forward under torch.no_grad()"
         )
+    global skips
     sq = q.shape[1]
-    m, l, o = _init_carry(q)
+    modes = _step_modes(rank, n, causal)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    m = l = o = None  # the carry, where a middle or last step reads it
+    if any(mode in ("middle", "last") for mode in modes):
+        m = torch.empty((q.shape[0], q.shape[2], sq), dtype=torch.float32, device=q.device)
+        l = torch.empty_like(m)
+        o = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     rotation = _Rotation(group, k)
     k_blk, v_blk = k, v
-    for step in range(n):
+    for step, mode in enumerate(modes):
         last = step == n - 1
         if not last:
             rotation.start(k_blk, v_blk)
-        src = (rank - step) % n
-        attend_block(q, k_blk, v_blk, m, l, o, rank * sq, src * sq, scale, causal)
+        if mode is None:
+            skips += 1  # a block wholly in the queries' future
+        else:
+            src = (rank - step) % n
+            attend_block(q, k_blk, v_blk, m, l, o, rank * sq, src * sq, scale, causal, mode=mode,
+                         out=out if mode in ("last", "first+last") else None)
         if not last:
             k_blk, v_blk = rotation.finish(q.device)
-    return _finish(l, o, q.dtype)
+    return out
