@@ -256,12 +256,36 @@ Phases, in order:
              then a child calls main() in process for info, verify, fsck
              and cat and must leave torch.cuda.is_initialized() False.
              Prints each command's exit code and seconds.
+30. examples — the port's four examples in process (``main(argv)``), each
+             in its own directory: simple, then its resume from epoch_2
+             (prints "resumed ... at epoch 2", then epoch 3); incremental
+             (its "incremental on", "0 corrupt" and "bit-exact" lines);
+             distributed at --world-size 2 (two gloo ranks on the card);
+             and the transformer example at --width full (the flagship
+             with 4 experts, tokens (8, 1024)): 3 epochs of 4 Adam steps
+             with an async take per epoch, then a resume from epoch_2
+             through async_restore that trains epoch 3 and commits it.
+             Every epoch snapshot scrubs clean, and the resumed epoch_3
+             restores into a fresh model in place, bit for bit against
+             read_object. The flash kernel must launch 4 layers x (12 + 4)
+             steps = 64 times, all wgmma. Prints each example's seconds
+             and the transformer's blocked, wait and restore seconds.
+31. benchmarks — the ten benchmark harnesses of the port in process, at
+             the sizes ``_HARNESSES`` gives (each cut of a default listed
+             under "reduced"), one line per harness: its own last line
+             under "phase": "benchmarks". Fails on a false correctness
+             field: load_tensor's RSS within 8x its 100 MiB budget,
+             pinned_host's target still pinned, the bit-exact restores
+             (async_latency, incremental, replicated, sharded, embedding,
+             gcs_pipeline, each of dcp_compare's five methods), fleetsim's
+             own grade. A last line gives both phases' seconds.
 
 Launch counts (in all and by route) are set to 0 just before each path
 that runs the model — train + snapshot, async_train, incremental, each
 rank of distributed, sharded and layouts, sharded's parent, moe, the
 lifecycle model with crash and chaos, rank 0 of the sync and async
-degrade worlds, delta, tier with cas, and observe — and read just after
+degrade worlds, delta, tier with cas, observe, and the examples phase's two transformer
+runs — and read just after
 it: the kernels phase's comparison launches do not count. The ring block
 kernel's counts (by route and by carry mode, and its skipped future
 blocks) are set to 0 at the same points and read for each rank of the
@@ -278,6 +302,7 @@ import contextlib
 import io
 import json
 import logging
+import math
 import os
 import shutil
 import statistics
@@ -4448,6 +4473,152 @@ def phase_cli(ctx: dict, workdir: str) -> dict:
             "seconds": time.perf_counter() - t_phase, "card": ctx["card"]}
 
 
+def _run_main(module, argv) -> tuple:
+    """``module.main(argv)`` in process with its stdout captured; returns
+    (exit code, stdout, seconds). Its output is echoed to stderr when it
+    fails."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = module.main(argv)
+    seconds = time.perf_counter() - t0
+    if rc != 0:
+        print(buf.getvalue()[-6000:], file=sys.stderr)
+        raise AssertionError(f"{module.__name__}.main({argv}) exited {rc}")
+    return rc, buf.getvalue(), seconds
+
+
+def _logged_numbers(out: str, pattern: str) -> list:
+    import re
+
+    return [float(x) for x in re.findall(pattern, out)]
+
+
+def phase_examples(ctx: dict, workdir: str) -> dict:
+    """The port's four examples in process on the card (each in its own
+    directory): simple and its resume, incremental, distributed at world 2
+    and the flagship transformer example at full width with 4 experts,
+    trained 3 epochs and resumed from epoch 2. Flash launches are counted
+    over the transformer runs alone."""
+    import torch
+
+    from tpusnap_torch import Snapshot
+    from tpusnap_torch.examples import distributed, incremental, simple, transformer
+    from tpusnap_torch.ops import flash_attention as fa
+
+    t_phase = time.perf_counter()
+    edir = os.path.join(workdir, "examples")
+    seconds = {}
+    sdir = os.path.join(edir, "simple")
+    _, out, s1 = _run_main(simple, ["--work-dir", sdir])
+    _, resumed, s2 = _run_main(simple, ["--work-dir", sdir, "--resume-from",
+                                        os.path.join(sdir, "epoch_2")])
+    if "epoch 4:" not in out or "at epoch 2" not in resumed or "epoch 3:" not in resumed:
+        raise AssertionError(f"simple example: {out!r} then {resumed!r}")
+    seconds["simple"] = s1 + s2
+    _, out, seconds["incremental"] = _run_main(incremental,
+                                               ["--work-dir", os.path.join(edir, "inc")])
+    for line in ("incremental on", "0 corrupt", "bit-exact"):
+        if line not in out:
+            raise AssertionError(f"incremental example printed no {line!r}: {out!r}")
+    _, out, seconds["distributed"] = _run_main(
+        distributed, ["--world-size", "2", "--work-dir", os.path.join(edir, "ddp")])
+    if not all(f"rank {r}: restore verified" in out for r in (0, 1)):
+        raise AssertionError(f"distributed example: {out!r}")
+
+    xdir, rdir = os.path.join(edir, "xf"), os.path.join(edir, "xf_resumed")
+    _reset_launches()  # the examples path: the two transformer runs
+    _, out, s1 = _run_main(transformer, ["--width", "full", "--work-dir", xdir])
+    _, resumed, s2 = _run_main(transformer, ["--width", "full", "--work-dir", rdir,
+                                             "--resume-from", os.path.join(xdir, "epoch_2")])
+    launches, routes = fa.launches, dict(fa.route_launches)
+    seconds["transformer"] = s1 + s2
+    model, _ = transformer.build("full", "cuda")
+    cfg = model.config
+    steps = transformer.NUM_EPOCHS * transformer.STEPS_PER_EPOCH + transformer.STEPS_PER_EPOCH
+    if launches != cfg.n_layers * steps:
+        raise AssertionError(f"transformer example: {launches} flash launches, expected "
+                             f"{cfg.n_layers} layers x {steps} steps")
+    if "resumed at epoch 2" not in resumed or "epoch 3:" not in resumed \
+            or "final snapshot committed" not in resumed:
+        raise AssertionError(f"transformer example resume: {resumed!r}")
+    losses = _logged_numbers(out + resumed, r"loss=([-0-9.e]+)\n")
+    if not losses or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite loss in the transformer example: {losses}")
+    snaps = [os.path.join(xdir, f"epoch_{e}") for e in (1, 2, 3)] + [os.path.join(rdir, "epoch_3")]
+    for path in snaps:
+        if not Snapshot(path).verify().clean:
+            raise AssertionError(f"{path} does not scrub clean")
+    # The resumed epoch_3 into a fresh model: in place, bit for bit.
+    app_state = transformer.app_state_of(model)
+    before = {p: id(t) for p, t in _leaves(model.train_state())}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    snap = Snapshot(os.path.join(rdir, "epoch_3"))
+    snap.restore(app_state)
+    torch.cuda.synchronize()
+    fresh_restore_s = time.perf_counter() - t0
+    for p, t in _leaves(model.train_state()):
+        if id(t) != before[p] or not torch.equal(t.cpu(), snap.read_object(f"0/train/{p}")):
+            raise AssertionError(f"resumed epoch_3 restored {p} not in place or not bit for bit")
+    if app_state["progress"]["epoch"] != 3:
+        raise AssertionError(f"progress restored as {app_state['progress']}")
+    state_bytes = _state_bytes(model.train_state())
+    return {
+        "phase": "examples", "seconds_by_example": seconds,
+        "transformer": {
+            "config": {"vocab_size": cfg.vocab_size, "d_model": cfg.d_model,
+                       "n_heads": cfg.n_heads, "n_layers": cfg.n_layers, "d_ff": cfg.d_ff,
+                       "n_experts": cfg.n_experts, "tokens": list(transformer.WIDTHS["full"][1])},
+            "train_state_bytes": state_bytes, "steps": steps, "losses": losses,
+            "async_take_blocked_s": _logged_numbers(out + resumed, r"\(blocked ([0-9.]+) s\)"),
+            "final_wait_s": _logged_numbers(out + resumed, r"\(wait ([0-9.]+) s\)"),
+            "async_restore_s": _logged_numbers(resumed, r"\(restore ([0-9.]+) s\)"),
+            "fresh_model_restore_s": fresh_restore_s,
+            "verified_clean": len(snaps),
+        },
+        "flash_launches": launches, "flash_routes": routes,
+        "seconds": time.perf_counter() - t_phase, "card": ctx["card"],
+    }
+
+
+# Each harness's arguments in the smoke and how they cut its defaults.
+_HARNESSES = [
+    ("load_tensor", ["--gb", "2"], "2 GiB, not the reference's 10 GB (the harness's default is 1)"),
+    ("pinned_host", [], None),
+    ("async_latency", ["--runs", "2"], "2 interleaved runs, not 3"),
+    ("incremental", ["--gb", "0.5", "--runs", "2", "--chain-depth", "10"],
+     "0.5 GiB frozen, not 2; 2 runs, not 3; chain depth 10, not 100"),
+    ("replicated", [], None),
+    ("sharded", ["--n-layers", "4", "--runs", "2"], "4 layers, not 8; 2 runs, not 3"),
+    ("embedding", [], None),
+    ("gcs_pipeline", [], None),
+    ("dcp_compare", ["--d-model", "512", "--n-heads", "8", "--n-layers", "4", "--runs", "3"],
+     "the flagship TransformerConfig() width (d_model 512, 8 heads, 4 layers), not d_model "
+     "1024 x 16 heads x 8 layers; 3 sessions, not 5"),
+    ("fleetsim", ["--jobs", "6", "--branch", "2", "--takes", "2"],
+     "6 jobs and 2 branch jobs, not 8 and 4; 2 takes, not 3"),
+]
+def phase_benchmarks(ctx: dict, workdir: str) -> list:
+    """Every benchmark harness of the port in process on the card, sizes
+    cut as ``_HARNESSES`` lists; one line per harness (its own last line
+    under ``"phase": "benchmarks"``). A harness whose correctness fields
+    are not all true exits 1 (its ``ok``), which fails the phase."""
+    import importlib
+
+    lines = []
+    for name, argv, cut in _HARNESSES:
+        module = importlib.import_module(f"tpusnap_torch.benchmarks.{name}")
+        _, out, seconds = _run_main(module, argv)
+        last = json.loads(out.strip().splitlines()[-1])
+        if last["bench"] != name or last["ok"] is not True:
+            raise AssertionError(f"benchmark {name}: {out[-3000:]}")
+        lines.append({"phase": "benchmarks", "harness": name, "argv": argv,
+                      "reduced": {name: cut} if cut else {}, "seconds": seconds,
+                      "card": ctx["card"], **last})
+    return lines
+
+
 def _reset_launches() -> None:
     """Set the flash and ring block kernels' launch counts to 0."""
     import importlib
@@ -4569,6 +4740,16 @@ def main() -> int:
         emit(phase_observe(ctx, workdir))
         paths["observe"] = (fa.launches, dict(fa.route_launches))
         emit(phase_cli(ctx, workdir))
+        ex_line = phase_examples(ctx, workdir)
+        emit(ex_line)
+        paths["examples"] = (ex_line["flash_launches"], ex_line["flash_routes"])
+        t0 = time.perf_counter()
+        for line in phase_benchmarks(ctx, workdir):
+            emit(line)
+        emit({"phase": "benchmarks", "harnesses": len(_HARNESSES),
+              "seconds": time.perf_counter() - t0,
+              "examples_and_benchmarks_s": ex_line["seconds"] + time.perf_counter() - t0,
+              "card": card})
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     for path, (launches, routes) in paths.items():

@@ -7,7 +7,8 @@ flagship training, embedding tables with pinned DTensor shards, delta
 stream captures (at mark_step, and free-running under a side stream),
 CUDA state through the write-back tier and the CAS store, ``analyze``
 and the restore's ``consume`` spans over CUDA copies, and the CLI
-leaving CUDA uninitialised.
+leaving CUDA uninitialised, and every example and benchmark harness of
+the port run with ``--device cuda``.
 
 Every test here carries the ``cuda`` marker and skips without a card (the
 kernels have no CPU mode). The file imports neither JAX nor ``tpusnap``,
@@ -1359,3 +1360,90 @@ def test_ring_attention_on_the_card_fills_no_carry_and_runs_no_finish(gen, monke
     assert ra.mode_launches["first+last"] == modes["first+last"] + 1
     assert out.dtype == q.dtype and out.shape == q.shape
     assert ((out.float() - want.float()).abs() / bound).max().item() <= 1.0
+
+
+# ---------------------------------------------- examples and harnesses
+
+
+def _example_args(tmp_path):
+    return {
+        "simple": ["--work-dir", str(tmp_path / "simple")],
+        "incremental": ["--work-dir", str(tmp_path / "inc")],
+        "distributed": ["--work-dir", str(tmp_path / "ddp")],
+        "transformer": ["--work-dir", str(tmp_path / "xf")],
+    }
+
+
+@pytest.mark.parametrize("name", ["simple", "incremental", "distributed", "transformer"])
+def test_example_runs_on_the_card(gen, tmp_path, monkeypatch, capsys, name):
+    import importlib
+
+    monkeypatch.setenv("TPUSNAP_TELEMETRY_DIR", str(tmp_path / "telemetry"))
+    module = importlib.import_module(f"tpusnap_torch.examples.{name}")
+    assert module.main([*_example_args(tmp_path)[name], "--device", "cuda"]) == 0
+    out = capsys.readouterr().out
+    if name == "transformer":
+        before = fa.launches
+        assert module.main(["--work-dir", str(tmp_path / "xf2"), "--device", "cuda",
+                            "--resume-from", str(tmp_path / "xf" / "epoch_2")]) == 0
+        resumed = capsys.readouterr().out
+        assert "resumed at epoch 2" in resumed and "final snapshot committed" in resumed
+        # One epoch of 4 steps through 2 layers, each forward on the kernel.
+        assert fa.launches - before == 4 * 2
+    elif name == "incremental":
+        assert "0 corrupt" in out and "bit-exact" in out
+    elif name == "distributed":
+        assert "rank 1: restore verified" in out
+
+
+_HARNESS_ARGS = {
+    "load_tensor": ["--gb", "0.5"],
+    "pinned_host": [],
+    "async_latency": ["--mb", "64", "--runs", "2"],
+    "incremental": ["--gb", "0.25", "--runs", "2", "--chain-depth", "10"],
+    "replicated": ["--gb", "0.25"],
+    "sharded": ["--d-model", "512", "--n-layers", "2", "--runs", "2"],
+    "embedding": ["--rows", "100000"],
+    "gcs_pipeline": ["--total-mb", "64", "--latency-ms", "20"],
+    "dcp_compare": ["--d-model", "512", "--n-heads", "8", "--n-layers", "2", "--runs", "3"],
+    "fleetsim": ["--jobs", "4", "--branch", "2", "--takes", "2", "--mb", "4"],
+}
+
+
+@pytest.mark.parametrize("name", sorted(_HARNESS_ARGS))
+def test_harness_runs_on_the_card(gen, tmp_path, monkeypatch, capsys, name):
+    import importlib
+    import json
+
+    monkeypatch.setenv("TPUSNAP_TELEMETRY_DIR", str(tmp_path / "telemetry"))
+    module = importlib.import_module(f"tpusnap_torch.benchmarks.{name}")
+    rc = module.main([*_HARNESS_ARGS[name], "--device", "cuda"])
+    out = capsys.readouterr().out
+    last = json.loads(out.strip().splitlines()[-1])
+    assert rc == 0 and last["ok"], out[-3000:]
+    assert last["device"] == "cuda" and last["device_name"] == torch.cuda.get_device_name(0)
+    if name == "pinned_host":
+        assert last["restored_pinned"] and last["source_pinned"]
+
+
+def test_budgeted_read_object_into_a_cuda_target_holds_only_tiles_on_the_host(gen, tmp_path,
+                                                                             monkeypatch):
+    """A 512 MiB CUDA tensor read back under a 16 MiB budget into an exact
+    CUDA target: in place, bit for bit, and the host's RSS grows by no
+    more than 8x the budget (tests/test_tiled_read.py's slack), where a
+    host copy of the whole tensor would add 512 MiB."""
+    from tpusnap_torch import PytreeState, measure_rss_deltas
+
+    monkeypatch.setenv("TPUSNAP_TELEMETRY_DIR", str(tmp_path / "telemetry"))
+    big = torch.randn((512 << 20) // 4 // 1024, 1024, generator=gen, device="cuda")
+    Snapshot.take(str(tmp_path / "s"), {"m": PytreeState({"big": big})})
+    target = torch.zeros_like(big)
+    budget = 16 << 20
+    deltas = []
+    with measure_rss_deltas(deltas):
+        out = Snapshot(str(tmp_path / "s")).read_object(
+            "0/m/big", obj_out=target, memory_budget_bytes=budget
+        )
+        torch.cuda.synchronize()
+    assert out is target and torch.equal(target, big)
+    assert max(deltas, default=0) < 8 * budget, max(deltas)

@@ -2399,10 +2399,10 @@ def main(argv=None) -> int:
     )
     p.add_argument(
         "--kind", default="take",
-        choices=["take", "restore", "bench", "orbax", "fleet", "all"],
-        help="event kind to show/check (default take; orbax = the "
-        "orbax_compare benchmark's median/speedup events; fleet = "
-        "fleetsim soak events)",
+        choices=["take", "restore", "bench", "orbax", "dcp", "fleet", "all"],
+        help="event kind to show/check (default take; orbax = tpusnap's "
+        "orbax_compare benchmark's median/speedup events; dcp = the "
+        "dcp_compare benchmark's; fleet = fleetsim soak events)",
     )
     p.add_argument(
         "-n", "--limit", type=int, default=20, metavar="N",

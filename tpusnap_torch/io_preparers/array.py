@@ -1122,9 +1122,12 @@ class ArrayIOPreparer:
     ) -> Tuple[List[ReadReq], Future]:
         """Split one tensor read into byte-ranged row tiles so peak host
         memory stays under the budget. Tiles land in one host tensor
-        (the target itself when it is an exact-match CPU tensor); when
-        the entry carries tile checksums, read tiles align to them and
-        each is verified against the combined tile values."""
+        (the target itself when it is an exact-match CPU tensor), or,
+        for an exact-match CUDA target, each in its own pinned buffer
+        (allocated when its read is dispatched) copied into the target's
+        rows on the card, so no host copy of the whole tensor exists;
+        when the entry carries tile checksums, read tiles align to them
+        and each is verified against the combined tile values."""
         shape = entry.shape
         row_nbytes = tensor_nbytes(entry.dtype, shape[1:])
         rows_per_tile = max(1, buffer_size_limit_bytes // max(row_nbytes, 1))
@@ -1139,9 +1142,10 @@ class ArrayIOPreparer:
             else:
                 rows_per_tile = entry.tile_rows
         in_place = writable_byte_view(obj_out, entry.dtype, shape) is not None
+        on_card = not in_place and _is_exact_cuda_target(obj_out, entry.dtype, shape)
         host_out = (
             obj_out
-            if in_place
+            if in_place or on_card
             else torch.empty(tuple(shape), dtype=string_to_dtype(entry.dtype))
         )
         base_offset = entry.byte_range[0] if entry.byte_range is not None else 0
@@ -1165,8 +1169,9 @@ class ArrayIOPreparer:
                 remaining,
                 fut,
                 obj_out,
-                in_place,
+                in_place or on_card,
                 ready,
+                on_card=on_card,
                 blob_checksum=tile_checksum,
                 blob_location=f"{logical_path or entry.location} (rows {r0}:{r1})",
             )
@@ -1392,6 +1397,10 @@ class _CompressedConsumer(BufferConsumer):
 
 
 class _TileConsumer(BufferConsumer):
+    """Rows ``[r0, r1)`` of a tiled read: into ``host_out``'s rows, or, with
+    ``on_card``, through a pinned tile buffer into the CUDA target's rows
+    (``host_out`` is then the target)."""
+
     def __init__(
         self,
         entry,
@@ -1403,6 +1412,7 @@ class _TileConsumer(BufferConsumer):
         obj_out,
         in_place,
         ready,
+        on_card=False,
         blob_checksum=None,
         blob_location="",
     ):
@@ -1414,18 +1424,41 @@ class _TileConsumer(BufferConsumer):
         self.obj_out = obj_out
         self.in_place = in_place
         self.ready = ready
+        self.on_card = on_card
         self.blob_checksum = blob_checksum
         self.blob_location = blob_location
+        self._pinned: Optional[torch.Tensor] = None
         rows = host_out[r0:r1]
-        self.into_mv = (
-            memoryview(tensor_as_bytes(rows).numpy()) if rows.numel() else None
+        self.into_mv: Union[memoryview, Callable[[], memoryview], None] = None
+        if rows.numel():
+            self.into_mv = (
+                self._pinned_tile if on_card else memoryview(tensor_as_bytes(rows).numpy())
+            )
+
+    def _tile_shape(self) -> List[int]:
+        return [self.r1 - self.r0] + list(self.entry.shape[1:])
+
+    def _pinned_tile(self) -> memoryview:
+        """Allocated when the read is dispatched, so pinned memory in use
+        stays under the read budget."""
+        self._pinned = torch.empty(
+            tensor_nbytes(self.entry.dtype, self._tile_shape()), dtype=torch.uint8,
+            pin_memory=True,
         )
+        return memoryview(self._pinned.numpy())
+
+    def _to_card(self, src: torch.Tensor) -> None:
+        _copy_into_target(self.host_out[self.r0 : self.r1], src, self.ready)
 
     async def consume_read_io(self, read_io, executor: Optional[Executor] = None) -> None:
         if not read_io.in_place:
             await self.consume_buffer(read_io.buf.getbuffer(), executor)
             return
         _verify_read_time_crc(read_io, self.blob_checksum, self.blob_location)
+        if self._pinned is not None:
+            pinned, self._pinned = self._pinned, None
+            src = pinned.view(string_to_dtype(self.entry.dtype)).reshape(self._tile_shape())
+            await _run(executor, self._to_card, src)
         await self._after_consume(executor)
 
     async def consume_buffer(
@@ -1448,9 +1481,12 @@ class _TileConsumer(BufferConsumer):
 
     def _consume_blocking(self, buf: BufferType) -> None:
         _maybe_verify(buf, self.blob_checksum, self.blob_location)
-        tile_shape = [self.r1 - self.r0] + list(self.entry.shape[1:])
-        src = tensor_from_memoryview(memoryview(buf), self.entry.dtype, tile_shape)
-        self.host_out[self.r0 : self.r1].copy_(src)
+        src = tensor_from_memoryview(memoryview(buf), self.entry.dtype, self._tile_shape())
+        if self.on_card:
+            self._pinned = None
+            self._to_card(src)
+        else:
+            self.host_out[self.r0 : self.r1].copy_(src)
 
     def get_consuming_cost_bytes(self) -> int:
         return tensor_nbytes(

@@ -728,6 +728,10 @@ def override_max_shard_size_bytes(nbytes: int):
     return _override_env(_MAX_SHARD_SIZE_ENV_VAR, str(nbytes))
 
 
+def override_slab_size_threshold_bytes(nbytes: int):
+    return _override_env(_SLAB_SIZE_THRESHOLD_ENV_VAR, str(nbytes))
+
+
 def override_device_batching_disabled(disabled: bool):
     return _override_env(_DISABLE_DEVICE_BATCHING_ENV_VAR, "1" if disabled else "0")
 
