@@ -151,7 +151,29 @@ Phases, in order:
              ring model and into a fresh dense model, each bit for bit
              with Parameter identity and a post-restore step equal to a
              witness's.
-19. crash  — the crash-safe take (every take journals itself, records
+19. sharded_step — tpusnap's sharded train step on four ranks sharing
+             the card (gloo; collectives staged through pinned host
+             buffers) at tpusnap's default mesh for four devices,
+             (data, fsdp, tensor) = (1, 2, 2): (a) the ring flagship at
+             full width, tokens (8, 1024), the sequence over fsdp (512
+             positions a rank), 3 Adam steps; step 1's loss within 1e-4
+             relative and its gradients within 1e-2 per leaf (relative
+             Frobenius) of a one-process ring-of-one model on the whole
+             batch; the ring block kernel's launches by mode (under grad:
+             first and middle, all wgmma), the backward's block steps;
+             the ring's output under grad equal to its no_grad output bit
+             for bit. (c) The state after step 3 taken (each rank writes
+             exactly its boxes), restored into a fresh state at (1, 2, 2)
+             (step 4 bit for bit against the witness's) and at (1, 4, 1),
+             a ring of 4 with middle steps (step 4's loss within 1e-4).
+             (b) The dense flagship at (1, 2, 2), one step against the
+             one-replica step, the flash kernel at each rank's (4, 1024)
+             batch shard (all wgmma); (d) the MoE flagship (4 experts) at
+             (2, 2, 1), its expert dim over data, one step with the same
+             checks. Prints each step's seconds and its
+             split (gather, forward, backward, reduce, update: wall time
+             with the card synchronised at each stage).
+20. crash  — the crash-safe take (every take journals itself, records
              telemetry and a flight log). A fresh flagship trained one
              step; its train state (saved to a file, setup) is loaded by
              a spawned child, which takes it through chaos+fs:// with
@@ -163,19 +185,19 @@ Phases, in order:
              process's .tmp debris. Then a child's async take of the
              4 GiB bulk, add_(1) at once, killed mid-drain: the retake
              restores the state at the call.
-20. chaos  — the train state through chaos+fs:// under a seeded plan
+21. chaos  — the train state through chaos+fs:// under a seeded plan
              (a transient error per op and every 5th op, 1 ms latency,
              torn writes), batching off: take and restore converge under
              retry (retries counted), the restore reads as many blobs in
              place as a plain path's; an async take under the plan with a
              train step at once holds the state at the call.
-21. liveness — three two-rank worlds at once (TPUSNAP_LIVENESS_TTL_S=2):
+22. liveness — three two-rank worlds at once (TPUSNAP_LIVENESS_TTL_S=2):
              rank 1 SIGKILLed by a hook in its process at its first
              stage, first blob write or commit barrier; rank 0 raises
              RankFailedError naming it within 3x the TTL (seconds
              printed), the merged flight timeline names rank 1, the
              directory is torn with salvage records.
-22. degrade — three two-rank worlds at once (TPUSNAP_RANK_FAILURE=
+23. degrade — three two-rank worlds at once (TPUSNAP_RANK_FAILURE=
              degrade): a replicated sync take whose rank 1 dies after its
              first blob write, committed by rank 0 (adopted bytes
              printed, extras["degraded"]); an async take with a train step
@@ -183,13 +205,13 @@ Phases, in order:
              on its first write) SIGKILLed: the committed snapshot equals
              the state at the call, bitwise; a Shard(0) DTensor take
              whose peer dies refuses to degrade and is torn.
-23. lifecycle_ab — printed, not gated: the bulk take and the train
+24. lifecycle_ab — printed, not gated: the bulk take and the train
              state's take and restore with the default layers against
              TPUSNAP_DISABLE_JOURNAL=1 TPUSNAP_TELEMETRY=0, compression off,
              three of each in turns after a warm-up round; the
              distributed phase also times its take at a 0.5 s and a
              0.02 s heartbeat and with telemetry off.
-24. delta  — Snapshot.stream of a fresh flagship's train state
+25. delta  — Snapshot.stream of a fresh flagship's train state
              (cadence 0.5 s, TPUSNAP_DELTA_MAX_CHAIN=4, compression off)
              while it trains 12 Adam steps paced to 0.25 s, mark_step()
              after each; a device clone of the state at every boundary.
@@ -205,7 +227,7 @@ Phases, in order:
              seconds each capture blocked mark_step, step times with and
              without a stream, each member's payload bytes, the members
              retired by compaction.
-25. delta_elastic — two ranks on the card, each a full replica of the
+26. delta_elastic — two ranks on the card, each a full replica of the
              lifecycle model, replicated=["**"], TPUSNAP_LIVENESS_TTL_S=2,
              TPUSNAP_RANK_FAILURE=degrade: a clean two-rank epoch, every
              tensor changed in place, then rank 1 SIGKILLed at its first
@@ -213,7 +235,7 @@ Phases, in order:
              degraded and streams on alone; the head restores bit for
              bit. Prints the detection seconds, the adopted bytes and
              each member's world from extras["delta"]["world"].
-26. tier   — the 4 GiB bulk through tier+local=<a>+remote=chaos+fs://<b>
+27. tier   — the 4 GiB bulk through tier+local=<a>+remote=chaos+fs://<b>
              while every remote op fails for 10 s (an outage), beside a
              plain take; the background drain converges once the outage
              ends (durable marker); gc --evict-local (retention 0); a
@@ -221,14 +243,14 @@ Phases, in order:
              Then the train state through a tier, and 5 train steps while
              its drain runs against 5 without. Both tiers are on the one
              local disk.
-27. cas    — two job ids take the lifecycle model's train state into two
+28. cas    — two job ids take the lifecycle model's train state into two
              directories with one TPUSNAP_CAS_DIR (batching off: slab
              blobs are named per take and never dedup): the second
              publishes 0 bytes and the store holds the state once; each
              restores into CUDA tensors in place, bit for bit; one is
              deleted and gc_store keeps the shared blobs; the other still
              restores. The other job's snapshot and the store stay for cli.
-28. observe — every consumer of the take's telemetry on (history, the
+29. observe — every consumer of the take's telemetry on (history, the
              Prometheus textfile and JSONL sinks, the SLO thresholds, the
              fleet mirror, the access ledger, the roofline probe;
              compression off): a fresh flagship trains, record_slo_step()
@@ -246,7 +268,7 @@ Phases, in order:
              but the probe against all off, three takes each,
              interleaved); an autotuned take whose history event carries
              the plan id that `tune` prints.
-29. cli    — ``python -m tpusnap_torch`` in subprocesses on what observe,
+30. cli    — ``python -m tpusnap_torch`` in subprocesses on what observe,
              crash (a copy of its torn take), tier (the remote-durable
              train state), cas and delta left: every subcommand (lint
              --check over the package's own source),
@@ -256,7 +278,7 @@ Phases, in order:
              then a child calls main() in process for info, verify, fsck
              and cat and must leave torch.cuda.is_initialized() False.
              Prints each command's exit code and seconds.
-30. examples — the port's four examples in process (``main(argv)``), each
+31. examples — the port's four examples in process (``main(argv)``), each
              in its own directory: simple, then its resume from epoch_2
              (prints "resumed ... at epoch 2", then epoch 3); incremental
              (its "incremental on", "0 corrupt" and "bit-exact" lines);
@@ -270,7 +292,7 @@ Phases, in order:
              read_object. The flash kernel must launch 4 layers x (12 + 4)
              steps = 64 times, all wgmma. Prints each example's seconds
              and the transformer's blocked, wait and restore seconds.
-31. benchmarks — the ten benchmark harnesses of the port in process, at
+32. benchmarks — the ten benchmark harnesses of the port in process, at
              the sizes ``_HARNESSES`` gives (each cut of a default listed
              under "reduced"), one line per harness: its own last line
              under "phase": "benchmarks". Fails on a false correctness
@@ -288,11 +310,14 @@ degrade worlds, delta, tier with cas, observe, and the examples phase's two tran
 runs — and read just after
 it: the kernels phase's comparison launches do not count. The ring block
 kernel's counts (by route and by carry mode, and its skipped future
-blocks) are set to 0 at the same points and read for each rank of the
-ring phase and for its replica (20 launches, all first+last; the dense
-model restored from the replica's snapshot counts as a flash path). Every main-path launch must take the wgmma route. The incremental,
-transforms and the four A8b phases run with compression off, so their
-byte counts are the tensors' own.
+blocks, the backward's block steps) are set to 0 at the same points and
+read for each rank of the ring phase and for its replica (20 launches,
+all first+last; the dense model restored from the replica's snapshot
+counts as a flash path), and in each rank of sharded_step for (a), for
+(c)'s three steps 4 and, as flash paths, for (b) and (d). Every main-path
+launch must take the wgmma route. The incremental, transforms and the
+four A8b phases run with compression off, so their byte counts are the
+tensors' own.
 """
 
 from __future__ import annotations
@@ -2283,6 +2308,8 @@ def phase_sharded(ctx: dict, workdir: str) -> dict:
 # ---------------------------------------------------------------- slice 7
 
 MOE_STATE_BYTES, MOE_TENSORS = 855_791_620, 31
+# The dense flagship's train state (params, Adam moments, step).
+FLAGSHIP_STATE_BYTES = 553_703_428
 EMB_ROWS, EMB_DIM, EMB_TABLES = 1_000_000, 64, 4
 EMB_STATE_BYTES, EMB_PINNED_BYTES = 1_040_000_000, 520_000_000
 EMB_BATCH, EMB_BAG = 4096, 20
@@ -2967,6 +2994,340 @@ def phase_ring(ctx: dict, workdir: str) -> dict:
         "replica_ring_launches": replica_launches, "replica_ring_routes": replica_routes,
         "replica_ring_modes": replica_modes, "step_split_ms": step_split,
         "bit_exact": True, "parameter_identity": True,
+        "seconds": time.perf_counter() - t_phase, "card": ctx["card"],
+    }
+
+
+_SHARDED_STEP_LINE = "sharded_step_rank "
+# tpusnap's default mesh for four devices (_default_mesh_shape), and the
+# mesh shape the snapshot is restored into: a ring of 4.
+SHARDED_MESH = (1, 2, 2)
+RESHARD_MESH = (1, 4, 1)
+# The MoE flagship's mesh: its expert dim rides "data" (two experts a rank).
+MOE_MESH = (2, 2, 1)
+SHARDED_LR = 1e-3
+# Each leaf's gradient from the sharded step (the sum over its data x fsdp
+# group) against the one-process witness's, as a relative Frobenius error.
+# Both compute in bf16, and the ring's forward rounds P at other running
+# maxima than the ring of one's, so values differ by a few units of bf16's
+# roundoff u = 2**-8 = 3.9e-3 wherever they are rounded; a gradient is a
+# sum over the 8192 positions of such terms, whose independent errors do
+# not grow with its length. 1e-2 is about 2.5 u. On an H100 (700 W) the
+# ring's worst leaf was 0.0087 (the embedding), and two correct
+# one-process models, the dense flash one and the ring of one, differ by
+# up to 0.0082 on the same weights and tokens: the gate sits just above
+# bf16's own spread between implementations.
+SHARDED_GRAD_RTOL = 1e-2
+
+
+def _split_ms(splits: list) -> dict:
+    """The median milliseconds of each stage over a run's steps."""
+    return {k: 1e3 * statistics.median(s[k] for s in splits) for k in splits[0]}
+
+
+def _ring_counts() -> dict:
+    import importlib
+
+    from tpusnap_torch.ops import flash_attention as fa
+
+    ra = importlib.import_module("tpusnap_torch.ops.ring_attention")
+    return {"ring_launches": ra.launches, "ring_routes": dict(ra.route_launches),
+            "ring_modes": dict(ra.mode_launches), "ring_skips": ra.skips,
+            "backward_steps": ra.backward_steps, "backward_skips": ra.backward_skips,
+            "flash_launches": fa.launches, "flash_routes": dict(fa.route_launches)}
+
+
+def _sharded_steps(step, state, tokens, n: int) -> tuple:
+    import torch
+
+    losses, walls, splits = [], [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(state, tokens)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+        splits.append(dict(step.split))
+    return losses, walls, splits
+
+
+def _sharded_step_rank(sdir: str) -> None:
+    """One of four ranks on the one card (gloo) in the sharded_step phase.
+    (a) The ring flagship at SHARDED_MESH: 3 Adam steps of
+    ``make_train_step(model, mesh)``, step 1's full gradients saved by rank
+    0; (c) the state taken after step 3, step 4 as the witness, restores
+    into fresh states at SHARDED_MESH (step 4 bit for bit) and
+    RESHARD_MESH (step 4's loss); (b) the dense flagship (flash kernel) at
+    SHARDED_MESH, 1 step; (d) the MoE flagship at MOE_MESH, 1 step. Prints
+    ``sharded_step_rank {json}``."""
+    import torch
+    import torch.distributed as dist
+
+    from tpusnap_torch import Snapshot, StateDict
+    from tpusnap_torch.models import (
+        Transformer,
+        TransformerConfig,
+        init_train_state,
+        make_mesh,
+        make_train_step,
+    )
+    from tpusnap_torch.ops.ring_attention import ring_attention
+
+    if not torch.cuda.is_available():
+        raise AssertionError("a rank of the sharded_step phase sees no CUDA device")
+    torch.cuda.set_device(0)
+    rank = dist.get_rank()
+    mesh = make_mesh("cuda", SHARDED_MESH)
+    cfg_ring, cfg_dense = TransformerConfig(use_ring_attention=True), TransformerConfig()
+    tokens = _tokens(cfg_ring, 8, SEED)
+    out = {"rank": rank, "coordinate": mesh.get_coordinate()}
+
+    # (a) the ring flagship
+    model = Transformer(cfg_ring, device="cuda", seed=SEED)
+    state = init_train_state(model, mesh)
+    step = make_train_step(model, mesh, learning_rate=SHARDED_LR)
+    # The ring under grad against the ring under no_grad, at this rank's
+    # block of the flagship's attention, before the main path's counts.
+    gen = torch.Generator(device="cuda").manual_seed(SEED + rank)
+    blk = tuple(RING_BLOCK_SHAPE)
+    q, k, v = (torch.randn(blk, generator=gen, device="cuda", dtype=torch.bfloat16) for _ in range(3))
+    with torch.no_grad():
+        plain = ring_attention(q, k, v, group=step.ring_group)
+    graded = ring_attention(*(t.requires_grad_(True) for t in (q, k, v)), group=step.ring_group)
+    out["grad_output_bitwise_no_grad"] = bool(torch.equal(graded.detach(), plain))
+    del q, k, v, plain, graded
+    step.timed = step.keep_grads = True
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses, walls, splits = _sharded_steps(step, state, tokens, 1)
+    if rank == 0:
+        torch.save({p: g.cpu() for p, g in step.grads.items()}, os.path.join(sdir, "grads_ring.pt"))
+    step.keep_grads, step.grads = False, {}
+    more = _sharded_steps(step, state, tokens, 2)
+    out["ring"] = {"losses": losses + more[0], "step_s": walls + more[1],
+                   "split_ms": _split_ms(splits + more[2]), **_ring_counts()}
+
+    # (c) the state after step 3: taken, then step 4 from it three ways
+    io = _IOCounter(rank)
+    own = _own_box_bytes(state)
+    path = os.path.join(sdir, "snap")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    Snapshot.take(path, {"train": StateDict(**state)})
+    take_s = time.perf_counter() - t0
+    if io.written["sharded"] != own or io.written["replicated"] or io.written["rank"]:
+        raise AssertionError(f"rank {rank} wrote {io.written}, its boxes are {own} bytes")
+    taken = {p: t.to_local().clone() for p, t in _leaves(state)}
+    dist.barrier()
+    _reset_launches()
+    witness = step(state, tokens)
+    fresh = Transformer(cfg_ring, device="cuda", seed=SEED + 1)
+    fresh_state = init_train_state(fresh, mesh)
+    t0 = time.perf_counter()
+    Snapshot(path).restore({"train": StateDict(**fresh_state)})
+    restore_s = time.perf_counter() - t0
+    if any(not torch.equal(t.to_local(), taken[p]) for p, t in _leaves(fresh_state)):
+        raise AssertionError(f"rank {rank}: the restore at {SHARDED_MESH} differs from the take")
+    again = make_train_step(fresh, mesh, learning_rate=SHARDED_LR)(fresh_state, tokens)
+    same = torch.equal(again, witness) and all(
+        torch.equal(t.to_local(), u.to_local())
+        for (_, t), (_, u) in zip(_leaves(fresh_state), _leaves(state)))
+    del fresh, fresh_state
+    ring4 = make_mesh("cuda", RESHARD_MESH)
+    other = Transformer(cfg_ring, device="cuda", seed=SEED + 2)
+    other_state = init_train_state(other, ring4)
+    t0 = time.perf_counter()
+    Snapshot(path).restore({"train": StateDict(**other_state)})
+    reshard_restore_s = time.perf_counter() - t0
+    resharded = make_train_step(other, ring4, learning_rate=SHARDED_LR)(other_state, tokens)
+    out["snapshot"] = {
+        "bytes_written": io.written["sharded"], "own_box_bytes": own, "take_s": take_s,
+        "restore_s": restore_s, "reshard_restore_s": reshard_restore_s,
+        "witness_step4_loss": witness.item(), "restored_step4_loss": again.item(),
+        "step4_bitwise": bool(same), "reshard_step4_loss": resharded.item(), **_ring_counts(),
+    }
+    del other, other_state, model, state, step
+    dist.barrier()
+
+    # (b) the dense flagship: the flash kernel at each rank's batch shard
+    dense = Transformer(cfg_dense, device="cuda", seed=SEED)
+    dstate = init_train_state(dense, mesh)
+    dstep = make_train_step(dense, mesh, learning_rate=SHARDED_LR)
+    dstep.timed = dstep.keep_grads = True
+    _reset_launches()
+    losses, walls, splits = _sharded_steps(dstep, dstate, tokens, 1)
+    if rank == 0:
+        torch.save({p: g.cpu() for p, g in dstep.grads.items()}, os.path.join(sdir, "grads_dense.pt"))
+    out["dense"] = {"losses": losses, "step_s": walls, "split_ms": _split_ms(splits),
+                    **_ring_counts()}
+    del dense, dstate, dstep
+    dist.barrier()
+
+    # (d) the MoE flagship, its expert dim over data
+    moe_mesh = make_mesh("cuda", MOE_MESH)
+    moe = Transformer(_moe_config(), device="cuda", seed=SEED)
+    mstate = init_train_state(moe, moe_mesh)
+    mstep = make_train_step(moe, moe_mesh, learning_rate=SHARDED_LR)
+    mstep.timed = mstep.keep_grads = True
+    _reset_launches()
+    losses, walls, splits = _sharded_steps(mstep, mstate, tokens, 1)
+    if rank == 0:
+        torch.save({p: g.cpu() for p, g in mstep.grads.items()}, os.path.join(sdir, "grads_moe.pt"))
+    out["moe"] = {"losses": losses, "step_s": walls, "split_ms": _split_ms(splits),
+                  "expert_box": list(mstate["params"]["layers"]["w1e"].to_local().shape),
+                  **_ring_counts()}
+    out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    dist.barrier()
+    print(_SHARDED_STEP_LINE + json.dumps(out), flush=True)
+
+
+def _grad_errors(got: dict, want: dict) -> dict:
+    """Per leaf: ||got - want|| / ||want||, Frobenius, in f64."""
+    return {p: ((got[p].double() - w.double().cpu()).norm() / w.double().norm()).item()
+            for p, w in want.items()}
+
+
+def _witness_grads(cfg, tokens) -> tuple:
+    """One process, the whole batch: the loss and every parameter's
+    gradient of ``cfg``'s flagship from SEED (the one-replica step's)."""
+    import torch
+
+    from tpusnap_torch.models import Transformer
+
+    model = Transformer(cfg, device="cuda", seed=SEED)
+    paths = [p for p, _ in _leaves(model.params())]
+    loss = model.loss(tokens)
+    grads = torch.autograd.grad(loss, [t for _, t in _leaves(model.params())])
+    out = loss.item(), {p: g.cpu() for p, g in zip(paths, grads)}
+    del model, loss, grads
+    return out
+
+
+def phase_sharded_step(ctx: dict, workdir: str) -> dict:
+    """tpusnap's sharded train step on four ranks sharing the one card
+    (gloo; ``_sharded_step_rank``): (a) the ring flagship at (1, 2, 2),
+    its step-1 loss within RING_LOSS_RTOL of a one-process ring-of-one
+    model's on the whole batch and its gradients within SHARDED_GRAD_RTOL
+    per leaf, the ring block kernel's launches by mode (all wgmma), the
+    backward's block steps, the ring's output under grad equal to its
+    no_grad output bit for bit; (c) the state taken after step 3, each
+    rank writing exactly its boxes, restored at (1, 2, 2) (step 4 bit for
+    bit against the witness) and at (1, 4, 1) (step 4's loss within
+    RING_LOSS_RTOL); (b) the dense flagship at (1, 2, 2) and (d) the MoE
+    flagship at (2, 2, 1) (two experts a rank), one step each against the
+    one-replica step with the same checks, the flash kernel's launches
+    (all wgmma). Prints each part's step time and its split."""
+    import torch
+
+    from tpusnap_torch.models import TransformerConfig
+    from tpusnap_torch.test_utils import run_subprocess_world
+
+    t_phase = time.perf_counter()
+    sdir = os.path.join(workdir, "sharded_step")
+    os.makedirs(sdir)
+    t0 = time.perf_counter()
+    outputs = run_subprocess_world(
+        _sharded_step_rank, world_size=4, args=[sdir], timeout=600,
+        extra_env={"TPUSNAP_BARRIER_TIMEOUT_S": "120", "TPUSNAP_COMPRESS": "off"},
+    )
+    world_s = time.perf_counter() - t0
+    ranks = []
+    for r, text in enumerate(outputs):
+        lines = [ln for ln in text.splitlines() if ln.startswith(_SHARDED_STEP_LINE)]
+        if len(lines) != 1:
+            raise AssertionError(f"sharded_step rank {r} printed no result:\n{text[-4000:]}")
+        ranks.append(json.loads(lines[0][len(_SHARDED_STEP_LINE):]))
+    layers = TransformerConfig().n_layers
+    for r in ranks:
+        f = r["coordinate"][1]  # the rank's place in its ring of 2
+        ring, snap, dense = r["ring"], r["snapshot"], r["dense"]
+        # Under grad the ring keeps its carry: first, then middle on rank
+        # f = 1; a future block rotates past (skips) in both directions.
+        expect = {"ring_launches": 3 * layers * (f + 1),
+                  "ring_modes": {"first": 3 * layers, "middle": 3 * layers * f},
+                  "ring_skips": 3 * layers * (1 - f), "backward_steps": 3 * layers * (f + 1),
+                  "backward_skips": 3 * layers * (1 - f), "flash_launches": 0}
+        # Step 4 at (1, 2, 2) twice, then in a ring of 4 as its rank.
+        expect_c = {"ring_launches": 2 * layers * (f + 1) + layers * (r["rank"] + 1),
+                    "ring_modes": {"first": 3 * layers, "middle": 2 * layers * f + layers * r["rank"]},
+                    "backward_steps": 2 * layers * (f + 1) + layers * (r["rank"] + 1),
+                    "flash_launches": 0}
+        for what, got, want in (("(a)", ring, expect), ("(c)", snap, expect_c)):
+            for key, value in want.items():
+                have = got[key]
+                if key == "ring_modes":
+                    have = {m: n for m, n in have.items() if n}
+                    value = {m: n for m, n in value.items() if n}
+                if have != value:
+                    raise AssertionError(f"rank {r['rank']} {what} {key}: {have}, expected {value}")
+            if got["ring_routes"] != {"wgmma": got["ring_launches"], "simt": 0}:
+                raise AssertionError(f"rank {r['rank']} {what} ring routes {got['ring_routes']}")
+        for what, c in (("(b)", dense), ("(d)", r["moe"])):
+            if (c["flash_launches"] != layers or c["ring_launches"]
+                    or c["flash_routes"] != {"wgmma": layers, "simt": 0}):
+                raise AssertionError(f"rank {r['rank']} {what}: {c['flash_launches']} flash "
+                                     f"{c['flash_routes']}, {c['ring_launches']} ring launches; "
+                                     f"expected {layers} wgmma, 0")
+        if not r["grad_output_bitwise_no_grad"]:
+            raise AssertionError(f"rank {r['rank']}: the ring's output under grad differs from no_grad")
+        if not snap["step4_bitwise"] or snap["bytes_written"] != snap["own_box_bytes"]:
+            raise AssertionError(f"rank {r['rank']} (c): {snap}")
+    for key in ("ring", "dense", "moe"):
+        if any(r[key]["losses"] != ranks[0][key]["losses"] for r in ranks):
+            raise AssertionError(f"the ranks' {key} losses differ: {[r[key]['losses'] for r in ranks]}")
+    ring_losses = ranks[0]["ring"]["losses"]
+    if not all(x == x for x in ring_losses) or not ring_losses[-1] < ring_losses[0]:
+        raise AssertionError(f"sharded ring losses {ring_losses}")
+    if sum(r["snapshot"]["bytes_written"] for r in ranks) != FLAGSHIP_STATE_BYTES:
+        raise AssertionError(f"the boxes written sum to {[r['snapshot']['bytes_written'] for r in ranks]}")
+
+    cfg_ring, cfg_dense = TransformerConfig(use_ring_attention=True), TransformerConfig()
+    tokens = _tokens(cfg_dense, 8, SEED)
+    checks = {}
+    one_loss, one_grads = _witness_grads(cfg_ring, tokens)
+    dense_loss, dense_grads = _witness_grads(cfg_dense, tokens)
+    ring_got = torch.load(os.path.join(sdir, "grads_ring.pt"))
+    dense_got = torch.load(os.path.join(sdir, "grads_dense.pt"))
+    checks["ring"] = {"loss": ring_losses[0], "witness_loss": one_loss,
+                      "rel": abs(ring_losses[0] - one_loss) / abs(one_loss),
+                      "grad_rel": _grad_errors(ring_got, one_grads),
+                      # Two correct single-process models apart: the yardstick.
+                      "dense_vs_ring_of_one_grad_rel": _grad_errors(dense_grads, one_grads)}
+    checks["dense"] = {"loss": ranks[0]["dense"]["losses"][0], "witness_loss": dense_loss,
+                       "rel": abs(ranks[0]["dense"]["losses"][0] - dense_loss) / abs(dense_loss),
+                       "grad_rel": _grad_errors(dense_got, dense_grads)}
+    del one_grads, dense_grads, ring_got, dense_got
+    moe_loss, moe_grads = _witness_grads(_moe_config(), tokens)
+    moe_got = torch.load(os.path.join(sdir, "grads_moe.pt"))
+    checks["moe"] = {"loss": ranks[0]["moe"]["losses"][0], "witness_loss": moe_loss,
+                     "rel": abs(ranks[0]["moe"]["losses"][0] - moe_loss) / abs(moe_loss),
+                     "grad_rel": _grad_errors(moe_got, moe_grads)}
+    del moe_grads, moe_got
+    witness4 = ranks[0]["snapshot"]["witness_step4_loss"]
+    reshard = [r["snapshot"]["reshard_step4_loss"] for r in ranks]
+    checks["reshard_rel"] = max(abs(x - witness4) / abs(witness4) for x in reshard)
+    for key in ("ring", "dense", "moe"):
+        c = checks[key]
+        if not c["rel"] <= RING_LOSS_RTOL:
+            raise AssertionError(f"sharded {key} step-1 loss {c['loss']!r} vs one process "
+                                 f"{c['witness_loss']!r}: relative {c['rel']} > {RING_LOSS_RTOL}")
+        worst = max(c["grad_rel"].values())
+        if not worst <= SHARDED_GRAD_RTOL:
+            raise AssertionError(f"sharded {key} step-1 gradients vs one process: {c['grad_rel']} "
+                                 f"(worst {worst} > {SHARDED_GRAD_RTOL})")
+    if not checks["reshard_rel"] <= RING_LOSS_RTOL:
+        raise AssertionError(f"step 4 at {RESHARD_MESH}: {reshard} vs witness {witness4}")
+    shutil.rmtree(sdir)
+    return {
+        "phase": "sharded_step", "world_size": 4, "mesh": SHARDED_MESH,
+        "reshard_mesh": RESHARD_MESH, "moe_mesh": MOE_MESH, "learning_rate": SHARDED_LR,
+        "config": "TransformerConfig(use_ring_attention=True), TransformerConfig() and "
+                  "TransformerConfig(n_experts=4), full width",
+        "tensor_axis": "redundant compute, gradients summed over data x fsdp",
+        "ranks": ranks, "checks": checks, "loss_rtol": RING_LOSS_RTOL,
+        "grad_rtol": SHARDED_GRAD_RTOL, "world_s": world_s,
         "seconds": time.perf_counter() - t_phase, "card": ctx["card"],
     }
 
@@ -4628,7 +4989,7 @@ def _reset_launches() -> None:
     ra = importlib.import_module("tpusnap_torch.ops.ring_attention")
     fa.launches = 0
     fa.route_launches = dict.fromkeys(fa.route_launches, 0)
-    ra.launches = ra.skips = 0
+    ra.launches = ra.skips = ra.backward_steps = ra.backward_skips = 0
     ra.route_launches = dict.fromkeys(ra.route_launches, 0)
     ra.mode_launches = dict.fromkeys(ra.mode_launches, 0)
 
@@ -4715,6 +5076,20 @@ def main() -> int:
             ring_line["replica_ring_modes"],
         )
         paths["ring replica dense restore"] = (fa.launches, dict(fa.route_launches))
+        sharded_step_line = phase_sharded_step(ctx, workdir)
+        emit(sharded_step_line)
+        ring_backward = {}
+        for r in sharded_step_line["ranks"]:
+            for part in ("ring", "snapshot"):
+                c = r[part]
+                name = f"sharded_step {part} rank {r['rank']}"
+                ring_paths[name] = (c["ring_launches"], c["ring_routes"], c["ring_skips"],
+                                    c["ring_modes"])
+                ring_backward[name] = c["backward_steps"]
+            for part in ("dense", "moe"):
+                c = r[part]
+                paths[f"sharded_step {part} rank {r['rank']}"] = (c["flash_launches"],
+                                                                  c["flash_routes"])
         _reset_launches()
         ctx["life_model"], ctx["life_state_file"] = _lifecycle_model(ctx, workdir)
         emit(phase_crash(ctx, workdir))
@@ -4802,6 +5177,8 @@ def main() -> int:
         "launches_by_path": {p: n for p, (n, _, _, _) in ring_paths.items()},
         "launches_by_mode": ring_modes,
         "skips_by_path": {p: k for p, (_, _, k, _) in ring_paths.items()},
+        # The backward across ranks (plain PyTorch, no kernel): its block steps.
+        "backward_steps_by_path": ring_backward,
         "max_abs_err": max(ring_row["max_abs_err"], ring_one["max_abs_err"]),
         "ms": ring_one["ms"],
         "cold_ms": ring_one["cold_ms"],

@@ -1447,3 +1447,109 @@ def test_budgeted_read_object_into_a_cuda_target_holds_only_tiles_on_the_host(ge
         torch.cuda.synchronize()
     assert out is target and torch.equal(target, big)
     assert max(deltas, default=0) < 8 * budget, max(deltas)
+
+
+# ------------------------------------- ring backward and the sharded step
+
+
+def _world_ring_grad_equals_no_grad(out_dir):
+    """Two ranks on the card: the ring at a (2, 256, 4, 64) bf16 block per
+    rank under grad and under no_grad, causal and not; then its backward."""
+    import json
+
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    ra = _ring_module()
+    rank = dist.get_rank()
+    gen = torch.Generator(device="cuda").manual_seed(rank)
+    result = {}
+    for causal in (True, False):
+        q, k, v = (torch.randn((2, 256, 4, 64), generator=gen, device="cuda").to(torch.bfloat16)
+                   for _ in range(3))
+        with torch.no_grad():
+            plain = ra.ring_attention(q, k, v, group=dist.group.WORLD, causal=causal)
+        leaves = [t.requires_grad_(True) for t in (q, k, v)]
+        modes = dict(ra.mode_launches)
+        out = ra.ring_attention(*leaves, group=dist.group.WORLD, causal=causal)
+        grads = torch.autograd.grad(out, leaves, torch.randn_like(out))
+        result[str(causal)] = {
+            "bitwise": bool(torch.equal(out.detach(), plain)),
+            "finite": all(bool(torch.isfinite(g).all()) for g in grads),
+            "modes": {m: ra.mode_launches[m] - modes[m] for m in modes},
+        }
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+
+
+def test_ring_under_grad_equals_no_grad_bitwise(gen, tmp_path):
+    """Under grad the ring keeps its carry (first and middle, then
+    ``_finish``); its output must equal the no_grad ring's (which ends in
+    a last mode) bit for bit."""
+    import json
+
+    from tpusnap_torch.test_utils import run_subprocess_world
+
+    run_subprocess_world(_world_ring_grad_equals_no_grad, world_size=2, args=[str(tmp_path)])
+    for rank in range(2):
+        got = json.loads((tmp_path / f"rank{rank}.json").read_text())
+        for causal, case in got.items():
+            assert case["bitwise"] and case["finite"], (rank, causal, case)
+            assert case["modes"]["last"] == case["modes"]["first+last"] == 0, (rank, case)
+        # Rank 1 causal, and both ranks non-causal, read the carry again.
+        assert got["False"]["modes"] == {"middle": 1, "first": 1, "last": 0, "first+last": 0}
+
+
+_SHARDED_TINY = dict(vocab_size=256, d_model=128, n_heads=2, n_layers=2, d_ff=256,
+                     max_seq_len=128, dtype=torch.float32)
+
+
+def _world_sharded_step_card_and_cpu(out_dir):
+    """Two ranks at (data, fsdp, tensor) = (1, 2, 1): 3 sharded Adam steps
+    of a small f32 model on the card and on the CPU, from one seed."""
+    import json
+
+    import torch.distributed as dist
+
+    from tpusnap_torch.models import (
+        Transformer,
+        TransformerConfig,
+        init_train_state,
+        make_mesh,
+        make_train_step,
+    )
+
+    torch.cuda.set_device(0)
+    rank = dist.get_rank()
+    tokens = torch.randint(0, 256, (4, 128), generator=torch.Generator().manual_seed(1))
+    result = {}
+    for ring in (False, True):
+        cfg = TransformerConfig(**_SHARDED_TINY, use_ring_attention=ring)
+        for device in ("cuda", "cpu"):
+            mesh = make_mesh(device, (1, 2, 1))
+            model = Transformer(cfg, device=device, seed=0)
+            state = init_train_state(model, mesh)
+            step = make_train_step(model, mesh, learning_rate=1e-2)
+            losses = [step(state, tokens.to(device)).item() for _ in range(3)]
+            result[f"ring={ring},{device}"] = losses
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+
+
+def test_two_rank_sharded_step_on_card_matches_cpu(gen, tmp_path):
+    """The step's collectives stage CUDA tensors through the host; at f32
+    the card's losses equal the CPU's within 1e-4 relative (the CPU
+    tests' tolerance against tpusnap)."""
+    import json
+
+    from tpusnap_torch.test_utils import run_subprocess_world
+
+    run_subprocess_world(_world_sharded_step_card_and_cpu, world_size=2, args=[str(tmp_path)],
+                         timeout=300)
+    for rank in range(2):
+        got = json.loads((tmp_path / f"rank{rank}.json").read_text())
+        for ring in (False, True):
+            card, cpu = got[f"ring={ring},cuda"], got[f"ring={ring},cpu"]
+            assert card[-1] < card[0], (rank, ring, card)
+            for a, b in zip(card, cpu):
+                assert abs(a - b) <= 1e-4 * abs(b), (rank, ring, card, cpu)

@@ -370,6 +370,13 @@ os.environ["TPUSNAP_DISABLE_BATCHING"] = "1"
 # kill lands with storage_write provably in flight at the last flush.
 os.environ["TPUSNAP_HEARTBEAT_INTERVAL_S"] = "0.05"
 os.environ["TPUSNAP_FAULT_SPEC"] = "latency_ms=400,crash_after_op=write:4"
+# A one-byte budget admits one blob at a time (the over-budget admission
+# fires only with nothing in flight), so the writes run one after another:
+# writes 2 to 4 keep at least 600 ms between the first completed write and
+# the kill, a dozen flushes at the 50 ms cadence. With all eight writes in
+# flight at once, the first and the fourth could complete within one
+# flush interval and the last flush see no written byte.
+os.environ["TPUSNAP_MAX_PER_RANK_MEMORY_BUDGET_BYTES"] = "1"
 state = {
     f"w{i}": torch.from_numpy(np.random.default_rng(i).standard_normal((128, 128))
     .astype(np.float32))

@@ -139,21 +139,6 @@ def test_adam_step_matches_make_train_step():
             np.testing.assert_allclose(t[big], want[path][big], atol=1e-6, err_msg=path)
 
 
-def test_ring_attention_still_raises(monkeypatch):
-    # The MoE ring model builds and runs as one block; what still raises
-    # is its backward across ranks, which waits for the sharded train step
-    # (A7). The refusal comes before any communication, so a two-rank
-    # group reported by the process group's queries reaches it.
-    import torch.distributed as dist
-
-    model = Transformer(TransformerConfig(**_TINY, use_ring_attention=True), device="cpu")
-    monkeypatch.setattr(dist, "get_world_size", lambda group=None: 2)
-    monkeypatch.setattr(dist, "get_rank", lambda group=None: 0)
-    tokens = torch.zeros((2, 8), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="A7"):
-        model.loss(tokens, ring_group=object())
-
-
 def test_make_train_step_is_the_in_place_step():
     from tpusnap_torch.models import make_train_step
 

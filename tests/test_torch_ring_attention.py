@@ -258,18 +258,6 @@ def test_attend_block_rejects_a_carry_of_another_shape():
         attend_block(q, k, v, m, l, o.double(), 0, 0, 0.5, True)
 
 
-def test_ring_across_ranks_refuses_a_backward(monkeypatch):
-    # The refusal comes before any communication, so a two-rank group
-    # reported by the process group's queries reaches it without a world.
-    import torch.distributed as dist
-
-    q, k, v = (torch.from_numpy(x).requires_grad_(True) for x in _qkv((1, 8, 2, 4), seed=12))
-    monkeypatch.setattr(dist, "get_world_size", lambda group=None: 2)
-    monkeypatch.setattr(dist, "get_rank", lambda group=None: 0)
-    with pytest.raises(NotImplementedError, match="A7"):
-        ring_attention(q, k, v, group=object())
-
-
 def _modelled_kernel(q, k, v, m, l, o, q_off, k_off, scale, causal, lose_last_keys=0):
     """``block_attend`` as the 16-bit kernel computes it: P rounded to the
     input type before P V (l summed from P before rounding); optionally

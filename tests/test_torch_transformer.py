@@ -159,21 +159,6 @@ def test_default_device_is_cuda(monkeypatch):
         Transformer(TransformerConfig(**_TINY))
 
 
-@pytest.mark.parametrize("kw", [{"use_ring_attention": True}], ids=["ring"])
-def test_unported_configurations_raise(kw, monkeypatch):
-    # The ring model builds and runs (tests/test_torch_ring_model.py); its
-    # backward across ranks waits for the sharded train step (A7). The
-    # refusal comes before any communication, so a two-rank group reported
-    # by the process group's queries reaches it without a world.
-    import torch.distributed as dist
-
-    model = _port_model(**kw)
-    monkeypatch.setattr(dist, "get_world_size", lambda group=None: 2)
-    monkeypatch.setattr(dist, "get_rank", lambda group=None: 0)
-    with pytest.raises(NotImplementedError, match="A7"):
-        model.loss(torch.from_numpy(_tokens()), ring_group=object())
-
-
 @pytest.mark.parametrize("fault", ["missing", "extra", "misshapen"])
 def test_params_from_jax_rejects_bad_trees(fault):
     tree = _to_numpy(_jax_model().init(jax.random.PRNGKey(0)))

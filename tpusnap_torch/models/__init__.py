@@ -9,7 +9,8 @@ tables in pinned memory, row-wise Adagrad state). Both keep tpusnap's
 parameter trees, so their snapshots restore across the two packages.
 ``TransformerConfig(use_ring_attention=True)`` runs the attention through
 ``ops.ring_attention`` (sequence parallelism over a ``torch.distributed``
-group, forward only across ranks).
+group, forward and backward), and ``make_train_step(model, mesh)`` is
+tpusnap's sharded Adam step over a mesh of ranks (``ShardedTrainStep``).
 """
 
 from .embedding import (  # noqa: F401
@@ -20,6 +21,7 @@ from .embedding import (  # noqa: F401
 )
 from .layout import make_mesh  # noqa: F401
 from .transformer import (  # noqa: F401
+    ShardedTrainStep,
     Transformer,
     TransformerConfig,
     init_train_state,
@@ -30,6 +32,7 @@ from .transformer import (  # noqa: F401
 
 __all__ = [
     "EmbeddingCollection",
+    "ShardedTrainStep",
     "TableConfig",
     "Transformer",
     "TransformerConfig",

@@ -25,8 +25,7 @@ kernel, or, given a ``ring_group`` (a ``torch.distributed`` group), this
 rank's contiguous block of the sequence against every rank's K/V, with
 RoPE on global positions and the next-token loss taken across the
 blocks' boundaries (sequence parallelism, tpusnap's ``shard_map`` over
-``"fsdp"``). Across ranks it runs forward only: its backward waits for the
-sharded train step (ROADMAP.md item A7).
+``"fsdp"``), forward and backward.
 
 Layouts: ``param_specs()`` are tpusnap's ``PartitionSpec``s as tuples
 over a ``("data", "fsdp", "tensor")`` mesh (dp: replicated norms; fsdp
@@ -35,9 +34,16 @@ and tp: the matmul weights; ep: the expert dim over ``"data"``), and
 (``models/layout.py``). ``init_train_state(model, mesh)`` gives the train
 state as DTensors whose local tensors are this rank's boxes;
 ``train_state_views`` gives them as views of the module's own tensors,
-for a replica trained on every rank. The train step itself runs on one
-replica: the step's own collectives across ranks wait for NCCL with one
-card per rank (ROADMAP.md item A7).
+for a replica trained on every rank.
+
+Training: ``make_train_step(model)`` is one replica's Adam step;
+``make_train_step(model, mesh)`` is tpusnap's SPMD step over the mesh
+(``ShardedTrainStep``): ``step(state, tokens) -> loss`` with the global
+batch, each rank taking its shard by tpusnap's token spec and updating
+its boxes of the state in place. Its collectives run over gloo through
+pinned host buffers (``models/layout.py``), so ranks may share one card;
+NCCL with one card per rank is the open transport (ROADMAP.md item
+A10b).
 
 Entry points run on the card: ``Transformer(cfg)`` places its parameters
 on ``cuda`` and raises when CUDA is absent; pass ``device="cpu"`` to run
@@ -48,6 +54,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import time
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -60,6 +67,7 @@ from ..ops.ring_attention import ring_attention
 from .layout import make_mesh, map_specs, shard_tree, spec_placements
 
 __all__ = [
+    "ShardedTrainStep",
     "Transformer",
     "TransformerConfig",
     "init_train_state",
@@ -282,7 +290,8 @@ class Transformer(nn.Module):
         scores its positions against the globally shifted targets (its
         last position against the next rank's first token; the last rank
         drops its last position) and every rank returns the mean over the
-        whole sequence."""
+        whole sequence, whose gradient is this rank's share: the sum of the
+        ranks' gradients is the gradient of the mean."""
         logits = self(tokens, ring_group)
         if ring_group is None:
             logp = F.log_softmax(logits[:, :-1].float(), dim=-1)
@@ -301,9 +310,16 @@ class Transformer(nn.Module):
             targets, logits = tokens[:, 1:], logits[:, :-1]
         logp = F.log_softmax(logits.float(), dim=-1)
         nll_sum = -logp.gather(-1, targets[..., None])[..., 0].sum()
+        denom = b * (n * s - 1)
         total = nll_sum.detach().double().cpu().reshape(1)
         dist.all_reduce(total, group=ring_group)
-        return (total[0] / (b * (n * s - 1))).float().to(tokens.device)
+        value = (total[0] / denom).float().to(tokens.device)
+        if not nll_sum.requires_grad:
+            return value
+        # The group's mean as the value, this rank's share of it as the
+        # gradient: local - local.detach() is exactly 0.
+        local = nll_sum / denom
+        return value + (local - local.detach())
 
     # ---------------------------------------------------------- training
 
@@ -315,32 +331,164 @@ class Transformer(nn.Module):
         leaves = _tree_leaves(self.params())
         loss = self.loss(tokens)
         grads = torch.autograd.grad(loss, leaves)
-        b1, b2, eps = _ADAM_B1, _ADAM_B2, _ADAM_EPS
-        with torch.no_grad():
-            step = self.opt_state["step"]
-            step.add_(1)
-            bc1 = 1.0 - b1 ** step.float()
-            bc2 = 1.0 - b2 ** step.float()
-            mus = _tree_leaves(self.opt_state["mu"])
-            nus = _tree_leaves(self.opt_state["nu"])
-            for p, g, mu, nu in zip(leaves, grads, mus, nus):
-                g = g.float()
-                mu.copy_(b1 * mu + (1 - b1) * g)
-                nu.copy_(b2 * nu + (1 - b2) * g * g)
-                p_new = p.float() - learning_rate * (mu / bc1) / (
-                    torch.sqrt(nu / bc2) + eps
-                )
-                p.copy_(p_new.to(p.dtype))
+        _adam(self.opt_state["step"], leaves, grads, _tree_leaves(self.opt_state["mu"]),
+              _tree_leaves(self.opt_state["nu"]), learning_rate)
         return loss.detach()
 
 
-def make_train_step(model: Transformer, learning_rate: float = 1e-3):
-    """tpusnap's ``make_train_step`` for the port: ``step(tokens) -> loss``,
-    one Adam step of ``model`` in place (tpusnap's returns a new state;
-    here the module's tensors are updated). It runs on one replica: a step
-    sharded across ranks waits for NCCL with one card per rank (ROADMAP.md
-    item A7)."""
-    return functools.partial(model.train_step, learning_rate=learning_rate)
+def make_train_step(model: Transformer, mesh=None, learning_rate: float = 1e-3):
+    """tpusnap's ``make_train_step`` for the port.
+
+    Without ``mesh``: ``step(tokens) -> loss``, one Adam step of ``model``
+    in place (tpusnap's returns a new state; here the module's tensors are
+    updated). With a ``("data", "fsdp", "tensor")`` ``DeviceMesh``:
+    ``step(state, tokens) -> loss`` (``ShardedTrainStep``), ``state`` from
+    ``init_train_state(model, mesh)``, updated in place."""
+    if mesh is None:
+        return functools.partial(model.train_step, learning_rate=learning_rate)
+    return ShardedTrainStep(model, mesh, learning_rate)
+
+
+class ShardedTrainStep:
+    """tpusnap's SPMD Adam step over a ``("data", "fsdp", "tensor")`` mesh
+    of ranks: ``step(state, tokens) -> loss``.
+
+    ``tokens`` is the global batch ``[B, S]`` on every rank; each rank takes
+    its shard by tpusnap's token spec: ``P("data", "fsdp")`` with ring
+    attention (rows over data, the sequence over fsdp: context
+    parallelism through ``ops.ring_attention`` on the fsdp group),
+    ``P(("data", "fsdp"), None)`` without (rows over data x fsdp). The
+    step:
+
+    1. gathers the full parameters from the state's boxes
+       (``layout.gather_full``) into ``model``, the step's workspace;
+    2. takes this rank's share of the gradient of the global mean loss
+       (its rows' mean times their share of the batch; with ring
+       attention, the ring group's mean, whose gradient is this rank's
+       share, ``Transformer.loss``);
+    3. sums the gradients over the data x fsdp group;
+    4. applies Adam elementwise to this rank's boxes of the params and
+       moments, in place, as ``Transformer.train_step`` does (f32 moments,
+       ``step`` incremented before the bias corrections).
+
+    The tensor axis computes redundantly: ranks that differ only in their
+    ``tensor`` coordinate hold the same tokens and the same full
+    parameters, compute the same gradient, and each reduces only over its
+    own data x fsdp group, so no token is counted twice; each then updates
+    its own boxes, which the tensor axis splits (tpusnap splits the heads
+    over it instead: the same function). The expert dim of the MoE weights
+    rides ``data`` through the state's layout. At mesh ``(1, 1, 1)`` the
+    step is ``Transformer.train_step`` bit for bit.
+
+    ``timed = True`` synchronises the device at each stage and records
+    their wall seconds in ``split`` (``gather``, ``forward``, ``backward``,
+    ``reduce``, ``update``); ``keep_grads = True`` keeps the last step's
+    full reduced gradients in ``grads`` (a dict by parameter path)."""
+
+    def __init__(self, model: Transformer, mesh, learning_rate: float = 1e-3) -> None:
+        from .layout import mesh_groups
+
+        self.model, self.mesh, self.learning_rate = model, mesh, learning_rate
+        names = list(mesh.mesh_dim_names)
+        if names != ["data", "fsdp", "tensor"]:
+            raise ValueError(f"the mesh's dims are {names}, not data, fsdp, tensor")
+        self.data, self.fsdp, _ = (int(x) for x in mesh.mesh.shape)
+        # Every rank builds every group, in this order.
+        self.world_group = mesh_groups(mesh, ("data", "fsdp", "tensor"))
+        self.batch_group = mesh_groups(mesh, ("data", "fsdp"))
+        self.data_group = mesh_groups(mesh, ("data",))
+        self.ring_group = mesh_groups(mesh, ("fsdp",))
+        self.timed = False
+        self.keep_grads = False
+        self.split: Dict[str, float] = {}
+        self.grads: Dict[str, torch.Tensor] = {}
+
+    def _shard(self, tokens: torch.Tensor) -> torch.Tensor:
+        d, f, _ = self.mesh.get_coordinate()
+        B, S = tokens.shape
+        if self.model.config.use_ring_attention:
+            rows, cols = _even(B, self.data, "batch", "data"), _even(S, self.fsdp, "sequence", "fsdp")
+            return tokens[d * rows:(d + 1) * rows, f * cols:(f + 1) * cols].contiguous()
+        rows = _even(B, self.data * self.fsdp, "batch", "data x fsdp")
+        i = d * self.fsdp + f
+        return tokens[i * rows:(i + 1) * rows].contiguous()
+
+    def _mark(self, stage: Optional[str], t0: float) -> float:
+        """With ``timed``: wait for the device, record ``stage``'s seconds
+        since ``t0`` (none for the first mark) and return the time."""
+        if not self.timed:
+            return t0
+        if self.model.embed.is_cuda:
+            torch.cuda.synchronize(self.model.embed.device)
+        now = time.perf_counter()
+        if stage is not None:
+            self.split[stage] = now - t0
+        return now
+
+    def __call__(self, state: Dict[str, Any], tokens: torch.Tensor) -> torch.Tensor:
+        import torch.distributed as dist
+
+        from .layout import _leaves, gather_full, local_slice, sum_across
+
+        model, cfg = self.model, self.model.config
+        ring = cfg.use_ring_attention
+        t = self._mark(None, 0.0)
+        full = gather_full(state["params"], self.world_group)
+        leaves = _tree_leaves(model.params())
+        with torch.no_grad():
+            for p, value in zip(leaves, _tree_leaves(full)):
+                p.copy_(value)
+        del full
+        t = self._mark("gather", t)
+        mine = self._shard(tokens)
+        part = model.loss(mine, self.ring_group if ring and self.fsdp > 1 else None)
+        share = mine.shape[0] / tokens.shape[0]
+        if share != 1:
+            part = part * share
+        t = self._mark("forward", t)
+        grads = list(torch.autograd.grad(part, leaves))
+        t = self._mark("backward", t)
+        sum_across(grads, self.batch_group)
+        loss = part.detach()
+        # A ring's ranks hold one value between them; without a ring each
+        # rank of data x fsdp holds its own rows'.
+        value_group = self.data_group if ring else self.batch_group
+        if dist.get_world_size(value_group) > 1:
+            total = loss.double().cpu().reshape(1)
+            dist.all_reduce(total, group=value_group)
+            loss = total[0].float().to(loss.device)
+        t = self._mark("reduce", t)
+        if self.keep_grads:
+            self.grads = {path: g for (path, _), g in zip(_leaves(model.params()), grads)}
+        params = _tree_leaves(state["params"])
+        _adam(state["opt"]["step"].to_local(), [p.to_local() for p in params],
+              [local_slice(g, p) for g, p in zip(grads, params)],
+              [mu.to_local() for mu in _tree_leaves(state["opt"]["mu"])],
+              [nu.to_local() for nu in _tree_leaves(state["opt"]["nu"])], self.learning_rate)
+        self._mark("update", t)
+        return loss
+
+
+def _adam(step, params, grads, mus, nus, learning_rate: float) -> None:
+    """tpusnap's Adam update, in place: ``step`` incremented before the
+    bias corrections, f32 moments, params cast back to their dtype."""
+    b1, b2, eps = _ADAM_B1, _ADAM_B2, _ADAM_EPS
+    with torch.no_grad():
+        step.add_(1)
+        bc1 = 1.0 - b1 ** step.float()
+        bc2 = 1.0 - b2 ** step.float()
+        for p, g, mu, nu in zip(params, grads, mus, nus):
+            g = g.float()
+            mu.copy_(b1 * mu + (1 - b1) * g)
+            nu.copy_(b2 * nu + (1 - b2) * g * g)
+            p_new = p.float() - learning_rate * (mu / bc1) / (torch.sqrt(nu / bc2) + eps)
+            p.copy_(p_new.to(p.dtype))
+
+
+def _even(n: int, k: int, what: str, axes: str) -> int:
+    if n % k:
+        raise ValueError(f"the {what} ({n}) does not split evenly over {axes} ({k})")
+    return n // k
 
 
 def train_state_specs(model: Transformer) -> Dict[str, Any]:

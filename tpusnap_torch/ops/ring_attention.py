@@ -36,16 +36,25 @@ holds the full sequence.
   ranks sharing one card cannot use NCCL. Each rotating CUDA block is
   copied into a pinned host buffer, sent as bytes while the block step
   runs on the card, and the received bytes are copied back. NCCL with one
-  card per rank waits for the four-card work (ROADMAP.md item A10b). On
-  the card the carry is allocated with ``torch.empty`` only when a middle
-  or last step will read it, and never filled.
+  card per rank is the open transport (ROADMAP.md item A10b). On the card
+  the carry is allocated with ``torch.empty`` only when a middle or last
+  step will read it, and never filled.
 - Gradients: with one block, a ``torch.autograd.Function`` whose backward
   differentiates plain attention (``flash_attention_reference`` at the
   block's scale: the same function as one block from the empty carry, with
   fewer passes over the f32 scores than ``block_attend``), as the port's
-  flash attention does (tpusnap has no backward kernel). The ring backward across ranks belongs
-  to the sharded train step, which waits for NCCL (ROADMAP.md item A7):
-  across ranks with ``requires_grad`` this raises ``NotImplementedError``.
+  flash attention does (tpusnap has no backward kernel). Across ranks,
+  ``_Ring`` is the counterpart of JAX's autodiff through ``_block_attend``
+  and ``ppermute``. Its forward is the ring above, except that the last
+  step runs as ``middle`` (``first+last`` as ``first``) and ``_finish``
+  divides: the carry survives, so the row log-sum-exp ``m + log l`` can be
+  saved, and the output equals the ``no_grad`` ring's bit for bit (``last``
+  is ``middle`` then ``_finish`` on the card). Its backward rotates
+  ``(k, v, dk, dv)`` around the same ring for n steps, the last rotation
+  carrying only ``dk``/``dv`` home, and each step adds one block's
+  gradients (``block_grads``, plain PyTorch in f32 with ``torch.matmul``,
+  masked in global positions; a block wholly in the queries' future is
+  skipped, ``backward_skips``). ``backward_steps`` counts the block steps.
 
 Routes, picked by ``flash_attention._route`` from dtype and strides and
 checked again in C: ``wgmma`` (bf16/f16 that TMA can describe) or
@@ -57,7 +66,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -76,6 +85,10 @@ launches = 0
 route_launches = {"wgmma": 0, "simt": 0}
 mode_launches = dict.fromkeys(MODES, 0)
 skips = 0
+# The backward across ranks: block steps computed (``block_grads``) and
+# future blocks that rotated past without one.
+backward_steps = 0
+backward_skips = 0
 
 _fn = None
 _lock = threading.Lock()
@@ -148,6 +161,30 @@ def block_attend(
     pv = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
     o_new = o * alpha.transpose(1, 2)[..., None] + pv
     return m_new, l_new, o_new
+
+
+def block_grads(q, k, v, grad_out, lse, delta, q_offset: int, k_offset: int, scale: float,
+                causal: bool) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One K/V block's share of attention's gradients, in f32, plain
+    PyTorch: ``P = exp(S * scale - lse)``, ``dV = P^T dO``,
+    ``dS = P * (dO V^T - delta)``, ``dQ = dS K * scale``,
+    ``dK = dS^T Q * scale``. q, grad_out: ``[b, sq, h, d]``; k, v:
+    ``[b, sk, h, d]``; lse (``m + log l`` of the whole row) and delta
+    (``rowsum(dO * O)``): ``[b, h, sq]`` f32. Masked in global positions
+    as ``block_attend`` is. Returns ``(dq, dk, dv)``, each its input's
+    shape."""
+    qf, kf, vf, do = (t.float().transpose(1, 2) for t in (q, k, v, grad_out))  # [b, h, s, d]
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale  # [b, h, sq, sk]
+    if causal:
+        q_pos = q_offset + torch.arange(q.shape[1], device=q.device)
+        k_pos = k_offset + torch.arange(k.shape[1], device=q.device)
+        s = torch.where(q_pos[:, None] >= k_pos[None, :], s, torch.full_like(s, _NEG_INF))
+    p = torch.exp(s - lse[..., None])
+    dv = torch.matmul(p.transpose(-1, -2), do)
+    ds = p * (torch.matmul(do, vf.transpose(-1, -2)) - delta[..., None])
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    return dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2)
 
 
 # Unit roundoff u of P's rounding to the input type before P V.
@@ -375,42 +412,139 @@ class _RingBlock(torch.autograd.Function):
 
 
 class _Rotation:
-    """K/V moving one step around the ring, ``rank -> rank + 1``, as bytes
-    over the group's backend. CUDA blocks go through pinned host buffers
-    (gloo takes no CUDA tensors); CPU blocks are sent as they are."""
+    """Blocks moving one step around the ring, ``rank -> rank + 1``, as
+    bytes over the group's backend, one message per tensor of ``likes``
+    (their shapes and dtypes) under ``tag``. CUDA blocks go through pinned
+    host buffers (gloo takes no CUDA tensors); CPU blocks are sent as they
+    are."""
 
-    def __init__(self, group, like: torch.Tensor) -> None:
+    def __init__(self, group, likes: Sequence[torch.Tensor], tag: int = 0) -> None:
         import torch.distributed as dist
 
         self._dist = dist
         self._group = group
+        self._tag = tag
         n, rank = dist.get_world_size(group), dist.get_rank(group)
         self._dst = dist.get_global_rank(group, (rank + 1) % n)
         self._src = dist.get_global_rank(group, (rank - 1) % n)
-        self._cuda = like.is_cuda
-        pin = self._cuda
-        self._send = [torch.empty(like.shape, dtype=like.dtype, pin_memory=pin) for _ in range(2)]
-        self._recv = [torch.empty(like.shape, dtype=like.dtype, pin_memory=pin) for _ in range(2)]
+        pin = likes[0].is_cuda
+        self._send = [torch.empty(t.shape, dtype=t.dtype, pin_memory=pin) for t in likes]
+        self._recv = [torch.empty(t.shape, dtype=t.dtype, pin_memory=pin) for t in likes]
         self._works = []
 
-    def start(self, k: torch.Tensor, v: torch.Tensor) -> None:
-        """Send this rank's (k, v) on and post the receives of the
+    def start(self, *blocks: torch.Tensor) -> None:
+        """Send this rank's blocks on and post the receives of the
         neighbour's; returns once the sends' bytes are in host memory."""
-        for buf, t in zip(self._send, (k, v)):
+        for buf, t in zip(self._send, blocks):
             buf.copy_(t)  # from the card: synchronous, the bytes are final
         dist = self._dist
         self._works = []
         for send, recv in zip(self._send, self._recv):
-            self._works.append(dist.isend(send.view(torch.uint8), self._dst, group=self._group))
-            self._works.append(dist.irecv(recv.view(torch.uint8), self._src, group=self._group))
+            self._works.append(dist.isend(send.view(torch.uint8), self._dst, group=self._group,
+                                          tag=self._tag))
+            self._works.append(dist.irecv(recv.view(torch.uint8), self._src, group=self._group,
+                                          tag=self._tag))
 
-    def finish(self, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Wait for the exchange; the received (k, v) on ``device``."""
+    def finish(self, device: torch.device) -> Tuple[torch.Tensor, ...]:
+        """Wait for the exchange; the received blocks on ``device``."""
         for work in self._works:
             work.wait()
         self._works = []
         # Copies: the host buffers are reused by the next step.
         return tuple(t.to(device, copy=True) for t in self._recv)
+
+
+def _ring_forward(q, k, v, group, causal: bool, scale: float, keep_carry: bool):
+    """The ring's forward on this rank: its output block and, with
+    ``keep_carry``, the row log-sum-exp ``m + log l`` (``[b, h, sq]`` f32).
+    ``keep_carry`` runs the last step as ``middle`` (``first+last`` as
+    ``first``) and divides with ``_finish``, which the ``last`` modes equal
+    bit for bit."""
+    import torch.distributed as dist
+
+    global skips
+    n, rank = dist.get_world_size(group), dist.get_rank(group)
+    sq = q.shape[1]
+    modes = _step_modes(rank, n, causal)
+    if keep_carry:
+        modes = [{"last": "middle", "first+last": "first"}.get(mode, mode) for mode in modes]
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    m = l = o = None  # the carry, where a middle or last step reads it
+    if keep_carry or any(mode in ("middle", "last") for mode in modes):
+        m = torch.empty((q.shape[0], q.shape[2], sq), dtype=torch.float32, device=q.device)
+        l = torch.empty_like(m)
+        o = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    rotation = _Rotation(group, (k, v))
+    k_blk, v_blk = k, v
+    for step, mode in enumerate(modes):
+        last = step == n - 1
+        if not last:
+            rotation.start(k_blk, v_blk)
+        if mode is None:
+            skips += 1  # a block wholly in the queries' future
+        else:
+            src = (rank - step) % n
+            attend_block(q, k_blk, v_blk, m, l, o, rank * sq, src * sq, scale, causal, mode=mode,
+                         out=out if mode in ("last", "first+last") else None)
+        if not last:
+            k_blk, v_blk = rotation.finish(q.device)
+    if not keep_carry:
+        return out, None
+    return _finish(l, o, q.dtype), m + torch.log(l)
+
+
+class _Ring(torch.autograd.Function):
+    """The ring across the ranks of ``group`` with a backward.
+
+    Forward: ``_ring_forward`` keeping the carry; saves q, k, v, the output
+    and the row log-sum-exp. Backward: ``(k, v, dk, dv)`` rotate around the
+    same ring for n steps; at step t this rank holds rank ``(rank - t) mod
+    n``'s block and its gradient accumulators, adds the block's share
+    against its own queries (``block_grads``) and passes them on; the n-th
+    rotation brings each rank's ``dk``/``dv`` home (K/V need not go)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, group, causal, scale):
+        out, lse = _ring_forward(q, k, v, group, causal, scale, keep_carry=True)
+        ctx.group, ctx.causal, ctx.scale = group, causal, scale
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        import torch.distributed as dist
+
+        global backward_steps, backward_skips
+        q, k, v, out, lse = ctx.saved_tensors
+        group, causal, scale = ctx.group, ctx.causal, ctx.scale
+        n, rank = dist.get_world_size(group), dist.get_rank(group)
+        sq = q.shape[1]
+        delta = (grad_out.float() * out.float()).sum(-1).transpose(1, 2)  # [b, h, sq]
+        dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+        dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+        dv = torch.zeros_like(dk)
+        kv_rotation = _Rotation(group, (k, v))
+        grad_rotation = _Rotation(group, (dk, dv), tag=1)
+        k_blk, v_blk = k, v
+        for step in range(n):
+            last = step == n - 1
+            if not last:
+                kv_rotation.start(k_blk, v_blk)  # K/V do not change: on their way at once
+            src = (rank - step) % n
+            if causal and src > rank:
+                backward_skips += 1  # wholly in the queries' future: P = 0
+            else:
+                gq, gk, gv = block_grads(q, k_blk, v_blk, grad_out, lse, delta, rank * sq,
+                                         src * sq, scale, causal)
+                dq += gq
+                dk += gk
+                dv += gv
+                backward_steps += 1
+            grad_rotation.start(dk, dv)
+            if not last:
+                k_blk, v_blk = kv_rotation.finish(q.device)
+            dk, dv = grad_rotation.finish(q.device)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None
 
 
 def ring_attention(
@@ -435,36 +569,8 @@ def ring_attention(
         return _RingBlock.apply(q, k, v, causal, scale)
     import torch.distributed as dist
 
-    n, rank = dist.get_world_size(group), dist.get_rank(group)
-    if n == 1:
+    if dist.get_world_size(group) == 1:
         return _RingBlock.apply(q, k, v, causal, scale)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "ring attention across ranks has no backward yet: it comes with the "
-            "sharded train step, which waits for NCCL with one card per rank "
-            "(ROADMAP.md item A7); run the forward under torch.no_grad()"
-        )
-    global skips
-    sq = q.shape[1]
-    modes = _step_modes(rank, n, causal)
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    m = l = o = None  # the carry, where a middle or last step reads it
-    if any(mode in ("middle", "last") for mode in modes):
-        m = torch.empty((q.shape[0], q.shape[2], sq), dtype=torch.float32, device=q.device)
-        l = torch.empty_like(m)
-        o = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    rotation = _Rotation(group, k)
-    k_blk, v_blk = k, v
-    for step, mode in enumerate(modes):
-        last = step == n - 1
-        if not last:
-            rotation.start(k_blk, v_blk)
-        if mode is None:
-            skips += 1  # a block wholly in the queries' future
-        else:
-            src = (rank - step) % n
-            attend_block(q, k_blk, v_blk, m, l, o, rank * sq, src * sq, scale, causal, mode=mode,
-                         out=out if mode in ("last", "first+last") else None)
-        if not last:
-            k_blk, v_blk = rotation.finish(q.device)
-    return out
+        return _Ring.apply(q, k, v, group, causal, scale)
+    return _ring_forward(q, k, v, group, causal, scale, keep_carry=False)[0]
