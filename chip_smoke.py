@@ -37,7 +37,12 @@ Phases, in order:
              diagonal block timed warm and with the L2 flushed, beside its
              plain version and, for first+last, SDPA. The ring of one's
              whole forward (one first+last launch) timed beside the flash
-             kernel, SDPA and the attention bound.
+             kernel, SDPA and the attention bound. The ring's backward
+             for one block (``block_grads``, plain PyTorch in f32) at the
+             ring block, diagonal and causal: per element against f32
+             autograd, timed warm and with the L2 flushed beside SDPA's
+             backward (forward and backward captured, less the forward)
+             and its bound.
 4. train   — the flagship transformer at its full default width trains
              5 Adam steps on the card; the attention forward must run
              the flash kernel n_layers x steps times.
@@ -185,19 +190,50 @@ Phases, in order:
              process's .tmp debris. Then a child's async take of the
              4 GiB bulk, add_(1) at once, killed mid-drain: the retake
              restores the state at the call.
-21. chaos  — the train state through chaos+fs:// under a seeded plan
+21. crash_matrix — tpusnap's commit-window crash matrix on the card
+             (tests/test_torch_crash_matrix.py and test_torch_delta_crash.py
+             on the CPU). Children load the flagship's train state onto
+             the card (553,703,428 bytes in 28 tensors, batching off: one
+             blob per tensor), print MARK inside one commit window, linger
+             1.2 s and are SIGKILLed (their process group) at
+             random.Random(seed).uniform(0, 1.5) s after the MARK: seed 0
+             (1.27 s) after the window, seed 1 (0.20 s) inside it; the
+             five windows of one seed run at once. staging: right after
+             the first device-to-host copy into a pinned buffer is
+             enqueued on its side stream; residual_io: an async_take (a
+             128 MiB staging window, every blob write delayed 0.15 s),
+             then 3 flagship train steps on the flash kernel that change
+             the state in place while the drain runs; metadata: in the
+             metadata writer after a partial flushed temp write; durable:
+             TPUSNAP_DURABLE_COMMIT=1, in the flush of the created
+             directories; journal: in the journal write. After each kill
+             .snapshot_metadata exists iff the snapshot restores into CUDA
+             targets bit for bit against the state file (the state at the
+             call, for residual_io) and verify_snapshot is clean; fsck
+             says committed, torn (journal present; timeline --json then
+             names the killed take's phase) or empty/foreign. Then the
+             delta stream of a CUDA tensor w = pattern + k (steps 1..7) in
+             its three windows at seed 1 (jitter uniform(0, 0.8)): inside a
+             micro-commit's blob write, between two commits, at the start
+             of chain compaction; the head restores bit for bit as the
+             last committed step, a torn tail is torn and keeps its chain
+             membership, fsck of the root exits 4 with a torn tail, 0
+             without. Prints per kill the jitter, the outcome, bit_exact,
+             the child's and the check's seconds, and residual_io's flash
+             launches.
+22. chaos  — the train state through chaos+fs:// under a seeded plan
              (a transient error per op and every 5th op, 1 ms latency,
              torn writes), batching off: take and restore converge under
              retry (retries counted), the restore reads as many blobs in
              place as a plain path's; an async take under the plan with a
              train step at once holds the state at the call.
-22. liveness — three two-rank worlds at once (TPUSNAP_LIVENESS_TTL_S=2):
+23. liveness — three two-rank worlds at once (TPUSNAP_LIVENESS_TTL_S=2):
              rank 1 SIGKILLed by a hook in its process at its first
              stage, first blob write or commit barrier; rank 0 raises
              RankFailedError naming it within 3x the TTL (seconds
              printed), the merged flight timeline names rank 1, the
              directory is torn with salvage records.
-23. degrade — three two-rank worlds at once (TPUSNAP_RANK_FAILURE=
+24. degrade — three two-rank worlds at once (TPUSNAP_RANK_FAILURE=
              degrade): a replicated sync take whose rank 1 dies after its
              first blob write, committed by rank 0 (adopted bytes
              printed, extras["degraded"]); an async take with a train step
@@ -205,13 +241,13 @@ Phases, in order:
              on its first write) SIGKILLed: the committed snapshot equals
              the state at the call, bitwise; a Shard(0) DTensor take
              whose peer dies refuses to degrade and is torn.
-24. lifecycle_ab — printed, not gated: the bulk take and the train
+25. lifecycle_ab — printed, not gated: the bulk take and the train
              state's take and restore with the default layers against
              TPUSNAP_DISABLE_JOURNAL=1 TPUSNAP_TELEMETRY=0, compression off,
              three of each in turns after a warm-up round; the
              distributed phase also times its take at a 0.5 s and a
              0.02 s heartbeat and with telemetry off.
-25. delta  — Snapshot.stream of a fresh flagship's train state
+26. delta  — Snapshot.stream of a fresh flagship's train state
              (cadence 0.5 s, TPUSNAP_DELTA_MAX_CHAIN=4, compression off)
              while it trains 12 Adam steps paced to 0.25 s, mark_step()
              after each; a device clone of the state at every boundary.
@@ -227,7 +263,7 @@ Phases, in order:
              seconds each capture blocked mark_step, step times with and
              without a stream, each member's payload bytes, the members
              retired by compaction.
-26. delta_elastic — two ranks on the card, each a full replica of the
+27. delta_elastic — two ranks on the card, each a full replica of the
              lifecycle model, replicated=["**"], TPUSNAP_LIVENESS_TTL_S=2,
              TPUSNAP_RANK_FAILURE=degrade: a clean two-rank epoch, every
              tensor changed in place, then rank 1 SIGKILLed at its first
@@ -235,7 +271,7 @@ Phases, in order:
              degraded and streams on alone; the head restores bit for
              bit. Prints the detection seconds, the adopted bytes and
              each member's world from extras["delta"]["world"].
-27. tier   — the 4 GiB bulk through tier+local=<a>+remote=chaos+fs://<b>
+28. tier   — the 4 GiB bulk through tier+local=<a>+remote=chaos+fs://<b>
              while every remote op fails for 10 s (an outage), beside a
              plain take; the background drain converges once the outage
              ends (durable marker); gc --evict-local (retention 0); a
@@ -243,14 +279,14 @@ Phases, in order:
              Then the train state through a tier, and 5 train steps while
              its drain runs against 5 without. Both tiers are on the one
              local disk.
-28. cas    — two job ids take the lifecycle model's train state into two
+29. cas    — two job ids take the lifecycle model's train state into two
              directories with one TPUSNAP_CAS_DIR (batching off: slab
              blobs are named per take and never dedup): the second
              publishes 0 bytes and the store holds the state once; each
              restores into CUDA tensors in place, bit for bit; one is
              deleted and gc_store keeps the shared blobs; the other still
              restores. The other job's snapshot and the store stay for cli.
-29. observe — every consumer of the take's telemetry on (history, the
+30. observe — every consumer of the take's telemetry on (history, the
              Prometheus textfile and JSONL sinks, the SLO thresholds, the
              fleet mirror, the access ledger, the roofline probe;
              compression off): a fresh flagship trains, record_slo_step()
@@ -268,7 +304,7 @@ Phases, in order:
              but the probe against all off, three takes each,
              interleaved); an autotuned take whose history event carries
              the plan id that `tune` prints.
-30. cli    — ``python -m tpusnap_torch`` in subprocesses on what observe,
+31. cli    — ``python -m tpusnap_torch`` in subprocesses on what observe,
              crash (a copy of its torn take), tier (the remote-durable
              train state), cas and delta left: every subcommand (lint
              --check over the package's own source),
@@ -278,7 +314,7 @@ Phases, in order:
              then a child calls main() in process for info, verify, fsck
              and cat and must leave torch.cuda.is_initialized() False.
              Prints each command's exit code and seconds.
-31. examples — the port's four examples in process (``main(argv)``), each
+32. examples — the port's four examples in process (``main(argv)``), each
              in its own directory: simple, then its resume from epoch_2
              (prints "resumed ... at epoch 2", then epoch 3); incremental
              (its "incremental on", "0 corrupt" and "bit-exact" lines);
@@ -292,7 +328,7 @@ Phases, in order:
              read_object. The flash kernel must launch 4 layers x (12 + 4)
              steps = 64 times, all wgmma. Prints each example's seconds
              and the transformer's blocked, wait and restore seconds.
-32. benchmarks — the ten benchmark harnesses of the port in process, at
+33. benchmarks — the ten benchmark harnesses of the port in process, at
              the sizes ``_HARNESSES`` gives (each cut of a default listed
              under "reduced"), one line per harness: its own last line
              under "phase": "benchmarks". Fails on a false correctness
@@ -305,7 +341,8 @@ Phases, in order:
 Launch counts (in all and by route) are set to 0 just before each path
 that runs the model — train + snapshot, async_train, incremental, each
 rank of distributed, sharded and layouts, sharded's parent, moe, the
-lifecycle model with crash and chaos, rank 0 of the sync and async
+lifecycle model with crash and chaos, each residual_io child of
+crash_matrix (its train steps), rank 0 of the sync and async
 degrade worlds, delta, tier with cas, observe, and the examples phase's two transformer
 runs — and read just after
 it: the kernels phase's comparison launches do not count. The ring block
@@ -625,6 +662,7 @@ def phase_kernels() -> dict:
         "ring_identities": ring_identities,
         "ring_block_attend": ring_row,
         "ring_of_one_forward": _ring_of_one_forward(gen),
+        "ring_backward_block": _ring_backward_block(gen),
         "bitwise_repeat": True,
         "flash_attention_fwd": {
             "shape": list(SLICE_SHAPE), "dtype": "bfloat16", "causal": True,
@@ -859,6 +897,96 @@ def _ring_block_kernel_checks(gen):
         "bitwise_repeat": True,
     }
     return row, checks, identities
+
+
+def ring_backward_bound(shape, dtype: str, pairs: int):
+    """(least ms, "bytes" or "operations") for one K/V block's share of
+    attention's gradients (``block_grads``) at ``shape``: the larger of the
+    bytes (q, k, v and dO read once in the inputs' type, lse and delta read
+    once in f32, dq, dk and dv written once in f32) over HBM and the
+    operations of the ``pairs`` (query, key) pairs the mask keeps (S = Q K^T,
+    dV = P^T dO, dO V^T, dQ = dS K and dK = dS^T Q: 2 per multiply-add)
+    over the peak rate of the inputs' type."""
+    b, s, h, d = shape
+    itemsize = {"bfloat16": 2, "float16": 2, "float32": 4}[dtype]
+    nbytes = 4 * b * s * h * d * itemsize + 2 * b * h * s * 4 + 3 * b * s * h * d * 4
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * 10 * b * h * d * pairs / PEAK_FLOPS[dtype]
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def _ring_backward_block(gen) -> dict:
+    """The ring's backward across ranks for one block: ``block_grads``
+    (plain PyTorch, f32; no kernel of its own, as tpusnap's is XLA
+    autodiff) at the flagship's ring block (8, 512, 8, 64) bf16, the
+    diagonal block (offsets 512, 512) causal, with lse and delta from that
+    block alone, so its gradients are attention's on the block. Held per
+    element against autograd of f32 attention on the same inputs, and
+    against ``F.scaled_dot_product_attention``'s backward; timed warm and
+    with the L2 flushed (CUDA-graph replays), beside SDPA's backward
+    (``torch.autograd.grad`` of ``is_causal=True`` on the block) and the
+    bound."""
+    import importlib
+
+    import torch
+    import torch.nn.functional as F
+
+    ra = importlib.import_module("tpusnap_torch.ops.ring_attention")
+    b, s, h, d = RING_BLOCK_SHAPE
+    scale = d**-0.5
+    q, k, v = _qkv_views(RING_BLOCK_SHAPE, torch.bfloat16, gen)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    with torch.no_grad():
+        m, l, o = ra.block_attend(q, k, v, *ra._init_carry(q), s, s, scale, True)
+        # delta from the f32 output (the ring saves it in q's type; in f32
+        # the gradients are exactly attention's, which the checks compare).
+        out = ra._finish(l, o, torch.float32)
+        lse = m + torch.log(l)
+        delta = (do.float() * out).sum(-1).transpose(1, 2)  # [b, h, sq]
+        got = ra.block_grads(q, k, v, do, lse, delta, s, s, scale, True)
+    qf, kf, vf = (t.detach().float().transpose(1, 2).requires_grad_() for t in (q, k, v))
+    ref_out = F.scaled_dot_product_attention(qf, kf, vf, is_causal=True, scale=scale)
+    want = torch.autograd.grad(ref_out, (qf, kf, vf), do.float().transpose(1, 2))
+    qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v))
+    dot = do.transpose(1, 2)
+    lib_fwd = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,  # noqa: E731
+                                                     scale=scale)
+    # Forward and backward in one callable: captured whole in a CUDA graph,
+    # as PyTorch's whole-network capture does; the forward's own time is
+    # taken off.
+    lib_both = lambda: torch.autograd.grad(lib_fwd(), (qt, kt, vt), dot)  # noqa: E731
+    lib = lib_both()
+    errs, lib_errs = {}, {}
+    for name, g, w, li in zip(("dq", "dk", "dv"), got, want, lib):
+        w = w.transpose(1, 2)
+        errs[name] = (g - w).abs().max().item()
+        lib_errs[name] = (li.float().transpose(1, 2) - w).abs().max().item()
+        # Both sides are f32 over the same bf16 inputs: only the order of
+        # the sums differs.
+        allowed = 1e-4 * w.abs().max().item() + 1e-6
+        if not errs[name] <= allowed:
+            raise AssertionError(f"block_grads {name}: max |err| {errs[name]} against f32 "
+                                 f"autograd, allowed {allowed}")
+    reps = 20
+    plain = lambda: ra.block_grads(q, k, v, do, lse, delta, s, s, scale, True)  # noqa: E731
+    with torch.no_grad():
+        ms, cold_ms = time_ms(plain, reps), time_ms_cold(plain, reps)
+    lib_both_ms, lib_fwd_ms = time_ms(lib_both, reps), time_ms(lib_fwd, reps)
+    lib_both_cold, lib_fwd_cold = time_ms_cold(lib_both, reps), time_ms_cold(lib_fwd, reps)
+    bound_ms, bound_by = ring_backward_bound(RING_BLOCK_SHAPE, "bfloat16", s * (s + 1) // 2)
+    return {
+        "shape": list(RING_BLOCK_SHAPE), "dtype": "bfloat16", "block": "diagonal",
+        "causal": True, "function": "ring_attention.block_grads (plain PyTorch, f32)",
+        "max_abs_err": errs, "library_max_abs_err": lib_errs,
+        "err_against": "torch.autograd.grad of f32 scaled_dot_product_attention",
+        "ms": ms, "cold_ms": cold_ms, "library_ms": lib_both_ms - lib_fwd_ms,
+        "library_cold_ms": lib_both_cold - lib_fwd_cold,
+        "library_fwd_bwd_ms": lib_both_ms, "library_fwd_ms": lib_fwd_ms,
+        "library": "torch.autograd.grad of scaled_dot_product_attention(is_causal=True) "
+                   "on the block, bf16: forward and backward less the forward",
+        "bound_ms": bound_ms, "bound_by": bound_by, "bound_share": bound_ms / cold_ms,
+        "timed_launches": reps,
+    }
 
 
 def _ring_of_one_forward(gen) -> dict:
@@ -3527,6 +3655,403 @@ def phase_crash(ctx: dict, workdir: str) -> dict:
     out.update(seconds=time.perf_counter() - t_phase, bit_exact=True, card=ctx["card"])
     return out
 
+# The crash_matrix phase: tests/test_torch_crash_matrix.py's commit windows
+# and tests/test_torch_delta_crash.py's delta windows on the card. A child
+# lingers this long in its window after printing MARK; the parent SIGKILLs
+# its process group at random.Random(seed).uniform(0, jitter max) after the
+# MARK: seed 0 (1.27 s of 1.5) lands after the window, seed 1 (0.20 s) in it.
+_MATRIX_WINDOWS = ("staging", "residual_io", "metadata", "durable", "journal")
+_MATRIX_SEEDS = (0, 1)
+_DELTA_WINDOWS = ("delta_micro", "delta_between", "delta_compact")
+_DELTA_SEED = 1
+_WINDOW_SLEEP_S = 1.2
+# residual_io: the staging window of the async take (so the drain stages
+# windows from the frozen device copies while the steps run), the delay
+# before each blob write and the flagship steps taken after the return.
+_RESIDUAL_WINDOW_BYTES = 128 << 20
+_RESIDUAL_WRITE_DELAY_S = 0.15
+_RESIDUAL_STEPS = 3
+# The delta windows' state: w = pattern(seed) + k at step k, on the card.
+_DELTA_SHAPE = (1024, 1024)
+_MATRIX_ENV = {"TPUSNAP_DISABLE_BATCHING": "1", "TPUSNAP_COMPRESS": "off",
+               "TPUSNAP_HEARTBEAT_INTERVAL_S": "0.05"}
+
+
+def _mark_and_linger() -> None:
+    print("MARK", flush=True)
+    time.sleep(_WINDOW_SLEEP_S)
+
+
+def _matrix_child(window: str, path: str, state_file: str) -> None:
+    """``chip_smoke.py --matrix-child WINDOW PATH STATE_FILE``: a fresh
+    interpreter loads the flagship's train state onto the card (batching
+    off: one blob per tensor) and takes it, lingering in ``window`` after
+    printing MARK. ``staging`` lingers right after the first device-to-host
+    copy into a pinned buffer is enqueued on its side stream;
+    ``residual_io`` async_takes, trains the flagship on the flash kernel
+    (the state changes in place) while the slowed drain runs, then
+    lingers; ``metadata``, ``durable`` and ``journal`` linger in the
+    metadata writer (after a partial flushed temp write), in the durable
+    flush of the created directories and in the journal write."""
+    import asyncio
+
+    import torch
+
+    import tpusnap_torch.io_preparers.array as arr_mod
+    import tpusnap_torch.lifecycle as lc_mod
+    import tpusnap_torch.snapshot as snap_mod
+    import tpusnap_torch.storage_plugins.fs as fs_mod
+    from tpusnap_torch import Snapshot, StateDict
+    from tpusnap_torch.models import TransformerConfig
+    from tpusnap_torch.ops import flash_attention as fa
+
+    torch.cuda.set_device(0)
+    if window == "staging":
+        orig_enqueue, fired = arr_mod.enqueue_dtoh, []
+
+        def hooked_enqueue(*args, **kwargs):
+            out = orig_enqueue(*args, **kwargs)
+            if not fired:
+                fired.append(True)
+                _mark_and_linger()
+            return out
+
+        arr_mod.enqueue_dtoh = hooked_enqueue
+    elif window == "residual_io":
+        orig_write = fs_mod.FSStoragePlugin.write
+
+        async def slow_write(self, write_io):
+            await asyncio.sleep(_RESIDUAL_WRITE_DELAY_S)
+            await orig_write(self, write_io)
+
+        fs_mod.FSStoragePlugin.write = slow_write
+        os.environ["TPUSNAP_ASYNC_STAGE_WINDOW_BYTES"] = str(_RESIDUAL_WINDOW_BYTES)
+    elif window == "metadata":
+        orig_meta = snap_mod._write_metadata
+
+        def hooked_meta(storage, metadata, event_loop):
+            tmp = os.path.join(path, ".snapshot_metadata.crashtmp")
+            with open(tmp, "wb") as f:
+                f.write(b"{" + b"x" * 100)
+                f.flush()
+                os.fsync(f.fileno())
+            _mark_and_linger()
+            os.unlink(tmp)
+            return orig_meta(storage, metadata, event_loop)
+
+        snap_mod._write_metadata = hooked_meta
+    elif window == "durable":
+        os.environ["TPUSNAP_DURABLE_COMMIT"] = "1"
+        orig_flush = fs_mod.FSStoragePlugin.flush_created_dirs
+
+        async def hooked_flush(self):
+            _mark_and_linger()
+            return await orig_flush(self)
+
+        fs_mod.FSStoragePlugin.flush_created_dirs = hooked_flush
+    elif window == "journal":
+        orig_journal = lc_mod.write_journal
+
+        def hooked_journal(storage, event_loop, journal):
+            _mark_and_linger()
+            return orig_journal(storage, event_loop, journal)
+
+        lc_mod.write_journal = hooked_journal
+    else:
+        raise SystemExit(f"unknown window {window}")
+    cfg = TransformerConfig()
+    model = _model_from(cfg, state_file)
+    state = {"train": StateDict(**model.train_state())}
+    if window != "residual_io":
+        torch.cuda.synchronize()
+        Snapshot.take(path, state)
+        raise SystemExit("the take finished before the kill")
+    tokens = _tokens(cfg, 8, SEED + 11)
+    torch.autograd.grad(model.loss(tokens), list(model.parameters()))  # warm-up: no update
+    witness = dict(_leaves(model.train_state()))["params/embed"].clone()
+    torch.cuda.synchronize()
+    pending = Snapshot.async_take(path, state)
+    _reset_launches()  # the path: the steps during the drain
+    for _ in range(_RESIDUAL_STEPS):
+        model.train_step(tokens, learning_rate=1e-3)
+    torch.cuda.synchronize()
+    stepped = not torch.equal(dict(_leaves(model.train_state()))["params/embed"], witness)
+    print("FLASH " + json.dumps({"launches": fa.launches, "routes": dict(fa.route_launches),
+                                 "stepped": stepped}), flush=True)
+    _mark_and_linger()
+    pending.wait()
+    raise SystemExit("the async take finished before the kill")
+
+
+def _delta_matrix_child(window: str, root: str, seed: str) -> None:
+    """``chip_smoke.py --delta-matrix-child WINDOW ROOT SEED``: a stream of
+    the CUDA tensor ``w = pattern(seed) + k`` micro-committed at steps 1..7,
+    lingering inside a micro-commit's blob write (after one delta has
+    committed), between two commits (after step 3) or as chain compaction
+    (max_chain 2) starts to materialize."""
+    import torch
+
+    import tpusnap_torch.inspect as inspect_mod
+    import tpusnap_torch.storage_plugins.fs as fs_mod
+    from tpusnap_torch import Snapshot, StateDict
+
+    torch.cuda.set_device(0)
+    if window == "delta_micro":
+        orig_write, fired = fs_mod.FSStoragePlugin.write, []
+
+        async def hooked(self, write_io):
+            root_s = getattr(self, "root", "")
+            if (not fired and "delta-0000" in root_s and not root_s.endswith("delta-000001")
+                    and not write_io.path.startswith(".tpusnap")):
+                fired.append(True)
+                _mark_and_linger()
+            await orig_write(self, write_io)
+
+        fs_mod.FSStoragePlugin.write = hooked
+    elif window == "delta_compact":
+        orig_mat = inspect_mod.materialize_snapshot
+
+        def hooked_mat(*args, **kwargs):
+            _mark_and_linger()
+            return orig_mat(*args, **kwargs)
+
+        inspect_mod.materialize_snapshot = hooked_mat
+    elif window != "delta_between":
+        raise SystemExit(f"unknown window {window}")
+    pattern = _delta_pattern(int(seed))
+    state = {"app": StateDict(w=pattern.clone(), step=0)}
+    stream = Snapshot.stream(root, state, cadence_s=3600,
+                             max_chain=2 if window == "delta_compact" else 100)
+    for k in range(1, 8):
+        state["app"]["w"] = pattern + float(k)
+        state["app"]["step"] = k
+        stream.commit_now()
+        print(f"COMMIT {stream.seq} {k}", flush=True)
+        if window == "delta_between" and k == 3:
+            _mark_and_linger()
+    raise SystemExit("the stream finished before the kill")
+
+
+def _delta_pattern(seed: int):
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(_DELTA_SHAPE, generator=gen, device="cuda")
+
+
+def _kill_in_window(argv: list, seed: int, jitter_max_s: float) -> dict:
+    """Start ``chip_smoke.py ARGV`` in its own process group, wait for its
+    MARK (select with a deadline), SIGKILL the group after the seeded
+    jitter; its output, the jitter and the seconds."""
+    import random
+    import select
+    import signal
+
+    env = dict(os.environ, **_MATRIX_ENV)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), *argv], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, start_new_session=True,
+    )
+    try:
+        buf, eof = "", False
+        deadline = time.monotonic() + 240
+        while time.monotonic() < deadline and "MARK" not in buf and not eof:
+            ready, _, _ = select.select([proc.stdout], [], [], 0.5)
+            if ready:
+                chunk = os.read(proc.stdout.fileno(), 65536).decode("utf-8", errors="replace")
+                eof = chunk == ""
+                buf += chunk
+        if "MARK" not in buf:
+            raise AssertionError(f"{argv[:2]} never reached its window (eof={eof}, "
+                                 f"exit {proc.poll()}):\n{buf[-3000:]}")
+        jitter = random.Random(seed).uniform(0.0, jitter_max_s)
+        time.sleep(jitter)
+        os.killpg(proc.pid, signal.SIGKILL)
+        rest, _ = proc.communicate(timeout=60)
+        return {"out": buf + rest, "jitter_s": jitter, "rc": proc.returncode,
+                "child_s": time.perf_counter() - t0}
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+
+
+def _cli_rc(argv: list) -> tuple:
+    """``python -m tpusnap_torch ARGV`` in process: (exit code, stdout)."""
+    from tpusnap_torch.__main__ import main as cli_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(io.StringIO()):
+        rc = cli_main(argv)
+    return rc, buf.getvalue()
+
+
+def _matrix_verdict(path: str, want: dict, fresh, window: str, jitter: float) -> dict:
+    """The invariant after a kill: .snapshot_metadata exists iff the
+    snapshot restores bit-exact into CUDA targets and verify is clean;
+    fsck says committed, torn (journal present; timeline then names what
+    the killed take was doing) or empty/foreign."""
+    import torch
+
+    from tpusnap_torch import Snapshot, StateDict, fsck_snapshot, verify_snapshot
+
+    t0 = time.perf_counter()
+    report = fsck_snapshot(path)
+    out = {"fsck": report.state}
+    if os.path.exists(os.path.join(path, ".snapshot_metadata")):
+        if report.state != "committed" or report.missing_referenced:
+            raise AssertionError(f"{window}: committed but fsck says {report.summary()}")
+        with torch.no_grad():
+            for _, t in _leaves(fresh.train_state()):
+                t.zero_()
+        Snapshot(path).restore({"train": StateDict(**fresh.train_state())})
+        for p, got in _leaves(fresh.train_state()):
+            if not got.is_cuda or not torch.equal(got, want[p]):
+                raise AssertionError(f"{window}: committed, but {p} is not the state taken")
+        if not verify_snapshot(path).clean:
+            raise AssertionError(f"{window}: committed, but verify is not clean")
+        out.update(outcome="committed", bit_exact=True)
+    else:
+        try:
+            Snapshot(path).metadata
+        except RuntimeError as e:
+            if "not a snapshot" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"{window}: no metadata, yet the snapshot opens")
+        if os.path.exists(os.path.join(path, ".tpusnap", "journal")):
+            if report.state != "torn":
+                raise AssertionError(f"{window}: journal present, fsck says {report.summary()}")
+            rc, text = _cli_rc(["timeline", path, "--json"])
+            out["timeline_rc"] = rc
+            if window == "journal":
+                if rc not in (3, 4):
+                    raise AssertionError(f"journal: timeline exit {rc}")
+            else:
+                r0 = (((json.loads(text) if text.strip() else {}).get("verdict") or {})
+                      .get("ranks") or {}).get("0") or {}
+                if rc != 4 or r0.get("phase") is None or r0.get("last_event") is None:
+                    raise AssertionError(f"{window}: timeline exit {rc}, rank 0 {r0}")
+                if window == "staging" and jitter >= 0.15 and not (
+                        r0.get("inflight_op") and (r0.get("bytes_planned") or 0) > 0):
+                    raise AssertionError(f"staging: timeline names no in-flight op: {r0}")
+                out["timeline_phase"] = r0.get("phase")
+        elif report.state not in ("empty", "foreign"):
+            raise AssertionError(f"{window}: no journal, fsck says {report.summary()}")
+        out.update(outcome="torn" if report.state == "torn" else report.state, bit_exact=None)
+    out["check_s"] = time.perf_counter() - t0
+    return out
+
+
+def _delta_verdict(root: str, kill: dict, window: str) -> dict:
+    """The chain's contract after a kill: the head restores into a CUDA
+    target as the last committed step bit for bit (never older than the
+    last printed commit), fsck names every member, a torn tail is torn and
+    keeps its chain membership, and ``fsck ROOT`` exits 4 with a torn tail,
+    0 without."""
+    import re
+
+    import torch
+
+    from tpusnap_torch import Snapshot, StateDict, fsck_snapshot, resolve_chain, verify_snapshot
+
+    t0 = time.perf_counter()
+    printed = [int(m.group(2)) for m in re.finditer(r"COMMIT (\d+) (\d+)", kill["out"])]
+    rep = resolve_chain(root)
+    if rep.head is None:
+        raise AssertionError(f"{window}: no head: {rep.summary()}")
+    target = StateDict(w=torch.zeros(_DELTA_SHAPE, device="cuda"), step=-1)
+    Snapshot(rep.head_path).restore({"app": target})
+    k = target["step"]
+    if k < (printed[-1] if printed else 0):
+        raise AssertionError(f"{window}: restored step {k} < last printed {printed[-1]}")
+    pattern = _delta_pattern(_DELTA_SEED)
+    want = pattern + float(k) if k > 0 else pattern
+    if not target["w"].is_cuda or not torch.equal(target["w"], want):
+        raise AssertionError(f"{window}: the head is not step {k} bit for bit")
+    if not verify_snapshot(rep.head_path).clean:
+        raise AssertionError(f"{window}: the head does not verify clean")
+    states = {}
+    for name in sorted(os.listdir(root)):
+        member = os.path.join(root, name)
+        if os.path.isdir(member) and not name.startswith("."):
+            states[name] = fsck_snapshot(member).state
+    head = fsck_snapshot(rep.head_path)
+    if head.state != "committed" or head.delta is None:
+        raise AssertionError(f"{window}: head {head.summary()}")
+    if rep.torn_tail:
+        torn = fsck_snapshot(os.path.join(root, rep.torn_tail))
+        if torn.state != "torn" or torn.delta is None or \
+                "torn delta micro-commit" not in torn.summary():
+            raise AssertionError(f"{window}: torn tail {torn.summary()}")
+    rc, _ = _cli_rc(["fsck", root])
+    if rc != (4 if rep.torn_tail else 0):
+        raise AssertionError(f"{window}: fsck of the root exits {rc}")
+    return {"outcome": "torn" if rep.torn_tail else "committed", "restored_step": k,
+            "last_printed_step": printed[-1] if printed else 0, "bit_exact": True,
+            "members": states, "fsck_root_rc": rc, "check_s": time.perf_counter() - t0}
+
+
+def phase_crash_matrix(ctx: dict, workdir: str) -> dict:
+    """tpusnap's commit-window crash matrix on the card: children load the
+    flagship's train state onto the card and are SIGKILLed in each of the
+    five commit windows at seeds 0 and 1 (the windows of one seed at once,
+    each in its own process), then the delta stream in its three windows
+    at seed 1. The parent holds each directory to the invariant. Nothing
+    is caught: a broken invariant fails the run."""
+    import torch
+
+    from tpusnap_torch.models import Transformer
+
+    t_phase = time.perf_counter()
+    state_file = ctx["life_state_file"]
+    want = {p: t.to("cuda") for p, t in torch.load(state_file).items()}
+    fresh = Transformer(ctx["cfg"], device="cuda", seed=SEED + 13)
+    runs, flash = [], {}
+    for seed in _MATRIX_SEEDS:
+        paths = {w: os.path.join(workdir, f"matrix_{w}_{seed}") for w in _MATRIX_WINDOWS}
+        with ThreadPoolExecutor(max_workers=len(_MATRIX_WINDOWS)) as pool:
+            kills = dict(zip(_MATRIX_WINDOWS, pool.map(
+                lambda w: _kill_in_window(["--matrix-child", w, paths[w], state_file], seed, 1.5),
+                _MATRIX_WINDOWS)))
+        for window, kill in kills.items():
+            row = {"window": window, "seed": seed, "jitter_s": kill["jitter_s"],
+                   "child_s": kill["child_s"]}
+            if kill["rc"] != -9:
+                raise AssertionError(f"{window} child exited {kill['rc']}:\n{kill['out'][-3000:]}")
+            if window == "residual_io":
+                line = next(x for x in kill["out"].splitlines() if x.startswith("FLASH "))
+                got = json.loads(line[len("FLASH "):])
+                if not got["stepped"]:
+                    raise AssertionError("residual_io: the steps did not change the state")
+                row["flash_launches"] = got["launches"]
+                flash[f"crash_matrix residual_io seed {seed}"] = (got["launches"], got["routes"])
+            row.update(_matrix_verdict(paths[window], want, fresh, window, kill["jitter_s"]))
+            runs.append(row)
+            shutil.rmtree(paths[window], ignore_errors=True)  # a journal kill may leave none
+    delta_runs = []
+    roots = {w: os.path.join(workdir, f"matrix_{w}") for w in _DELTA_WINDOWS}
+    with ThreadPoolExecutor(max_workers=len(_DELTA_WINDOWS)) as pool:
+        kills = dict(zip(_DELTA_WINDOWS, pool.map(
+            lambda w: _kill_in_window(["--delta-matrix-child", w, roots[w], str(_DELTA_SEED)],
+                                      _DELTA_SEED, 0.8),
+            _DELTA_WINDOWS)))
+    for window, kill in kills.items():
+        if kill["rc"] != -9:
+            raise AssertionError(f"{window} child exited {kill['rc']}:\n{kill['out'][-3000:]}")
+        row = {"window": window, "seed": _DELTA_SEED, "jitter_s": kill["jitter_s"],
+               "child_s": kill["child_s"]}
+        row.update(_delta_verdict(roots[window], kill, window))
+        delta_runs.append(row)
+        shutil.rmtree(roots[window])
+    del fresh, want
+    ctx["matrix_flash"] = flash
+    outcomes = collections.Counter(r["outcome"] for r in runs + delta_runs)
+    return {"phase": "crash_matrix", "runs": runs, "delta_runs": delta_runs,
+            "outcomes": dict(outcomes), "seconds": time.perf_counter() - t_phase,
+            "card": ctx["card"]}
+
 
 def phase_chaos(ctx: dict, workdir: str) -> dict:
     """The train state through ``chaos+fs://`` under a seeded plan of
@@ -5014,6 +5539,12 @@ def main() -> int:
     if sys.argv[1:2] == ["--crash-child"]:
         _crash_child(*sys.argv[2:5])
         return 1
+    if sys.argv[1:2] == ["--matrix-child"]:
+        _matrix_child(*sys.argv[2:5])
+        return 1
+    if sys.argv[1:2] == ["--delta-matrix-child"]:
+        _delta_matrix_child(*sys.argv[2:5])
+        return 1
     from tpusnap_torch.ops import flash_attention as fa
 
     card = nvidia_smi_line()
@@ -5093,6 +5624,8 @@ def main() -> int:
         _reset_launches()
         ctx["life_model"], ctx["life_state_file"] = _lifecycle_model(ctx, workdir)
         emit(phase_crash(ctx, workdir))
+        emit(phase_crash_matrix(ctx, workdir))
+        paths.update(ctx["matrix_flash"])
         emit(phase_chaos(ctx, workdir))
         paths["crash+chaos"] = (fa.launches, dict(fa.route_launches))
         emit(phase_liveness(ctx, workdir))
@@ -5191,6 +5724,8 @@ def main() -> int:
         "modes": {
             mode: {**row, "launches": ring_modes[mode]} for mode, row in ring_row["modes"].items()
         },
+        # The backward across ranks' one block (plain PyTorch, no kernel).
+        "backward_block": result["ring_backward_block"],
     }]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

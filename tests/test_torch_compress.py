@@ -1,8 +1,9 @@
 """tpusnap_torch fused tile compression (``TPUSNAP_COMPRESS``) and
 save-time transforms (``cast_on_save``), against tpusnap on the same
-numpy inputs. Ports of the single-process cases of tests/test_compress.py
-with torch tensors (the crash-salvage, tiering and telemetry cases wait
-for their slices), and cross-package checks: the same input and tile
+numpy inputs. Ports of every case of tests/test_compress.py with torch
+tensors (a SIGKILLed compressed take salvaged, a tiered compressed
+take's drain, the decision in the summary, history and textfile), and
+cross-package checks: the same input and tile
 geometry give the same compressed blob bytes and manifest entries in both
 packages, each restores the other's, and ``cast_on_save`` stores the same
 bf16 bytes. Everything is bit-exact (tolerance 0): nothing is computed
@@ -573,3 +574,167 @@ def test_transform_must_keep_shape_and_be_deterministic(tmp_path):
     with pytest.raises(RuntimeError, match="deterministic"):
         Snapshot.take(str(tmp_path / "b"), {"m": StateDict(t=t)}, _custom_array_prepare_func=flaky)
     assert not os.path.exists(str(tmp_path / "b" / ".snapshot_metadata"))
+
+
+# ------------------------------------------------------ crash + salvage
+
+_COMPRESSED_CRASH_CHILD = r"""
+import os, sys
+os.environ["TPUSNAP_COMPRESS"] = "on"
+os.environ["TPUSNAP_COMPRESS_MIN_BLOB_BYTES"] = "65536"
+os.environ["TPUSNAP_DISABLE_BATCHING"] = "1"
+import numpy as np
+import torch
+from tpusnap_torch import Snapshot, StateDict
+
+path, crash_at = sys.argv[1], int(sys.argv[2])
+rng = np.random.default_rng(0)
+state = {}
+for i in range(10):
+    a = rng.standard_normal((256, 256)).astype(np.float32)
+    state[f"w{i}"] = torch.from_numpy((a.view(np.uint32) & np.uint32(0xFFFF0000)).view(np.float32))
+Snapshot.take(
+    "chaos+fs://" + path,
+    {"app": StateDict(**state)},
+    storage_options={"fault_plan": {"seed": 0, "crash_after_op": ("write", crash_at)}},
+)
+print("UNEXPECTED_COMPLETION", flush=True)
+"""
+
+
+@pytest.mark.chaos
+def test_sigkill_mid_compressed_take_salvage_reuses_blobs(tmp_path, monkeypatch):
+    """SIGKILL after N compressed blob writes: fsck (both packages') says
+    torn; a retake of the same state compresses the same way and the
+    dual-hash rule lets it reuse the intact compressed blobs; the result
+    restores bit-exact and scrubs clean."""
+    import signal
+
+    from tpusnap.lifecycle import fsck_snapshot as ref_fsck
+    from tpusnap_torch import fsck_snapshot, telemetry
+
+    monkeypatch.setenv("TPUSNAP_TELEMETRY_DIR", str(tmp_path / "telemetry"))
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    path = str(tmp_path / "snap")
+    proc = subprocess.run(
+        [sys.executable, "-c", _COMPRESSED_CRASH_CHILD, path, "6"],
+        env=dict(os.environ, PYTHONPATH=repo), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, timeout=150, cwd=repo,
+    )
+    assert proc.returncode == -signal.SIGKILL, proc.stdout[-2000:]
+    report = fsck_snapshot(path)
+    assert report.state == "torn" == ref_fsck(path).state, report.summary()
+    assert report.salvage_bytes_present > 0
+
+    arrays = _bf16ish_from(np.random.default_rng(0), 10)
+    expected = {f"w{i}": _t(a) for i, a in enumerate(arrays)}
+    before = telemetry.counter_value("salvage.bytes_salvaged")
+    with _forced(), override_batching_disabled(True):
+        Snapshot.take(path, {"app": StateDict(**expected)})
+    salvaged = telemetry.counter_value("salvage.bytes_salvaged") - before
+    assert salvaged >= 0.5 * report.salvage_bytes_present, (salvaged, report.salvage_bytes_present)
+    assert fsck_snapshot(path).state == "committed"
+    assert verify_snapshot(path).clean
+    raw = sum(v.numel() * 4 for v in expected.values())
+    assert _payload_bytes(path) < raw * 0.8  # the committed blobs are compressed
+    tgt = {"app": StateDict(**{k: torch.zeros_like(v) for k, v in expected.items()})}
+    Snapshot(path).restore(tgt)
+    for k, v in expected.items():
+        assert torch.equal(tgt["app"][k], v), k
+
+
+def _bf16ish_from(rng, n):
+    """The crash child's arrays: n draws from ``rng`` with bf16 precision."""
+    out = []
+    for _ in range(n):
+        a = rng.standard_normal((256, 256)).astype(np.float32)
+        out.append((a.view(np.uint32) & np.uint32(0xFFFF0000)).view(np.float32))
+    return out
+
+
+# ------------------------------------------------------------- tiering
+
+
+@pytest.mark.tiering
+def test_tiering_drain_counts_compressed_bytes(tmp_path, monkeypatch):
+    """A tiered compressed take: the lag gauge counts compressed bytes
+    (the backlog the wire sees), the drain uploads them with journal
+    evidence over the stored bytes, and the remote restores bit-exact."""
+    from tpusnap_torch.knobs import _override_env
+    from tpusnap_torch.tiering import drain_snapshot, parse_tier_url, tier_state_of_dir
+
+    monkeypatch.setenv("TPUSNAP_TELEMETRY_DIR", str(tmp_path / "telemetry"))
+    local, remote = tmp_path / "local", tmp_path / "remote"
+    local.mkdir()
+    remote.mkdir()
+    url = f"tier+local={local}+remote=fs://{remote}/snap"
+    a = _bf16ish((2048, 256), seed=13)
+    with _forced(), override_batching_disabled(True), _override_env("TPUSNAP_TIER_DRAIN", "0"):
+        Snapshot.take(url, {"app": StateDict(w=_t(a))})
+    local_dir = parse_tier_url(url).local_dir
+    stored = _payload_bytes(local_dir)
+    assert stored < a.nbytes * 0.8  # landed compressed locally
+    st = tier_state_of_dir(local_dir)
+    assert st["durability"] == "local-committed"
+    assert 0 < st["lag_bytes"] <= stored + 4096  # the compressed backlog
+    assert st["lag_bytes"] < a.nbytes  # not the raw size
+    report = drain_snapshot(url)
+    assert report.state == "durable"
+    assert tier_state_of_dir(local_dir)["lag_bytes"] == 0
+    tgt = {"app": StateDict(w=torch.zeros(a.shape))}
+    Snapshot(str(remote / "snap")).restore(tgt)
+    assert torch.equal(tgt["app"]["w"], _t(a))
+    assert verify_snapshot(str(remote / "snap")).clean
+
+
+# -------------------------------------------------------- observability
+
+
+def test_decision_and_ratio_ride_summary_history_and_prom(tmp_path, monkeypatch):
+    """The policy decision and the codec counters land in the take
+    summary, flow into the history event and the Prometheus textfile,
+    and the cross-rank rollup folds the codec counters."""
+    from tpusnap_torch import telemetry
+    from tpusnap_torch.history import event_from_summary
+    from tpusnap_torch.knobs import get_job_id
+    from tpusnap_torch.metrics_export import PrometheusTextfileSink, parse_prometheus_textfile
+
+    monkeypatch.setenv("TPUSNAP_TELEMETRY_DIR", str(tmp_path / "telemetry"))
+    a = _bf16ish((2048, 256), seed=14)
+    path = str(tmp_path / "snap")
+    with _forced(), override_batching_disabled(True):
+        Snapshot.take(path, {"app": StateDict(w=_t(a))})
+    summary = telemetry.LAST_TAKE_SUMMARY
+    comp = summary.get("compress")
+    assert comp and comp["decision"] == "compress"
+    assert comp["codec_gbps"] > 0
+    counters = summary["counters"]
+    assert counters["compress.bytes_in"] == a.nbytes
+    assert 0 < counters["compress.bytes_out"] < a.nbytes
+    assert summary["stages"]["compress"]["count"] == 1
+
+    ev = event_from_summary("take", summary)
+    assert ev["compress_decision"] == "compress"
+    assert ev["compress_ratio"] > 1.2
+    assert ev["compress_codec_gbps"] > 0
+    assert ev["compress_bytes_out"] == counters["compress.bytes_out"]
+
+    sink = PrometheusTextfileSink(directory=str(tmp_path / "prom"))
+    sink.on_take_summary(summary)
+    prom_file = os.path.join(str(tmp_path / "prom"),
+                             f"tpusnap_{get_job_id()}_rank{summary['rank']}.prom")
+    families = parse_prometheus_textfile(open(prom_file).read())
+    assert families["tpusnap_compress_bytes_in_total"]["samples"]
+    assert families["tpusnap_compress_bytes_out_total"]["samples"]
+    rollup = (Snapshot(path).metadata.extras or {}).get("telemetry", {})
+    assert rollup.get("counters", {}).get("compress.bytes_in") == a.nbytes
+
+
+def test_analyze_attributes_compress_as_own_resource():
+    from tpusnap_torch.analyze import ADVICE, WORK_PRIORITY, classify_span
+
+    assert classify_span("compress") == "compress"
+    assert "compress" in WORK_PRIORITY
+    assert "TPUSNAP_COMPRESS" in ADVICE["compress"]
+    # The write-bound advice recommends the policy flip the other way.
+    assert "TPUSNAP_COMPRESS" in ADVICE["storage_write"]

@@ -1,8 +1,10 @@
 """tpusnap_torch inspection: ``verify`` (the integrity scrub),
 ``materialize``, ``diff_snapshots`` and ``retention.apply_retention``.
 Ports of the single-process cases of tests/test_inspect.py and
-tests/test_retention.py with torch tensors (the CLI, sharded and
-multi-process cases wait for their slices), and cross-package checks:
+tests/test_retention.py with torch tensors (the CLI cases are in
+tests/test_torch_cli.py, the sharded and multi-process scrubs in
+test_torch_sharded_take.py and test_torch_distributed_take.py,
+retention's fault cases in test_torch_retention.py), and cross-package checks:
 each package's scrub reports the other's incremental and compressed
 snapshots clean, and a chain whose links alternate between the packages
 survives retention and restores through both. Bit-exact throughout.

@@ -312,6 +312,45 @@ def test_fs_plugin_close_in_a_finalizer_does_not_join(tmp_path):
     assert plugin._executor is None
 
 
+def test_dropped_snapshot_never_waits_on_its_loops_default_executor(tmp_path, monkeypatch):
+    """A dropped Snapshot handle closes its event loop in its finalizer
+    without waiting on the loop's default executor's ``_shutdown_lock``
+    (the read-abort drain's ``run_in_executor(None, ...)`` creates that
+    executor), as tpusnap's ``Snapshot.__del__`` does. Left to asyncio's
+    own loop finalizer, the close waits on that lock: GC firing inside a
+    ``submit`` then completes the AB/BA deadlock of the test above."""
+    import torch
+
+    from tpusnap_torch import Snapshot, StateDict
+
+    monkeypatch.setenv("TPUSNAP_TELEMETRY_DIR", str(tmp_path / "telemetry"))
+    path = str(tmp_path / "snap")
+    Snapshot.take(path, {"m": StateDict(w=torch.arange(8.0))})
+    holder = [Snapshot(path)]
+    loop, _ = holder[0]._resources()
+    loop.run_until_complete(loop.run_in_executor(None, lambda: None))
+    executor = loop._default_executor
+    assert executor is not None
+    assert executor._shutdown_lock.acquire(timeout=5)
+    try:
+        done = threading.Event()
+
+        def drop_the_last_reference():
+            holder.clear()  # the handle's finalizer runs here
+            done.set()
+
+        t = threading.Thread(target=drop_the_last_reference)
+        t.start()
+        assert done.wait(timeout=10), "the dropped handle waited on the executor's lock"
+        t.join(timeout=10)
+        assert not t.is_alive()
+        assert loop.is_closed()
+        assert not executor._shutdown  # contended: left to the exit reaper
+    finally:
+        executor._shutdown_lock.release()
+    executor.shutdown(wait=True)
+
+
 def test_storage_hook_notes_a_lock_held_across_io(tmp_path, global_watch):
     """The instrumented storage boundary reports a tracked lock held
     across a payload write into the active watch."""

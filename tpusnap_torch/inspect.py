@@ -8,8 +8,8 @@ fused into the storage plugin's read, so a scrub runs at disk speed in
 small constant memory. ``materialize_snapshot`` makes an incremental
 snapshot self-contained by copying in the base blobs it references;
 ``diff_snapshots`` compares two manifests by checksum. Exposed as
-``Snapshot.verify()`` and ``Snapshot.materialize()``; tpusnap's CLI is a
-later slice of the port.
+``Snapshot.verify()`` and ``Snapshot.materialize()``, and on the command
+line as ``python -m tpusnap_torch verify|materialize|diff``.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Async execution engine: budget-gated, pipelined staging and storage I/O.
 
 Counterpart of tpusnap/scheduler.py for takes (sync and async) and the
-restore, without its progress reporter. It records tpusnap's spans
+restore. It records tpusnap's spans
 (``stage_buffer``, ``checksum_late``, ``storage_write``, ``cow_verify``,
 ``budget_wait``, ``stage_window``, ``stage_blocked``, ``storage_read``,
 ``consume``, ``probe_roofline``) and counters (``storage.bytes_written``,
@@ -27,6 +27,11 @@ restore's ``telemetry`` recorder, and every read into the ambient
   blob I/O, a few raw streams are written and read back through the
   operation's own plugin stack; each sample feeds the compression
   policy's pipe ceiling.
+- Progress reporter (``_Reporter``): every ``_REPORT_INTERVAL_SEC`` a log
+  line with the per-stage pipeline counts, the budget left and the RSS
+  delta; at the end a summary with the staging-versus-total split, also
+  published in ``LAST_EXECUTION_STATS`` under ``"write"`` or ``"read"``.
+  It adds no span and no counter.
 - Memory budget = min(0.6 × available host RAM / ranks on this host,
   32 GB), overridable by ``TPUSNAP_MAX_PER_RANK_MEMORY_BUDGET_BYTES``.
 """
@@ -62,6 +67,7 @@ from .knobs import (
     get_stage_threads,
     is_probe_enabled,
 )
+from .rss_profiler import current_rss_bytes
 
 logger = logging.getLogger(__name__)
 
@@ -69,6 +75,7 @@ _MAX_IO_CONCURRENCY = 16
 _MAX_CPU_CONCURRENCY = max(1, min(4, os.cpu_count() or 4))
 _MAX_PER_RANK_MEMORY_BUDGET_BYTES = 32 * 1024 * 1024 * 1024
 _AVAILABLE_MEMORY_FRACTION = 0.6
+_REPORT_INTERVAL_SEC = 10.0
 
 
 def _available_host_memory_bytes() -> int:
@@ -124,6 +131,120 @@ async def _cancel_and_drain(tasks: Set[asyncio.Task]) -> None:
         task.cancel()
     if tasks:
         await asyncio.gather(*tasks, return_exceptions=True)
+
+
+# Stats of the last finished write or read execution in this process, keyed
+# by verb ("write"/"read"): benchmarks and tests read the staging-time vs
+# total-time split here instead of parsing logs.
+LAST_EXECUTION_STATS: dict = {}
+
+
+class _Reporter:
+    """Periodic pipeline progress logging: per-stage pipeline counts, RSS
+    delta, budget left, and a staging-time vs total-time summary — what
+    tells a staging-bound pipeline from an I/O-bound one."""
+
+    def __init__(self, rank: int, verb: str, total_reqs: int) -> None:
+        self.rank = rank
+        self.verb = verb
+        self.total_reqs = total_reqs
+        self.begin_ts = time.monotonic()
+        self.last_report_ts = self.begin_ts
+        self.bytes_done = 0
+        self.reqs_done = 0
+        self.rss_begin = current_rss_bytes()
+        self.staging_done_ts: Optional[float] = None
+        # Live pipeline-stage counts, set by the execution loop.
+        self.stage_counts: dict = {}
+        self.budget_remaining: Optional[int] = None
+        self.total_budget: Optional[int] = None
+        # Wall clock of the blocked window (control returned to the
+        # caller) and, for pipelined takes, the staging windows run.
+        self.blocked_done_ts: Optional[float] = None
+        self.stage_windows: Optional[int] = None
+
+    def mark_staging_complete(self) -> None:
+        if self.staging_done_ts is None:
+            self.staging_done_ts = time.monotonic()
+
+    def mark_blocked_window_done(self) -> None:
+        if self.blocked_done_ts is None:
+            self.blocked_done_ts = time.monotonic()
+
+    def report_request_done(self, nbytes: int) -> None:
+        self.reqs_done += 1
+        self.bytes_done += nbytes
+        now = time.monotonic()
+        if now - self.last_report_ts >= _REPORT_INTERVAL_SEC:
+            self.last_report_ts = now
+            rss_delta = current_rss_bytes() - self.rss_begin
+            counts = " ".join(f"{k}={v}" for k, v in self.stage_counts.items())
+            budget = (
+                f", budget {self.budget_remaining / 1e9:.1f}/"
+                f"{self.total_budget / 1e9:.1f} GB free"
+                if self.budget_remaining is not None and self.total_budget is not None
+                else ""
+            )
+            logger.info(
+                "Rank %d: %s %d/%d reqs [%s done=%d], %.2f GB, %.1f MB/s, "
+                "rss delta %.0f MB%s",
+                self.rank,
+                self.verb,
+                self.reqs_done,
+                self.total_reqs,
+                counts,
+                self.reqs_done,
+                self.bytes_done / 1e9,
+                self.bytes_done / 1e6 / max(now - self.begin_ts, 1e-9),
+                rss_delta / 1e6,
+                budget,
+            )
+
+    def summarize(self) -> None:
+        elapsed = max(time.monotonic() - self.begin_ts, 1e-9)
+        staging_elapsed = (
+            max(self.staging_done_ts - self.begin_ts, 0.0)
+            if self.staging_done_ts is not None
+            else None
+        )
+        stats = {
+            "reqs": self.reqs_done,
+            "bytes": self.bytes_done,
+            "total_s": elapsed,
+            "staging_s": staging_elapsed,
+            "throughput_mbps": self.bytes_done / 1e6 / elapsed,
+            "budget_bytes": self.total_budget,
+        }
+        if self.blocked_done_ts is not None:
+            stats["blocked_s"] = max(self.blocked_done_ts - self.begin_ts, 0.0)
+        if self.stage_windows is not None:
+            stats["stage_windows"] = self.stage_windows
+        LAST_EXECUTION_STATS[self.verb] = stats
+        if staging_elapsed is not None:
+            # The number async_take exists to minimize: training is
+            # blocked only for the staging window, not the I/O drain.
+            logger.info(
+                "Rank %d: %s complete: %d reqs, %.2f GB in %.2fs "
+                "(%.1f MB/s); staging %.2fs / residual I/O %.2fs",
+                self.rank,
+                self.verb,
+                self.reqs_done,
+                self.bytes_done / 1e9,
+                elapsed,
+                self.bytes_done / 1e6 / elapsed,
+                staging_elapsed,
+                elapsed - staging_elapsed,
+            )
+        else:
+            logger.info(
+                "Rank %d: %s complete: %d reqs, %.2f GB in %.2fs (%.1f MB/s)",
+                self.rank,
+                self.verb,
+                self.reqs_done,
+                self.bytes_done / 1e9,
+                elapsed,
+                self.bytes_done / 1e6 / elapsed,
+            )
 
 
 class _WritePipeline:
@@ -409,8 +530,7 @@ class _ProbeRunner:
 
 class _WriteScheduler:
     """Resumable budget-gated stage ∥ write engine behind every take
-    (counterpart of tpusnap's, without its roofline probe, progress
-    reporter and telemetry). ``run_blocked_window`` advances it to the
+    (counterpart of tpusnap's). ``run_blocked_window`` advances it to the
     take's blocked-window boundary on the calling thread; ``drain``
     resumes the same loop, possibly on another thread, until every
     request is staged and written. Three modes:
@@ -448,7 +568,7 @@ class _WriteScheduler:
             if tele is not None and tele.enabled and is_probe_enabled()
             else None
         )
-        self.bytes_written = 0
+        self.reporter = _Reporter(rank=rank, verb="write", total_reqs=len(write_reqs))
         # Counters go to the take's recorder whatever the span knob says.
         self._counters = tele
         self.tele = tele if tele is not None and tele.enabled else None
@@ -483,6 +603,7 @@ class _WriteScheduler:
             memory_budget_bytes = min(memory_budget_bytes, window)
         self.memory_budget_bytes = memory_budget_bytes
         self.budget = memory_budget_bytes
+        self.reporter.total_budget = memory_budget_bytes
         # The blocked window stages at least this much (everything, when
         # the state fits the window).
         self.first_window_target = min(memory_budget_bytes, total_cost)
@@ -491,6 +612,10 @@ class _WriteScheduler:
         self.ready_for_io: List[_WritePipeline] = []
         self.in_flight: Set[_WritePipeline] = set()
         self.staged_cost_total = 0
+        # Pipelined staging windows: one closes each time a budget's worth
+        # of staging cost has been staged (the blocked window is the first).
+        self._window_index = 0
+        self._window_accum = 0
         # I/O gate of pipelined mode: shut in the blocked window, then open.
         self.blocked = self.pipelined
         self.staging_complete = False
@@ -552,9 +677,30 @@ class _WriteScheduler:
 
     def _note_written(self, pipeline: "_WritePipeline") -> None:
         self.budget += pipeline.buf_size
-        self.bytes_written += pipeline.buf_size
         if self.probe is not None:
             self.probe.note_written(pipeline.buf_size)
+        self.reporter.report_request_done(pipeline.buf_size)
+
+    def _update_reporter(self) -> None:
+        self.reporter.stage_counts = {
+            "ready_for_staging": len(self.pipelines),
+            "staging": len(self.staging_tasks),
+            "ready_for_io": len(self.ready_for_io),
+            "io": len(self.io_tasks),
+        }
+        self.reporter.budget_remaining = self.budget
+
+    def _on_staged(self, pipeline: "_WritePipeline") -> None:
+        self.staged_cost_total += pipeline.staging_cost
+        if self.pipelined:
+            self._window_accum += pipeline.staging_cost
+            if self._window_accum >= self.memory_budget_bytes:
+                self._close_window()
+
+    def _close_window(self) -> None:
+        if self._window_accum > 0:
+            self._window_index += 1
+            self._window_accum = 0
 
     def _first_window_done(self) -> bool:
         return not self.eager_pending and self.staged_cost_total >= self.first_window_target
@@ -581,6 +727,10 @@ class _WriteScheduler:
     def _finish_staging(self) -> None:
         if not self.staging_complete:
             self.staging_complete = True
+            self.reporter.mark_staging_complete()
+            if self.pipelined:
+                self._close_window()
+                self.reporter.stage_windows = max(self._window_index, 1)
             if self.tele is not None:
                 now = self.tele.now()
                 if self._stall_start is not None:
@@ -617,11 +767,14 @@ class _WriteScheduler:
                     # The staged buffer may be smaller than its cost.
                     self.budget += pipeline.staging_cost - pipeline.buf_size
                     self.eager_pending.discard(id(pipeline))
-                    self.staged_cost_total += pipeline.staging_cost
+                    self._on_staged(pipeline)
                     telemetry.incr(
                         "scheduler.bytes_staged", pipeline.buf_size, rec=self._counters
                     )
-                    if not pipeline.skipped:
+                    if pipeline.skipped:
+                        # Deduplicated against a base snapshot: no I/O.
+                        self.reporter.report_request_done(0)
+                    else:
                         self.ready_for_io.append(pipeline)
                 else:
                     self.io_tasks.discard(task)
@@ -630,6 +783,7 @@ class _WriteScheduler:
             self._dispatch_staging()
             await self._maybe_probe()
             self._dispatch_io()
+            self._update_reporter()
         self._finish_staging()
 
     async def _abort(self) -> None:
@@ -646,6 +800,7 @@ class _WriteScheduler:
         except BaseException:
             await self._abort()
             raise
+        self.reporter.mark_blocked_window_done()
         if self.blocked and self.tele is not None:
             self.tele.record_span(
                 "stage_blocked", self._stage_phase_start,
@@ -662,6 +817,8 @@ class _WriteScheduler:
         self.prioritize_staging = True
         self.budget += self.host_budget_bytes - self.memory_budget_bytes
         self.memory_budget_bytes = self.host_budget_bytes
+        self.reporter.total_budget = self.host_budget_bytes
+        self.reporter.blocked_done_ts = None  # the window now closes here
         await self.run_blocked_window()
 
     async def drain(self) -> None:
@@ -678,11 +835,12 @@ class _WriteScheduler:
                 for task in done:
                     self.io_tasks.discard(task)
                     self._note_written(task.result())
+                self._update_reporter()
             if (
                 self.probe is not None
                 and self.probe.ran == 0
                 and not self.probe._failed
-                and self.bytes_written > 0
+                and self.reporter.bytes_done > 0
             ):
                 # A take smaller than the probe interval still gets one
                 # sample: every probe-enabled take measures its ceiling.
@@ -694,6 +852,7 @@ class _WriteScheduler:
             self.executor.shutdown(wait=True)
             self.hash_executor.shutdown(wait=True)
         self.drained_event.set()
+        self.reporter.summarize()
 
 
 async def execute_write_reqs(
@@ -859,6 +1018,8 @@ async def execute_read_reqs(
     executor = ThreadPoolExecutor(
         max_workers=_MAX_CPU_CONCURRENCY, thread_name_prefix="tpusnap-torch-consume"
     )
+    reporter = _Reporter(rank=rank, verb="read", total_reqs=len(read_reqs))
+    reporter.total_budget = memory_budget_bytes
     tele = telemetry.current()
     # The ambient access ledger (the restore and read_object scopes
     # install one); None turns attribution off for this call.
@@ -917,11 +1078,18 @@ async def execute_read_reqs(
                 else:
                     consume_tasks.discard(task)
                     budget += pipeline.consuming_cost
+                    reporter.report_request_done(pipeline.consuming_cost)
             if probe is not None and probe.due and not read_tasks:
                 # The read window drained (consumes are host work and do
                 # not touch the pipe): take the sample, then go on.
                 await probe.run()
             dispatch_reads()
+            reporter.stage_counts = {
+                "ready_for_read": len(pipelines),
+                "read": len(read_tasks),
+                "consume": len(consume_tasks),
+            }
+            reporter.budget_remaining = budget
         if probe is not None and probe.ran == 0 and not probe._failed and bytes_read > 0:
             # A restore smaller than the probe interval still measures once.
             await probe.run()
@@ -935,6 +1103,7 @@ async def execute_read_reqs(
         raise
     finally:
         executor.shutdown(wait=True)
+    reporter.summarize()
 
 
 def sync_execute_read_reqs(

@@ -153,7 +153,15 @@ from .flatten import flatten, inflate
 from .inspect import _entry_tensors, base_root_of_location, entry_nbytes
 from .io_preparer import prepare_read, prepare_write
 from .io_preparers.array import ArrayBufferStager, event_on, freeze_device_sources
-from .io_types import BufferStager, ReadIO, StoragePlugin, WriteIO, run_on_loop
+from .io_types import (
+    BufferStager,
+    ReadIO,
+    StoragePlugin,
+    WriteIO,
+    finalizer_close_scope,
+    run_on_loop,
+    shutdown_plugin_executor,
+)
 from .knobs import (
     get_async_stage_window_bytes,
     get_commit_barrier_timeout_s,
@@ -238,19 +246,80 @@ class Snapshot:
 
     def close(self) -> None:
         """Release the cached storage plugin and event loop."""
-        with self._op_lock:
-            if self._cached_storage is not None and self._cached_loop is not None:
-                self._cached_storage.sync_close(self._cached_loop)
+        self._close(blocking=True)
+
+    def _close(self, blocking: bool) -> None:
+        # The finalizer path (__del__) must not block on _op_lock: GC can
+        # fire on a thread that holds arbitrary locks (an executor's
+        # shutdown locks inside submit). A contended _op_lock means the
+        # handle is still in use; skipping leaks nothing (the next close
+        # or GC pass retries).
+        if not self._op_lock.acquire(blocking):
+            return
+        try:
+            loop = self._cached_loop
+            if blocking:
+                if self._cached_storage is not None and loop is not None:
+                    self._cached_storage.sync_close(loop)
+            else:
+                # GC may run __del__ inside another running event loop,
+                # where run_until_complete is illegal: then only drop the
+                # references.
+                try:
+                    asyncio.get_running_loop()
+                    in_async_context = True
+                except RuntimeError:
+                    in_async_context = False
+                if (
+                    not in_async_context
+                    and self._cached_storage is not None
+                    and loop is not None
+                    and not loop.is_closed()
+                    and not loop.is_running()
+                ):
+                    try:
+                        self._cached_storage.sync_close(loop)
+                    except Exception:
+                        pass
             self._cached_storage = None
-            if self._cached_loop is not None:
-                self._cached_loop.close()
+            if loop is not None and not loop.is_running():
+                if not blocking:
+                    # loop.close() (here, or in asyncio's own __del__ if
+                    # nobody closes it) shuts the loop's default executor
+                    # down (run_in_executor(None, ...): the read-abort
+                    # drain) with a blocking _shutdown_lock acquire, the
+                    # AB/BA window shutdown_plugin_executor documents when
+                    # GC fires inside a submit. Detach it and shut it down
+                    # without waiting on any lock instead.
+                    self._detach_default_executor(loop)
+                loop.close()
             self._cached_loop = None
+        finally:
+            self._op_lock.release()
+
+    @staticmethod
+    def _detach_default_executor(loop) -> None:
+        executor = getattr(loop, "_default_executor", None)
+        if executor is None:
+            return
+        loop._default_executor = None
+        shutdown_plugin_executor(executor)
 
     def __enter__(self) -> "Snapshot":
         return self
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+    def __del__(self) -> None:
+        # A dropped handle (``Snapshot(path).restore(...)``) releases its
+        # loop and storage here, through the finalizer-safe path: plugin
+        # closes neither join threads nor wait on an executor's lock.
+        try:
+            with finalizer_close_scope():
+                self._close(blocking=False)
+        except Exception:
+            pass
 
     # ------------------------------------------------------------------ take
 
