@@ -63,7 +63,21 @@ Phases, in order:
              chunk size with a ragged last chunk: take, manifest check,
              restore in place, read_object under a 64 MiB budget into a
              CUDA target, async_restore into zeroed targets.
-10. incremental — incremental takes of the train state: a full base
+10. host_memory — a restore with no target allocates its own host
+             destinations; each is advised for transparent hugepages
+             before its first touch (``_native.advise_hugepages``, as
+             tpusnap). THP's enabled and defrag settings; f32
+             (81920, 4096) read back chunked, a 256 MiB bf16 blob whole
+             (read scratch, then the owning copy) and under a 64 MiB
+             budget (tiled), a 256 MiB bf16 blob compressed; per read its
+             seconds, minor faults, ``hg`` and AnonHugePages of the
+             destination's first whole page and LAST_EXECUTION_STATS,
+             each bit-exact against the source and advised. The first
+             touch of 1 GiB from a plain np.empty (numpy's own advice
+             off; it must lack ``hg``) and from ``aligned_empty``; 1 GiB +
+             7 bytes written and read back in place with O_DIRECT and
+             buffered, bit-exact, GB/s of each.
+11. incremental — incremental takes of the train state: a full base
              recording tile dedup hashes; inc1 unchanged (writes nothing);
              inc2 after one embedding row changed (writes one 16 MiB
              tile); an async increment staged at its return, with a train
@@ -75,15 +89,15 @@ Phases, in order:
              an increment after add_(1) on 1 of 32 tensors writes 128 MiB.
              Bytes written come from the files on disk, references from
              the manifest (``../`` locations and byte ranges).
-11. compress — TPUSNAP_COMPRESS=on: the train state and two 1.25 GiB
+12. compress — TPUSNAP_COMPRESS=on: the train state and two 1.25 GiB
              chunked tensors, restored in place bit-exact, a read_object
              under a 64 MiB budget into a CUDA target; ratio and GB/s; the
              ``auto`` decision of the bulk take.
-12. transforms — cast_on_save of the f32 parameters to bf16: half-size
+13. transforms — cast_on_save of the f32 parameters to bf16: half-size
              blobs, restore into the f32 params equal to the bf16 round
              trip; then an async take of the 4 GiB bulk with its f32 half
              cast and add_(1) on every tensor right after the return.
-13. distributed — two ranks on the one card
+14. distributed — two ranks on the one card
              (``tpusnap_torch.test_utils.run_subprocess_world``: a gloo
              process group, the port's store communicator; no device
              collective). Each rank trains the flagship at full width from
@@ -101,7 +115,7 @@ Phases, in order:
              (120 s here) and no .snapshot_metadata appears. The parent
              then restores the world-2 snapshot into a world-1 model
              (2 -> 1), bit for bit.
-14. sharded — the same two ranks, each training the flagship, expose
+15. sharded — the same two ranks, each training the flagship, expose
              the train state as Shard(0) DTensors over
              DeviceMesh("cuda", [0, 1]) whose local tensors are views of
              the rank's own parameters and Adam moments (the 0-d step
@@ -118,13 +132,13 @@ Phases, in order:
              into a dense model (2 -> 1) and one step from it equals one
              from a witness holding rank 0's state.
 
-15. moe    — the MoE flagship at full default width with 4 experts
+16. moe    — the MoE flagship at full default width with 4 experts
              (71,315,968 parameters; a train state of 855,791,620 bytes in
              31 tensors): two steps, a take, an async take with a step at
              once, restores of both into a fresh model (bit-exact,
              Parameter identity, a post-restore step bitwise equal to a
              witness's), verify().
-16. embedding — tpusnap's embedding benchmark configuration: 4 row-wise
+17. embedding — tpusnap's embedding benchmark configuration: 4 row-wise
              [1,000,000, 64] f32 tables with row-wise Adagrad accumulators
              (1,040,000,000 bytes in 8 tensors), t2 and t3 pinned on the
              host (520,000,000 bytes). Adagrad steps (pinned rows gathered
@@ -134,7 +148,7 @@ Phases, in order:
              take with a step at once (its snapshot equals the state at
              the call), restores that keep every tensor's identity,
              storage and pinning.
-17. layouts — two ranks on the one card: the MoE train state as DTensor
+18. layouts — two ranks on the one card: the MoE train state as DTensor
              views at (data, fsdp, tensor) = (1, 2, 1), taken (each rank
              writes exactly its boxes) and restored into (1, 1, 2) views of
              a fresh model (a reshard, in place); the embedding tables
@@ -142,7 +156,7 @@ Phases, in order:
              taken, then read dense with read_object and placed
              column-wise. The parent restores both world-2 snapshots into
              world 1 (2 -> 1), bit for bit, in place, pinning kept.
-18. ring   — the flagship at full width with use_ring_attention: two
+19. ring   — the flagship at full width with use_ring_attention: two
              ranks on the one card (gloo) each hold half of every
              sequence; the group's loss must equal the single-process
              dense model's within 1e-4 relative and each rank's logits
@@ -156,7 +170,7 @@ Phases, in order:
              ring model and into a fresh dense model, each bit for bit
              with Parameter identity and a post-restore step equal to a
              witness's.
-19. sharded_step — tpusnap's sharded train step on four ranks sharing
+20. sharded_step — tpusnap's sharded train step on four ranks sharing
              the card (gloo; collectives staged through pinned host
              buffers) at tpusnap's default mesh for four devices,
              (data, fsdp, tensor) = (1, 2, 2): (a) the ring flagship at
@@ -178,7 +192,7 @@ Phases, in order:
              checks. Prints each step's seconds and its
              split (gather, forward, backward, reduce, update: wall time
              with the card synchronised at each stage).
-20. crash  — the crash-safe take (every take journals itself, records
+21. crash  — the crash-safe take (every take journals itself, records
              telemetry and a flight log). A fresh flagship trained one
              step; its train state (saved to a file, setup) is loaded by
              a spawned child, which takes it through chaos+fs:// with
@@ -190,7 +204,7 @@ Phases, in order:
              process's .tmp debris. Then a child's async take of the
              4 GiB bulk, add_(1) at once, killed mid-drain: the retake
              restores the state at the call.
-21. crash_matrix — tpusnap's commit-window crash matrix on the card
+22. crash_matrix — tpusnap's commit-window crash matrix on the card
              (tests/test_torch_crash_matrix.py and test_torch_delta_crash.py
              on the CPU). Children load the flagship's train state onto
              the card (553,703,428 bytes in 28 tensors, batching off: one
@@ -221,19 +235,19 @@ Phases, in order:
              without. Prints per kill the jitter, the outcome, bit_exact,
              the child's and the check's seconds, and residual_io's flash
              launches.
-22. chaos  — the train state through chaos+fs:// under a seeded plan
+23. chaos  — the train state through chaos+fs:// under a seeded plan
              (a transient error per op and every 5th op, 1 ms latency,
              torn writes), batching off: take and restore converge under
              retry (retries counted), the restore reads as many blobs in
              place as a plain path's; an async take under the plan with a
              train step at once holds the state at the call.
-23. liveness — three two-rank worlds at once (TPUSNAP_LIVENESS_TTL_S=2):
+24. liveness — three two-rank worlds at once (TPUSNAP_LIVENESS_TTL_S=2):
              rank 1 SIGKILLed by a hook in its process at its first
              stage, first blob write or commit barrier; rank 0 raises
              RankFailedError naming it within 3x the TTL (seconds
              printed), the merged flight timeline names rank 1, the
              directory is torn with salvage records.
-24. degrade — three two-rank worlds at once (TPUSNAP_RANK_FAILURE=
+25. degrade — three two-rank worlds at once (TPUSNAP_RANK_FAILURE=
              degrade): a replicated sync take whose rank 1 dies after its
              first blob write, committed by rank 0 (adopted bytes
              printed, extras["degraded"]); an async take with a train step
@@ -241,13 +255,13 @@ Phases, in order:
              on its first write) SIGKILLed: the committed snapshot equals
              the state at the call, bitwise; a Shard(0) DTensor take
              whose peer dies refuses to degrade and is torn.
-25. lifecycle_ab — printed, not gated: the bulk take and the train
+26. lifecycle_ab — printed, not gated: the bulk take and the train
              state's take and restore with the default layers against
              TPUSNAP_DISABLE_JOURNAL=1 TPUSNAP_TELEMETRY=0, compression off,
              three of each in turns after a warm-up round; the
              distributed phase also times its take at a 0.5 s and a
              0.02 s heartbeat and with telemetry off.
-26. delta  — Snapshot.stream of a fresh flagship's train state
+27. delta  — Snapshot.stream of a fresh flagship's train state
              (cadence 0.5 s, TPUSNAP_DELTA_MAX_CHAIN=4, compression off)
              while it trains 12 Adam steps paced to 0.25 s, mark_step()
              after each; a device clone of the state at every boundary.
@@ -263,7 +277,7 @@ Phases, in order:
              seconds each capture blocked mark_step, step times with and
              without a stream, each member's payload bytes, the members
              retired by compaction.
-27. delta_elastic — two ranks on the card, each a full replica of the
+28. delta_elastic — two ranks on the card, each a full replica of the
              lifecycle model, replicated=["**"], TPUSNAP_LIVENESS_TTL_S=2,
              TPUSNAP_RANK_FAILURE=degrade: a clean two-rank epoch, every
              tensor changed in place, then rank 1 SIGKILLed at its first
@@ -271,7 +285,7 @@ Phases, in order:
              degraded and streams on alone; the head restores bit for
              bit. Prints the detection seconds, the adopted bytes and
              each member's world from extras["delta"]["world"].
-28. tier   — the 4 GiB bulk through tier+local=<a>+remote=chaos+fs://<b>
+29. tier   — the 4 GiB bulk through tier+local=<a>+remote=chaos+fs://<b>
              while every remote op fails for 10 s (an outage), beside a
              plain take; the background drain converges once the outage
              ends (durable marker); gc --evict-local (retention 0); a
@@ -279,14 +293,14 @@ Phases, in order:
              Then the train state through a tier, and 5 train steps while
              its drain runs against 5 without. Both tiers are on the one
              local disk.
-29. cas    — two job ids take the lifecycle model's train state into two
+30. cas    — two job ids take the lifecycle model's train state into two
              directories with one TPUSNAP_CAS_DIR (batching off: slab
              blobs are named per take and never dedup): the second
              publishes 0 bytes and the store holds the state once; each
              restores into CUDA tensors in place, bit for bit; one is
              deleted and gc_store keeps the shared blobs; the other still
              restores. The other job's snapshot and the store stay for cli.
-30. observe — every consumer of the take's telemetry on (history, the
+31. observe — every consumer of the take's telemetry on (history, the
              Prometheus textfile and JSONL sinks, the SLO thresholds, the
              fleet mirror, the access ledger, the roofline probe;
              compression off): a fresh flagship trains, record_slo_step()
@@ -304,7 +318,7 @@ Phases, in order:
              but the probe against all off, three takes each,
              interleaved); an autotuned take whose history event carries
              the plan id that `tune` prints.
-31. cli    — ``python -m tpusnap_torch`` in subprocesses on what observe,
+32. cli    — ``python -m tpusnap_torch`` in subprocesses on what observe,
              crash (a copy of its torn take), tier (the remote-durable
              train state), cas and delta left: every subcommand (lint
              --check over the package's own source),
@@ -314,7 +328,7 @@ Phases, in order:
              then a child calls main() in process for info, verify, fsck
              and cat and must leave torch.cuda.is_initialized() False.
              Prints each command's exit code and seconds.
-32. examples — the port's four examples in process (``main(argv)``), each
+33. examples — the port's four examples in process (``main(argv)``), each
              in its own directory: simple, then its resume from epoch_2
              (prints "resumed ... at epoch 2", then epoch 3); incremental
              (its "incremental on", "0 corrupt" and "bit-exact" lines);
@@ -328,7 +342,7 @@ Phases, in order:
              read_object. The flash kernel must launch 4 layers x (12 + 4)
              steps = 64 times, all wgmma. Prints each example's seconds
              and the transformer's blocked, wait and restore seconds.
-33. benchmarks — the ten benchmark harnesses of the port in process, at
+34. benchmarks — the ten benchmark harnesses of the port in process, at
              the sizes ``_HARNESSES`` gives (each cut of a default listed
              under "reduced"), one line per harness: its own last line
              under "phase": "benchmarks". Fails on a false correctness
@@ -1396,6 +1410,182 @@ def phase_chunked(ctx: dict, workdir: str) -> dict:
         "read_object_64mib_gb_s": tensors["f32"].numel() * 4 / read_s / 1e9,
         "async_restore_s": async_restore_s, "bit_exact": True, "in_place": True,
         "card": ctx["card"],
+    }
+
+
+_THP_DIR = "/sys/kernel/mm/transparent_hugepage"
+_TOUCH_BYTES = 1 << 30
+_DIRECT_IO_BYTES = (1 << 30) + 7
+
+
+def _thp_setting(name: str):
+    try:
+        with open(os.path.join(_THP_DIR, name)) as f:
+            return f.read().strip()
+    except OSError:
+        return None
+
+
+def _minflt() -> int:
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_minflt
+
+
+def _host_pages(addr: int) -> dict:
+    """The advice flag and AnonHugePages of the mapping holding the first
+    whole page at or after ``addr`` (the buffer's first page is partial
+    unless it is page-aligned, and is never advised)."""
+    from tpusnap_torch.rss_profiler import mapping_of
+
+    m = mapping_of((addr + 4095) & ~4095)
+    if m is None:
+        raise AssertionError(f"no mapping of this process holds {addr:#x}")
+    return {"hg": "hg" in m["vm_flags"], "anon_huge_kb": m["anon_huge_kb"],
+            "mapping_bytes": m["end"] - m["start"]}
+
+
+def _madvise_probe() -> str:
+    """What the kernel answers to ``madvise(MADV_HUGEPAGE)`` on 4 MiB of
+    fresh anonymous memory (``advise_hugepages`` ignores the answer)."""
+    import ctypes
+    import mmap
+
+    libc = ctypes.CDLL(None, use_errno=True)
+    libc.madvise.argtypes = [ctypes.c_void_p, ctypes.c_size_t, ctypes.c_int]
+    buf = mmap.mmap(-1, 4 << 20)
+    addr = ctypes.addressof(ctypes.c_char.from_buffer(buf))
+    rc = libc.madvise(addr, 4 << 20, 14)
+    err = ctypes.get_errno()
+    del addr
+    buf.close()
+    return "ok" if rc == 0 else f"rc {rc}, {os.strerror(err)}"
+
+
+def _numpy_hugepage_advice(on: bool) -> bool:
+    """Switch numpy's own advice of its 4 MiB+ arrays; returns the old
+    setting."""
+    import numpy as np
+
+    core = getattr(np, "_core", None) or np.core
+    return core.multiarray._set_madvise_hugepage(on)
+
+
+def phase_host_memory(ctx: dict, workdir: str) -> dict:
+    """The host buffers the port allocates itself for a restore with no
+    target, each advised for transparent hugepages before its first touch
+    (tpusnap's ``advise_hugepages``): the chunked, owning-copy, tiled and
+    compressed destinations, read back bit-exact; then the first touch of
+    1 GiB plain and advised, and the O_DIRECT round trip of 1 GiB + 7
+    bytes against the buffered one."""
+    import numpy as np
+    import torch
+
+    from tpusnap_torch import Snapshot, StateDict, _native, scheduler
+    from tpusnap_torch.knobs import override_compress, override_direct_io_disabled
+
+    t_phase = time.perf_counter()
+    thp = {"enabled": _thp_setting("enabled"), "defrag": _thp_setting("defrag"),
+           "kernel": os.uname().release, "madvise": _madvise_probe()}
+    advice_visible = thp["enabled"] is not None  # no THP sysfs: no hugepages to advise
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    tensors = {
+        # 2.5 chunks of the default 512 MiB: the chunked destination
+        "big": torch.randn((81920, 4096), generator=gen, device="cuda"),
+        # one plain 256 MiB blob: the read scratch, then the owning copy
+        # (whole) or the tiled destination (under a 64 MiB budget)
+        "mid": torch.randn((32768, 4096), generator=gen, device="cuda").to(torch.bfloat16),
+    }
+    midz = torch.randn((32768, 4096), generator=gen, device="cuda").to(torch.bfloat16)
+    path = os.path.join(workdir, "host_memory")
+    Snapshot.take(path, {"h": StateDict(tensors)})
+    with override_compress(mode="on"):
+        snap = Snapshot.take(os.path.join(path, "z"), {"h": StateDict(midz=midz)})
+    if not snap.metadata.manifest["0/h/midz"].codec:
+        raise AssertionError("TPUSNAP_COMPRESS=on left midz uncompressed")
+    want = {"big": tensors["big"].cpu(), "mid": tensors["mid"].cpu(), "midz": midz.cpu()}
+    del tensors, midz
+
+    reads = []
+    for name, snap_path, key, budget, destination in (
+        ("big", path, "big", None, "chunked"),
+        ("mid", path, "mid", None, "read scratch, then owning copy"),
+        ("mid", path, "mid", 64 << 20, "tiled"),
+        ("midz", os.path.join(path, "z"), "midz", None, "compressed"),
+    ):
+        f0 = _minflt()
+        t0 = time.perf_counter()
+        got = Snapshot(snap_path).read_object(f"0/h/{key}", memory_budget_bytes=budget)
+        seconds = time.perf_counter() - t0
+        faults = _minflt() - f0
+        stats = dict(scheduler.LAST_EXECUTION_STATS.get("read", {}))
+        pages = _host_pages(got.data_ptr())
+        if got.device.type != "cpu" or not torch.equal(got, want[name]):
+            raise AssertionError(f"read_object of {name} ({destination}) is not bit-exact")
+        if advice_visible and not pages["hg"]:
+            raise AssertionError(f"the {destination} destination of {name} is not advised")
+        nbytes = got.numel() * got.element_size()
+        reads.append({
+            "tensor": name, "destination": destination, "bytes": nbytes,
+            "budget_bytes": budget, "seconds": seconds, "gb_s": nbytes / seconds / 1e9,
+            "minflt": faults, "minflt_per_gib": faults * (1 << 30) / nbytes, **pages,
+            "stats": {k: stats.get(k) for k in ("reqs", "bytes", "total_s", "staging_s")},
+        })
+        del got
+
+    # First touch of 1 GiB, one write per 4 KiB page: a plain np.empty
+    # (numpy's own advice of large arrays switched off, so it is plain)
+    # and the staging and slab allocator.
+    numpy_advice_default = _numpy_hugepage_advice(False)
+    try:
+        plain = np.empty(_TOUCH_BYTES, dtype=np.uint8)
+    finally:
+        _numpy_hugepage_advice(numpy_advice_default)
+    touches = {}
+    for label, buf in (("np.empty", plain), ("aligned_empty", _native.aligned_empty(_TOUCH_BYTES))):
+        f0 = _minflt()
+        t0 = time.perf_counter()
+        buf[::4096] = 1
+        seconds = time.perf_counter() - t0
+        touches[label] = {"seconds": seconds, "minflt": _minflt() - f0,
+                          **_host_pages(buf.ctypes.data)}
+        del buf
+    del plain
+    if touches["np.empty"]["hg"]:
+        raise AssertionError("the plain np.empty was advised")
+    if advice_visible and not touches["aligned_empty"]["hg"]:
+        raise AssertionError("aligned_empty's buffer is not advised")
+
+    # Direct I/O on this host's disk: 1 GiB + 7 bytes written by the
+    # native writer and read back in place, O_DIRECT and then buffered.
+    src = want["big"].reshape(-1).view(torch.uint8)[:_DIRECT_IO_BYTES].numpy()
+    direct_io = {}
+    for disabled in (False, True):
+        blob = os.path.join(path, f"direct_{disabled}")
+        with override_direct_io_disabled(disabled):
+            t0 = time.perf_counter()
+            _native.write_file(blob, memoryview(src))
+            write_s = time.perf_counter() - t0
+            out = _native.aligned_empty(_DIRECT_IO_BYTES)
+            t0 = time.perf_counter()
+            got, _, _ = _native.read_range_into(blob, 0, _DIRECT_IO_BYTES, out)
+            read_s = time.perf_counter() - t0
+        if got != _DIRECT_IO_BYTES or not np.array_equal(out, src):
+            raise AssertionError(f"the direct-I/O round trip (disabled={disabled}) is not bit-exact")
+        direct_io["buffered" if disabled else "direct"] = {
+            "write_s": write_s, "read_s": read_s,
+            "write_gb_s": _DIRECT_IO_BYTES / write_s / 1e9,
+            "read_gb_s": _DIRECT_IO_BYTES / read_s / 1e9, "bit_exact": True,
+        }
+        del out
+        os.remove(blob)
+    del src, want
+    shutil.rmtree(path)
+    return {
+        "phase": "host_memory", "thp": thp, "numpy_advice_default": numpy_advice_default,
+        "reads": reads, "first_touch_1gib": touches, "direct_io_1gib_plus_7": direct_io,
+        "advice_checked": advice_visible, "bit_exact": True,
+        "seconds": time.perf_counter() - t_phase, "card": ctx["card"],
     }
 
 
@@ -5571,6 +5761,7 @@ def main() -> int:
         paths["async_train"] = (fa.launches, dict(fa.route_launches))
         emit(phase_async_bulk(ctx, workdir))
         emit(phase_chunked(ctx, workdir))
+        emit(phase_host_memory(ctx, workdir))
         _reset_launches()
         emit(phase_incremental(ctx, workdir))
         paths["incremental"] = (fa.launches, dict(fa.route_launches))

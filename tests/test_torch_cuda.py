@@ -316,6 +316,98 @@ def test_device_slab_member_dedup_compacts(gen, tmp_path, monkeypatch):
     assert Snapshot(inc).verify().clean
 
 
+def _batched(tensors: dict):
+    """Prepared writes of ``tensors`` through the port's batcher."""
+    from tpusnap_torch.batcher import batch_write_requests
+
+    entries, write_reqs = {}, []
+    for name, t in tensors.items():
+        entry, reqs = array_preparer.ArrayIOPreparer.prepare_write(f"0/{name}", t)
+        entries[name] = entry
+        write_reqs += reqs
+    _, reqs = batch_write_requests(list(entries.values()), write_reqs)
+    return entries, reqs
+
+
+def test_device_slab_packs_and_is_byte_exact(gen):
+    """tests/test_partitioner_batcher.py's device-slab cases: CUDA
+    members pack into one slab on the card, byte for byte."""
+    import asyncio
+
+    from tpusnap_torch.batcher import DeviceBatchedBufferStager
+
+    tensors = {
+        "f32": torch.arange(32, dtype=torch.float32, device="cuda"),
+        "bf16": torch.arange(16, device="cuda").to(torch.bfloat16),
+        "i8": torch.arange(-8, 8, dtype=torch.int8, device="cuda"),
+        "bool": torch.tensor([True, False] * 4, device="cuda"),
+    }
+    entries, reqs = _batched(tensors)
+    assert len(reqs) == 1
+    assert isinstance(reqs[0].buffer_stager, DeviceBatchedBufferStager)
+    mv = memoryview(asyncio.run(reqs[0].buffer_stager.stage_buffer())).cast("B")
+    for name, t in tensors.items():
+        start, end = entries[name].byte_range
+        assert bytes(mv[start:end]) == t.cpu().contiguous().view(torch.uint8).numpy().tobytes()
+
+
+def test_device_slab_mixed_host_device_members_split_slabs(gen):
+    from tpusnap_torch.batcher import BatchedBufferStager, DeviceBatchedBufferStager
+
+    tensors = {
+        "host0": torch.full((100,), 1, dtype=torch.uint8),
+        "dev0": torch.arange(25, dtype=torch.float32, device="cuda"),
+        "host1": torch.full((100,), 2, dtype=torch.uint8),
+        "dev1": torch.arange(25, dtype=torch.float32, device="cuda"),
+    }
+    _, reqs = _batched(tensors)
+    assert {type(r.buffer_stager) for r in reqs} == {BatchedBufferStager, DeviceBatchedBufferStager}
+    assert len(reqs) == 2
+
+
+def test_device_slab_batching_disabled_knob(gen):
+    from tpusnap_torch.batcher import BatchedBufferStager
+    from tpusnap_torch.knobs import override_device_batching_disabled
+
+    tensors = {f"a{i}": torch.arange(16, dtype=torch.float32, device="cuda") for i in range(4)}
+    with override_device_batching_disabled(True):
+        _, reqs = _batched(tensors)
+    assert len(reqs) == 1
+    assert isinstance(reqs[0].buffer_stager, BatchedBufferStager)
+
+
+def test_device_slab_snapshot_roundtrip(gen, tmp_path):
+    """End to end: small CUDA tensors packed on the card beside a larger
+    one, restored bit for bit in place."""
+    state = {
+        "dense": torch.randn((8, 8), generator=gen, device="cuda"),
+        "small_a": torch.arange(10, device="cuda").to(torch.bfloat16),
+        "small_b": torch.arange(20, dtype=torch.int8, device="cuda"),
+    }
+    snap = Snapshot.take(str(tmp_path / "snap"), {"m": StateDict(state)})
+    manifest = snap.get_manifest()
+    assert manifest["0/m/small_a"].location.startswith("batched/")
+    targets = StateDict({k: torch.zeros_like(v) for k, v in state.items()})
+    Snapshot(str(tmp_path / "snap")).restore({"m": targets})
+    for k, v in state.items():
+        assert targets[k].is_cuda and torch.equal(targets[k], v), k
+
+
+def test_advice_leaves_cuda_and_pinned_tensors_alone(gen, monkeypatch):
+    """``advise_hugepages`` gives no advice on device memory or on
+    CUDA's pinned host memory, and advises a pageable tensor."""
+    from tpusnap_torch import _native
+
+    calls = []
+    monkeypatch.setattr(_native, "_libc", type("L", (), {"madvise": lambda self, *a: calls.append(a)})())
+    monkeypatch.setattr(_native, "_libc_failed", False)
+    _native.advise_hugepages(torch.empty(8 << 20, dtype=torch.uint8, device="cuda"))
+    _native.advise_hugepages(torch.empty(8 << 20, dtype=torch.uint8, pin_memory=True))
+    assert calls == []
+    _native.advise_hugepages(torch.empty(8 << 20, dtype=torch.uint8))
+    assert len(calls) == 1
+
+
 @pytest.mark.parametrize("shape", [(4, 4), None], ids=["other_shape", "same_shape"])
 def test_compressed_budget_tiled_restore_into_cuda_target(gen, tmp_path, monkeypatch, shape):
     """A compressed blob read under a budget into a CUDA target: each tile

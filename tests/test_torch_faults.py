@@ -446,7 +446,8 @@ def test_chaos_async_take_roundtrip(tmp_path):
 
 def test_chaos_composition_keeps_in_place_reads(tmp_path):
     """Retrying(Instrumented(FaultInjection(fs))) for chaos+fs://,
-    Instrumented(fs) for a plain path: both still read in place."""
+    Retrying(Instrumented(fs)) for a plain path, as tpusnap composes
+    them: both still read in place."""
     from tpusnap_torch.storage_plugin import InstrumentedStoragePlugin, url_to_storage_plugin
 
     chaos = url_to_storage_plugin(f"chaos+fs://{tmp_path}/a", {"fault_plan": FaultPlan()})
@@ -455,7 +456,9 @@ def test_chaos_composition_keeps_in_place_reads(tmp_path):
     assert isinstance(chaos.inner.inner, FaultInjectionStoragePlugin)
     assert isinstance(chaos.inner.inner.inner, FSStoragePlugin)
     plain = url_to_storage_plugin(str(tmp_path / "b"))
-    assert isinstance(plain, InstrumentedStoragePlugin)
+    assert isinstance(plain, RetryingStoragePlugin)
+    assert isinstance(plain.inner, InstrumentedStoragePlugin)
+    assert isinstance(plain.inner.inner, FSStoragePlugin)
     for plugin in (chaos, plain):
         assert plugin.supports_in_place_reads
         assert plugin.in_place_read_overhead_bytes(1 << 30) == FSStoragePlugin(

@@ -110,3 +110,17 @@ def test_memoryview_stream():
     assert s.readinto(buf) == 256
     assert bytes(buf[:256]) == data
     assert len(s) == 256
+
+
+@pytest.mark.parametrize("nbytes", [0, 8, 12, 20], ids=["empty", "half", "short", "long"])
+def test_wrong_size_buffer_refused_like_tpusnap(nbytes):
+    """A buffer that is not exactly the tensor's bytes (a truncated blob
+    read with checksums off) raises ValueError in both packages, never a
+    tensor over garbage."""
+    from tpusnap.serialization import array_from_memoryview
+
+    mv = memoryview(bytes(range(nbytes)))
+    with pytest.raises(ValueError):
+        array_from_memoryview(mv, "float32", (4,))
+    with pytest.raises(ValueError):
+        tensor_from_memoryview(mv, "float32", (4,))

@@ -23,6 +23,7 @@ import threading
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
 logger = logging.getLogger(__name__)
 
@@ -262,12 +263,93 @@ def _ptr(buf) -> Tuple[int, np.ndarray]:
     return arr.ctypes.data, arr
 
 
+_MADV_HUGEPAGE = 14
+_PAGE = 4096
+_HUGEPAGE_MIN_BYTES = 4 << 20
+_libc: Optional[ctypes.CDLL] = None
+_libc_failed = False
+
+
+def _span(buf) -> Tuple[int, int]:
+    """(address, nbytes) of a host buffer the advice may touch; (0, 0)
+    for one it must leave alone."""
+    if isinstance(buf, torch.Tensor):
+        nbytes = buf.numel() * buf.element_size()
+        if buf.device.type != "cpu" or nbytes < _HUGEPAGE_MIN_BYTES:
+            return 0, 0
+        # Pinned memory belongs to CUDA's caching host allocator.
+        if buf.is_pinned():
+            return 0, 0
+        return buf.data_ptr(), nbytes
+    if isinstance(buf, np.ndarray):
+        # Any dtype, also those without the buffer protocol.
+        return buf.ctypes.data, buf.nbytes
+    mv = memoryview(buf)
+    if mv.nbytes == 0:
+        return 0, 0
+    return _ptr(mv)[0], mv.nbytes
+
+
+def advise_hugepages(buf) -> None:
+    """Best-effort ``madvise(MADV_HUGEPAGE)`` on a host buffer's pages.
+
+    A fresh destination the port allocates itself (read scratch, slabs,
+    staging buffers, tiled-read, compressed, chunk and shard
+    destinations, owning copies) otherwise faults 4 KiB at a time on
+    first touch; advised, it can fault as 2 MiB pages where the kernel
+    offers anonymous transparent hugepages. Takes a numpy array of any
+    dtype, a CPU ``torch.Tensor`` or any buffer. Buffers under 4 MiB,
+    empty ones, CUDA tensors and pinned tensors are left alone, and only
+    whole pages inside the buffer are advised. Purely advisory: a failed
+    call changes nothing and raises nothing."""
+    global _libc, _libc_failed
+    if _libc_failed:
+        return
+    if _libc is None:
+        try:
+            lc = ctypes.CDLL(None, use_errno=True)
+            lc.madvise.argtypes = [ctypes.c_void_p, ctypes.c_size_t, ctypes.c_int]
+            lc.madvise.restype = ctypes.c_int
+            _libc = lc
+        except (OSError, AttributeError):
+            # Only a missing libc or symbol disables the advice for the
+            # process; an odd buffer below must not.
+            _libc_failed = True
+            return
+    try:
+        addr, nbytes = _span(buf)
+    except (TypeError, ValueError, RuntimeError):
+        return
+    if nbytes < _HUGEPAGE_MIN_BYTES:
+        return
+    start = (addr + _PAGE - 1) & ~(_PAGE - 1)
+    end = (addr + nbytes) & ~(_PAGE - 1)
+    if end > start:
+        _libc.madvise(start, end - start, _MADV_HUGEPAGE)
+
+
+def empty_advised(shape, dtype):
+    """An uninitialized host buffer advised before its first touch: a
+    numpy array for a numpy dtype, a CPU ``torch.Tensor`` for a
+    ``torch.dtype``. The allocation for every large fresh destination
+    the port creates itself."""
+    if isinstance(dtype, torch.dtype):
+        out = torch.empty(tuple(shape), dtype=dtype)
+    else:
+        out = np.empty(shape, dtype=dtype)
+    advise_hugepages(out)
+    return out
+
+
 def aligned_empty(nbytes: int, align: int = 4096) -> np.ndarray:
     """Uninitialized uint8 buffer whose data pointer is ``align``-aligned,
-    so the O_DIRECT writer and reader use it without a bounce copy."""
+    so the O_DIRECT writer and reader use it without a bounce copy.
+    Large buffers are advised (``advise_hugepages``) before first touch."""
     raw = np.empty(nbytes + align, dtype=np.uint8)
     off = (-raw.ctypes.data) % align
-    return raw[off : off + nbytes]
+    out = raw[off : off + nbytes]
+    advise_hugepages(out)
+    return out
 
 
 def write_file(path: str, buf) -> None:
@@ -733,6 +815,15 @@ class CompressionError(IOError):
 
 def compression_available() -> bool:
     return _load() is not None
+
+
+def compress_bound(n: int, tile_nbytes: int) -> int:
+    """Destination capacity ``compress_tiles`` requires (per-tile
+    worst-case slots, the native side's formula)."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("native library unavailable: cannot compress")
+    return int(lib.ts_compress_bound(n, tile_nbytes))
 
 
 def compress_tiles(buf, tile_nbytes: int, elem: int, want_xxh: bool, nthreads: int = 4):

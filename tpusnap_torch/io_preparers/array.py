@@ -942,7 +942,11 @@ def finalize_into_target(
     if isinstance(obj_out, torch.Tensor) and obj_out.is_pinned():
         pinned = torch.empty(tuple(host.shape), dtype=host.dtype, pin_memory=True)
         return pinned.copy_(host)
-    return host if owns_memory else host.clone()
+    if owns_memory:
+        return host
+    # The owning copy is advised before its first touch, as tpusnap's
+    # ``_owning_copy``: a multi-GB clone would fault 4 KiB at a time.
+    return _native.empty_advised(host.shape, host.dtype).copy_(host)
 
 
 def writable_byte_view(
@@ -1146,7 +1150,7 @@ class ArrayIOPreparer:
         host_out = (
             obj_out
             if in_place or on_card
-            else torch.empty(tuple(shape), dtype=string_to_dtype(entry.dtype))
+            else _native.empty_advised(shape, string_to_dtype(entry.dtype))
         )
         base_offset = entry.byte_range[0] if entry.byte_range is not None else 0
         n_tiles = math.ceil(n_rows / rows_per_tile)
@@ -1286,8 +1290,8 @@ class _CompressedDestination:
                 self.device_bytes = tensor_as_bytes(obj_out)
                 self.in_place = True
             else:
-                self.host_out = torch.empty(
-                    tuple(entry.shape), dtype=string_to_dtype(entry.dtype)
+                self.host_out = _native.empty_advised(
+                    entry.shape, string_to_dtype(entry.dtype)
                 )
                 if self.host_out.numel():
                     self.host_mv = memoryview(tensor_as_bytes(self.host_out).numpy())

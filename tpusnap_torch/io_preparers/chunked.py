@@ -29,6 +29,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
+from .. import _native
 from ..io_types import BufferConsumer, BufferType, Future, ReadReq, WriteReq
 from ..knobs import get_max_chunk_size_bytes
 from ..manifest import Chunk, ChunkedTensorEntry, TensorEntry
@@ -230,7 +231,9 @@ class ChunkedArrayIOPreparer:
             and list(obj_out.shape) == list(entry.shape)
             and obj_out.is_contiguous()
         )
-        dest = obj_out if in_place else torch.empty(tuple(entry.shape), dtype=torch_dtype)
+        # Chunked entries are above the chunk size by construction: a fresh
+        # destination is advised before its first touch.
+        dest = obj_out if in_place else _native.empty_advised(entry.shape, torch_dtype)
         ready = _record_ready(obj_out) if isinstance(obj_out, torch.Tensor) else None
         remaining = {"count": len(entry.chunks)}
         read_reqs: List[ReadReq] = []

@@ -364,8 +364,10 @@ class _Piece:
         if buf is None:
             with self._alloc_lock:
                 if self._buf is None:
-                    self._buf = torch.empty(
-                        tuple(self.sizes), dtype=self._dtype, pin_memory=self._pinned
+                    self._buf = (
+                        torch.empty(tuple(self.sizes), dtype=self._dtype, pin_memory=True)
+                        if self._pinned
+                        else _native.empty_advised(self.sizes, self._dtype)
                     )
                 buf = self._buf
         return buf

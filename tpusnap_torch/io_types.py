@@ -384,3 +384,13 @@ def _run(coro, event_loop: Optional[asyncio.AbstractEventLoop]):
     if event_loop is not None:
         return run_on_loop(event_loop, coro)
     return asyncio.run(coro)
+
+
+def read_io_bytes(read_io: ReadIO) -> memoryview:
+    """The bytes a plugin filled into a ReadIO."""
+    return read_io.buf.getbuffer()
+
+
+def total_write_bytes(write_ios: List[WriteIO]) -> int:
+    """Bytes the WriteIOs carry (a typed memoryview counts its bytes)."""
+    return sum(memoryview(w.buf).nbytes for w in write_ios)

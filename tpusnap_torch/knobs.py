@@ -781,6 +781,10 @@ def override_checksum_disabled(disabled: bool):
     return _override_env(_DISABLE_CHECKSUM_ENV_VAR, "1" if disabled else "0")
 
 
+def override_direct_io_disabled(disabled: bool):
+    return _override_env(_DISABLE_DIRECT_IO_ENV_VAR, "1" if disabled else "0")
+
+
 def override_barrier_timeout_s(seconds: float):
     return _override_env(_BARRIER_TIMEOUT_ENV_VAR, str(seconds))
 
@@ -833,10 +837,18 @@ def override_liveness(ttl_s: Optional[float] = None, policy: Optional[str] = Non
         yield
 
 
+def override_delta_cadence_s(seconds: float):
+    return _override_env(_DELTA_CADENCE_ENV_VAR, str(seconds))
+
+
 @contextlib.contextmanager
 def override_delta_max_chain(n: int) -> Generator[None, None, None]:
     with _override_env(_DELTA_MAX_CHAIN_ENV_VAR, str(n)):
         yield
+
+
+def override_tier_drain(enabled: bool):
+    return _override_env(_TIER_DRAIN_ENV_VAR, "1" if enabled else "0")
 
 
 @contextlib.contextmanager

@@ -85,3 +85,30 @@ def measure_rss_deltas(
         yield
     finally:
         sampler.stop()
+
+
+def mapping_of(addr: int) -> Optional[dict]:
+    """The mapping of this process that holds ``addr``, read from
+    ``/proc/self/smaps``: its ``start`` and ``end``, its ``vm_flags``
+    (``hg`` once the range was advised for transparent hugepages) and
+    its ``anon_huge_kb`` (``AnonHugePages``). None without procfs or
+    when no mapping holds the address."""
+    found: Optional[dict] = None
+    try:
+        with open("/proc/self/smaps") as f:
+            for line in f:
+                head = line.split(None, 1)[0]
+                if "-" in head and not head.endswith(":"):
+                    if found is not None:
+                        break
+                    lo, hi = (int(x, 16) for x in head.split("-"))
+                    if lo <= addr < hi:
+                        found = {"start": lo, "end": hi, "vm_flags": [], "anon_huge_kb": 0}
+                elif found is not None:
+                    if head == "AnonHugePages:":
+                        found["anon_huge_kb"] = int(line.split()[1])
+                    elif head == "VmFlags:":
+                        found["vm_flags"] = line.split()[1:]
+    except (OSError, ValueError):
+        return None
+    return found

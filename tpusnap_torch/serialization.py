@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import pickle
 from enum import Enum
-from typing import Any, Sequence
+from typing import Any, Sequence, Tuple
 
 import torch
 
@@ -105,7 +105,15 @@ def tensor_from_memoryview(
     buffer yields a tensor that must not be written."""
     torch_dtype = string_to_dtype(dtype)
     mv = memoryview(mv)
-    if mv.nbytes == 0:
+    nbytes = tensor_nbytes(dtype, shape)
+    if mv.nbytes != nbytes:
+        # A truncated blob (read with checksums off) must not come back
+        # as a tensor: tpusnap's reshape raises ValueError here too.
+        raise ValueError(
+            f"a buffer of {mv.nbytes} bytes cannot hold a {dtype} tensor of "
+            f"shape {list(shape)} ({nbytes} bytes)"
+        )
+    if nbytes == 0:
         return torch.empty(tuple(shape), dtype=torch_dtype)
     if mv.readonly:
         # torch.frombuffer needs a writable buffer; read-only inputs are
@@ -126,3 +134,8 @@ def pickle_as_bytes(obj: Any) -> bytes:
 
 def pickle_from_bytes(buf: bytes) -> Any:
     return pickle.loads(buf)
+
+
+def per_element_sizes() -> Tuple[str, ...]:
+    """Every supported dtype string, in the canonical table's order."""
+    return tuple(SUPPORTED_DTYPES)

@@ -12,8 +12,7 @@ tpusnap's order:
 - ``InstrumentedStoragePlugin`` times every payload write, read, delete
   and listing into the I/O histograms (``telemetry.observe_io``);
 - the whole-op retry layer (``retry``) wraps chaos URLs and the plugins
-  that ask for it (s3, fsspec; gcs retries per chunk itself). The local
-  filesystem takes none unless under chaos;
+  that ask for it (fs, s3, fsspec; gcs retries per chunk itself);
 - ``tier+local=<dir>+remote=<url>://`` builds the write-back tier
   (``tiering``), each tier with its own layers;
 - ``cas+<scheme>://``, or a plain ``fs`` path while ``TPUSNAP_CAS_DIR``

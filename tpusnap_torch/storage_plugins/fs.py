@@ -38,6 +38,10 @@ def _fsync_path(path: str) -> None:
 
 class FSStoragePlugin(StoragePlugin):
     supports_in_place_reads = True
+    # Whole-op retry middleware (``retry``) wraps this plugin when it is
+    # built from a URL, as tpusnap's: local filesystems rarely throw
+    # transient errors, but network mounts (NFS/FUSE) and chaos runs do.
+    wants_retry_middleware = True
 
     def __init__(self, root: str, storage_options=None) -> None:
         self.root = root

@@ -39,11 +39,83 @@ import subprocess
 import sys
 import tempfile
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _NO_GROUP_ENV = "TPUSNAP_TORCH_TEST_NO_GROUP"
 _MODULE_DIR_ENV = "TPUSNAP_TORCH_TEST_MODULE_DIR"
+# numpy has no bf16 or fp8: ``rand_array`` casts their float64 draw in torch.
+_NON_NUMPY_FLOATS = ("bfloat16", "float8_e4m3fn", "float8_e5m2")
+
+
+def rand_array(dtype_str: str, shape=(16, 9), seed: int = 0):
+    """Random CPU tensor of any supported dtype string with full bit
+    diversity, from the same numpy draw as tpusnap's ``rand_array`` for
+    the same seed: normal floats, both parts of complex values, 0/1 for
+    bool, uniform bytes for integers."""
+    import numpy as np
+    import torch
+
+    from .serialization import string_to_dtype
+
+    rng = np.random.default_rng(seed)
+    if dtype_str in _NON_NUMPY_FLOATS:
+        return torch.from_numpy(rng.standard_normal(shape)).to(string_to_dtype(dtype_str))
+    string_to_dtype(dtype_str)  # refuses an unsupported string
+    dtype = np.dtype(dtype_str)
+    if dtype_str == "bool":
+        arr = rng.integers(0, 2, size=shape).astype(bool)
+    elif dtype_str.startswith("float"):
+        arr = rng.standard_normal(shape).astype(dtype)
+    elif dtype_str.startswith("complex"):
+        arr = (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).astype(dtype)
+    else:
+        raw = rng.integers(0, 256, size=(*shape, dtype.itemsize), dtype=np.uint8)
+        arr = raw.view(dtype).reshape(*shape, -1)[..., 0].copy()
+    return torch.from_numpy(arr)
+
+
+def _is_node(x: Any) -> bool:
+    return x is None or isinstance(x, (dict, list, tuple))
+
+
+def check_state_dict_eq(a: Any, b: Any) -> bool:
+    """Deep equality over nested state, nested as tpusnap's does: dicts
+    by key (an ordered dict by key order), lists and tuples by type and
+    length, None as an empty node. Tensors (and numpy arrays) are equal
+    when dtype, shape and every byte are (``torch.equal`` over their
+    bytes, so a NaN equals the same NaN); other leaves by ``==``."""
+    import collections
+
+    import numpy as np
+    import torch
+
+    if _is_node(a) or _is_node(b):
+        if type(a) is not type(b):
+            return False
+        if isinstance(a, dict):
+            ka, kb = list(a), list(b)
+            if not isinstance(a, collections.OrderedDict):
+                ka, kb = sorted(ka, key=repr), sorted(kb, key=repr)
+            return ka == kb and all(check_state_dict_eq(a[k], b[k]) for k in ka)
+        if a is None:
+            return True
+        return len(a) == len(b) and all(check_state_dict_eq(x, y) for x, y in zip(a, b))
+    if isinstance(a, (torch.Tensor, np.ndarray)) or isinstance(b, (torch.Tensor, np.ndarray)):
+        if not (isinstance(a, (torch.Tensor, np.ndarray)) and isinstance(b, (torch.Tensor, np.ndarray))):
+            return False
+        ta, tb = (
+            torch.from_numpy(np.ascontiguousarray(x)) if isinstance(x, np.ndarray)
+            else x.detach().cpu()
+            for x in (a, b)
+        )
+        if ta.dtype != tb.dtype or ta.shape != tb.shape:
+            return False
+        return torch.equal(
+            ta.contiguous().reshape(-1).view(torch.uint8),
+            tb.contiguous().reshape(-1).view(torch.uint8),
+        )
+    return bool(a == b)
 
 
 def find_free_port() -> int:
