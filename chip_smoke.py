@@ -398,6 +398,11 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
 SLICE_SHAPE = (8, 1024, 8, 64)
 # One rank's block of it when two ranks split the sequence (the ring phase).
 RING_BLOCK_SHAPE = (8, 512, 8, 64)
+# Relative (Frobenius) error allowed between SDPA's flash backward on one
+# ring block and ``block_grads``, before its time stands as the library's:
+# it returns bf16 gradients from P and dS in bf16 (about 2**-8), while a
+# wrong mask or lse moves them by order 1.
+LIBRARY_GRADS_RTOL = 1e-2
 TRAIN_STEPS = 5
 SEED = 0
 
@@ -486,11 +491,19 @@ def attention_flops(shape, causal: bool) -> int:
 def _kernel_label(mangled: str) -> str:
     """``wgmma<bf16,64>``-style label of a mangled kernel name: ``wgmma`` and
     ``simt`` for the flash kernels, ``ring_wgmma`` and ``ring_simt`` for the
-    ring block kernels (their source file's name is in every mangled name
-    of that file, so the kernel's own name is matched with its template
-    arguments' ``I``)."""
+    ring block kernels, ``ring_grads_wgmma`` and ``ring_grads_simt`` for the
+    backward block kernels with ``dkv`` or ``dq`` last (their source file's
+    name is in every mangled name of that file, so the kernel's own name is
+    matched with its template arguments' ``I``)."""
     import re
 
+    if "ring_grads_wgmmaI" in mangled or "ring_grads_simtI" in mangled:
+        kind = "ring_grads_wgmma" if "ring_grads_wgmmaI" in mangled else "ring_grads_simt"
+        dtype = ("bf16" if "__nv_bfloat16" in mangled else "f16" if "6__half" in mangled
+                 else "f32")
+        dim = re.search(r"Li(\d+)E", mangled)
+        part = "dq" if "Lb1E" in mangled else "dkv"
+        return f"{kind}<{dtype},{dim.group(1) if dim else '?'},{part}>"
     if "ring_block_wgmmaI" in mangled:
         kind = "ring_wgmma"
     elif "ring_block_simtI" in mangled:
@@ -554,8 +567,10 @@ def phase_build() -> dict:
     if _native.checksum_algorithm() != "crc32c":
         raise RuntimeError("native build missing: checksums would not be crc32c")
     hgmma = _hgmma_counts(fa._SO, fa._nvcc())
+    grads = [f"ring_grads_wgmma<{t},{d},{part}>" for t in ("bf16", "f16") for d in (64, 128)
+             for part in ("dkv", "dq")]
     for label in ("wgmma<bf16,64>", "ring_wgmma<bf16,64>", "ring_wgmma<bf16,128>",
-                  "ring_wgmma<f16,64>", "ring_wgmma<f16,128>"):
+                  "ring_wgmma<f16,64>", "ring_wgmma<f16,128>", *grads):
         row = ptxas.get(label)
         if not row or row.get("spill_stores", 1) or row.get("spill_loads", 1):
             raise AssertionError(f"the kernel {label} spills or is missing: {row}")
@@ -677,6 +692,7 @@ def phase_kernels() -> dict:
         "ring_block_attend": ring_row,
         "ring_of_one_forward": _ring_of_one_forward(gen),
         "ring_backward_block": _ring_backward_block(gen),
+        "flash_backward": _flash_backward(gen),
         "bitwise_repeat": True,
         "flash_attention_fwd": {
             "shape": list(SLICE_SHAPE), "dtype": "bfloat16", "causal": True,
@@ -915,91 +931,261 @@ def _ring_block_kernel_checks(gen):
 
 def ring_backward_bound(shape, dtype: str, pairs: int):
     """(least ms, "bytes" or "operations") for one K/V block's share of
-    attention's gradients (``block_grads``) at ``shape``: the larger of the
-    bytes (q, k, v and dO read once in the inputs' type, lse and delta read
-    once in f32, dq, dk and dv written once in f32) over HBM and the
-    operations of the ``pairs`` (query, key) pairs the mask keeps (S = Q K^T,
-    dV = P^T dO, dO V^T, dQ = dS K and dK = dS^T Q: 2 per multiply-add)
-    over the peak rate of the inputs' type."""
+    attention's gradients added into the ring's accumulators
+    (``attend_block_grads``) at ``shape``: the larger of the bytes (q, k, v
+    and dO read once in the inputs' type, lse and delta read once in f32,
+    the f32 accumulators dq, dk and dv read once and written once) over HBM
+    and the operations of the ``pairs`` (query, key) pairs the mask keeps
+    (S = Q K^T, dV = P^T dO, dO V^T, dQ = dS K and dK = dS^T Q: 2 per
+    multiply-add) over the peak rate of the inputs' type."""
     b, s, h, d = shape
     itemsize = {"bfloat16": 2, "float16": 2, "float32": 4}[dtype]
-    nbytes = 4 * b * s * h * d * itemsize + 2 * b * h * s * 4 + 3 * b * s * h * d * 4
+    nbytes = 4 * b * s * h * d * itemsize + 2 * b * h * s * 4 + 2 * 3 * b * s * h * d * 4
     bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
     ops_ms = 1e3 * 10 * b * h * d * pairs / PEAK_FLOPS[dtype]
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
 def _ring_backward_block(gen) -> dict:
-    """The ring's backward across ranks for one block: ``block_grads``
-    (plain PyTorch, f32; no kernel of its own, as tpusnap's is XLA
-    autodiff) at the flagship's ring block (8, 512, 8, 64) bf16, the
-    diagonal block (offsets 512, 512) causal, with lse and delta from that
-    block alone, so its gradients are attention's on the block. Held per
-    element against autograd of f32 attention on the same inputs, and
-    against ``F.scaled_dot_product_attention``'s backward; timed warm and
-    with the L2 flushed (CUDA-graph replays), beside SDPA's backward
-    (``torch.autograd.grad`` of ``is_causal=True`` on the block) and the
-    bound."""
+    """The ring's backward block kernel (``attend_block_grads``) against its
+    plain version (``block_grads`` followed by the three adds) on the
+    card, per element within ``ring_attention.grads_rounding_bound`` (u of
+    the input type for P and dS rounded before the second-stage products,
+    ``_F32_SLACK`` of their terms, 1e-6), into random non-zero f32
+    accumulators: the flagship's ring block (8, 512, 8, 64) bf16 as q, k, v
+    head-split views of a fused qkv, its diagonal and past blocks with the
+    lse and delta of rows that see both; non-causal bf16 (2, 300, 3, 64);
+    f16 at d = 128 with offsets that cut tiles; an odd length (1, 200, 4,
+    40) bf16; f32 (simt); a bf16 base one element past a 16-byte boundary
+    (simt). Each call one launch on its route; a future block skipped
+    without one, the accumulators left bit for bit; two launches on the
+    same inputs bitwise equal. Then the plain version held against autograd
+    of f32 attention on the diagonal block (lse and delta from that block
+    alone, so its gradients are attention's on the block), and the kernel
+    timed warm and with the L2 flushed (CUDA-graph replays) on the
+    diagonal and past blocks, beside the plain version, the bound and the
+    library call: SDPA's flash backward op given the whole rows' output
+    and lse (one call per block, ``is_causal`` on the diagonal only), held
+    against ``block_grads`` within ``LIBRARY_GRADS_RTOL`` first."""
     import importlib
 
     import torch
     import torch.nn.functional as F
 
     ra = importlib.import_module("tpusnap_torch.ops.ring_attention")
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
     b, s, h, d = RING_BLOCK_SHAPE
+    cases = [
+        # shape, dtype, q_offset, k_offset, causal, qkv views, misaligned, route
+        (RING_BLOCK_SHAPE, bf16, s, s, True, True, False, "wgmma"),
+        (RING_BLOCK_SHAPE, bf16, s, 0, True, True, False, "wgmma"),
+        (RING_BLOCK_SHAPE, bf16, 0, s, True, True, False, "skipped"),  # future
+        ((2, 300, 3, 64), bf16, 0, 0, False, False, False, "wgmma"),
+        ((2, 200, 3, 128), f16, 100, 164, True, False, False, "wgmma"),
+        ((1, 200, 4, 40), bf16, 200, 200, True, False, False, "wgmma"),
+        ((1, 130, 2, 64), f32, 130, 130, True, False, False, "simt"),
+        ((2, 130, 2, 128), f32, 0, 0, False, False, False, "simt"),
+        ((1, 200, 4, 64), bf16, 200, 200, True, True, True, "simt"),
+    ]
+    checks = []
+    for shape, dtype, q_off, k_off, causal, views, misalign, route in cases:
+        if views:
+            q, k, v = _qkv_views(shape, dtype, gen, misalign)
+        else:
+            q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                       for _ in range(3))
+        do = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        scale = shape[-1] ** -0.5
+        lse, delta, _ = ra.row_stats(q, k, v, do, q_off, q_off if route == "skipped" else k_off,
+                                     scale, causal)
+        acc = [torch.randn(shape, generator=gen, device="cuda") for _ in range(3)]
+        got = [t.clone() for t in acc]
+        routes0, skips0 = dict(ra.backward_route_launches), ra.backward_skips
+        with torch.no_grad():
+            ra.attend_block_grads(q, k, v, do, lse, delta, *got, q_off, k_off, scale, causal)
+            torch.cuda.synchronize()
+            moved = {r: ra.backward_route_launches[r] - routes0[r] for r in routes0}
+            if route == "skipped":
+                if ra.backward_skips != skips0 + 1 or any(moved.values()):
+                    raise AssertionError(f"a future backward block launched: {moved}")
+                if not all(torch.equal(a, c) for a, c in zip(got, acc)):
+                    raise AssertionError("a future backward block changed the accumulators")
+                checks.append({"shape": list(shape), "q_offset": q_off, "k_offset": k_off,
+                               "route": route})
+                continue
+            if moved != {r: int(r == route) for r in moved}:
+                raise AssertionError(f"backward block: expected one {route} launch, got {moved}")
+            grads = ra.block_grads(q, k, v, do, lse, delta, q_off, k_off, scale, causal)
+            want = [a + g for a, g in zip(acc, grads)]
+            bounds = ra.grads_rounding_bound(q, k, v, do, lse, delta, want, q_off, k_off, scale,
+                                             causal)
+        errs, worst = {}, 0.0
+        for name, g, w, bound in zip(("dq", "dk", "dv"), got, want, bounds):
+            diff = (g - w).abs()
+            errs[name] = diff.max().item()
+            worst = max(worst, (diff / bound).max().item())
+        if not worst <= 1.0:
+            raise AssertionError(
+                f"backward block kernel ({route}) disagrees with its plain version at {shape} "
+                f"{dtype} offsets ({q_off}, {k_off}) causal={causal}: max |err| {errs}, {worst}x "
+                f"the allowed bound"
+            )
+        checks.append({"shape": list(shape), "dtype": str(dtype).split(".")[-1],
+                       "q_offset": q_off, "k_offset": k_off, "causal": causal, "route": route,
+                       "max_abs_err": errs, "worst_err_over_bound": worst})
+
+    # The flagship's ring block: bitwise repeats, then the plain version's
+    # own check and the times.
     scale = d**-0.5
-    q, k, v = _qkv_views(RING_BLOCK_SHAPE, torch.bfloat16, gen)
-    do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    q, k, v = _qkv_views(RING_BLOCK_SHAPE, bf16, gen)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(bf16)
+    # Rows that see the past block (K/V at 0) and their diagonal one (the
+    # same K/V at s): the lse, delta and output both blocks' steps use.
+    lse2, delta2, out2 = ra.row_stats(q, k, v, do, s, 0, scale, True)
+    acc = [torch.randn(q.shape, generator=gen, device="cuda") for _ in range(3)]
     with torch.no_grad():
-        m, l, o = ra.block_attend(q, k, v, *ra._init_carry(q), s, s, scale, True)
-        # delta from the f32 output (the ring saves it in q's type; in f32
-        # the gradients are exactly attention's, which the checks compare).
-        out = ra._finish(l, o, torch.float32)
-        lse = m + torch.log(l)
-        delta = (do.float() * out).sum(-1).transpose(1, 2)  # [b, h, sq]
-        got = ra.block_grads(q, k, v, do, lse, delta, s, s, scale, True)
+        first, second = [t.clone() for t in acc], [t.clone() for t in acc]
+        ra.attend_block_grads(q, k, v, do, lse2, delta2, *first, s, s, scale, True)
+        ra.attend_block_grads(q, k, v, do, lse2, delta2, *second, s, s, scale, True)
+        if not all(torch.equal(x, y) for x, y in zip(first, second)):
+            raise AssertionError("two backward block launches on the same inputs differ")
+        # lse and delta of the diagonal block alone: in f32 its gradients
+        # are exactly attention's on the block, which autograd gives.
+        lse, delta, _ = ra.row_stats(q, k, v, do, s, s, scale, True)
+        plain_grads = ra.block_grads(q, k, v, do, lse, delta, s, s, scale, True)
     qf, kf, vf = (t.detach().float().transpose(1, 2).requires_grad_() for t in (q, k, v))
     ref_out = F.scaled_dot_product_attention(qf, kf, vf, is_causal=True, scale=scale)
     want = torch.autograd.grad(ref_out, (qf, kf, vf), do.float().transpose(1, 2))
-    qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v))
-    dot = do.transpose(1, 2)
-    lib_fwd = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,  # noqa: E731
-                                                     scale=scale)
-    # Forward and backward in one callable: captured whole in a CUDA graph,
-    # as PyTorch's whole-network capture does; the forward's own time is
-    # taken off.
-    lib_both = lambda: torch.autograd.grad(lib_fwd(), (qt, kt, vt), dot)  # noqa: E731
-    lib = lib_both()
-    errs, lib_errs = {}, {}
-    for name, g, w, li in zip(("dq", "dk", "dv"), got, want, lib):
+    plain_errs = {}
+    for name, g, w in zip(("dq", "dk", "dv"), plain_grads, want):
         w = w.transpose(1, 2)
-        errs[name] = (g - w).abs().max().item()
-        lib_errs[name] = (li.float().transpose(1, 2) - w).abs().max().item()
+        plain_errs[name] = (g - w).abs().max().item()
         # Both sides are f32 over the same bf16 inputs: only the order of
         # the sums differs.
         allowed = 1e-4 * w.abs().max().item() + 1e-6
-        if not errs[name] <= allowed:
-            raise AssertionError(f"block_grads {name}: max |err| {errs[name]} against f32 "
+        if not plain_errs[name] <= allowed:
+            raise AssertionError(f"block_grads {name}: max |err| {plain_errs[name]} against f32 "
                                  f"autograd, allowed {allowed}")
+    # The library call: SDPA's flash backward op, which takes the output
+    # and lse of whole rows, so one call is one block's dq, dk and dv
+    # (returned, not added): is_causal for the diagonal block, not for a
+    # past one. It computes delta from the output in bf16, as the ring
+    # saves it.
+    qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
+    out_t = out2.to(bf16).transpose(1, 2)
+    meta = torch.ops.aten._scaled_dot_product_flash_attention(qt, kt, vt, 0.0, True, scale=scale)
+    flash_bwd = torch.ops.aten._scaled_dot_product_flash_attention_backward
     reps = 20
-    plain = lambda: ra.block_grads(q, k, v, do, lse, delta, s, s, scale, True)  # noqa: E731
+    blocks = {}
     with torch.no_grad():
-        ms, cold_ms = time_ms(plain, reps), time_ms_cold(plain, reps)
-    lib_both_ms, lib_fwd_ms = time_ms(lib_both, reps), time_ms(lib_fwd, reps)
-    lib_both_cold, lib_fwd_cold = time_ms_cold(lib_both, reps), time_ms_cold(lib_fwd, reps)
-    bound_ms, bound_by = ring_backward_bound(RING_BLOCK_SHAPE, "bfloat16", s * (s + 1) // 2)
+        for block, (k_off, pairs) in {"diagonal": (s, s * (s + 1) // 2),
+                                      "past": (0, s * s)}.items():
+            kernel = lambda: ra.attend_block_grads(  # noqa: E731
+                q, k, v, do, lse2, delta2, *acc, s, k_off, scale, True)
+            plain = lambda: [a.add_(g) for a, g in zip(  # noqa: E731
+                acc, ra.block_grads(q, k, v, do, lse2, delta2, s, k_off, scale, True))]
+            library = lambda: flash_bwd(  # noqa: E731
+                dot, qt, kt, vt, out_t, lse2, meta[2], meta[3], s, s, 0.0, k_off == s, meta[6],
+                meta[7], scale=scale)
+            # The library call's own check: the function the row times.
+            ref = ra.block_grads(q, k, v, do, lse2, delta2, s, k_off, scale, True)
+            lib_err = max(
+                ((g.float().transpose(1, 2) - r).norm() / r.norm()).item()
+                for g, r in zip(library(), ref)
+            )
+            if not lib_err <= LIBRARY_GRADS_RTOL:
+                raise AssertionError(f"SDPA's flash backward on the {block} block is not "
+                                     f"block_grads: relative error {lib_err}")
+            bound_ms, bound_by = ring_backward_bound(RING_BLOCK_SHAPE, "bfloat16", pairs)
+            cold = time_ms_cold(kernel, reps)
+            blocks[block] = {"ms": time_ms(kernel, reps), "cold_ms": cold,
+                             "plain_ms": time_ms(plain, reps),
+                             "plain_cold_ms": time_ms_cold(plain, reps),
+                             "library_ms": time_ms(library, reps),
+                             "library_cold_ms": time_ms_cold(library, reps),
+                             "library_rel_err": lib_err,
+                             "bound_ms": bound_ms, "bound_by": bound_by,
+                             "bound_share": bound_ms / cold}
+    diag = blocks["diagonal"]
+    flagship = [c for c in checks if c["shape"] == list(RING_BLOCK_SHAPE) and "max_abs_err" in c]
     return {
-        "shape": list(RING_BLOCK_SHAPE), "dtype": "bfloat16", "block": "diagonal",
-        "causal": True, "function": "ring_attention.block_grads (plain PyTorch, f32)",
-        "max_abs_err": errs, "library_max_abs_err": lib_errs,
-        "err_against": "torch.autograd.grad of f32 scaled_dot_product_attention",
-        "ms": ms, "cold_ms": cold_ms, "library_ms": lib_both_ms - lib_fwd_ms,
-        "library_cold_ms": lib_both_cold - lib_fwd_cold,
+        "shape": list(RING_BLOCK_SHAPE), "dtype": "bfloat16", "causal": True, "route": "wgmma",
+        "function": "ring_attention.attend_block_grads: one K/V block's dq, dk, dv added into "
+                    "the f32 accumulators",
+        "checks": checks,
+        "max_abs_err": max(max(c["max_abs_err"].values()) for c in flagship),
+        "worst_err_over_bound": max(c["worst_err_over_bound"] for c in checks
+                                    if "worst_err_over_bound" in c),
+        "bitwise_repeat": True,
+        "plain_max_abs_err": plain_errs,
+        "plain_err_against": "torch.autograd.grad of f32 scaled_dot_product_attention",
+        "blocks": blocks, "ms": diag["ms"], "cold_ms": diag["cold_ms"],
+        "ms_of": "the diagonal block (offsets 512, 512), causal",
+        "plain": "ring_attention.block_grads (plain PyTorch, f32) followed by the three adds",
+        "plain_ms": diag["plain_ms"], "plain_cold_ms": diag["plain_cold_ms"],
+        "library_ms": diag["library_ms"], "library_cold_ms": diag["library_cold_ms"],
+        "library": "aten._scaled_dot_product_flash_attention_backward with the whole rows' "
+                   "output (bf16) and lse, is_causal on the diagonal block only; returns the "
+                   "block's gradients in bf16",
+        "bound_ms": diag["bound_ms"], "bound_by": diag["bound_by"],
+        "bound_share": diag["bound_share"], "bound_share_from": "cold_ms", "timed_launches": reps,
+    }
+
+
+def flash_backward_bound(shape, dtype: str, causal: bool):
+    """(least ms, "bytes" or "operations") for flash attention's gradients
+    at ``shape``: the larger of the bytes (q, k, v and dO read once, dq, dk
+    and dv written once, all in the inputs' type) over HBM and the
+    operations of the pairs the mask keeps (S, dP, dV, dQ and dK, 2 per
+    multiply-add) over the peak rate of the inputs' type."""
+    b, s, h, d = shape
+    itemsize = {"bfloat16": 2, "float16": 2, "float32": 4}[dtype]
+    bytes_ms = 1e3 * 7 * b * s * h * d * itemsize / HBM_BYTES_PER_S
+    ops_ms = 1e3 * 2.5 * attention_flops(shape, causal) / PEAK_FLOPS[dtype]
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def _flash_backward(gen) -> dict:
+    """The flash kernel's backward (``_FlashAttention.backward``: autograd
+    of the plain version, recomputed from q, k and v, as tpusnap's
+    ``_flash_bwd`` is plain XLA) at the flagship's shape (8, 1024, 8, 64)
+    bf16 causal: the callable that backward runs, timed warm (CUDA-graph
+    replays), beside SDPA's backward on the same tensors (forward and
+    backward less the forward) and the bound. No kernel of its own yet:
+    the row lets the next port of a backward rank it."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpusnap_torch.ops import flash_attention as fa
+
+    q, k, v = (t.detach().requires_grad_() for t in _qkv_views(SLICE_SHAPE, torch.bfloat16, gen))
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    # What _FlashAttention.backward computes for a grad_out of do.
+    plain = lambda: torch.autograd.grad(  # noqa: E731
+        fa.flash_attention_reference(q, k, v, True), (q, k, v), do)
+    got = torch.autograd.grad(fa.flash_attention(q, k, v, causal=True), (q, k, v), do)
+    err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, plain()))
+    largest = max(w.float().abs().max().item() for w in plain())
+    if not err <= 2**-6 * largest:  # two bf16 ulps of the largest gradient
+        raise AssertionError(f"flash attention's backward is not its plain recompute: {err}")
+    qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v))
+    dot = do.transpose(1, 2)
+    lib_fwd = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)  # noqa: E731
+    lib_both = lambda: torch.autograd.grad(lib_fwd(), (qt, kt, vt), dot)  # noqa: E731
+    reps = 10
+    plain_ms = time_ms(plain, reps)
+    lib_both_ms, lib_fwd_ms = time_ms(lib_both, reps), time_ms(lib_fwd, reps)
+    bound_ms, bound_by = flash_backward_bound(SLICE_SHAPE, "bfloat16", True)
+    return {
+        "shape": list(SLICE_SHAPE), "dtype": "bfloat16", "causal": True,
+        "function": "_FlashAttention.backward: autograd of flash_attention_reference "
+                    "(plain PyTorch, recomputed)",
+        "plain_ms": plain_ms, "library_ms": lib_both_ms - lib_fwd_ms,
         "library_fwd_bwd_ms": lib_both_ms, "library_fwd_ms": lib_fwd_ms,
-        "library": "torch.autograd.grad of scaled_dot_product_attention(is_causal=True) "
-                   "on the block, bf16: forward and backward less the forward",
-        "bound_ms": bound_ms, "bound_by": bound_by, "bound_share": bound_ms / cold_ms,
-        "timed_launches": reps,
+        "library": "torch.autograd.grad of scaled_dot_product_attention(is_causal=True), "
+                   "forward and backward less the forward",
+        "bound_ms": bound_ms, "bound_by": bound_by, "timed_launches": reps,
+        "max_abs_err_kernel_path": err,
     }
 
 
@@ -3352,6 +3538,7 @@ def _ring_counts() -> dict:
     return {"ring_launches": ra.launches, "ring_routes": dict(ra.route_launches),
             "ring_modes": dict(ra.mode_launches), "ring_skips": ra.skips,
             "backward_steps": ra.backward_steps, "backward_skips": ra.backward_skips,
+            "backward_routes": dict(ra.backward_route_launches),
             "flash_launches": fa.launches, "flash_routes": dict(fa.route_launches)}
 
 
@@ -3529,7 +3716,8 @@ def phase_sharded_step(ctx: dict, workdir: str) -> dict:
     its step-1 loss within RING_LOSS_RTOL of a one-process ring-of-one
     model's on the whole batch and its gradients within SHARDED_GRAD_RTOL
     per leaf, the ring block kernel's launches by mode (all wgmma), the
-    backward's block steps, the ring's output under grad equal to its
+    backward's block steps, each one launch of the backward block kernel
+    (all wgmma), the ring's output under grad equal to its
     no_grad output bit for bit; (c) the state taken after step 3, each
     rank writing exactly its boxes, restored at (1, 2, 2) (step 4 bit for
     bit against the witness) and at (1, 4, 1) (step 4's loss within
@@ -3582,6 +3770,14 @@ def phase_sharded_step(ctx: dict, workdir: str) -> dict:
                     raise AssertionError(f"rank {r['rank']} {what} {key}: {have}, expected {value}")
             if got["ring_routes"] != {"wgmma": got["ring_launches"], "simt": 0}:
                 raise AssertionError(f"rank {r['rank']} {what} ring routes {got['ring_routes']}")
+            # Every block step of the backward is one launch of its kernel,
+            # on the wgmma route.
+            steps = got["backward_steps"]
+            if got["backward_routes"] != {"wgmma": steps, "simt": 0}:
+                raise AssertionError(
+                    f"rank {r['rank']} {what}: backward kernel launches "
+                    f"{got['backward_routes']} for {steps} block steps; expected one wgmma "
+                    f"launch a step")
         for what, c in (("(b)", dense), ("(d)", r["moe"])):
             if (c["flash_launches"] != layers or c["ring_launches"]
                     or c["flash_routes"] != {"wgmma": layers, "simt": 0}):
@@ -5696,7 +5892,8 @@ def phase_benchmarks(ctx: dict, workdir: str) -> list:
 
 
 def _reset_launches() -> None:
-    """Set the flash and ring block kernels' launch counts to 0."""
+    """Set the flash and ring block kernels' launch counts to 0 (the ring's
+    backward block kernel's too)."""
     import importlib
 
     from tpusnap_torch.ops import flash_attention as fa
@@ -5707,6 +5904,7 @@ def _reset_launches() -> None:
     ra.launches = ra.skips = ra.backward_steps = ra.backward_skips = 0
     ra.route_launches = dict.fromkeys(ra.route_launches, 0)
     ra.mode_launches = dict.fromkeys(ra.mode_launches, 0)
+    ra.backward_route_launches = dict.fromkeys(ra.backward_route_launches, 0)
 
 
 def _check_routes(path: str, launches: int, routes: dict) -> None:
@@ -5800,14 +5998,15 @@ def main() -> int:
         paths["ring replica dense restore"] = (fa.launches, dict(fa.route_launches))
         sharded_step_line = phase_sharded_step(ctx, workdir)
         emit(sharded_step_line)
-        ring_backward = {}
+        grads_paths = {}
         for r in sharded_step_line["ranks"]:
             for part in ("ring", "snapshot"):
                 c = r[part]
                 name = f"sharded_step {part} rank {r['rank']}"
                 ring_paths[name] = (c["ring_launches"], c["ring_routes"], c["ring_skips"],
                                     c["ring_modes"])
-                ring_backward[name] = c["backward_steps"]
+                grads_paths[name] = (sum(c["backward_routes"].values()), c["backward_routes"],
+                                     c["backward_skips"])
             for part in ("dense", "moe"):
                 c = r[part]
                 paths[f"sharded_step {part} rank {r['rank']}"] = (c["flash_launches"],
@@ -5856,6 +6055,10 @@ def main() -> int:
     for path, (launches, routes, _, _) in ring_paths.items():
         if launches == 0 or routes != {"wgmma": launches, "simt": 0}:
             raise AssertionError(f"{path}: ring block launches {launches} by route {routes}")
+    for path, (launches, routes, _) in grads_paths.items():
+        if launches == 0 or routes != {"wgmma": launches, "simt": 0}:
+            raise AssertionError(f"{path}: backward block launches {launches} by route {routes}")
+    grads_row = result["ring_backward_block"]
     ring_row, ring_one = result["ring_block_attend"], result["ring_of_one_forward"]
     ring_modes = {
         mode: sum(modes[mode] for _, _, _, modes in ring_paths.values())
@@ -5901,8 +6104,6 @@ def main() -> int:
         "launches_by_path": {p: n for p, (n, _, _, _) in ring_paths.items()},
         "launches_by_mode": ring_modes,
         "skips_by_path": {p: k for p, (_, _, k, _) in ring_paths.items()},
-        # The backward across ranks (plain PyTorch, no kernel): its block steps.
-        "backward_steps_by_path": ring_backward,
         "max_abs_err": max(ring_row["max_abs_err"], ring_one["max_abs_err"]),
         "ms": ring_one["ms"],
         "cold_ms": ring_one["cold_ms"],
@@ -5915,8 +6116,34 @@ def main() -> int:
         "modes": {
             mode: {**row, "launches": ring_modes[mode]} for mode, row in ring_row["modes"].items()
         },
-        # The backward across ranks' one block (plain PyTorch, no kernel).
-        "backward_block": result["ring_backward_block"],
+    }, {
+        # The backward across ranks: one call (a dK/dV and a dQ launch) per
+        # block step of sharded_step (a) and (c); the numbers are the
+        # flagship's diagonal block (8, 512, 8, 64), "blocks" has the past
+        # one too.
+        "name": "ring_block_grads",
+        "route": "cuda",
+        "kernel_route": "wgmma",
+        "route_launches": {
+            r: sum(routes[r] for _, routes, _ in grads_paths.values()) for r in ("wgmma", "simt")
+        },
+        "source": "tpusnap_torch/csrc/ring_block_bwd_wgmma.cu",
+        "replaces": "tpusnap/ops/ring_attention.py:26",
+        "replaces_what": "XLA autodiff of _block_attend (the ring's backward across ranks)",
+        "launches": sum(n for n, _, _ in grads_paths.values()),
+        "launches_by_path": {p: n for p, (n, _, _) in grads_paths.items()},
+        "skips_by_path": {p: k for p, (_, _, k) in grads_paths.items()},
+        "max_abs_err": grads_row["max_abs_err"],
+        "worst_err_over_bound": grads_row["worst_err_over_bound"],
+        "ms": grads_row["ms"],
+        "cold_ms": grads_row["cold_ms"],
+        "ms_of": grads_row["ms_of"],
+        "plain_ms": grads_row["plain_ms"],
+        "bound_ms": grads_row["bound_ms"],
+        "bound_by": grads_row["bound_by"],
+        "bound_share": grads_row["bound_share"],
+        "library_ms": grads_row["library_ms"],
+        "blocks": grads_row["blocks"],
     }]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -165,3 +165,69 @@ def test_batching_disabled_knob():
     with jax_override_batching_disabled(True):
         _, jax_reqs = _plan(arrays, port=False)
     assert sorted(r.path for r in reqs) == sorted(r.path for r in jax_reqs)
+
+
+# ------------------------------------------------ planned bytes (C20)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_slab_planned_bytes_is_its_payload_as_in_tpusnap(seed):
+    """A host slab plans its payload (the members' bytes), not its staging
+    cost (the payload plus the largest member's staging), as tpusnap's
+    ``BatchedBufferStager.get_planned_bytes`` does, on the same member
+    sizes."""
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(1, 5000, size=int(rng.integers(2, 30)))
+    arrays = {f"a{i}": rng.integers(0, 256, int(n), dtype=np.uint8) for i, n in enumerate(sizes)}
+    _, reqs = _plan(arrays, port=True)
+    _, jax_reqs = _plan(arrays, port=False)
+    slabs = [r.buffer_stager for r in reqs if r.path.startswith("batched/")]
+    jax_slabs = [r.buffer_stager for r in jax_reqs if r.path.startswith("batched/")]
+    assert slabs and all(isinstance(st, BatchedBufferStager) for st in slabs)
+    for st in slabs:
+        assert st.get_planned_bytes() == st.total == sum(n for _, n, _ in st.members)
+        assert st.get_staging_cost_bytes() > st.get_planned_bytes()
+    assert sorted(st.get_planned_bytes() for st in slabs) == sorted(
+        st.get_planned_bytes() for st in jax_slabs
+    )
+    assert sum(st.get_planned_bytes() for st in slabs) == int(sizes.sum())
+
+
+def _small_state(seed: int) -> dict:
+    rng = np.random.default_rng(seed)
+    return {f"t{i}": torch.from_numpy(rng.standard_normal(int(n)).astype(np.float32))
+            for i, n in enumerate(rng.integers(1, 500, size=20))}
+
+
+def test_take_heartbeat_plans_the_payload_bytes(tmp_path, monkeypatch):
+    """A take of many small CPU tensors (one host slab) publishes a
+    heartbeat whose ``bytes_planned`` is the payload, so its percent can
+    reach 100 before the commit."""
+    from tpusnap_torch import Snapshot
+    from tpusnap_torch.progress import read_progress_records
+    from tpusnap_torch.state_dict import StateDict
+
+    monkeypatch.setenv("TPUSNAP_TELEMETRY_DIR", str(tmp_path / "telemetry"))
+    state = _small_state(3)
+    payload = sum(t.numel() * 4 for t in state.values())
+    path = str(tmp_path / "snap")
+    Snapshot.take(path, {"app": StateDict(**state)})
+    (record,) = read_progress_records(path)
+    assert record["bytes_planned"] == payload == record["bytes_written"]
+
+
+def test_unchanged_increment_skips_the_slab_payload(tmp_path, monkeypatch):
+    """An increment over an unchanged base drops the whole slab: the
+    ``scheduler.dedup_skipped_bytes`` counter counts its payload."""
+    from tpusnap_torch import Snapshot, telemetry
+    from tpusnap_torch.state_dict import StateDict
+
+    monkeypatch.setenv("TPUSNAP_TELEMETRY_DIR", str(tmp_path / "telemetry"))
+    state = _small_state(4)
+    payload = sum(t.numel() * 4 for t in state.values())
+    base, inc = str(tmp_path / "base"), str(tmp_path / "inc")
+    Snapshot.take(base, {"app": StateDict(**state)})
+    Snapshot.take(inc, {"app": StateDict(**state)}, incremental_from=base)
+    counters = telemetry.LAST_TAKE_SUMMARY["counters"]
+    assert counters["scheduler.dedup_skipped"] == 1
+    assert counters["scheduler.dedup_skipped_bytes"] == payload

@@ -3,7 +3,9 @@ version, snapshot round trips of CUDA tensors (chunked ones too), async
 takes followed at once by in-place updates, async restores, two ranks
 sharing the card (replicated state, and DTensor state restored in place),
 host-offloaded (pinned) state restored in place and kept pinned, the MoE
-flagship training, embedding tables with pinned DTensor shards, delta
+flagship training, ring attention's block kernels (forward and, across
+ranks, backward) against their plain versions, embedding tables with
+pinned DTensor shards, delta
 stream captures (at mark_step, and free-running under a side stream),
 CUDA state through the write-back tier and the CAS store, ``analyze``
 and the restore's ``consume`` spans over CUDA copies, and the CLI
@@ -1590,6 +1592,203 @@ def test_ring_under_grad_equals_no_grad_bitwise(gen, tmp_path):
             assert case["modes"]["last"] == case["modes"]["first+last"] == 0, (rank, case)
         # Rank 1 causal, and both ranks non-causal, read the carry again.
         assert got["False"]["modes"] == {"middle": 1, "first": 1, "last": 0, "first+last": 0}
+
+
+_GRADS_CASES = [
+    # shape, dtype, q_offset, k_offset, causal, route
+    ((8, 512, 8, 64), torch.bfloat16, 512, 512, True, "wgmma"),
+    ((8, 512, 8, 64), torch.bfloat16, 512, 0, True, "wgmma"),
+    ((2, 300, 3, 64), torch.bfloat16, 0, 0, False, "wgmma"),
+    ((2, 200, 3, 128), torch.float16, 100, 164, True, "wgmma"),
+    ((1, 200, 4, 40), torch.bfloat16, 200, 200, True, "wgmma"),
+    ((1, 130, 2, 64), torch.float32, 130, 130, True, "simt"),
+    ((2, 130, 2, 128), torch.float32, 0, 0, False, "simt"),
+]
+
+
+def _grads_inputs(shape, dtype, q_off, k_off, causal, gen, qkv=None):
+    """q, k, v (random, or ``qkv``), dO, the lse and delta of rows that see
+    this block and their diagonal one, and random f32 accumulators."""
+    ra = _ring_module()
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(4))
+    if qkv is not None:
+        q, k, v = qkv
+    scale = shape[-1] ** -0.5
+    lse, delta, _ = ra.row_stats(q, k, v, do, q_off, k_off, scale, causal)
+    acc = [torch.randn(shape, generator=gen, device="cuda") for _ in range(3)]
+    return q, k, v, do, lse, delta, acc, scale
+
+
+@pytest.mark.parametrize(
+    "shape,dtype,q_off,k_off,causal,route", _GRADS_CASES, ids=lambda x: str(x).replace(" ", "")
+)
+def test_ring_backward_block_kernel_matches_plain(gen, shape, dtype, q_off, k_off, causal, route):
+    """The backward block kernel's accumulators against ``block_grads``
+    plus the incoming ones, per element within ``grads_rounding_bound``
+    (P and dS rounded to the input type; f32 slack), one launch on the
+    route the inputs take, and a second launch bitwise equal."""
+    ra = _ring_module()
+    q, k, v, do, lse, delta, acc, scale = _grads_inputs(shape, dtype, q_off, k_off, causal, gen)
+    want = [a + g for a, g in zip(acc, ra.block_grads(q, k, v, do, lse, delta, q_off, k_off,
+                                                      scale, causal))]
+    bounds = ra.grads_rounding_bound(q, k, v, do, lse, delta, want, q_off, k_off, scale, causal)
+    got, again = [t.clone() for t in acc], [t.clone() for t in acc]
+    routes = dict(ra.backward_route_launches)
+    ra.attend_block_grads(q, k, v, do, lse, delta, *got, q_off, k_off, scale, causal)
+    torch.cuda.synchronize()
+    assert {r: ra.backward_route_launches[r] - routes[r] for r in routes} == {
+        r: int(r == route) for r in routes
+    }
+    for name, g, ref, bound in zip(("dq", "dk", "dv"), got, want, bounds):
+        ratio = ((g - ref).abs() / bound).max().item()
+        assert ratio <= 1.0, f"{name}: worst element {ratio}x its bound"
+    ra.attend_block_grads(q, k, v, do, lse, delta, *again, q_off, k_off, scale, causal)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+def test_ring_backward_block_takes_fused_views_and_skips_the_future(gen):
+    """q, k, v as the model's head-split views of a fused qkv take the
+    wgmma route; a bf16 view one element past a 16-byte boundary takes
+    simt; a future block launches nothing and leaves the accumulators."""
+    ra = _ring_module()
+    shape = (2, 256, 4, 64)
+    for misalign, route in ((False, "wgmma"), (True, "simt")):
+        b, s, h, d = shape
+        flat = torch.randn((b * s * 3 * h * d + 1,), generator=gen, device="cuda")
+        flat = flat.to(torch.bfloat16)
+        qkv = (flat[1:] if misalign else flat[:-1]).view(b, s, 3 * h * d)
+        q, k, v = (t.reshape(shape) for t in qkv.split(h * d, dim=-1))
+        _, _, _, do, lse, delta, acc, scale = _grads_inputs(shape, torch.bfloat16, s, 0, True, gen,
+                                                            qkv=(q, k, v))
+        want = [a + g for a, g in zip(acc, ra.block_grads(q, k, v, do, lse, delta, s, 0, scale,
+                                                          True))]
+        bounds = ra.grads_rounding_bound(q, k, v, do, lse, delta, want, s, 0, scale, True)
+        routes = dict(ra.backward_route_launches)
+        ra.attend_block_grads(q, k, v, do, lse, delta, *acc, s, 0, scale, True)
+        torch.cuda.synchronize()
+        assert ra.backward_route_launches[route] == routes[route] + 1
+        for g, ref, bound in zip(acc, want, bounds):
+            assert ((g - ref).abs() / bound).max().item() <= 1.0
+    before = [t.clone() for t in acc]
+    routes, skips = dict(ra.backward_route_launches), ra.backward_skips
+    assert not ra.attend_block_grads(q, k, v, do, lse, delta, *acc, 0, 256, scale, True)
+    assert (ra.backward_route_launches, ra.backward_skips) == (routes, skips + 1)
+    assert all(torch.equal(a, c) for a, c in zip(acc, before))
+
+
+def test_ring_backward_block_kernel_refuses_what_it_cannot_take(gen):
+    ra = _ring_module()
+    q, k, v, do, lse, delta, acc, scale = _grads_inputs((1, 8, 2, 64), torch.bfloat16, 0, 0,
+                                                        True, gen)
+    with pytest.raises(ValueError, match="must be contiguous"):
+        ra.attend_block_grads(q, k, v, do, lse.transpose(1, 2).contiguous().transpose(1, 2),
+                              delta, *acc, 0, 0, scale, True)
+    with pytest.raises(ValueError, match="dq must be contiguous"):
+        ra.attend_block_grads(q, k, v, do, lse, delta, acc[0].transpose(1, 2)
+                              .contiguous().transpose(1, 2), *acc[1:], 0, 0, scale, True)
+    big = torch.zeros((1, 8, 2, 256), device="cuda", dtype=torch.bfloat16)
+    accs = [torch.zeros((1, 8, 2, 256), device="cuda") for _ in range(3)]
+    with pytest.raises(ValueError, match="head_dim 256"):
+        ra.attend_block_grads(big, big, big, big, lse, delta, *accs, 0, 0, scale, True)
+
+
+def _world_ring_backward_launches(out_dir, loss="weighted"):
+    """Two ranks on the card: the ring's backward at a (2, 256, 4, 64) bf16
+    block per rank, causal: its block steps, skips and kernel launches.
+    ``loss="sum"`` takes the gradient of ``out.sum()``, whose upstream
+    gradient is an expanded view (every stride 0), and checks it bitwise
+    against the gradient for a contiguous tensor of ones."""
+    import json
+
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    ra = _ring_module()
+    rank = dist.get_rank()
+    gen = torch.Generator(device="cuda").manual_seed(rank)
+    leaves = [torch.randn((2, 256, 4, 64), generator=gen, device="cuda").to(torch.bfloat16)
+              .requires_grad_(True) for _ in range(3)]
+    out = ra.ring_attention(*leaves, group=dist.group.WORLD, causal=True)
+    before = (ra.backward_steps, ra.backward_skips, dict(ra.backward_route_launches))
+    if loss == "sum":
+        grads = torch.autograd.grad(out.sum(), leaves, retain_graph=True)
+    else:
+        grads = torch.autograd.grad(out, leaves, torch.randn_like(out), retain_graph=True)
+    torch.cuda.synchronize()
+    routes = {r: ra.backward_route_launches[r] - before[2][r] for r in before[2]}
+    result = {
+        "steps": ra.backward_steps - before[0], "skips": ra.backward_skips - before[1],
+        "launches": sum(routes.values()), "routes": routes,
+        "finite": all(bool(torch.isfinite(g).all()) for g in grads),
+    }
+    if loss == "sum":
+        ones = torch.autograd.grad(out, leaves, torch.ones_like(out))
+        result["sum_equals_ones"] = all(torch.equal(g, w) for g, w in zip(grads, ones))
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+
+
+def test_ring_backward_launches_the_kernel_once_per_block_step(gen, tmp_path):
+    """A ring of two under grad: rank 0's backward computes its own block
+    and skips rank 1's (its future); rank 1 computes both. Every block
+    step is one wgmma launch of the backward block kernel."""
+    import json
+
+    from tpusnap_torch.test_utils import run_subprocess_world
+
+    run_subprocess_world(_world_ring_backward_launches, world_size=2, args=[str(tmp_path)])
+    for rank in range(2):
+        got = json.loads((tmp_path / f"rank{rank}.json").read_text())
+        assert got["finite"], (rank, got)
+        assert (got["steps"], got["skips"]) == (rank + 1, 1 - rank), (rank, got)
+        assert got["launches"] == got["steps"], (rank, got)
+        assert got["routes"] == {"wgmma": got["steps"], "simt": 0}, (rank, got)
+
+
+def test_ring_backward_takes_the_gradient_of_a_sum(gen, tmp_path):
+    """A ring of two whose loss is ``ring_attention(...).sum()``: the
+    upstream gradient is an expanded view, which the backward makes
+    contiguous before the kernel; the gradients equal those for a
+    contiguous tensor of ones bit for bit, one wgmma launch a block step."""
+    import json
+
+    from tpusnap_torch.test_utils import run_subprocess_world
+
+    run_subprocess_world(_world_ring_backward_launches, world_size=2,
+                         args=[str(tmp_path), "sum"])
+    for rank in range(2):
+        got = json.loads((tmp_path / f"rank{rank}.json").read_text())
+        assert got["finite"] and got["sum_equals_ones"], (rank, got)
+        assert got["routes"] == {"wgmma": rank + 1, "simt": 0}, (rank, got)
+
+
+def test_device_slab_increment_plans_its_payload(gen, tmp_path, monkeypatch):
+    """An incremental take of a device slab over a base: the heartbeat's
+    ``bytes_planned`` is the slab's payload (its staging budget is 2x),
+    and an unchanged increment's ``scheduler.dedup_skipped_bytes`` is the
+    payload too."""
+    from tpusnap_torch import batcher, telemetry
+    from tpusnap_torch.progress import read_progress_records
+
+    monkeypatch.setenv("TPUSNAP_TELEMETRY_DIR", str(tmp_path / "telemetry"))
+    state = {f"p{i}": torch.randn((256,), generator=gen, device="cuda") for i in range(6)}
+    payload = 6 * 256 * 4
+    staged = []
+    real = batcher.DeviceBatchedBufferStager._stage_blocking
+    monkeypatch.setattr(
+        batcher.DeviceBatchedBufferStager, "_stage_blocking",
+        lambda self: staged.append(self) or real(self),
+    )
+    base, inc, same = (str(tmp_path / n) for n in ("s0", "s1", "s2"))
+    Snapshot.take(base, {"app": StateDict(state)})
+    state["p3"].add_(1.0)
+    Snapshot.take(inc, {"app": StateDict(state)}, incremental_from=base)
+    assert staged[1].get_staging_cost_bytes() == 2 * payload
+    assert staged[1].get_planned_bytes() == payload
+    (record,) = read_progress_records(inc)
+    assert record["bytes_planned"] == payload
+    Snapshot.take(same, {"app": StateDict(state)}, incremental_from=inc)
+    assert telemetry.LAST_TAKE_SUMMARY["counters"]["scheduler.dedup_skipped_bytes"] == payload
 
 
 _SHARDED_TINY = dict(vocab_size=256, d_model=128, n_heads=2, n_layers=2, d_ff=256,

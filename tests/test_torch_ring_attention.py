@@ -9,8 +9,12 @@ atol 1e-5, and holds the plain block step ``block_attend`` against
 tpusnap's ``_block_attend`` at atol 1e-6 (the same f32 operations in
 another summation order): diagonal, past and future blocks with a random
 incoming carry and a row that has seen nothing yet. A future block leaves
-the carry exactly as it was. The kernels themselves run only on the card
-(tests/test_torch_cuda.py).
+the carry exactly as it was. The backward block step
+(``attend_block_grads``) summed over every block pair of a sequence cut
+into 1, 2 or 4 blocks equals ``jax.grad`` of tpusnap's ring attention
+at atol 1e-5, and ``grads_rounding_bound`` holds a modelled 16-bit
+kernel and rejects a lost tile. The kernels themselves run only on the
+card (tests/test_torch_cuda.py).
 
 The worlds are started once for the module; their processes import
 neither JAX nor tpusnap, so both are imported only where the parent uses
@@ -25,7 +29,7 @@ import numpy as np
 import pytest
 import torch
 
-from tpusnap_torch.ops.ring_attention import attend_block, block_attend, ring_attention
+from tpusnap_torch.ops.ring_attention import attend_block, block_attend, block_grads, ring_attention
 
 # The module (its counters): ``tpusnap_torch.ops.ring_attention`` as an
 # attribute is the function the package exports.
@@ -439,3 +443,179 @@ def test_one_block_backward_at_another_scale_matches_the_plain_block():
         grads.append([t.grad for t in ts])
     for got, want in zip(*grads):
         torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+
+
+# ------------------------------------------------------- backward block step
+
+
+def _qkvw(shape, seed):
+    """q, k, v and an upstream gradient, from two seeded draws."""
+    return _qkv(shape, seed) + _qkv(shape, seed + 1)[:1]
+
+
+def _whole_rows(q, k, v, w, causal):
+    """lse and delta = rowsum(dO * O) ([b, h, s]) of every row over the
+    whole sequence, from numpy, for an upstream gradient ``w``."""
+    s = q.shape[1]
+    scores = np.einsum("bqhd,bkhd->bhqk", q, k).astype(np.float64) * q.shape[-1] ** -0.5
+    if causal:
+        scores = np.where(np.tril(np.ones((s, s), bool)), scores, -np.inf)
+    mx = scores.max(-1, keepdims=True)
+    lse = (mx + np.log(np.exp(scores - mx).sum(-1, keepdims=True)))[..., 0]
+    out = np.einsum("bhqk,bkhd->bqhd", np.exp(scores - lse[..., None]), v)
+    delta = np.einsum("bqhd,bqhd->bhq", w, out)
+    return lse.astype(np.float32), delta.astype(np.float32)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "noncausal"])
+@pytest.mark.parametrize("n", [1, 2, 4])
+def test_block_grads_summed_over_blocks_match_jax_grad(n, causal):
+    """``attend_block_grads`` over every (query block, key block) pair of a
+    sequence cut into n blocks, from the whole rows' lse and delta, adds up
+    to ``jax.grad`` of tpusnap's ring attention on the whole sequence."""
+    import jax
+    import jax.numpy as jnp
+
+    from tpusnap.ops import ring_attention as jax_ring_attention
+
+    b, s, h, d = 2, 16, 2, 8
+    q, k, v = _qkv((b, s, h, d), seed=30 + n)
+    w = np.random.default_rng(40 + n).standard_normal(q.shape).astype(np.float32)
+    want = jax.grad(
+        lambda q, k, v: jnp.sum(jax_ring_attention(q, k, v, causal=causal) * w), argnums=(0, 1, 2)
+    )(*(jnp.asarray(x) for x in (q, k, v)))
+    lse, delta = (torch.from_numpy(x) for x in _whole_rows(q, k, v, w, causal))
+    tq, tk, tv, tw = (torch.from_numpy(x) for x in (q, k, v, w))
+    dq, dk, dv = (torch.zeros((b, s, h, d)) for _ in range(3))
+    blk = s // n
+    rows = [slice(i * blk, (i + 1) * blk) for i in range(n)]
+    routes, skips = dict(ra.backward_route_launches), ra.backward_skips
+    computed = 0
+    for i, qi in enumerate(rows):
+        for j, kj in enumerate(rows):
+            computed += ra.attend_block_grads(
+                tq[:, qi], tk[:, kj], tv[:, kj], tw[:, qi], lse[:, :, qi].contiguous(),
+                delta[:, :, qi].contiguous(), dq[:, qi], dk[:, kj], dv[:, kj], i * blk, j * blk,
+                d**-0.5, causal,
+            )
+    assert computed == (n * (n + 1) // 2 if causal else n * n)
+    assert ra.backward_skips == skips + n * n - computed
+    assert ra.backward_route_launches == routes  # a CPU tensor never launches
+    for name, got, ref in zip("qkv", (dq, dk, dv), want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5, err_msg=name)
+
+
+def test_attend_block_grads_skips_a_future_block_without_a_call(monkeypatch):
+    b, s, h, d = 1, 8, 2, 4
+    q, k, v = (torch.from_numpy(x) for x in _qkv((b, s, h, d), seed=31))
+    do = torch.ones_like(q)
+    lse, delta = torch.zeros((b, h, s)), torch.zeros((b, h, s))
+    acc = [torch.randn((b, s, h, d)) for _ in range(3)]
+    before = [t.clone() for t in acc]
+
+    def called(*args):
+        raise AssertionError("block_grads ran for a future block")
+
+    monkeypatch.setattr(ra, "block_grads", called)
+    skips = ra.backward_skips
+    assert not ra.attend_block_grads(q, k, v, do, lse, delta, *acc, 0, s, 0.5, True)
+    assert ra.backward_skips == skips + 1
+    assert all(torch.equal(a, c) for a, c in zip(acc, before))
+    # Without the mask no block is in the future.
+    monkeypatch.undo()
+    assert ra.attend_block_grads(q, k, v, do, lse, delta, *acc, 0, s, 0.5, False)
+
+
+def test_attend_block_grads_adds_block_grads_in_place_on_the_cpu():
+    b, s, h, d = 2, 8, 3, 4
+    q, k, v, w = (torch.from_numpy(x) for x in _qkvw((b, s, h, d), 32))
+    lse, delta = torch.randn((b, h, s)), torch.randn((b, h, s))
+    acc = [torch.randn((b, s, h, d)) for _ in range(3)]
+    want = [a + g for a, g in zip(acc, block_grads(q, k, v, w, lse, delta, 8, 0, 0.5, True))]
+    ptrs = [t.data_ptr() for t in acc]
+    assert ra.attend_block_grads(q, k, v, w, lse, delta, *acc, 8, 0, 0.5, True)
+    assert [t.data_ptr() for t in acc] == ptrs
+    for got, ref in zip(acc, want):
+        torch.testing.assert_close(got, ref, rtol=0, atol=0)
+
+
+def _grads_args(shape=(1, 8, 2, 4), seed=34):
+    b, s, h, d = shape
+    q, k, v, w = (torch.from_numpy(x) for x in _qkvw(shape, seed))
+    return [q, k, v, w, torch.zeros((b, h, s)), torch.zeros((b, h, s)),
+            torch.zeros(shape), torch.zeros(shape), torch.zeros(shape)]
+
+
+_REFUSALS = {
+    "q_3d": (0, lambda t: t[0], "q must be"),
+    "grad_out_3d": (3, lambda t: t[0], "grad_out must be"),
+    "k_dtype": (1, lambda t: t.double(), "dtypes differ"),
+    "grad_out_dtype": (3, lambda t: t.to(torch.bfloat16), "dtypes differ"),
+    "v_shape": (2, lambda t: t[:, :, :1], "do not fit q"),
+    "k_heads": (1, lambda t: torch.cat([t, t], 2), "do not fit q"),
+    "grad_out_shape": (3, lambda t: t[:, :4], "is not q's shape"),
+    "lse_shape": (4, lambda t: t[:, :, :4], "lse must be"),
+    "delta_dtype": (5, lambda t: t.double(), "delta must be"),
+    "dq_dtype": (6, lambda t: t.to(torch.bfloat16), "dq must be"),
+    "dk_shape": (7, lambda t: t[:, :4], "dk must be"),
+    "dv_missing": (8, lambda t: None, "dv must be"),
+    "device": (8, lambda t: torch.empty(t.shape, device="meta"), "different devices"),
+}
+
+
+@pytest.mark.parametrize("case", list(_REFUSALS))
+def test_attend_block_grads_refuses_what_check_block_refuses(case):
+    index, change, message = _REFUSALS[case]
+    args = _grads_args()
+    args[index] = change(args[index])
+    with pytest.raises(ValueError, match=message):
+        ra.attend_block_grads(*args, 0, 0, 0.5, True)
+
+
+def test_grads_route_takes_what_tma_describes():
+    q, k, v, w = (torch.from_numpy(x).to(torch.bfloat16) for x in _qkvw((1, 8, 2, 16), 35))
+    assert ra._grads_route(q, k, v, w) == "wgmma"
+    assert ra._grads_route(q.float(), k.float(), v.float(), w.float()) == "simt"
+    # A grad_out whose rows are not 16 bytes apart: simt.
+    odd = torch.zeros((1, 8, 2, 20), dtype=torch.bfloat16)[..., :16]
+    assert ra._grads_route(q, k, v, odd) == "simt"
+
+
+def _modelled_grads(q, k, v, do, lse, delta, q_off, k_off, scale, causal, lose_tile=0):
+    """``block_grads`` as the 16-bit kernel computes it: P and dS rounded to
+    the input type before the second-stage products; optionally with the
+    first ``lose_tile`` x ``lose_tile`` (query, key) tile's terms lost."""
+    qf, kf, vf, dof, p, dp = ra._grads_terms(q, k, v, do, lse, q_off, k_off, scale, causal)
+    ds = p * (dp - delta[..., None])
+    p_r, ds_r = p.to(q.dtype).float(), ds.to(q.dtype).float()
+    if lose_tile:
+        p_r[..., :lose_tile, :lose_tile] = 0
+        ds_r[..., :lose_tile, :lose_tile] = 0
+    dv = torch.matmul(p_r.transpose(-1, -2), dof)
+    dq = torch.matmul(ds_r, kf) * scale
+    dk = torch.matmul(ds_r.transpose(-1, -2), qf) * scale
+    return dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("block", ["diagonal", "past"])
+def test_grads_rounding_bound_holds_the_modelled_kernel_and_rejects_a_lost_tile(dtype, block):
+    """The bound the card holds the 16-bit backward kernel to: a kernel
+    that rounds P and dS before the second-stage products stays within
+    it on every accumulator; one that loses a 16 x 16 tile's terms does
+    not."""
+    b, s, h, d = 2, 64, 2, 32
+    q, k, v, do = (torch.from_numpy(x).to(dtype) for x in _qkvw((b, s, h, d), 37))
+    q_off, k_off = _BLOCKS[block][0] * 8, _BLOCKS[block][1] * 8
+    scale = d**-0.5
+    lse, delta, _ = ra.row_stats(q, k, v, do, q_off, k_off, scale, True)
+    acc = [torch.from_numpy(x) for x in _qkv((b, s, h, d), 39)]
+    args = (q, k, v, do, lse, delta)
+    want = [a + g for a, g in zip(acc, block_grads(*args, q_off, k_off, scale, True))]
+    bounds = ra.grads_rounding_bound(*args, want, q_off, k_off, scale, True)
+    good = [a + g for a, g in zip(acc, _modelled_grads(*args, q_off, k_off, scale, True))]
+    bad = [a + g for a, g in zip(acc, _modelled_grads(*args, q_off, k_off, scale, True, 16))]
+    for got, ref, bound in zip(good, want, bounds):
+        assert ((got - ref).abs() / bound).max().item() <= 1.0
+    for got, ref, bound in zip(bad, want, bounds):
+        assert ((got - ref).abs() / bound).max().item() > 1.0

@@ -127,6 +127,11 @@ class BatchedBufferStager(BufferStager):
             (s.get_staging_cost_bytes() for _, _, s in self.members), default=0
         )
 
+    def get_planned_bytes(self) -> int:
+        # The slab payload: members stream through transient buffers that
+        # never count toward written bytes.
+        return self.total
+
 
 def _pack_members(arrs: List[torch.Tensor]) -> torch.Tensor:
     """Flat ``uint8`` view of every member, concatenated on their device."""
@@ -242,6 +247,10 @@ class DeviceBatchedBufferStager(BufferStager):
         # once: 2x whenever a member may dedup.
         if any(s.dedup_entry is not None for _, _, s in self.members):
             return 2 * self.total
+        return self.total
+
+    def get_planned_bytes(self) -> int:
+        # The slab payload, never the 2x dedup-compaction budget.
         return self.total
 
 

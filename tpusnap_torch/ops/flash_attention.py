@@ -56,10 +56,12 @@ _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG_DIR, "csrc")
-# The library also holds ring attention's block kernel (ops/ring_attention.py).
+# The library also holds ring attention's block kernels, forward and
+# backward (ops/ring_attention.py).
 _SRCS = [
     os.path.join(_CSRC, f)
-    for f in ("flash_attention.cu", "flash_attention_wgmma.cu", "ring_block_wgmma.cu")
+    for f in ("flash_attention.cu", "flash_attention_wgmma.cu", "ring_block_wgmma.cu",
+              "ring_block_bwd_wgmma.cu")
 ]
 _BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 _SO = os.path.join(_BUILD_DIR, "libtpusnap_flash_attention.so")

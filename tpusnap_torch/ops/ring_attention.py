@@ -52,14 +52,33 @@ holds the full sequence.
   is ``middle`` then ``_finish`` on the card). Its backward rotates
   ``(k, v, dk, dv)`` around the same ring for n steps, the last rotation
   carrying only ``dk``/``dv`` home, and each step adds one block's
-  gradients (``block_grads``, plain PyTorch in f32 with ``torch.matmul``,
-  masked in global positions; a block wholly in the queries' future is
-  skipped, ``backward_skips``). ``backward_steps`` counts the block steps.
+  gradients into the f32 accumulators (``attend_block_grads``; a block
+  wholly in the queries' future is skipped, ``backward_skips``).
+  ``backward_steps`` counts the block steps.
+- ``block_grads(...)`` is the plain PyTorch version of one block's
+  gradients (f32, ``torch.matmul``, masked in global positions): the CPU
+  path and the tests use it; on the card it is the yardstick.
+- ``attend_block_grads(q, k, v, grad_out, lse, delta, dq, dk, dv, ...)``
+  is the backward's dispatch. On CUDA tensors it launches the kernels of
+  ``csrc/ring_block_bwd_wgmma.cu`` (``_block_grads_kernel``: a dK/dV
+  kernel, then a dQ kernel, adding into the accumulators in place) or
+  raises; there is no fallback. On CPU tensors it runs ``block_grads`` and
+  three adds. ``backward_route_launches`` counts its calls that launched,
+  by route. The 16-bit kernel rounds P and dS to the input type before
+  the second-stage products; ``grads_rounding_bound`` is the per-element
+  bound the card holds it to, and ``row_stats`` makes a block's row
+  statistics for such checks.
 
-Routes, picked by ``flash_attention._route`` from dtype and strides and
-checked again in C: ``wgmma`` (bf16/f16 that TMA can describe) or
-``simt`` (f32 and other layouts); head_dim <= 128. The kernels live in the
-flash attention library (``flash_attention.build_library``).
+Which backward runs where: across ranks (``_Ring``) the backward block
+kernel on the card, ``block_grads`` on the CPU; one block (``_RingBlock``,
+and the flash kernel's ``_FlashAttention``) autograd of plain attention on
+both, as tpusnap's ``_flash_bwd`` is plain XLA.
+
+Routes, picked by ``flash_attention._route`` from dtype and strides (over
+grad_out too for the backward) and checked again in C: ``wgmma``
+(bf16/f16 that TMA can describe) or ``simt`` (f32 and other layouts);
+head_dim <= 128. The kernels live in the flash attention library
+(``flash_attention.build_library``).
 """
 
 from __future__ import annotations
@@ -85,12 +104,17 @@ launches = 0
 route_launches = {"wgmma": 0, "simt": 0}
 mode_launches = dict.fromkeys(MODES, 0)
 skips = 0
-# The backward across ranks: block steps computed (``block_grads``) and
-# future blocks that rotated past without one.
+# The backward across ranks: block steps computed and future blocks that
+# rotated past without one (``backward_skips`` also counts a future block
+# that ``attend_block_grads`` skips when called directly).
 backward_steps = 0
 backward_skips = 0
+# Calls of the backward block kernel (two launches each: dK/dV, then dQ)
+# made through ``attend_block_grads``, by route.
+backward_route_launches = {"wgmma": 0, "simt": 0}
 
 _fn = None
+_grads_fn = None
 _lock = threading.Lock()
 
 
@@ -124,6 +148,39 @@ def _load():
             fn.restype = ctypes.c_int
             _fn = fn
         return _fn
+
+
+def _load_grads():
+    global _grads_fn
+    with _lock:
+        if _grads_fn is None:
+            fn = _fa._load().tpusnap_ring_block_grads
+            fn.argtypes = [
+                ctypes.c_void_p,  # q
+                ctypes.c_void_p,  # k
+                ctypes.c_void_p,  # v
+                ctypes.c_void_p,  # grad_out
+                ctypes.c_void_p,  # lse
+                ctypes.c_void_p,  # delta
+                ctypes.c_void_p,  # dq
+                ctypes.c_void_p,  # dk
+                ctypes.c_void_p,  # dv
+                ctypes.POINTER(ctypes.c_int64),  # 12 strides
+                ctypes.c_int,  # b
+                ctypes.c_int,  # s
+                ctypes.c_int,  # h
+                ctypes.c_int,  # d
+                ctypes.c_int64,  # q_offset
+                ctypes.c_int64,  # k_offset
+                ctypes.c_float,  # scale
+                ctypes.c_int,  # causal
+                ctypes.c_int,  # dtype code
+                ctypes.c_int,  # route code
+                ctypes.c_void_p,  # stream
+            ]
+            fn.restype = ctypes.c_int
+            _grads_fn = fn
+        return _grads_fn
 
 
 def block_attend(
@@ -173,6 +230,18 @@ def block_grads(q, k, v, grad_out, lse, delta, q_offset: int, k_offset: int, sca
     (``rowsum(dO * O)``): ``[b, h, sq]`` f32. Masked in global positions
     as ``block_attend`` is. Returns ``(dq, dk, dv)``, each its input's
     shape."""
+    qf, kf, vf, do, p, dp = _grads_terms(q, k, v, grad_out, lse, q_offset, k_offset, scale, causal)
+    dv = torch.matmul(p.transpose(-1, -2), do)
+    ds = p * (dp - delta[..., None])
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    return dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2)
+
+
+def _grads_terms(q, k, v, grad_out, lse, q_offset: int, k_offset: int, scale: float,
+                 causal: bool):
+    """``block_grads``' f32 operands ``[b, h, s, d]`` and its ``P`` and
+    ``dP = dO V^T`` (``[b, h, sq, sk]``)."""
     qf, kf, vf, do = (t.float().transpose(1, 2) for t in (q, k, v, grad_out))  # [b, h, s, d]
     s = torch.matmul(qf, kf.transpose(-1, -2)) * scale  # [b, h, sq, sk]
     if causal:
@@ -180,11 +249,7 @@ def block_grads(q, k, v, grad_out, lse, delta, q_offset: int, k_offset: int, sca
         k_pos = k_offset + torch.arange(k.shape[1], device=q.device)
         s = torch.where(q_pos[:, None] >= k_pos[None, :], s, torch.full_like(s, _NEG_INF))
     p = torch.exp(s - lse[..., None])
-    dv = torch.matmul(p.transpose(-1, -2), do)
-    ds = p * (torch.matmul(do, vf.transpose(-1, -2)) - delta[..., None])
-    dq = torch.matmul(ds, kf) * scale
-    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
-    return dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2)
+    return qf, kf, vf, do, p, torch.matmul(do, vf.transpose(-1, -2))
 
 
 # Unit roundoff u of P's rounding to the input type before P V.
@@ -211,6 +276,52 @@ def rounding_bound(q, k, v, m, l, o, q_offset: int, k_offset: int, scale: float,
     bl = _F32_SLACK * (alpha * l + p_sum) + 1e-6
     bo = u * p_abs_v + _F32_SLACK * (alpha.transpose(1, 2)[..., None] * o.abs() + p_abs_v) + 1e-6
     return bm, bl, bo
+
+
+def grads_rounding_bound(q, k, v, grad_out, lse, delta, want, q_offset: int, k_offset: int,
+                         scale: float, causal: bool):
+    """Per-element bounds ``(bdq, bdk, bdv)`` on the accumulators after
+    ``attend_block_grads`` against ``want``, the plain result on the same
+    inputs (each accumulator plus its ``block_grads`` term), in f32. The
+    16-bit kernel rounds P and dS to the input type before the
+    second-stage products: dV within ``u (P^T |dO|)``, dQ within
+    ``u scale (|dS| |K|)``, dK within ``u scale (|dS|^T |Q|)``. The f32
+    arithmetic (exp2 on the special-function unit, the tensor cores'
+    summation order) moves each P and dP by ``_F32_SLACK`` of its terms,
+    so dS by ``E = P (|dP - delta| + |dO| |V|^T)``, and each second
+    product adds its own: ``2 _F32_SLACK`` of E carried through the same
+    products. Both sides round the accumulators' add once:
+    ``_F32_SLACK`` of the result. 1e-6 absolute covers values near 0."""
+    u = _ROUNDING[q.dtype]
+    qf, kf, vf, do, p, dp = _grads_terms(q, k, v, grad_out, lse, q_offset, k_offset, scale, causal)
+    ds_abs = p * (dp - delta[..., None]).abs()
+    spread = ds_abs + p * torch.matmul(do.abs(), vf.abs().transpose(-1, -2))
+    w = u * ds_abs + 2 * _F32_SLACK * spread
+    bdq = scale * torch.matmul(w, kf.abs())
+    bdk = scale * torch.matmul(w.transpose(-1, -2), qf.abs())
+    bdv = (u + 2 * _F32_SLACK) * torch.matmul(p.transpose(-1, -2), do.abs())
+    return tuple(
+        bound.transpose(1, 2) + _F32_SLACK * w.abs() + 1e-6
+        for bound, w in zip((bdq, bdk, bdv), want)
+    )
+
+
+def row_stats(q, k, v, grad_out, q_offset: int, k_offset: int, scale: float, causal: bool):
+    """``(lse, delta, out)`` of the rows a ring rank holds when this K/V
+    block reaches it, for checks of ``attend_block_grads``: the rows see
+    this block and, when it is not their diagonal, the diagonal block too
+    (the same K/V at ``q_offset``), so every row sees at least itself.
+    lse = ``m + log l`` and delta = ``rowsum(dO * O)``: ``[b, h, sq]`` f32,
+    contiguous; out: ``[b, sq, h, d]`` f32."""
+    with torch.no_grad():
+        carry = _init_carry(q)
+        if k_offset != q_offset:
+            carry = block_attend(q, k, v, *carry, q_offset, k_offset, scale, causal)
+        m, l, o = block_attend(q, k, v, *carry, q_offset, q_offset, scale, causal)
+        out = _finish(l, o, torch.float32)
+        lse = (m + torch.log(l)).contiguous()
+        delta = (grad_out.float() * out).sum(-1).transpose(1, 2).contiguous()
+    return lse, delta, out
 
 
 # Relative spacing of the output types: one ulp of x is at most eps |x|.
@@ -338,6 +449,112 @@ def attend_block(
     m.copy_(m_new)
     l.copy_(l_new)
     o.copy_(o_new)
+
+
+def _check_grads(q, k, v, grad_out, lse, delta, dq, dk, dv) -> None:
+    for name, t in (("q", q), ("k", k), ("v", v), ("grad_out", grad_out)):
+        if t.dim() != 4:
+            raise ValueError(f"{name} must be [batch, seq, heads, head_dim], got {tuple(t.shape)}")
+    if not (q.dtype == k.dtype == v.dtype == grad_out.dtype):
+        raise ValueError(
+            f"q, k, v, grad_out dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}, {grad_out.dtype}"
+        )
+    if k.shape != v.shape or k.shape[0] != q.shape[0] or k.shape[2:] != q.shape[2:]:
+        raise ValueError(f"k, v {tuple(k.shape)} do not fit q {tuple(q.shape)}")
+    if grad_out.shape != q.shape:
+        raise ValueError(f"grad_out {tuple(grad_out.shape)} is not q's shape {tuple(q.shape)}")
+    b, sq, h, _ = q.shape
+    for name, t, shape in (("lse", lse, (b, h, sq)), ("delta", delta, (b, h, sq)),
+                           ("dq", dq, tuple(q.shape)), ("dk", dk, tuple(k.shape)),
+                           ("dv", dv, tuple(k.shape))):
+        if t is None or tuple(t.shape) != shape or t.dtype != torch.float32:
+            got = None if t is None else f"{t.dtype}{list(t.shape)}"
+            raise ValueError(f"{name} must be float32{list(shape)}, got {got}")
+    devices = {t.device for t in (q, k, v, grad_out, lse, delta, dq, dk, dv)}
+    if len(devices) != 1:
+        raise ValueError(f"the inputs and accumulators lie on different devices: {devices}")
+
+
+def _grads_route(q, k, v, grad_out) -> str:
+    """``flash_attention._route``'s rule over q, k, v and grad_out: the
+    wgmma backward kernel loads all four through TMA tensor maps."""
+    aligned = [t.data_ptr() % 16 == 0 for t in (q, k, v, grad_out)]
+    if (_fa._route(q, k, v, base_aligned=all(aligned[:3])) == "wgmma"
+            and _fa._route(grad_out, grad_out, grad_out, base_aligned=aligned[3]) == "wgmma"):
+        return "wgmma"
+    return "simt"
+
+
+def _block_grads_kernel(q, k, v, grad_out, lse, delta, dq, dk, dv, q_offset, k_offset, scale,
+                        causal) -> None:
+    """Launch the route's backward kernels (dK/dV, then dQ) on the current
+    stream (not synchronised). Raises on what they cannot take."""
+    b, s, h, d = q.shape
+    if q.dtype not in _fa._DTYPE_CODES:
+        raise ValueError(f"unsupported dtype {q.dtype} (float32, float16, bfloat16)")
+    if d > _MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {d} > {_MAX_HEAD_DIM}: the ring block kernels take up to 128")
+    if k.shape != q.shape:
+        raise ValueError(
+            f"the backward block kernel takes K/V blocks of q's shape {tuple(q.shape)}, "
+            f"got {tuple(k.shape)}"
+        )
+    for name, t in (("q", q), ("k", k), ("v", v), ("grad_out", grad_out)):
+        if t.shape[-1] > 1 and t.stride(-1) != 1:
+            raise ValueError(f"{name} must be contiguous in head_dim (stride {t.stride(-1)})")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for name, t in (("dq", dq), ("dk", dk), ("dv", dv)):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous from a 16-byte aligned base")
+    route = _grads_route(q, k, v, grad_out)
+    fn = _load_grads()
+    strides = (ctypes.c_int64 * 12)(*(t.stride(i) for t in (q, k, v, grad_out) for i in range(3)))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), grad_out.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), strides, b, s, h, d,
+            int(q_offset), int(k_offset), float(scale), 1 if causal else 0,
+            _fa._DTYPE_CODES[q.dtype], _fa._ROUTE_CODES[route], stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"ring backward block kernel launch failed: CUDA error {err} "
+            f"(route {route}, shape {tuple(q.shape)}, {q.dtype})"
+        )
+    backward_route_launches[route] += 1
+
+
+def attend_block_grads(
+    q, k, v, grad_out, lse, delta, dq, dk, dv, q_offset: int, k_offset: int, scale: float,
+    causal: bool,
+) -> bool:
+    """One K/V block's share of attention's gradients against the local
+    queries, added in place into the f32 accumulators ``dq`` (q's shape),
+    ``dk`` and ``dv`` (k's shape): what ``block_grads`` returns, from the
+    rows' ``lse`` and ``delta`` (``[b, h, sq]`` f32). The Hopper kernels of
+    ``csrc/ring_block_bwd_wgmma.cu`` for CUDA tensors (or raise),
+    ``block_grads`` and three adds for CPU tensors. A causal block wholly in
+    the queries' future adds nothing and is skipped without a launch
+    (``backward_skips``); returns whether the block was computed."""
+    global backward_skips
+    _check_grads(q, k, v, grad_out, lse, delta, dq, dk, dv)
+    if causal and k_offset >= q_offset + q.shape[1]:
+        backward_skips += 1  # every key is in every query's future: P = 0
+        return False
+    if q.is_cuda:
+        _block_grads_kernel(q, k, v, grad_out, lse, delta, dq, dk, dv, q_offset, k_offset, scale,
+                            causal)
+        return True
+    if q.device.type != "cpu":
+        raise ValueError(f"unsupported device {q.device}")
+    gq, gk, gv = block_grads(q, k, v, grad_out, lse, delta, q_offset, k_offset, scale, causal)
+    dq += gq
+    dk += gk
+    dv += gv
+    return True
 
 
 def _init_carry(q: torch.Tensor):
@@ -500,8 +717,10 @@ class _Ring(torch.autograd.Function):
     and the row log-sum-exp. Backward: ``(k, v, dk, dv)`` rotate around the
     same ring for n steps; at step t this rank holds rank ``(rank - t) mod
     n``'s block and its gradient accumulators, adds the block's share
-    against its own queries (``block_grads``) and passes them on; the n-th
-    rotation brings each rank's ``dk``/``dv`` home (K/V need not go)."""
+    against its own queries (``attend_block_grads``) and passes them on;
+    the n-th rotation brings each rank's ``dk``/``dv`` home (K/V need not
+    go). grad_out is made contiguous first: an upstream gradient may be
+    an expanded or transposed view, and the kernel loads it in rows."""
 
     @staticmethod
     def forward(ctx, q, k, v, group, causal, scale):
@@ -514,12 +733,13 @@ class _Ring(torch.autograd.Function):
     def backward(ctx, grad_out):
         import torch.distributed as dist
 
-        global backward_steps, backward_skips
+        global backward_steps
         q, k, v, out, lse = ctx.saved_tensors
         group, causal, scale = ctx.group, ctx.causal, ctx.scale
         n, rank = dist.get_world_size(group), dist.get_rank(group)
         sq = q.shape[1]
-        delta = (grad_out.float() * out.float()).sum(-1).transpose(1, 2)  # [b, h, sq]
+        grad_out = grad_out.contiguous()
+        delta = (grad_out.float() * out.float()).sum(-1).transpose(1, 2).contiguous()  # [b, h, sq]
         dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
         dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
         dv = torch.zeros_like(dk)
@@ -531,14 +751,9 @@ class _Ring(torch.autograd.Function):
             if not last:
                 kv_rotation.start(k_blk, v_blk)  # K/V do not change: on their way at once
             src = (rank - step) % n
-            if causal and src > rank:
-                backward_skips += 1  # wholly in the queries' future: P = 0
-            else:
-                gq, gk, gv = block_grads(q, k_blk, v_blk, grad_out, lse, delta, rank * sq,
-                                         src * sq, scale, causal)
-                dq += gq
-                dk += gk
-                dv += gv
+            # A block wholly in the queries' future is skipped (P = 0).
+            if attend_block_grads(q, k_blk, v_blk, grad_out, lse, delta, dq, dk, dv, rank * sq,
+                                  src * sq, scale, causal):
                 backward_steps += 1
             grad_rotation.start(dk, dv)
             if not last:
