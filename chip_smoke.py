@@ -15,7 +15,8 @@ Phases, in order:
 2. build   — g++ and nvcc builds, started together; their seconds, each
              kernel instantiation's registers and spill bytes (ptxas) and
              HGMMA count (cuobjdump -sass). Fails if the D=64 bf16 flash
-             wgmma kernel or any ring block wgmma kernel spills, or a
+             wgmma kernel, any ring block wgmma kernel or any backward
+             block wgmma kernel (bf16/f16, d = 64 and 128) spills, or a
              wgmma kernel has no HGMMA instruction.
 3. kernels — every kernel of the port against its plain PyTorch version
              on the card at the main path's shape and at ragged and
@@ -37,15 +38,25 @@ Phases, in order:
              diagonal block timed warm and with the L2 flushed, beside its
              plain version and, for first+last, SDPA. The ring of one's
              whole forward (one first+last launch) timed beside the flash
-             kernel, SDPA and the attention bound. The ring's backward
-             for one block (``block_grads``, plain PyTorch in f32) at the
-             ring block, diagonal and causal: per element against f32
-             autograd, timed warm and with the L2 flushed beside SDPA's
-             backward (forward and backward captured, less the forward)
-             and its bound.
+             kernel, SDPA and the attention bound. The backward block
+             kernel (``attend_block_grads``, one launch a call) in
+             accumulate mode at the ring block's diagonal and past blocks
+             and at ragged, f16, f32 and misaligned shapes, in store mode
+             on the diagonal and past blocks, the delta pass against its
+             plain expression, each per element within its bound;
+             timed warm and with the L2 flushed beside SDPA's flash
+             backward op. The flash backward (the delta pass and the
+             kernel in store mode, through autograd of
+             ``flash_attention``) at (8, 1024, 8, 64) bf16 causal and at
+             non-causal, ragged, f16, d = 256 and f32 cases, per element
+             against its plain version and, in bf16, within two ulps of
+             the plain recompute's largest gradient; timed beside the
+             plain version, the recompute, SDPA's backward and its bound.
 4. train   — the flagship transformer at its full default width trains
              5 Adam steps on the card; the attention forward must run
-             the flash kernel n_layers x steps times.
+             the flash kernel n_layers x steps times, and its backward
+             the backward block kernel as many times (wgmma, flash path)
+             after as many delta passes.
 5. snapshot — Snapshot.take of the train state, restore into a fresh
              model (bit-exact, Parameter identity kept), read_object, and
              one more step from both giving bitwise-equal losses.
@@ -169,7 +180,9 @@ Phases, in order:
              steps; its train state is taken and restored into a fresh
              ring model and into a fresh dense model, each bit for bit
              with Parameter identity and a post-restore step equal to a
-             witness's.
+             witness's; under grad its forward is one first launch a
+             layer and step and its backward one store-mode launch of
+             the backward block kernel (the ring_of_one path).
 20. sharded_step — tpusnap's sharded train step on four ranks sharing
              the card (gloo; collectives staged through pinned host
              buffers) at tpusnap's default mesh for four devices,
@@ -361,12 +374,15 @@ degrade worlds, delta, tier with cas, observe, and the examples phase's two tran
 runs — and read just after
 it: the kernels phase's comparison launches do not count. The ring block
 kernel's counts (by route and by carry mode, and its skipped future
-blocks, the backward's block steps) are set to 0 at the same points and
-read for each rank of the ring phase and for its replica (20 launches,
-all first+last; the dense model restored from the replica's snapshot
-counts as a flash path), and in each rank of sharded_step for (a), for
-(c)'s three steps 4 and, as flash paths, for (b) and (d). Every main-path
-launch must take the wgmma route. The incremental, transforms and the
+blocks, the backward's block steps) and the backward kernels' (the
+backward block kernel's by route and by user: flash, ring_of_one, ring;
+the delta pass's) are set to 0 at the same points and read for each
+rank of the ring phase and for its replica (20 launches, all first under
+grad; the dense model restored from the replica's snapshot counts as a
+flash path), and in each rank of sharded_step for (a), for (c)'s three
+steps 4 and, as flash paths, for (b) and (d). Every main-path launch
+must take the wgmma route, and each of the backward kernel's three users
+must launch it at least once. The incremental, transforms and the
 four A8b phases run with compression off, so their byte counts are the
 tensors' own.
 """
@@ -375,6 +391,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import gc
 import io
 import json
 import logging
@@ -492,26 +509,25 @@ def _kernel_label(mangled: str) -> str:
     """``wgmma<bf16,64>``-style label of a mangled kernel name: ``wgmma`` and
     ``simt`` for the flash kernels, ``ring_wgmma`` and ``ring_simt`` for the
     ring block kernels, ``ring_grads_wgmma`` and ``ring_grads_simt`` for the
-    backward block kernels with ``dkv`` or ``dq`` last (their source file's
-    name is in every mangled name of that file, so the kernel's own name is
-    matched with its template arguments' ``I``)."""
+    backward block kernels and ``attention_delta`` for the delta pass
+    (their source file's name is in every mangled name of that file, so the
+    kernel's own name is matched with its template arguments' ``I``)."""
     import re
 
-    if "ring_grads_wgmmaI" in mangled or "ring_grads_simtI" in mangled:
-        kind = "ring_grads_wgmma" if "ring_grads_wgmmaI" in mangled else "ring_grads_simt"
-        dtype = ("bf16" if "__nv_bfloat16" in mangled else "f16" if "6__half" in mangled
-                 else "f32")
-        dim = re.search(r"Li(\d+)E", mangled)
-        part = "dq" if "Lb1E" in mangled else "dkv"
-        return f"{kind}<{dtype},{dim.group(1) if dim else '?'},{part}>"
-    if "ring_block_wgmmaI" in mangled:
+    dtype = ("bf16" if "__nv_bfloat16" in mangled else "f16" if "6__half" in mangled
+             else "f32")
+    if "attention_deltaI" in mangled:
+        return f"attention_delta<{dtype}>"
+    if "ring_grads_wgmmaI" in mangled:
+        kind = "ring_grads_wgmma"
+    elif "ring_grads_simtI" in mangled:
+        kind = "ring_grads_simt"
+    elif "ring_block_wgmmaI" in mangled:
         kind = "ring_wgmma"
     elif "ring_block_simtI" in mangled:
         kind = "ring_simt"
     else:
         kind = "wgmma" if "flash_fwd_wgmma" in mangled else "simt"
-    dtype = ("bf16" if "__nv_bfloat16" in mangled else "f16" if "6__half" in mangled
-             else "f32")
     dim = re.search(r"Li(\d+)E", mangled)
     return f"{kind}<{dtype},{dim.group(1) if dim else '?'}>"
 
@@ -567,8 +583,7 @@ def phase_build() -> dict:
     if _native.checksum_algorithm() != "crc32c":
         raise RuntimeError("native build missing: checksums would not be crc32c")
     hgmma = _hgmma_counts(fa._SO, fa._nvcc())
-    grads = [f"ring_grads_wgmma<{t},{d},{part}>" for t in ("bf16", "f16") for d in (64, 128)
-             for part in ("dkv", "dq")]
+    grads = [f"ring_grads_wgmma<{t},{d}>" for t in ("bf16", "f16") for d in (64, 128)]
     for label in ("wgmma<bf16,64>", "ring_wgmma<bf16,64>", "ring_wgmma<bf16,128>",
                   "ring_wgmma<f16,64>", "ring_wgmma<f16,128>", *grads):
         row = ptxas.get(label)
@@ -673,6 +688,19 @@ def phase_kernels() -> dict:
             raise AssertionError("two launches on the same inputs differ")
         reps = 30
         ms = time_ms(lambda: flash_attention(q, k, v, causal=True), reps)
+        # The forward under grad also writes the rows' log-sum-exp: the
+        # output bit for bit the same, timed in turns with the plain launch.
+        from tpusnap_torch.ops import flash_attention as fa
+
+        b_, s_, h_, _ = SLICE_SHAPE
+        lse = torch.empty((b_, h_, s_), device="cuda")
+        with_lse = fa._kernel_forward(q, k, v, True, lse)
+        if not torch.equal(with_lse, first):
+            raise AssertionError("the forward's output changes when it writes lse")
+        plain_launch = lambda: fa._kernel_forward(q, k, v, True)  # noqa: E731
+        lse_launch = lambda: fa._kernel_forward(q, k, v, True, lse)  # noqa: E731
+        lse_turns = [time_ms(fn, reps) for fn in (plain_launch, lse_launch, lse_launch,
+                                                  plain_launch)]
         plain_ms = time_ms(lambda: flash_attention_reference(q, k, v, True), 20)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         library_ms = time_ms(
@@ -703,6 +731,8 @@ def phase_kernels() -> dict:
             "library_tflops": flops / library_ms / 1e9,
             "bound_ms": bound_ms, "bound_by": bound_by, "timed_launches": reps,
             "max_abs_err": checks[0]["max_abs_err"],
+            "lse_turns_ms": lse_turns, "lse_ms": (lse_turns[1] + lse_turns[2]) / 2,
+            "without_lse_ms": (lse_turns[0] + lse_turns[3]) / 2, "lse_bitwise_output": True,
         },
     }
 
@@ -1034,8 +1064,9 @@ def _ring_backward_block(gen) -> dict:
                        "q_offset": q_off, "k_offset": k_off, "causal": causal, "route": route,
                        "max_abs_err": errs, "worst_err_over_bound": worst})
 
-    # The flagship's ring block: bitwise repeats, then the plain version's
-    # own check and the times.
+    # The flagship's ring block: bitwise repeats, one kernel launch a call,
+    # store mode, the delta pass, then the plain version's own check and
+    # the times.
     scale = d**-0.5
     q, k, v = _qkv_views(RING_BLOCK_SHAPE, bf16, gen)
     do = torch.randn(q.shape, generator=gen, device="cuda").to(bf16)
@@ -1045,10 +1076,41 @@ def _ring_backward_block(gen) -> dict:
     acc = [torch.randn(q.shape, generator=gen, device="cuda") for _ in range(3)]
     with torch.no_grad():
         first, second = [t.clone() for t in acc], [t.clone() for t in acc]
+        kernels = ra.grads_kernel_launches()
         ra.attend_block_grads(q, k, v, do, lse2, delta2, *first, s, s, scale, True)
         ra.attend_block_grads(q, k, v, do, lse2, delta2, *second, s, s, scale, True)
+        torch.cuda.synchronize()
         if not all(torch.equal(x, y) for x, y in zip(first, second)):
             raise AssertionError("two backward block launches on the same inputs differ")
+        kernel_launches = ra.grads_kernel_launches() - kernels
+        if kernel_launches != 2:
+            raise AssertionError(f"two backward calls launched {kernel_launches} kernels")
+        # Store mode (the flash backward's and the ring of one's), the
+        # diagonal block of the whole rows at (0, 0), in bf16.
+        store_checks = []
+        for block, (q_off, k_off) in {"diagonal": (0, 0), "past": (s, 0)}.items():
+            lse_b, delta_b, _ = ra.row_stats(q, k, v, do, q_off, k_off, scale, True)
+            outs = [torch.full(q.shape, float("nan"), dtype=bf16, device="cuda")
+                    for _ in range(3)]
+            ra.attend_block_grads(q, k, v, do, lse_b, delta_b, *outs, q_off, k_off, scale, True,
+                                  mode="store")
+            want = ra.block_grads(q, k, v, do, lse_b, delta_b, q_off, k_off, scale, True)
+            bounds = ra.grads_rounding_bound(q, k, v, do, lse_b, delta_b, want, q_off, k_off,
+                                             scale, True, store=True)
+            ratio = max(((g.float() - w).abs() / bd).max().item()
+                        for g, w, bd in zip(outs, want, bounds))
+            if not ratio <= 1.0:
+                raise AssertionError(f"store mode on the {block} block: {ratio}x its bound")
+            store_checks.append({"block": block, "worst_err_over_bound": ratio})
+        # The delta pass against its plain expression: f32 sums in another
+        # order, within _F32_SLACK of the sum of |dO * O| plus 1e-6.
+        o_bf16 = out2.to(bf16)
+        delta_got = ra.attention_delta(do, o_bf16)
+        delta_want = ra.attention_delta_reference(do, o_bf16)
+        slack = ra._F32_SLACK * (do.float() * o_bf16.float()).abs().sum(-1).transpose(1, 2)
+        delta_ratio = ((delta_got - delta_want).abs() / (slack + 1e-6)).max().item()
+        if not delta_ratio <= 1.0:
+            raise AssertionError(f"the delta pass: {delta_ratio}x its bound")
         # lse and delta of the diagonal block alone: in f32 its gradients
         # are exactly attention's on the block, which autograd gives.
         lse, delta, _ = ra.row_stats(q, k, v, do, s, s, scale, True)
@@ -1119,6 +1181,9 @@ def _ring_backward_block(gen) -> dict:
         "bitwise_repeat": True,
         "plain_max_abs_err": plain_errs,
         "plain_err_against": "torch.autograd.grad of f32 scaled_dot_product_attention",
+        "kernel_launches_per_call": kernel_launches // 2, "store_checks": store_checks,
+        "delta_max_abs_err": (delta_got - delta_want).abs().max().item(),
+        "delta_worst_err_over_bound": delta_ratio,
         "blocks": blocks, "ms": diag["ms"], "cold_ms": diag["cold_ms"],
         "ms_of": "the diagonal block (offsets 512, 512), causal",
         "plain": "ring_attention.block_grads (plain PyTorch, f32) followed by the three adds",
@@ -1146,46 +1211,157 @@ def flash_backward_bound(shape, dtype: str, causal: bool):
 
 
 def _flash_backward(gen) -> dict:
-    """The flash kernel's backward (``_FlashAttention.backward``: autograd
-    of the plain version, recomputed from q, k and v, as tpusnap's
-    ``_flash_bwd`` is plain XLA) at the flagship's shape (8, 1024, 8, 64)
-    bf16 causal: the callable that backward runs, timed warm (CUDA-graph
-    replays), beside SDPA's backward on the same tensors (forward and
-    backward less the forward) and the bound. No kernel of its own yet:
-    the row lets the next port of a backward rank it."""
+    """The flash kernel's backward (``_FlashAttention.backward``: the delta
+    pass, then the backward block kernel in ``store`` mode over the whole
+    sequence as one diagonal block at offsets (0, 0)) through autograd of
+    ``flash_attention``, against its plain version on the card
+    (``block_grads`` on the same q, k, v, dO, the forward kernel's lse and
+    the delta of its output) per element within
+    ``ring_attention.grads_rounding_bound(store=True)``, and in bf16 by
+    the check this row kept from the plain recompute it replaces (two bf16
+    ulps of the largest gradient of autograd of
+    ``flash_attention_reference``). Cases: the flagship's (8, 1024, 8, 64)
+    bf16 causal as head-split views of a fused qkv, non-causal, a ragged
+    s, f16 at d = 128 (wgmma), d = 256 and f32 (simt); each one delta pass
+    and one backward launch on its route and the flash path; a repeated
+    backward bitwise equal. Then at the flagship's shape the backward
+    (delta pass and kernel, what ``_FlashAttention.backward`` launches)
+    timed warm and with the L2 flushed, beside the plain version, the
+    plain recompute tpusnap's ``_flash_bwd`` is, SDPA's backward on the
+    same tensors (forward and backward less the forward) and
+    ``flash_backward_bound``."""
+    import importlib
+
     import torch
     import torch.nn.functional as F
 
     from tpusnap_torch.ops import flash_attention as fa
 
-    q, k, v = (t.detach().requires_grad_() for t in _qkv_views(SLICE_SHAPE, torch.bfloat16, gen))
-    do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
-    # What _FlashAttention.backward computes for a grad_out of do.
-    plain = lambda: torch.autograd.grad(  # noqa: E731
+    ra = importlib.import_module("tpusnap_torch.ops.ring_attention")
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    cases = [
+        # shape, dtype, causal, qkv views, the backward's route
+        (SLICE_SHAPE, bf16, True, True, "wgmma"),
+        ((2, 1000, 4, 64), bf16, False, True, "wgmma"),
+        ((1, 333, 4, 64), bf16, True, True, "wgmma"),
+        ((2, 130, 2, 128), f16, True, False, "wgmma"),
+        ((1, 333, 2, 256), bf16, True, False, "simt"),
+        ((1, 200, 4, 64), f32, True, False, "simt"),
+    ]
+    checks = []
+    for shape, dtype, causal, views, route in cases:
+        if views:
+            q, k, v = _qkv_views(shape, dtype, gen)
+        else:
+            q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                       for _ in range(3))
+        do = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        before = _backward_counts()
+        got = torch.autograd.grad(fa.flash_attention(*leaves, causal=causal), leaves, do)
+        torch.cuda.synchronize()
+        after = _backward_counts()
+        moved = {r: after["routes"][r] - before["routes"][r] for r in after["routes"]}
+        if (moved != {r: int(r == route) for r in moved} or after["delta"] != before["delta"] + 1
+                or after["paths"]["flash"] != before["paths"]["flash"] + 1):
+            raise AssertionError(f"flash backward at {shape} {dtype}: launches {before} -> {after};"
+                                 f" expected one delta pass and one {route} launch, path flash")
+        again = torch.autograd.grad(fa.flash_attention(*leaves, causal=causal), leaves, do)
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise AssertionError(f"flash backward at {shape} {dtype}: a repeat differs")
+        b, s, h, d = shape
+        scale = d**-0.5
+        with torch.no_grad():
+            lse = torch.empty((b, h, s), device="cuda")
+            out = fa._kernel_forward(q, k, v, causal, lse)
+            delta = ra.attention_delta(do, out)
+            want = ra.block_grads(q, k, v, do, lse, delta, 0, 0, scale, causal)
+            bounds = ra.grads_rounding_bound(q, k, v, do, lse, delta, want, 0, 0, scale, causal,
+                                             store=True)
+        errs, worst = {}, 0.0
+        for name, g, w, bound in zip(("dq", "dk", "dv"), got, want, bounds):
+            diff = (g.float() - w).abs()
+            errs[name] = diff.max().item()
+            worst = max(worst, (diff / bound).max().item())
+        if not worst <= 1.0:
+            raise AssertionError(f"flash backward ({route}) disagrees with its plain version at "
+                                 f"{shape} {dtype} causal={causal}: max |err| {errs}, {worst}x "
+                                 f"the allowed bound")
+        row = {"shape": list(shape), "dtype": str(dtype).split(".")[-1], "causal": causal,
+               "route": route, "max_abs_err": errs, "worst_err_over_bound": worst}
+        if dtype == bf16:
+            plain = torch.autograd.grad(fa.flash_attention_reference(*leaves, causal), leaves, do)
+            err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, plain))
+            largest = max(w.float().abs().max().item() for w in plain)
+            if not err <= 2**-6 * largest:  # two bf16 ulps of the largest gradient
+                raise AssertionError(f"flash attention's backward is not its plain recompute at "
+                                     f"{shape}: {err} against {largest}")
+            row.update(recompute_max_abs_err=err, recompute_largest=largest)
+            del plain
+        checks.append(row)
+        del q, k, v, do, leaves, got, again, want, bounds
+
+    # The flagship's shape: what _FlashAttention.backward launches, timed.
+    q, k, v = (t.detach().requires_grad_() for t in _qkv_views(SLICE_SHAPE, bf16, gen))
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(bf16)
+    b, s, h, d = SLICE_SHAPE
+    scale = d**-0.5
+    with torch.no_grad():
+        lse = torch.empty((b, h, s), device="cuda")
+        out = fa._kernel_forward(q, k, v, True, lse)
+    grads = [torch.empty(q.shape, dtype=bf16, device="cuda") for _ in range(3)]
+
+    def kernel():
+        ra.attend_block_grads(q, k, v, do, lse, ra.attention_delta(do, out), *grads, 0, 0, scale,
+                              True, mode="store", path="flash")
+
+    def plain():
+        delta = ra.attention_delta_reference(do, out)
+        return [g.to(bf16) for g in ra.block_grads(q, k, v, do, lse, delta, 0, 0, scale, True)]
+
+    recompute = lambda: torch.autograd.grad(  # noqa: E731
         fa.flash_attention_reference(q, k, v, True), (q, k, v), do)
-    got = torch.autograd.grad(fa.flash_attention(q, k, v, causal=True), (q, k, v), do)
-    err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, plain()))
-    largest = max(w.float().abs().max().item() for w in plain())
-    if not err <= 2**-6 * largest:  # two bf16 ulps of the largest gradient
-        raise AssertionError(f"flash attention's backward is not its plain recompute: {err}")
     qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v))
     dot = do.transpose(1, 2)
     lib_fwd = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)  # noqa: E731
     lib_both = lambda: torch.autograd.grad(lib_fwd(), (qt, kt, vt), dot)  # noqa: E731
-    reps = 10
-    plain_ms = time_ms(plain, reps)
+    reps = 20
+    with torch.no_grad():
+        ms, cold_ms = time_ms(kernel, reps), time_ms_cold(kernel, reps)
+        plain_ms = time_ms(plain, 10)
+    recompute_ms = time_ms(recompute, 10)
     lib_both_ms, lib_fwd_ms = time_ms(lib_both, reps), time_ms(lib_fwd, reps)
+    lib_both_cold, lib_fwd_cold = time_ms_cold(lib_both, reps), time_ms_cold(lib_fwd, reps)
     bound_ms, bound_by = flash_backward_bound(SLICE_SHAPE, "bfloat16", True)
+    # The delta pass alone: it reads dO and O once in bf16 and writes
+    # [b, h, s] f32.
+    with torch.no_grad():
+        delta = {
+            "ms": time_ms(lambda: ra.attention_delta(do, out), reps),
+            "cold_ms": time_ms_cold(lambda: ra.attention_delta(do, out), reps),
+            "plain_ms": time_ms(lambda: ra.attention_delta_reference(do, out), reps),
+            "bound_ms": 1e3 * (2 * b * s * h * d * 2 + b * h * s * 4) / HBM_BYTES_PER_S,
+        }
+    flagship = checks[0]
     return {
-        "shape": list(SLICE_SHAPE), "dtype": "bfloat16", "causal": True,
-        "function": "_FlashAttention.backward: autograd of flash_attention_reference "
-                    "(plain PyTorch, recomputed)",
-        "plain_ms": plain_ms, "library_ms": lib_both_ms - lib_fwd_ms,
+        "shape": list(SLICE_SHAPE), "dtype": "bfloat16", "causal": True, "route": "wgmma",
+        "function": "_FlashAttention.backward: attention_delta, then attend_block_grads in store "
+                    "mode at offsets (0, 0) (one delta launch, one backward kernel launch)",
+        "checks": checks, "bitwise_repeat": True,
+        "max_abs_err": max(flagship["max_abs_err"].values()),
+        "worst_err_over_bound": max(c["worst_err_over_bound"] for c in checks),
+        "max_abs_err_kernel_path": flagship["recompute_max_abs_err"],
+        "ms": ms, "cold_ms": cold_ms, "bound_share": bound_ms / cold_ms,
+        "plain": "attention_delta_reference and block_grads (plain PyTorch, f32) cast to bf16",
+        "plain_ms": plain_ms,
+        "recompute": "autograd of flash_attention_reference (tpusnap's _flash_bwd; the port's "
+                     "backward before this kernel)",
+        "recompute_ms": recompute_ms,
+        "library_ms": lib_both_ms - lib_fwd_ms, "library_cold_ms": lib_both_cold - lib_fwd_cold,
         "library_fwd_bwd_ms": lib_both_ms, "library_fwd_ms": lib_fwd_ms,
         "library": "torch.autograd.grad of scaled_dot_product_attention(is_causal=True), "
                    "forward and backward less the forward",
-        "bound_ms": bound_ms, "bound_by": bound_by, "timed_launches": reps,
-        "max_abs_err_kernel_path": err,
+        "bound_ms": bound_ms, "bound_by": bound_by, "timed_launches": reps, "delta": delta,
     }
 
 
@@ -1277,6 +1453,14 @@ def phase_train(ctx: dict) -> dict:
             f"flash kernel launched {launched} times, expected "
             f"{cfg.n_layers * TRAIN_STEPS}"
         )
+    # Every layer's backward of every step: one delta pass and one launch
+    # of the backward block kernel on the wgmma route, on the flash path.
+    backward = _backward_counts()
+    n = cfg.n_layers * TRAIN_STEPS
+    if (backward["paths"] != {"flash": n, "ring_of_one": 0, "ring": 0}
+            or backward["routes"] != {"wgmma": n, "simt": 0} or backward["delta"] != n):
+        raise AssertionError(f"the train steps' backward launches {backward}; expected {n} "
+                             f"wgmma launches on the flash path and {n} delta passes")
     ctx.update(cfg=cfg, model=model, tokens=tokens)
     n_params = sum(p.numel() for p in model.parameters())
     return {
@@ -1286,7 +1470,7 @@ def phase_train(ctx: dict) -> dict:
             "seq": cfg.max_seq_len, "batch": 8, "dtype": "bfloat16",
         },
         "params": n_params, "losses": losses, "step_s": step_s,
-        "flash_launches": launched,
+        "flash_launches": launched, "backward_launches": backward,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
 
@@ -1495,6 +1679,7 @@ def phase_async_bulk(ctx: dict, workdir: str) -> dict:
     witness = {k: v.clone() for k, v in tensors.items()}
     nbytes = sum(t.numel() * t.element_size() for t in tensors.values())
     path = os.path.join(workdir, "async_bulk")
+    gc.collect()  # earlier garbage that holds CUDA memory goes before the measured call
     torch.cuda.synchronize()
     allocated = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
@@ -2089,6 +2274,9 @@ def phase_transforms(ctx: dict, workdir: str) -> dict:
     f32 = sorted(k for k, v in tensors.items() if v.dtype == torch.float32)
     path = os.path.join(workdir, "cast_bulk")
     with override_compress(mode="off"):
+        # Garbage of earlier phases that still holds CUDA memory goes now,
+        # not inside the call, whose device copies are measured.
+        gc.collect()
         torch.cuda.synchronize()
         allocated = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
@@ -3474,13 +3662,20 @@ def phase_ring(ctx: dict, workdir: str) -> dict:
     )
     replica_launches, replica_routes = ra.launches, dict(ra.route_launches)
     replica_modes = dict(ra.mode_launches)
+    replica_backward = _backward_counts()
+    # Under grad the ring of one keeps its carry: one first launch a layer
+    # and step, then one store-mode backward launch on the ring_of_one path.
     if (replica_launches != layers * 5 or replica_routes["simt"]
-            or replica_modes["first+last"] != replica_launches):
+            or replica_modes["first"] != replica_launches):
         raise AssertionError(
             f"ring replica: {replica_launches} launches {replica_routes} {replica_modes}; "
             f"expected {layers * 5} (3 steps, then one step of each restored model), all "
-            f"wgmma, all first+last"
+            f"wgmma, all first (under grad)"
         )
+    if (replica_backward["paths"] != {"flash": 0, "ring_of_one": layers * 5, "ring": 0}
+            or replica_backward["routes"] != {"wgmma": layers * 5, "simt": 0}):
+        raise AssertionError(f"ring replica backward launches {replica_backward}; expected "
+                             f"{layers * 5} wgmma launches on the ring_of_one path")
     dense_restore_s, dense_step_loss = _restore_and_check(
         path, want, Transformer(cfg_dense, device="cuda", seed=SEED + 14),
         Transformer(cfg_dense, device="cuda", seed=SEED + 15), tokens,
@@ -3496,7 +3691,8 @@ def phase_ring(ctx: dict, workdir: str) -> dict:
         "ring_restore_s": ring_restore_s, "ring_post_restore_loss": ring_loss,
         "dense_restore_s": dense_restore_s, "dense_post_restore_loss": dense_step_loss,
         "replica_ring_launches": replica_launches, "replica_ring_routes": replica_routes,
-        "replica_ring_modes": replica_modes, "step_split_ms": step_split,
+        "replica_ring_modes": replica_modes, "replica_backward": replica_backward,
+        "step_split_ms": step_split,
         "bit_exact": True, "parameter_identity": True,
         "seconds": time.perf_counter() - t_phase, "card": ctx["card"],
     }
@@ -3539,6 +3735,7 @@ def _ring_counts() -> dict:
             "ring_modes": dict(ra.mode_launches), "ring_skips": ra.skips,
             "backward_steps": ra.backward_steps, "backward_skips": ra.backward_skips,
             "backward_routes": dict(ra.backward_route_launches),
+            "backward_paths": dict(ra.backward_path_launches), "delta_launches": ra.delta_launches,
             "flash_launches": fa.launches, "flash_routes": dict(fa.route_launches)}
 
 
@@ -3773,17 +3970,25 @@ def phase_sharded_step(ctx: dict, workdir: str) -> dict:
             # Every block step of the backward is one launch of its kernel,
             # on the wgmma route.
             steps = got["backward_steps"]
-            if got["backward_routes"] != {"wgmma": steps, "simt": 0}:
+            if (got["backward_routes"] != {"wgmma": steps, "simt": 0}
+                    or got["backward_paths"] != {"flash": 0, "ring_of_one": 0, "ring": steps}):
                 raise AssertionError(
                     f"rank {r['rank']} {what}: backward kernel launches "
-                    f"{got['backward_routes']} for {steps} block steps; expected one wgmma "
-                    f"launch a step")
+                    f"{got['backward_routes']} {got['backward_paths']} for {steps} block steps; "
+                    f"expected one wgmma launch a step, on the ring path")
         for what, c in (("(b)", dense), ("(d)", r["moe"])):
             if (c["flash_launches"] != layers or c["ring_launches"]
                     or c["flash_routes"] != {"wgmma": layers, "simt": 0}):
                 raise AssertionError(f"rank {r['rank']} {what}: {c['flash_launches']} flash "
                                      f"{c['flash_routes']}, {c['ring_launches']} ring launches; "
                                      f"expected {layers} wgmma, 0")
+            # One step: each layer's backward is one wgmma launch of the
+            # backward block kernel on the flash path.
+            if (c["backward_paths"] != {"flash": layers, "ring_of_one": 0, "ring": 0}
+                    or c["backward_routes"] != {"wgmma": layers, "simt": 0}):
+                raise AssertionError(f"rank {r['rank']} {what}: backward launches "
+                                     f"{c['backward_routes']} {c['backward_paths']}; expected "
+                                     f"{layers} wgmma on the flash path")
         if not r["grad_output_bitwise_no_grad"]:
             raise AssertionError(f"rank {r['rank']}: the ring's output under grad differs from no_grad")
         if not snap["step4_bitwise"] or snap["bytes_written"] != snap["own_box_bytes"]:
@@ -5660,7 +5865,7 @@ def phase_cli(ctx: dict, workdir: str) -> dict:
         ("lint --check", ["lint", "--check"], 0),
     ]
     results = {}
-    with ThreadPoolExecutor(max_workers=6) as pool:
+    with ThreadPoolExecutor(max_workers=8) as pool:  # one process a core of the card's host
         futures = {name: pool.submit(_cli_run, argv, env) for name, argv, _ in expect}
     for name, _argv, rc in expect:
         r = futures[name].result()
@@ -5892,8 +6097,9 @@ def phase_benchmarks(ctx: dict, workdir: str) -> list:
 
 
 def _reset_launches() -> None:
-    """Set the flash and ring block kernels' launch counts to 0 (the ring's
-    backward block kernel's too)."""
+    """Set the flash and ring block kernels' launch counts to 0 (the
+    backward block kernel's, by route and by path, and the delta pass's
+    too)."""
     import importlib
 
     from tpusnap_torch.ops import flash_attention as fa
@@ -5905,6 +6111,18 @@ def _reset_launches() -> None:
     ra.route_launches = dict.fromkeys(ra.route_launches, 0)
     ra.mode_launches = dict.fromkeys(ra.mode_launches, 0)
     ra.backward_route_launches = dict.fromkeys(ra.backward_route_launches, 0)
+    ra.backward_path_launches = dict.fromkeys(ra.backward_path_launches, 0)
+    ra.delta_launches = 0
+
+
+def _backward_counts() -> dict:
+    """The backward kernels' launches since the last reset: the backward
+    block kernel's by route and by path, and the delta pass's."""
+    import importlib
+
+    ra = importlib.import_module("tpusnap_torch.ops.ring_attention")
+    return {"routes": dict(ra.backward_route_launches), "paths": dict(ra.backward_path_launches),
+            "delta": ra.delta_launches}
 
 
 def _check_routes(path: str, launches: int, routes: dict) -> None:
@@ -5939,6 +6157,14 @@ def main() -> int:
     ctx = {"card": card}
     emit({"phase": "device", "nvidia_smi": card, "name": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda})
+    # Launches on the main path since the last _reset_launches, by window:
+    # the flash kernel's (paths) and the backward kernels' (bwd_paths).
+    paths, bwd_paths = {}, {}
+
+    def window(name: str) -> None:
+        paths[name] = (fa.launches, dict(fa.route_launches))
+        bwd_paths[name] = _backward_counts()
+
     workdir = tempfile.mkdtemp(prefix="tpusnap_torch_smoke_")
     # History, access ledgers, SLO sidecars and restore traces are on by
     # default: keep them in the run's own directory (child processes
@@ -5952,17 +6178,17 @@ def main() -> int:
         _reset_launches()  # the main path starts here
         emit(phase_train(ctx))
         emit(phase_snapshot(ctx, workdir))
-        paths = {"train+snapshot": (fa.launches, dict(fa.route_launches))}
+        window("train+snapshot")
         emit(phase_bulk(ctx, workdir))
         _reset_launches()
         emit(phase_async_train(ctx, workdir))
-        paths["async_train"] = (fa.launches, dict(fa.route_launches))
+        window("async_train")
         emit(phase_async_bulk(ctx, workdir))
         emit(phase_chunked(ctx, workdir))
         emit(phase_host_memory(ctx, workdir))
         _reset_launches()
         emit(phase_incremental(ctx, workdir))
-        paths["incremental"] = (fa.launches, dict(fa.route_launches))
+        window("incremental")
         emit(phase_compress(ctx, workdir))
         emit(phase_transforms(ctx, workdir))
         dist_line = phase_distributed(ctx, workdir)
@@ -5971,13 +6197,13 @@ def main() -> int:
             paths[f"distributed rank {r['rank']}"] = (r["flash_launches"], r["flash_routes"])
         _reset_launches()
         sharded_line = phase_sharded(ctx, workdir)
-        paths["sharded parent"] = (fa.launches, dict(fa.route_launches))
+        window("sharded parent")
         emit(sharded_line)
         for r in sharded_line["ranks"]:
             paths[f"sharded rank {r['rank']}"] = (r["flash_launches"], r["flash_routes"])
         _reset_launches()
         emit(phase_moe(ctx, workdir))
-        paths["moe"] = (fa.launches, dict(fa.route_launches))
+        window("moe")
         emit(phase_embedding(ctx, workdir))
         layouts_line = phase_layouts(ctx, workdir)
         emit(layouts_line)
@@ -5995,29 +6221,30 @@ def main() -> int:
             ring_line["replica_ring_launches"], ring_line["replica_ring_routes"], 0,
             ring_line["replica_ring_modes"],
         )
-        paths["ring replica dense restore"] = (fa.launches, dict(fa.route_launches))
+        window("ring replica dense restore")
         sharded_step_line = phase_sharded_step(ctx, workdir)
         emit(sharded_step_line)
         grads_paths = {}
         for r in sharded_step_line["ranks"]:
-            for part in ("ring", "snapshot"):
+            for part in ("ring", "snapshot", "dense", "moe"):
                 c = r[part]
                 name = f"sharded_step {part} rank {r['rank']}"
-                ring_paths[name] = (c["ring_launches"], c["ring_routes"], c["ring_skips"],
-                                    c["ring_modes"])
-                grads_paths[name] = (sum(c["backward_routes"].values()), c["backward_routes"],
-                                     c["backward_skips"])
-            for part in ("dense", "moe"):
-                c = r[part]
-                paths[f"sharded_step {part} rank {r['rank']}"] = (c["flash_launches"],
-                                                                  c["flash_routes"])
+                bwd_paths[name] = {"routes": c["backward_routes"], "paths": c["backward_paths"],
+                                   "delta": c["delta_launches"]}
+                if part in ("ring", "snapshot"):
+                    ring_paths[name] = (c["ring_launches"], c["ring_routes"], c["ring_skips"],
+                                        c["ring_modes"])
+                    grads_paths[name] = (sum(c["backward_routes"].values()),
+                                         c["backward_routes"], c["backward_skips"])
+                else:
+                    paths[name] = (c["flash_launches"], c["flash_routes"])
         _reset_launches()
         ctx["life_model"], ctx["life_state_file"] = _lifecycle_model(ctx, workdir)
         emit(phase_crash(ctx, workdir))
         emit(phase_crash_matrix(ctx, workdir))
         paths.update(ctx["matrix_flash"])
         emit(phase_chaos(ctx, workdir))
-        paths["crash+chaos"] = (fa.launches, dict(fa.route_launches))
+        window("crash+chaos")
         emit(phase_liveness(ctx, workdir))
         degrade_line = phase_degrade(ctx, workdir)
         emit(degrade_line)
@@ -6027,16 +6254,16 @@ def main() -> int:
         emit(phase_lifecycle_ab(ctx, workdir))
         _reset_launches()
         emit(phase_delta(ctx, workdir))
-        paths["delta"] = (fa.launches, dict(fa.route_launches))
+        window("delta")
         emit(phase_delta_elastic(ctx, workdir))
         _reset_launches()
         emit(phase_tier(ctx, workdir))
         emit(phase_cas(ctx, workdir))
-        paths["tier+cas"] = (fa.launches, dict(fa.route_launches))
+        window("tier+cas")
         ctx["cli_delta"] = os.path.join(workdir, "delta_free")
         _reset_launches()
         emit(phase_observe(ctx, workdir))
-        paths["observe"] = (fa.launches, dict(fa.route_launches))
+        window("observe")
         emit(phase_cli(ctx, workdir))
         ex_line = phase_examples(ctx, workdir)
         emit(ex_line)
@@ -6058,7 +6285,16 @@ def main() -> int:
     for path, (launches, routes, _) in grads_paths.items():
         if launches == 0 or routes != {"wgmma": launches, "simt": 0}:
             raise AssertionError(f"{path}: backward block launches {launches} by route {routes}")
+    for name, c in bwd_paths.items():
+        if c["routes"]["simt"]:
+            raise AssertionError(f"{name}: backward launches {c}: all must take the wgmma route")
+    by_path = {p: sum(c["paths"][p] for c in bwd_paths.values()) for p in ("flash", "ring_of_one",
+                                                                          "ring")}
+    if not all(by_path.values()):
+        raise AssertionError(f"the main path left a user of the backward kernel out: {by_path}")
+    delta_launches = sum(c["delta"] for c in bwd_paths.values())
     grads_row = result["ring_backward_block"]
+    flash_bwd = result["flash_backward"]
     ring_row, ring_one = result["ring_block_attend"], result["ring_of_one_forward"]
     ring_modes = {
         mode: sum(modes[mode] for _, _, _, modes in ring_paths.values())
@@ -6087,6 +6323,8 @@ def main() -> int:
         "tflops": kernel_row["tflops"],
         "bound_share": kernel_row["bound_share"],
         "simt_ms": kernel_row["simt_ms"],
+        "lse_ms": kernel_row["lse_ms"],
+        "without_lse_ms": kernel_row["without_lse_ms"],
     }, {
         # The ring of one's launch (first+last at the flagship's shape, 20
         # of the main path's launches) gives the row's numbers; "modes"
@@ -6117,22 +6355,27 @@ def main() -> int:
             mode: {**row, "launches": ring_modes[mode]} for mode, row in ring_row["modes"].items()
         },
     }, {
-        # The backward across ranks: one call (a dK/dV and a dQ launch) per
-        # block step of sharded_step (a) and (c); the numbers are the
-        # flagship's diagonal block (8, 512, 8, 64), "blocks" has the past
-        # one too.
+        # The backward block kernel: one launch a call, for every user: the
+        # ring's block steps (sharded_step (a) and (c), accumulate), the
+        # ring of one's and the flash backward's (store). The numbers are
+        # the flagship's diagonal ring block (8, 512, 8, 64), "blocks" has
+        # the past one too; "flash_attention_bwd" below times the flash
+        # user at (8, 1024, 8, 64).
         "name": "ring_block_grads",
         "route": "cuda",
         "kernel_route": "wgmma",
         "route_launches": {
-            r: sum(routes[r] for _, routes, _ in grads_paths.values()) for r in ("wgmma", "simt")
+            r: sum(c["routes"][r] for c in bwd_paths.values()) for r in ("wgmma", "simt")
         },
         "source": "tpusnap_torch/csrc/ring_block_bwd_wgmma.cu",
         "replaces": "tpusnap/ops/ring_attention.py:26",
         "replaces_what": "XLA autodiff of _block_attend (the ring's backward across ranks)",
-        "launches": sum(n for n, _, _ in grads_paths.values()),
-        "launches_by_path": {p: n for p, (n, _, _) in grads_paths.items()},
+        "launches": sum(sum(c["routes"].values()) for c in bwd_paths.values()),
+        "launches_by_user": by_path,
+        "launches_by_path": {p: sum(c["routes"].values()) for p, c in bwd_paths.items()},
+        "ring_block_steps_by_path": {p: n for p, (n, _, _) in grads_paths.items()},
         "skips_by_path": {p: k for p, (_, _, k) in grads_paths.items()},
+        "kernel_launches_per_call": grads_row["kernel_launches_per_call"],
         "max_abs_err": grads_row["max_abs_err"],
         "worst_err_over_bound": grads_row["worst_err_over_bound"],
         "ms": grads_row["ms"],
@@ -6144,6 +6387,46 @@ def main() -> int:
         "bound_share": grads_row["bound_share"],
         "library_ms": grads_row["library_ms"],
         "blocks": grads_row["blocks"],
+    }, {
+        # The flash kernel's backward: the delta pass and the backward block
+        # kernel in store mode over the whole sequence (offsets (0, 0)).
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "kernel_route": "wgmma",
+        "source": "tpusnap_torch/csrc/ring_block_bwd_wgmma.cu",
+        "replaces": "tpusnap/ops/flash_attention.py:222",
+        "replaces_what": "_flash_bwd: XLA autodiff of _attention_reference (no Pallas backward)",
+        "launches": by_path["flash"],
+        "max_abs_err": flash_bwd["max_abs_err"],
+        "worst_err_over_bound": flash_bwd["worst_err_over_bound"],
+        "ms": flash_bwd["ms"],
+        "cold_ms": flash_bwd["cold_ms"],
+        "ms_of": "attention_delta and attend_block_grads(mode='store') at (8, 1024, 8, 64) bf16 "
+                 "causal",
+        "plain_ms": flash_bwd["plain_ms"],
+        "recompute_ms": flash_bwd["recompute_ms"],
+        "bound_ms": flash_bwd["bound_ms"],
+        "bound_by": flash_bwd["bound_by"],
+        "bound_share": flash_bwd["bound_share"],
+        "library_ms": flash_bwd["library_ms"],
+    }, {
+        # delta = rowsum(dO * O) before every backward block kernel call.
+        "name": "attention_delta",
+        "route": "cuda",
+        "kernel_route": "simt",
+        "source": "tpusnap_torch/csrc/ring_block_bwd_wgmma.cu",
+        "replaces": "tpusnap/ops/flash_attention.py:222",
+        "replaces_what": "the row term rowsum(dO * O) of attention's backward (XLA autodiff in "
+                         "tpusnap: _flash_bwd, and the ring's through _block_attend)",
+        "launches": delta_launches,
+        "max_abs_err": grads_row["delta_max_abs_err"],
+        "ms": flash_bwd["delta"]["ms"],
+        "cold_ms": flash_bwd["delta"]["cold_ms"],
+        "ms_of": "(8, 1024, 8, 64) bf16",
+        "plain_ms": flash_bwd["delta"]["plain_ms"],
+        "bound_ms": flash_bwd["delta"]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
     }]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

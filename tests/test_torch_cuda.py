@@ -1686,10 +1686,227 @@ def test_ring_backward_block_kernel_refuses_what_it_cannot_take(gen):
     with pytest.raises(ValueError, match="dq must be contiguous"):
         ra.attend_block_grads(q, k, v, do, lse, delta, acc[0].transpose(1, 2)
                               .contiguous().transpose(1, 2), *acc[1:], 0, 0, scale, True)
-    big = torch.zeros((1, 8, 2, 256), device="cuda", dtype=torch.bfloat16)
-    accs = [torch.zeros((1, 8, 2, 256), device="cuda") for _ in range(3)]
-    with pytest.raises(ValueError, match="head_dim 256"):
+    # Neither route takes head_dim past 256 (the flash forward's limit):
+    # a refusal, no launch.
+    big = torch.zeros((1, 8, 2, 264), device="cuda", dtype=torch.bfloat16)
+    accs = [torch.zeros((1, 8, 2, 264), device="cuda") for _ in range(3)]
+    routes = dict(ra.backward_route_launches)
+    with pytest.raises(ValueError, match="head_dim 264"):
         ra.attend_block_grads(big, big, big, big, lse, delta, *accs, 0, 0, scale, True)
+    assert ra.backward_route_launches == routes
+
+
+_STORE_CASES = [
+    # shape, dtype, causal, route: the flash backward's and the ring of
+    # one's calls, offsets (0, 0)
+    ((2, 256, 4, 64), torch.bfloat16, True, "wgmma"),
+    ((2, 300, 3, 64), torch.bfloat16, False, "wgmma"),
+    ((1, 200, 4, 40), torch.bfloat16, True, "wgmma"),
+    ((2, 130, 2, 128), torch.float16, True, "wgmma"),
+    ((1, 150, 2, 256), torch.bfloat16, True, "simt"),
+    ((1, 130, 2, 256), torch.float32, False, "simt"),
+    ((1, 130, 2, 64), torch.float32, True, "simt"),
+]
+
+
+@pytest.mark.parametrize("shape,dtype,causal,route", _STORE_CASES,
+                         ids=lambda x: str(x).replace(" ", ""))
+def test_ring_backward_block_store_mode_matches_plain(gen, shape, dtype, causal, route):
+    """``mode="store"``: the gradients written once in the input type
+    against ``block_grads`` within ``grads_rounding_bound(store=True)``,
+    one kernel launch on the inputs' route, the path counted, and a
+    second call bitwise equal."""
+    ra = _ring_module()
+    q, k, v, do, lse, delta, _, scale = _grads_inputs(shape, dtype, 0, 0, causal, gen)
+    want = ra.block_grads(q, k, v, do, lse, delta, 0, 0, scale, causal)
+    bounds = ra.grads_rounding_bound(q, k, v, do, lse, delta, want, 0, 0, scale, causal,
+                                     store=True)
+    got, again = ([torch.full(shape, float("nan"), dtype=dtype, device="cuda") for _ in range(3)]
+                  for _ in range(2))
+    routes, paths = dict(ra.backward_route_launches), dict(ra.backward_path_launches)
+    kernels = ra.grads_kernel_launches()
+    ra.attend_block_grads(q, k, v, do, lse, delta, *got, 0, 0, scale, causal, mode="store",
+                          path="flash")
+    torch.cuda.synchronize()
+    assert ra.grads_kernel_launches() == kernels + 1
+    assert {r: ra.backward_route_launches[r] - routes[r] for r in routes} == {
+        r: int(r == route) for r in routes
+    }
+    assert ra.backward_path_launches["flash"] == paths["flash"] + 1
+    for name, g, ref, bound in zip(("dq", "dk", "dv"), got, want, bounds):
+        assert g.dtype == dtype
+        ratio = ((g.float() - ref).abs() / bound).max().item()
+        assert ratio <= 1.0, f"{name}: worst element {ratio}x its bound"
+    ra.attend_block_grads(q, k, v, do, lse, delta, *again, 0, 0, scale, causal, mode="store")
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ring_backward_block_at_head_dim_256_accumulates_on_simt(gen, dtype):
+    """The d = 256 simt backward in accumulate mode (a past block and a
+    diagonal one cutting tiles), per element within
+    ``grads_rounding_bound``, one launch each."""
+    ra = _ring_module()
+    for q_off, k_off in ((100, 0), (100, 100)):
+        shape = (1, 100, 2, 256)
+        q, k, v, do, lse, delta, acc, scale = _grads_inputs(shape, dtype, q_off, k_off, True, gen)
+        want = [a + g for a, g in zip(acc, ra.block_grads(q, k, v, do, lse, delta, q_off, k_off,
+                                                          scale, True))]
+        bounds = ra.grads_rounding_bound(q, k, v, do, lse, delta, want, q_off, k_off, scale, True)
+        kernels, simt = ra.grads_kernel_launches(), ra.backward_route_launches["simt"]
+        ra.attend_block_grads(q, k, v, do, lse, delta, *acc, q_off, k_off, scale, True)
+        torch.cuda.synchronize()
+        assert ra.grads_kernel_launches() == kernels + 1
+        assert ra.backward_route_launches["simt"] == simt + 1
+        for g, ref, bound in zip(acc, want, bounds):
+            assert ((g - ref).abs() / bound).max().item() <= 1.0
+
+
+def test_ring_backward_block_is_one_kernel_launch_a_call(gen):
+    """Every call of the backward entry point is one kernel launch (the
+    dK/dV and dQ items in one grid), on both routes and in both modes."""
+    ra = _ring_module()
+    shape = (2, 256, 4, 64)
+    for dtype, mode in ((torch.bfloat16, "accumulate"), (torch.bfloat16, "store"),
+                        (torch.float32, "accumulate"), (torch.float32, "store")):
+        q, k, v, do, lse, delta, acc, scale = _grads_inputs(shape, dtype, 256, 0, True, gen)
+        outs = acc if mode == "accumulate" else [torch.empty(shape, dtype=dtype, device="cuda")
+                                                 for _ in range(3)]
+        kernels = ra.grads_kernel_launches()
+        for _ in range(3):
+            ra.attend_block_grads(q, k, v, do, lse, delta, *outs, 256, 0, scale, True, mode=mode)
+        torch.cuda.synchronize()
+        assert ra.grads_kernel_launches() == kernels + 3, (dtype, mode)
+
+
+@pytest.mark.parametrize("dtype,shape", [(torch.bfloat16, (2, 300, 4, 64)),
+                                         (torch.float16, (1, 77, 3, 128)),
+                                         (torch.float32, (2, 33, 2, 40)),
+                                         (torch.bfloat16, (1, 64, 2, 256))],
+                         ids=lambda x: str(x).replace(" ", ""))
+def test_attention_delta_kernel_matches_plain(gen, dtype, shape):
+    """The delta kernel against ``attention_delta_reference`` on a
+    head-split view of a fused output: f32 sums in another order, so
+    within ``_F32_SLACK`` of the sum of |dO * O| plus 1e-6; one launch,
+    and a second launch bitwise equal."""
+    ra = _ring_module()
+    b, s, h, d = shape
+    do = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    fused = torch.randn((b, s, 2 * h * d), generator=gen, device="cuda").to(dtype)
+    out = fused[..., h * d:].reshape(shape)
+    launches = ra.delta_launches
+    got = ra.attention_delta(do, out)
+    again = ra.attention_delta(do, out)
+    torch.cuda.synchronize()
+    assert ra.delta_launches == launches + 2 and torch.equal(got, again)
+    want = ra.attention_delta_reference(do, out)
+    slack = ra._F32_SLACK * (do.float() * out.float()).abs().sum(-1).transpose(1, 2) + 1e-6
+    assert got.shape == (b, h, s) and ((got - want).abs() <= slack).all()
+
+
+@pytest.mark.parametrize("shape,dtype,causal", [
+    ((2, 300, 4, 64), torch.bfloat16, True),
+    ((1, 130, 2, 128), torch.float16, False),
+    ((1, 333, 2, 256), torch.float16, True),
+    ((1, 200, 4, 64), torch.float32, True),
+], ids=lambda x: str(x).replace(" ", ""))
+def test_flash_forward_lse_leaves_the_output_bitwise(gen, shape, dtype, causal):
+    """The forward with the rows' log-sum-exp written: the output bit for
+    bit the one without it, and lse within 1e-5 absolute plus 1e-5 of
+    |lse| of ``reference_lse`` (f32 scores from the same inputs; exp2 on
+    the special-function unit and the summation order)."""
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(3))
+    b, s, h, _ = shape
+    lse = torch.full((b, h, s), float("nan"), device="cuda")
+    plain_out = fa._kernel_forward(q, k, v, causal)
+    out = fa._kernel_forward(q, k, v, causal, lse)
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain_out)
+    want = fa.reference_lse(q, k, causal)
+    assert ((lse - want).abs() <= 1e-5 + 1e-5 * want.abs()).all()
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 64), (torch.float16, 128),
+                                     (torch.bfloat16, 256), (torch.float32, 64)])
+def test_flash_backward_runs_the_kernel_in_store_mode(gen, dtype, d):
+    """``flash_attention``'s autograd backward is the delta pass and one
+    store-mode call of the backward kernel (path ``flash``): its gradients
+    equal that composition on the forward's own lse bit for bit and lie
+    within ``grads_rounding_bound(store=True)`` of ``block_grads`` on the
+    same lse and delta; in bf16 also within two ulps of the largest
+    gradient of the plain recompute's."""
+    ra = _ring_module()
+    b, s, h = 2, 200, 3
+    q, k, v = _fused_views((b, s, h, d), dtype, gen)
+    do = torch.randn((b, s, h, d), generator=gen, device="cuda").to(dtype)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    paths, deltas = dict(ra.backward_path_launches), ra.delta_launches
+    got = torch.autograd.grad(fa.flash_attention(*leaves, causal=True), leaves, do)
+    torch.cuda.synchronize()
+    assert ra.backward_path_launches["flash"] == paths["flash"] + 1
+    assert ra.delta_launches == deltas + 1
+    lse = torch.empty((b, h, s), device="cuda")
+    out = fa._kernel_forward(q, k, v, True, lse)
+    delta = ra.attention_delta(do, out)
+    mine = [torch.empty(q.shape, dtype=dtype, device="cuda") for _ in range(3)]
+    scale = d**-0.5
+    ra.attend_block_grads(q, k, v, do, lse, delta, *mine, 0, 0, scale, True, mode="store")
+    assert all(torch.equal(g, m) for g, m in zip(got, mine))
+    want = ra.block_grads(q, k, v, do, lse, delta, 0, 0, scale, True)
+    bounds = ra.grads_rounding_bound(q, k, v, do, lse, delta, want, 0, 0, scale, True,
+                                     store=True)
+    for g, ref, bound in zip(got, want, bounds):
+        assert ((g.float() - ref).abs() / bound).max().item() <= 1.0
+    if dtype == torch.bfloat16:
+        # The smoke's check of the flash backward, kept: two bf16 ulps of
+        # the largest gradient of the plain recompute (autograd of the
+        # plain forward in f32).
+        with torch.enable_grad():
+            plain = torch.autograd.grad(fa.flash_attention_reference(*leaves, True), leaves, do)
+        largest = max(p.float().abs().max().item() for p in plain)
+        assert max((g.float() - p.float()).abs().max().item()
+                   for g, p in zip(got, plain)) <= 2**-6 * largest
+
+
+def test_ring_of_one_backward_runs_the_kernel_in_store_mode(gen):
+    """``ring_attention(group=None)`` under grad: the output equals the
+    no_grad step's bit for bit, and its backward is one store-mode launch
+    on the ``ring_of_one`` path, within ``grads_rounding_bound(store=True)``
+    of ``block_grads`` on the forward's lse."""
+    ra = _ring_module()
+    shape, scale = (2, 256, 4, 64), 0.1
+    q, k, v = _fused_views(shape, torch.bfloat16, gen)
+    do = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    with torch.no_grad():
+        plain = ra.ring_attention(q, k, v, scale=scale)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    paths = dict(ra.backward_path_launches)
+    out = ra.ring_attention(*leaves, scale=scale)
+    got = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert torch.equal(out.detach(), plain)
+    assert ra.backward_path_launches["ring_of_one"] == paths["ring_of_one"] + 1
+    lse, _, _ = ra.row_stats(q, k, v, do, 0, 0, scale, True)
+    delta = ra.attention_delta_reference(do, plain)
+    want = ra.block_grads(q, k, v, do, lse, delta, 0, 0, scale, True)
+    bounds = ra.grads_rounding_bound(q, k, v, do, lse, delta, want, 0, 0, scale, True,
+                                     store=True)
+    for g, ref, bound in zip(got, want, bounds):
+        # lse from the f32 plain rows: the kernel's forward lse differs by
+        # f32 slack, which the bound's f32 terms carry.
+        assert ((g.float() - ref).abs() / bound).max().item() <= 1.0
+
+
+def test_flash_backward_refuses_what_no_route_takes(gen):
+    """A store-mode call with outputs of another dtype is refused before
+    any launch."""
+    ra = _ring_module()
+    q, k, v, do, lse, delta, acc, scale = _grads_inputs((1, 64, 2, 64), torch.bfloat16, 0, 0,
+                                                        True, gen)
+    routes = dict(ra.backward_route_launches)
+    with pytest.raises(ValueError, match="dq must be bfloat16"):
+        ra.attend_block_grads(q, k, v, do, lse, delta, *acc, 0, 0, scale, True, mode="store")
+    assert ra.backward_route_launches == routes
 
 
 def _world_ring_backward_launches(out_dir, loss="weighted"):

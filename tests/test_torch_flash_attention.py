@@ -188,3 +188,90 @@ def test_rounding_bound_holds_the_kernel_and_catches_a_lost_tile(dtype, causal):
 
     assert worst(_modelled_kernel(tq, tk, tv, causal)) <= 1.0
     assert worst(_modelled_kernel(tq, tk, tv, causal, drop_keys_from=128)) > 1.0
+
+
+# ------------------------------------------------------------------ backward
+
+
+def _masked_scores_jax(q, k, causal):
+    """tpusnap's scaled, masked scores (as ``_attention_reference`` forms
+    them), in f32."""
+    s, d = q.shape[1], q.shape[-1]
+    scores = jnp.einsum(
+        "bqhd,bkhd->bhqk", jnp.asarray(q), jnp.asarray(k), preferred_element_type=jnp.float32
+    ) * (d**-0.5)
+    if causal:
+        scores = jnp.where(jnp.tril(jnp.ones((s, s), dtype=bool))[None, None], scores, -1e30)
+    return scores
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "noncausal"])
+@pytest.mark.parametrize("shape", [(1, 1, 2, 8), (2, 33, 2, 40), (1, 130, 2, 64)],
+                         ids=["s1", "s33", "s130"])
+def test_reference_lse_matches_jax_logsumexp(shape, causal):
+    """The plain forward's row log-sum-exp (what the backward takes)
+    against ``jax.nn.logsumexp`` of tpusnap's scaled, masked scores; f32,
+    only the summation order differs: the file's ATOL."""
+    q, k, _ = _inputs(shape, seed=6)
+    want = np.asarray(jax.nn.logsumexp(_masked_scores_jax(q, k, causal), axis=-1))
+    got = fa.reference_lse(torch.from_numpy(q), torch.from_numpy(k), causal)
+    assert got.shape == (shape[0], shape[2], shape[1]) and got.is_contiguous()
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL)
+
+
+@pytest.mark.parametrize("d", [8, 40, 64, 128, 256])
+@pytest.mark.parametrize("s", [1, 33, 130])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "noncausal"])
+def test_flash_gradients_match_jax_grad_of_tpusnap(causal, s, d):
+    """q, k and v gradients of the port's ``flash_attention`` (its CPU
+    backward: the plain forward's lse, the delta pass and ``block_grads``
+    at offsets (0, 0)) against ``jax.grad`` of tpusnap's
+    ``flash_attention`` in interpret mode (its ``_flash_bwd``) for a
+    weighted sum; f32, the file's ATOL (the same f32 function in another
+    summation order)."""
+    shape = (1, s, 2, d)
+    q, k, v = _inputs(shape, seed=7)
+    w = np.random.default_rng(8).standard_normal(shape).astype(np.float32)
+    want = jax.grad(
+        lambda *a: jnp.sum(
+            jax_flash_attention(*a, causal=causal, block_q=64, block_k=64) * w
+        ),
+        argnums=(0, 1, 2),
+    )(*(jnp.asarray(x) for x in (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
+    (flash_attention(tq, tk, tv, causal=causal) * torch.from_numpy(w)).sum().backward()
+    for name, got, expect in zip("qkv", (tq.grad, tk.grad, tv.grad), want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(expect), atol=ATOL, err_msg=name)
+
+
+def test_flash_backward_on_the_cpu_is_delta_and_block_grads_in_store_mode():
+    """The CPU backward is the card's function: ``attention_delta`` of the
+    upstream gradient and the forward's output, then ``block_grads`` at
+    offsets (0, 0) and scale d ** -0.5 from ``reference_lse``, bit for
+    bit; it launches nothing and counts no backward launch."""
+    import importlib
+
+    ra = importlib.import_module("tpusnap_torch.ops.ring_attention")
+    shape = (2, 24, 2, 16)
+    q, k, v = (torch.from_numpy(x) for x in _inputs(shape, seed=9))
+    w = torch.from_numpy(np.random.default_rng(10).standard_normal(shape).astype(np.float32))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    paths, routes = dict(ra.backward_path_launches), dict(ra.backward_route_launches)
+    out = flash_attention(*leaves, causal=True)
+    got = torch.autograd.grad(out, leaves, w)
+    assert (ra.backward_path_launches, ra.backward_route_launches) == (paths, routes)
+    delta = ra.attention_delta(w, out.detach())
+    want = ra.block_grads(q, k, v, w, fa.reference_lse(q, k, True), delta, 0, 0,
+                          shape[-1] ** -0.5, True)
+    for g, expect in zip(got, want):
+        assert torch.equal(g, expect)
+
+
+def test_no_grad_forward_takes_no_autograd_function():
+    """Without grad the wrapper runs the forward alone: no lse, no saved
+    tensors (inference launches are unchanged on the card)."""
+    q, k, v = (torch.from_numpy(x).requires_grad_(True) for x in _inputs((1, 8, 1, 4), seed=11))
+    with torch.no_grad():
+        out = flash_attention(q, k, v)
+    assert out.grad_fn is None
+    assert flash_attention(q, k, v).grad_fn is not None

@@ -160,6 +160,21 @@ def test_tick_hook_publishes_and_attach_is_rank0_only(fleet_env):
         assert len(hooks) == 1
 
 
+def test_publish_at_take_start_writes_the_record_before_any_tick(fleet_env):
+    """A take's record lands when the take is wired, whatever the pump's
+    timing: the pump's forced first beat may run before the fleet hook is
+    added, and a job SIGKILLed at its first write must still be in the
+    fleet directory (fleetsim's doomed trainer under a loaded host)."""
+    with override_job_id("early"):
+        mon = types.SimpleNamespace(rank=0, add_tick_hook=lambda fn: None)
+        fleet_mod.publish_at_take_start(mon)
+        recs = read_fleet_records(fleet_env)
+        assert [r["job_id"] for r in recs] == ["early"] and not recs[0].get("final")
+    with override_job_id("other-rank"):
+        fleet_mod.publish_at_take_start(types.SimpleNamespace(rank=1))
+        assert [r["job_id"] for r in read_fleet_records(fleet_env)] == ["early"]
+
+
 # --------------------------------------------------------------- fold
 
 

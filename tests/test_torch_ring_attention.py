@@ -619,3 +619,146 @@ def test_grads_rounding_bound_holds_the_modelled_kernel_and_rejects_a_lost_tile(
         assert ((got - ref).abs() / bound).max().item() <= 1.0
     for got, ref, bound in zip(bad, want, bounds):
         assert ((got - ref).abs() / bound).max().item() > 1.0
+
+
+# ------------------------------------------- store mode, delta, the ring of one
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("block", ["diagonal", "past"])
+def test_attend_block_grads_store_mode_writes_block_grads(dtype, block):
+    """``mode="store"`` writes ``block_grads`` once, cast to q's dtype, into
+    outputs of q's dtype, whatever they held; the accumulate mode on the
+    same inputs adds the same f32 terms (bit for bit on the CPU)."""
+    b, s, h, d = 2, 8, 3, 4
+    q, k, v, w = (torch.from_numpy(x).to(dtype) for x in _qkvw((b, s, h, d), 41))
+    q_off, k_off = _BLOCKS[block]
+    lse, delta, _ = ra.row_stats(q, k, v, w, q_off, k_off, 0.5, True)
+    want = block_grads(q, k, v, w, lse, delta, q_off, k_off, 0.5, True)
+    out = [torch.full((b, s, h, d), 7.0, dtype=dtype) for _ in range(3)]
+    assert ra.attend_block_grads(q, k, v, w, lse, delta, *out, q_off, k_off, 0.5, True,
+                                 mode="store")
+    for got, ref in zip(out, want):
+        assert got.dtype == dtype and torch.equal(got, ref.to(dtype))
+    acc = [torch.zeros((b, s, h, d)) for _ in range(3)]
+    ra.attend_block_grads(q, k, v, w, lse, delta, *acc, q_off, k_off, 0.5, True)
+    for got, ref in zip(acc, want):
+        assert torch.equal(got, ref)
+
+
+def test_attend_block_grads_store_mode_zeroes_a_future_block():
+    """A future block in store mode launches nothing and writes zeros (its
+    gradient)."""
+    args = _grads_args()
+    args[6:] = [torch.full_like(t, 3.0) for t in args[6:]]
+    skips = ra.backward_skips
+    assert not ra.attend_block_grads(*args, 0, 8, 0.5, True, mode="store")
+    assert ra.backward_skips == skips + 1
+    assert all(torch.equal(t, torch.zeros_like(t)) for t in args[6:])
+
+
+@pytest.mark.parametrize("case", ["mode", "path", "store_f32_outputs_of_bf16"])
+def test_attend_block_grads_refuses_a_mode_path_or_output_type(case):
+    args = _grads_args()
+    kwargs = {"mode": "store"}
+    if case == "mode":
+        kwargs, message = {"mode": "add"}, "unknown write mode"
+    elif case == "path":
+        kwargs, message = {"path": "dense"}, "unknown backward path"
+    else:
+        args[:4] = [t.to(torch.bfloat16) for t in args[:4]]
+        message = "dq must be bfloat16"
+    with pytest.raises(ValueError, match=message):
+        ra.attend_block_grads(*args, 0, 0, 0.5, True, **kwargs)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_attention_delta_plain_version_is_the_old_expression(dtype):
+    """The delta pass on the CPU is the backward's old expression,
+    ``(dO.float() * O.float()).sum(-1).transpose(1, 2).contiguous()``, bit
+    for bit, also for a head-split view of O."""
+    b, s, h, d = 2, 9, 3, 8
+    rng = np.random.default_rng(42)
+    w = torch.from_numpy(rng.standard_normal((b, s, h, d)).astype(np.float32)).to(dtype)
+    fused = torch.from_numpy(rng.standard_normal((b, s, 2 * h * d)).astype(np.float32)).to(dtype)
+    for out in (w.flip(1).contiguous(), fused[..., h * d:].reshape(b, s, h, d)):
+        old = (w.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+        got = ra.attention_delta(w, out)
+        assert got.is_contiguous() and got.dtype == torch.float32
+        assert torch.equal(got, old)
+        assert torch.equal(ra.attention_delta_reference(w, out), old)
+
+
+def test_attention_delta_refuses_mismatched_inputs():
+    w = torch.zeros((1, 4, 2, 8))
+    for out in (torch.zeros((1, 4, 2, 4)), w.double(), torch.zeros((4, 2, 8))):
+        with pytest.raises(ValueError, match="one \\[b, s, h, d\\] shape and dtype"):
+            ra.attention_delta(w, out)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "noncausal"])
+def test_ring_of_one_grads_at_another_scale_match_tpusnap(causal):
+    """``ring_attention(group=None, scale=0.3)`` under grad (``_RingBlock``:
+    first and ``_finish`` keeping the carry, then the delta pass and
+    ``attend_block_grads`` in store mode) against ``jax.grad`` of tpusnap's
+    ``ring_attention(axis_name=None, scale=0.3)``; f32, atol 1e-5 as the
+    file's other ring cases."""
+    import jax
+    import jax.numpy as jnp
+
+    from tpusnap.ops import ring_attention as jax_ring_attention
+
+    q, k, v = _qkv((2, 12, 2, 8), seed=43)
+    w = np.random.default_rng(44).standard_normal(q.shape).astype(np.float32)
+    want = jax.grad(
+        lambda q, k, v: jnp.sum(jax_ring_attention(q, k, v, causal=causal, scale=0.3) * w),
+        argnums=(0, 1, 2),
+    )(*(jnp.asarray(x) for x in (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
+    paths = dict(ra.backward_path_launches)
+    (ring_attention(tq, tk, tv, causal=causal, scale=0.3) * torch.from_numpy(w)).sum().backward()
+    assert ra.backward_path_launches == paths  # a CPU tensor never launches
+    for name, got, ref in zip("qkv", (tq.grad, tk.grad, tv.grad), want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_ring_of_one_under_grad_equals_no_grad_bitwise(dtype):
+    """Under grad the ring of one keeps its carry (``first``, then
+    ``_finish``); its output equals the ``no_grad`` ``first+last`` step's
+    bit for bit."""
+    q, k, v = (torch.from_numpy(x).to(dtype) for x in _qkv((2, 16, 2, 8), seed=45))
+    with torch.no_grad():
+        plain = ring_attention(q, k, v)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = ring_attention(*leaves)
+    assert out.grad_fn is not None and torch.equal(out.detach(), plain)
+
+
+def test_grads_route_takes_simt_past_head_dim_128():
+    """The wgmma backward takes head_dim up to 128; 256 (which the flash
+    forward takes on wgmma) goes to the simt backward."""
+    q, k, v, w = (torch.from_numpy(x).to(torch.bfloat16) for x in _qkvw((1, 8, 2, 128), 46))
+    assert ra._grads_route(q, k, v, w) == "wgmma"
+    q, k, v, w = (torch.from_numpy(x).to(torch.bfloat16) for x in _qkvw((1, 8, 2, 256), 46))
+    assert ra._grads_route(q, k, v, w) == "simt"
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_grads_rounding_bound_in_store_mode_holds_the_modelled_kernel(dtype):
+    """Store mode: the modelled 16-bit kernel's gradients rounded once to
+    the input type stay within ``grads_rounding_bound(..., store=True)``
+    of ``block_grads``; with a 16 x 16 tile lost they do not."""
+    b, s, h, d = 2, 64, 2, 32
+    q, k, v, do = (torch.from_numpy(x).to(dtype) for x in _qkvw((b, s, h, d), 47))
+    scale = d**-0.5
+    lse, delta, _ = ra.row_stats(q, k, v, do, 0, 0, scale, True)
+    args = (q, k, v, do, lse, delta)
+    want = block_grads(*args, 0, 0, scale, True)
+    bounds = ra.grads_rounding_bound(*args, want, 0, 0, scale, True, store=True)
+    good = [g.to(dtype).float() for g in _modelled_grads(*args, 0, 0, scale, True)]
+    bad = [g.to(dtype).float() for g in _modelled_grads(*args, 0, 0, scale, True, 16)]
+    for got, ref, bound in zip(good, want, bounds):
+        assert ((got - ref).abs() / bound).max().item() <= 1.0
+    for got, ref, bound in zip(bad, want, bounds):
+        assert ((got - ref).abs() / bound).max().item() > 1.0

@@ -202,6 +202,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
   for (int r = 0; r < kRowsPerWarp; ++r) {
     const int qi = q0 + row0 + r;
     if (qi >= p.s) continue;
+    // m and l are the warp's: m is in the scaled scores' units.
+    if (p.lse != nullptr && lane == 0)
+      p.lse[(int64_t(batch) * gridDim.y + head) * p.s + qi] = m[r] + logf(l[r]);
     const float denom = l[r] == 0.f ? 1.f : l[r];  // fully masked row -> 0
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
@@ -233,14 +236,16 @@ cudaError_t launch_bucket(const Params& p, int b, int h, cudaStream_t stream) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = float16, 2 = bfloat16. strides: 12 element
-// strides, (b, s, h) of q, k, v and o in that order. route: 0 = simt,
+// strides, (b, s, h) of q, k, v and o in that order. lse: nullptr, or
+// [b, h, s] f32 contiguous for the rows' log-sum-exp (the output is the
+// same bit for bit either way). route: 0 = simt,
 // 1 = wgmma; it must be the one wgmma_route gives, or the call returns
 // cudaErrorInvalidValue without launching. Returns the CUDA error code of
 // the launch (0 on success); the kernel runs on `stream` and is not
 // synchronised.
 extern "C" int tpusnap_flash_attention_fwd(const void* q, const void* k, const void* v,
-                                           void* o, const int64_t* strides, int b, int s,
-                                           int h, int d, float scale, int causal,
+                                           void* o, float* lse, const int64_t* strides, int b,
+                                           int s, int h, int d, float scale, int causal,
                                            int dtype, int route, void* stream) {
   if (d < 1 || d > 256 || s < 1 || b < 1 || h < 1) return int(cudaErrorInvalidValue);
   Params p;
@@ -248,6 +253,7 @@ extern "C" int tpusnap_flash_attention_fwd(const void* q, const void* k, const v
   p.k = k;
   p.v = v;
   p.o = o;
+  p.lse = lse;
   p.q_b = strides[0];
   p.q_s = strides[1];
   p.q_h = strides[2];

@@ -12,6 +12,10 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
+  // The rows' log-sum-exp, [b, h, s] f32 contiguous: the natural log of the
+  // row's sum of exp over the scaled scores (what the backward takes);
+  // nullptr writes none.
+  float* lse;
   // Element strides of the b, s and h dims (d is contiguous).
   int64_t q_b, q_s, q_h;
   int64_t k_b, k_s, k_h;

@@ -361,6 +361,11 @@ __global__ void __launch_bounds__(kThreads, 1)
         l += __shfl_xor_sync(0xffffffffu, l, 1);
         l += __shfl_xor_sync(0xffffffffu, l, 2);
         inv[r] = l == 0.f ? 1.f : 1.f / l;  // fully masked row -> 0
+        // The row's log-sum-exp in natural-log units: m_run is the raw
+        // scores' max and l sums exp2((S - m) * scale * log2 e).
+        const int row = r ? row_b : row_a;
+        if (p.lse != nullptr && lane % 4 == 0 && row < p.s)
+          p.lse[(int64_t(w.batch) * h + w.head) * p.s + row] = m_run[r] * p.scale + logf(l);
       }
 #pragma unroll
       for (int j = 0; j < kORegs; j += 2) {

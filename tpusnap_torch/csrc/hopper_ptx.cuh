@@ -1,7 +1,7 @@
 // Inline-PTX building blocks for Hopper (sm_90a): wgmma products, their
 // shared-memory descriptors, mbarriers, TMA tile loads and stores. Used by
-// flash_attention_wgmma.cu and ring_block_wgmma.cu; nothing here launches
-// anything.
+// flash_attention_wgmma.cu, ring_block_wgmma.cu and ring_block_bwd_wgmma.cu;
+// nothing here launches anything.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -163,6 +163,14 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo_bytes,
                                               uint32_t sbo_bytes) {
   return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(lbo_bytes >> 4) << 16) |
          (uint64_t(sbo_bytes >> 4) << 32) | (1ull << 62);
+}
+
+// Byte offset of byte `byte` (< 128) of row `row` in a box of 128-byte rows
+// swizzled by 128 bytes from a 1024-byte aligned base: TMA's
+// CU_TENSOR_MAP_SWIZZLE_128B moves 16-byte unit u of row r to u ^ (r % 8).
+// The accumulator layout's 8 rows of a warp then fall on distinct units.
+__device__ __forceinline__ int swizzled(int row, int byte) {
+  return row * 128 + ((((byte >> 4) ^ row) & 7) << 4) + (byte & 15);
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {

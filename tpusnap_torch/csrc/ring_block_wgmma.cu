@@ -170,14 +170,6 @@ __device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Byte offset of byte `byte` (< 128) of row `row` in a box of 128-byte rows
-// swizzled by 128 bytes from a 1024-byte aligned base: TMA's
-// CU_TENSOR_MAP_SWIZZLE_128B moves 16-byte unit u of row r to u ^ (r % 8).
-// The accumulator layout's 8 rows of a warp then fall on distinct units.
-__device__ __forceinline__ int swizzled(int row, int byte) {
-  return row * 128 + ((((byte >> 4) ^ row) & 7) << 4) + (byte & 15);
-}
-
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 1)
     ring_block_wgmma(const __grid_constant__ CUtensorMap tm_q,
@@ -555,24 +547,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// A 4-D tensor map over the f32 carry o [b, s, h, d] (contiguous) as
-// (d, h, s, b): boxes of 32 columns (128 bytes) by 64 rows, swizzled by 128
-// bytes. d is a multiple of 8 on this route, so every stride is a multiple
-// of 16 bytes.
-bool make_o_map(CUtensorMap* map, float* base, int d, int s, int b, int h) {
-  const tpusnap_tma::EncodeTiled encode = tpusnap_tma::encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {cuuint64_t(d), cuuint64_t(h), cuuint64_t(s), cuuint64_t(b)};
-  const cuuint64_t strides[3] = {cuuint64_t(d) * 4, cuuint64_t(h) * d * 4,
-                                 cuuint64_t(s) * h * d * 4};
-  const cuuint32_t box[4] = {32, 1, 64, 1};
-  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, base, dims, strides, box, elem_strides,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <typename T, int D>
 cudaError_t launch_wgmma(const RingParams& p, int b, int h, int dtype, cudaStream_t stream) {
   CUtensorMap tm_q, tm_k, tm_v;
@@ -584,7 +558,7 @@ cudaError_t launch_wgmma(const RingParams& p, int b, int h, int dtype, cudaStrea
   if (Tile<D>::kStaged) {
     const bool carry_in = !(p.mode & kFirst), last = p.mode & kLast;
     const int64_t row_elems = int64_t(h) * p.d;
-    if ((carry_in || !last) && !make_o_map(&tm_o, p.o, p.d, p.s, b, h))
+    if ((carry_in || !last) && !tpusnap_tma::make_f32_map(&tm_o, p.o, p.d, p.s, b, h))
       return cudaErrorInvalidValue;
     if (last && !make_map(&tm_out, p.out, dtype, p.d, p.s, b, h, p.s * row_elems, row_elems,
                           p.d, 64))

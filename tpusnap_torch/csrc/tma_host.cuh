@@ -1,6 +1,8 @@
 // Host-side TMA descriptors for the wgmma kernels (flash_attention_wgmma.cu,
-// ring_block_wgmma.cu): libcuda's cuTensorMapEncodeTiled looked up at run
-// time, and the one tensor-map layout both kernels load q, k and v through.
+// ring_block_wgmma.cu, ring_block_bwd_wgmma.cu): libcuda's
+// cuTensorMapEncodeTiled looked up at run time, the one tensor-map layout
+// the kernels load q, k and v through, and the f32 one of the ring's carry
+// and the backward's accumulators.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums only: nothing links libcuda
@@ -59,6 +61,24 @@ inline bool make_map(CUtensorMap* map, const void* base, int dtype, int d, int s
       CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS;
+}
+
+// A 4-D tensor map over an f32 [b, s, h, d] tensor (contiguous; the ring
+// forward's carry o, the backward's accumulators) as (d, h, s, b): boxes of
+// 32 columns (128 bytes) by 64 rows, swizzled by 128 bytes. d is a multiple
+// of 8 on the wgmma routes, so every stride is a multiple of 16 bytes.
+inline bool make_f32_map(CUtensorMap* map, float* base, int d, int s, int b, int h) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {cuuint64_t(d), cuuint64_t(h), cuuint64_t(s), cuuint64_t(b)};
+  const cuuint64_t strides[3] = {cuuint64_t(d) * 4, cuuint64_t(h) * d * 4,
+                                 cuuint64_t(s) * h * d * 4};
+  const cuuint32_t box[4] = {32, 1, 64, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, base, dims, strides, box, elem_strides,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace tpusnap_tma

@@ -261,6 +261,20 @@ def attach_to_take(monitor) -> None:
     _arm_atexit_finalizer()
 
 
+def publish_at_take_start(monitor) -> None:
+    """Publish this job's record now, from the take's own thread, once
+    the take is wired (rank 0 only, no-op without ``TPUSNAP_FLEET_DIR``).
+    The pump's first beat can run before :func:`attach_to_take` adds its
+    hook (the pump's thread starts with the monitor), and its next
+    publish waits for a change or an interval; a job killed at its first
+    write would otherwise never appear in the fleet directory."""
+    if monitor.rank != 0 or get_fleet_dir() is None:
+        return
+    p = publisher()
+    if p is not None:
+        p.publish()
+
+
 def _arm_atexit_finalizer() -> None:
     """Register the clean-exit record stamp, once, and only for
     processes that actually published fleet state. Mirrors the SLO

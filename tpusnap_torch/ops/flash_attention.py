@@ -26,9 +26,17 @@ answers that.
   ``_attention_reference``: an einsum in f32, a ``tril`` mask at -1e30,
   softmax, a cast back. The CPU path and the tests use it; on the card it
   is only the yardstick the kernel is held against.
-- The gradient is a ``torch.autograd.Function`` whose backward
-  differentiates the plain version, as ``_flash_bwd`` does in JAX — the
-  JAX package has no backward kernel, so neither does the port.
+- The gradient is a ``torch.autograd.Function`` (``_FlashAttention``,
+  taken only under grad). Its forward has the kernel also write the rows'
+  log-sum-exp (``reference_lse`` on the CPU); its backward is
+  ``ring_attention``'s: the delta pass (``attention_delta``), then one
+  call of the backward block kernel in ``store`` mode over the whole
+  sequence as one diagonal block at offsets (0, 0) and scale
+  ``head_dim ** -0.5`` (``attend_block_grads``, ``path="flash"``;
+  ``block_grads`` on the CPU). That replaces tpusnap's ``_flash_bwd``,
+  plain XLA autodiff of ``_attention_reference``, with a kernel on the
+  card; every head_dim the forward takes (up to 256) has a backward
+  kernel.
 - ``launches`` counts kernel launches (never CPU calls), and
   ``route_launches`` splits them by route, so a run can show that its main
   path went through the tensor-core kernel.
@@ -42,6 +50,7 @@ bound with ``ctypes``.
 from __future__ import annotations
 
 import ctypes
+import importlib
 import os
 import shutil
 import subprocess
@@ -150,6 +159,7 @@ def _load() -> ctypes.CDLL:
                 ctypes.c_void_p,  # k
                 ctypes.c_void_p,  # v
                 ctypes.c_void_p,  # o
+                ctypes.c_void_p,  # lse, or None
                 ctypes.POINTER(ctypes.c_int64),  # 12 strides
                 ctypes.c_int,  # b
                 ctypes.c_int,  # s
@@ -213,6 +223,22 @@ def flash_attention_reference(
     return out.to(q.dtype)
 
 
+def reference_lse(
+    q: torch.Tensor, k: torch.Tensor, causal: bool = True, scale: Optional[float] = None
+) -> torch.Tensor:
+    """The rows' log-sum-exp of ``flash_attention_reference``'s scores,
+    ``[b, h, s]`` f32: the natural log of each row's sum of exp over the
+    scaled, masked scores (what the backward takes)."""
+    s, d = q.shape[1], q.shape[-1]
+    if scale is None:
+        scale = d**-0.5
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        mask = torch.tril(torch.ones((s, s), dtype=torch.bool, device=q.device))
+        scores = torch.where(mask, scores, torch.full_like(scores, _NEG_INF))
+    return torch.logsumexp(scores, dim=-1).contiguous()
+
+
 def _route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, base_aligned: bool = True) -> str:
     """``"wgmma"`` or ``"simt"``: the tensor-core kernel takes bf16/f16
     inputs whose head_dim rows and every b/s/h stride of q, k and v are
@@ -251,10 +277,12 @@ def rounding_bound(
 
 
 def _kernel_forward(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+    lse: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Launch the route's Hopper kernel on the current stream (not
-    synchronised)."""
+    synchronised); with ``lse`` (``[b, h, s]`` f32, contiguous) the kernel
+    also writes the rows' log-sum-exp there."""
     global launches
     lib = _load()
     b, s, h, d = q.shape
@@ -272,6 +300,7 @@ def _kernel_forward(
             k.data_ptr(),
             v.data_ptr(),
             out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             strides,
             b,
             s,
@@ -300,22 +329,35 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) ->
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Forward: the kernel (CUDA) or the plain version (CPU). Backward:
-    autograd of the plain version, recomputed from q, k, v."""
+    """Forward: the kernel writing the rows' log-sum-exp too (CUDA), or the
+    plain version and ``reference_lse`` (CPU). Backward: the delta pass and
+    the backward block kernel in ``store`` mode (CUDA), or ``block_grads``
+    (CPU), through ``ring_attention``."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
+        if q.is_cuda:
+            b, s, h, _ = q.shape
+            lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+            out = _kernel_forward(q, k, v, causal, lse)
+        else:
+            out = flash_attention_reference(q, k, v, causal)
+            lse = reference_lse(q, k, causal)
         ctx.causal = causal
-        ctx.save_for_backward(q, k, v)
-        return _forward(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
 
     @staticmethod
     def backward(ctx, grad_out):
-        q, k, v = ctx.saved_tensors
-        with torch.enable_grad():
-            inputs = tuple(t.detach().requires_grad_(True) for t in (q, k, v))
-            out = flash_attention_reference(*inputs, ctx.causal)
-            grads = torch.autograd.grad(out, inputs, grad_out)
+        # The module, not the function ops/__init__.py exports under its name.
+        ra = importlib.import_module(".ring_attention", __package__)
+        q, k, v, out, lse = ctx.saved_tensors
+        grad_out = grad_out.contiguous()
+        grads = [torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(3)]
+        if q.numel() == 0:
+            return (*grads, None)
+        ra.attend_block_grads(q, k, v, grad_out, lse, ra.attention_delta(grad_out, out), *grads,
+                              0, 0, q.shape[-1] ** -0.5, ctx.causal, mode="store", path="flash")
         return (*grads, None)
 
 
@@ -324,6 +366,9 @@ def flash_attention(
 ) -> torch.Tensor:
     """Attention over ``[batch, seq, heads, head_dim]`` inputs. CUDA
     tensors run the Hopper kernel (or raise); CPU tensors run the plain
-    version. Differentiable."""
+    version. Differentiable: under grad its backward runs the backward
+    block kernel."""
     _check_inputs(q, k, v)
-    return _FlashAttention.apply(q, k, v, causal)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, causal)
+    return _forward(q, k, v, causal)

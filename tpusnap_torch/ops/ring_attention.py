@@ -39,45 +39,55 @@ holds the full sequence.
   card per rank is the open transport (ROADMAP.md item A10b). On the card
   the carry is allocated with ``torch.empty`` only when a middle or last
   step will read it, and never filled.
-- Gradients: with one block, a ``torch.autograd.Function`` whose backward
-  differentiates plain attention (``flash_attention_reference`` at the
-  block's scale: the same function as one block from the empty carry, with
-  fewer passes over the f32 scores than ``block_attend``), as the port's
-  flash attention does (tpusnap has no backward kernel). Across ranks,
+- Gradients: with one block (``_RingBlock``, the ring of one), the
+  forward under grad runs ``first`` and ``_finish``, keeping the carry as
+  ``_Ring`` does, and saves the row log-sum-exp ``m + log l``; its backward
+  is one call of ``attend_block_grads`` in ``store`` mode at offsets
+  (0, 0). Under ``no_grad`` it is one ``first+last`` launch. Across ranks,
   ``_Ring`` is the counterpart of JAX's autodiff through ``_block_attend``
   and ``ppermute``. Its forward is the ring above, except that the last
   step runs as ``middle`` (``first+last`` as ``first``) and ``_finish``
-  divides: the carry survives, so the row log-sum-exp ``m + log l`` can be
-  saved, and the output equals the ``no_grad`` ring's bit for bit (``last``
-  is ``middle`` then ``_finish`` on the card). Its backward rotates
+  divides: the carry survives, so the row log-sum-exp can be saved, and
+  the output equals the ``no_grad`` ring's bit for bit (``last`` is
+  ``middle`` then ``_finish`` on the card). Its backward rotates
   ``(k, v, dk, dv)`` around the same ring for n steps, the last rotation
   carrying only ``dk``/``dv`` home, and each step adds one block's
-  gradients into the f32 accumulators (``attend_block_grads``; a block
-  wholly in the queries' future is skipped, ``backward_skips``).
-  ``backward_steps`` counts the block steps.
+  gradients into the f32 accumulators (``attend_block_grads`` in
+  ``accumulate`` mode; a block wholly in the queries' future is skipped,
+  ``backward_skips``). ``backward_steps`` counts the block steps.
 - ``block_grads(...)`` is the plain PyTorch version of one block's
   gradients (f32, ``torch.matmul``, masked in global positions): the CPU
   path and the tests use it; on the card it is the yardstick.
-- ``attend_block_grads(q, k, v, grad_out, lse, delta, dq, dk, dv, ...)``
-  is the backward's dispatch. On CUDA tensors it launches the kernels of
-  ``csrc/ring_block_bwd_wgmma.cu`` (``_block_grads_kernel``: a dK/dV
-  kernel, then a dQ kernel, adding into the accumulators in place) or
-  raises; there is no fallback. On CPU tensors it runs ``block_grads`` and
-  three adds. ``backward_route_launches`` counts its calls that launched,
-  by route. The 16-bit kernel rounds P and dS to the input type before
-  the second-stage products; ``grads_rounding_bound`` is the per-element
-  bound the card holds it to, and ``row_stats`` makes a block's row
-  statistics for such checks.
+- ``attend_block_grads(q, k, v, grad_out, lse, delta, dq, dk, dv, ...,
+  mode="accumulate", path="ring")`` is the backward's dispatch. On CUDA
+  tensors it launches the one kernel of ``csrc/ring_block_bwd_wgmma.cu``
+  (``_block_grads_kernel``) or raises; there is no fallback. ``mode``:
+  ``"accumulate"`` adds into f32 accumulators in place, ``"store"``
+  writes the gradients once into outputs of q's dtype (the flash
+  backward and the ring of one). On CPU tensors it runs ``block_grads``
+  and three adds (or copies). ``backward_route_launches`` counts its calls
+  that launched, by route, ``backward_path_launches`` by the user
+  (``flash``, ``ring_of_one``, ``ring``), and ``grads_kernel_launches()``
+  reads the kernels the C library launched (one a call). The 16-bit
+  kernel rounds P and dS to the input type before the second-stage
+  products; ``grads_rounding_bound`` is the per-element bound the card
+  holds it to, and ``row_stats`` makes a block's row statistics for such
+  checks.
+- ``attention_delta(grad_out, out)``: ``delta = rowsum(dO * O)`` as
+  ``[b, h, s]`` f32, one kernel pass on the card (``delta_launches``),
+  ``attention_delta_reference`` (the plain expression) on the CPU.
 
-Which backward runs where: across ranks (``_Ring``) the backward block
-kernel on the card, ``block_grads`` on the CPU; one block (``_RingBlock``,
-and the flash kernel's ``_FlashAttention``) autograd of plain attention on
-both, as tpusnap's ``_flash_bwd`` is plain XLA.
+Which backward runs where: every user (``_Ring``, ``_RingBlock`` and the
+flash kernel's ``_FlashAttention``) goes through ``attention_delta`` and
+``attend_block_grads``: the kernels on the card, ``block_grads`` on the
+CPU.
 
 Routes, picked by ``flash_attention._route`` from dtype and strides (over
 grad_out too for the backward) and checked again in C: ``wgmma``
 (bf16/f16 that TMA can describe) or ``simt`` (f32 and other layouts);
-head_dim <= 128. The kernels live in the flash attention library
+head_dim <= 128 for the forward block kernel, and for the backward's
+wgmma route, whose simt route takes up to 256 (every head_dim the flash
+forward takes). The kernels live in the flash attention library
 (``flash_attention.build_library``).
 """
 
@@ -93,6 +103,13 @@ from . import flash_attention as _fa
 
 _NEG_INF = -1e30
 _MAX_HEAD_DIM = 128
+# The backward kernel: wgmma up to 128, simt up to the flash forward's 256.
+_MAX_GRADS_HEAD_DIM = 256
+_MAX_GRADS_WGMMA_HEAD_DIM = 128
+# The backward's write modes and their codes in the C interface.
+GRADS_MODES = ("accumulate", "store")
+# The backward's users, for its launch counts.
+GRADS_PATHS = ("flash", "ring_of_one", "ring")
 # The carry modes and their codes in the C interface (bit 0: no carry in;
 # bit 1: the output instead of the carry out).
 MODES = ("middle", "first", "last", "first+last")
@@ -109,12 +126,16 @@ skips = 0
 # that ``attend_block_grads`` skips when called directly).
 backward_steps = 0
 backward_skips = 0
-# Calls of the backward block kernel (two launches each: dK/dV, then dQ)
-# made through ``attend_block_grads``, by route.
+# Calls of the backward block kernel (one launch each) made through
+# ``attend_block_grads``, by route and by user.
 backward_route_launches = {"wgmma": 0, "simt": 0}
+backward_path_launches = dict.fromkeys(GRADS_PATHS, 0)
+# Launches of the delta kernel made through ``attention_delta``.
+delta_launches = 0
 
 _fn = None
 _grads_fn = None
+_delta_fn = None
 _lock = threading.Lock()
 
 
@@ -174,6 +195,7 @@ def _load_grads():
                 ctypes.c_int64,  # k_offset
                 ctypes.c_float,  # scale
                 ctypes.c_int,  # causal
+                ctypes.c_int,  # store (1) or accumulate (0)
                 ctypes.c_int,  # dtype code
                 ctypes.c_int,  # route code
                 ctypes.c_void_p,  # stream
@@ -181,6 +203,36 @@ def _load_grads():
             fn.restype = ctypes.c_int
             _grads_fn = fn
         return _grads_fn
+
+
+def _load_delta():
+    global _delta_fn
+    with _lock:
+        if _delta_fn is None:
+            fn = _fa._load().tpusnap_attention_delta
+            fn.argtypes = [
+                ctypes.c_void_p,  # grad_out
+                ctypes.c_void_p,  # out
+                ctypes.c_void_p,  # delta
+                ctypes.POINTER(ctypes.c_int64),  # 6 strides
+                ctypes.c_int,  # b
+                ctypes.c_int,  # s
+                ctypes.c_int,  # h
+                ctypes.c_int,  # d
+                ctypes.c_int,  # dtype code
+                ctypes.c_void_p,  # stream
+            ]
+            fn.restype = ctypes.c_int
+            _delta_fn = fn
+        return _delta_fn
+
+
+def grads_kernel_launches() -> int:
+    """Kernels the C library's backward entry point has launched in this
+    process (one a call): builds and loads the library."""
+    fn = _fa._load().tpusnap_ring_block_grads_kernel_launches
+    fn.restype = ctypes.c_longlong
+    return int(fn())
 
 
 def block_attend(
@@ -279,7 +331,7 @@ def rounding_bound(q, k, v, m, l, o, q_offset: int, k_offset: int, scale: float,
 
 
 def grads_rounding_bound(q, k, v, grad_out, lse, delta, want, q_offset: int, k_offset: int,
-                         scale: float, causal: bool):
+                         scale: float, causal: bool, store: bool = False):
     """Per-element bounds ``(bdq, bdk, bdv)`` on the accumulators after
     ``attend_block_grads`` against ``want``, the plain result on the same
     inputs (each accumulator plus its ``block_grads`` term), in f32. The
@@ -291,7 +343,9 @@ def grads_rounding_bound(q, k, v, grad_out, lse, delta, want, q_offset: int, k_o
     so dS by ``E = P (|dP - delta| + |dO| |V|^T)``, and each second
     product adds its own: ``2 _F32_SLACK`` of E carried through the same
     products. Both sides round the accumulators' add once:
-    ``_F32_SLACK`` of the result. 1e-6 absolute covers values near 0."""
+    ``_F32_SLACK`` of the result. 1e-6 absolute covers values near 0.
+    ``store``: ``want`` is ``block_grads``' f32 result and the kernel
+    writes it rounded once to q's dtype, which adds ``u`` of its size."""
     u = _ROUNDING[q.dtype]
     qf, kf, vf, do, p, dp = _grads_terms(q, k, v, grad_out, lse, q_offset, k_offset, scale, causal)
     ds_abs = p * (dp - delta[..., None]).abs()
@@ -300,10 +354,13 @@ def grads_rounding_bound(q, k, v, grad_out, lse, delta, want, q_offset: int, k_o
     bdq = scale * torch.matmul(w, kf.abs())
     bdk = scale * torch.matmul(w.transpose(-1, -2), qf.abs())
     bdv = (u + 2 * _F32_SLACK) * torch.matmul(p.transpose(-1, -2), do.abs())
-    return tuple(
+    bounds = tuple(
         bound.transpose(1, 2) + _F32_SLACK * w.abs() + 1e-6
         for bound, w in zip((bdq, bdk, bdv), want)
     )
+    if store:
+        bounds = tuple(b + u * (w.abs() + b) for b, w in zip(bounds, want))
+    return bounds
 
 
 def row_stats(q, k, v, grad_out, q_offset: int, k_offset: int, scale: float, causal: bool):
@@ -451,7 +508,9 @@ def attend_block(
     o.copy_(o_new)
 
 
-def _check_grads(q, k, v, grad_out, lse, delta, dq, dk, dv) -> None:
+def _check_grads(q, k, v, grad_out, lse, delta, dq, dk, dv, mode: str) -> None:
+    if mode not in GRADS_MODES:
+        raise ValueError(f"unknown write mode {mode!r}: one of {GRADS_MODES}")
     for name, t in (("q", q), ("k", k), ("v", v), ("grad_out", grad_out)):
         if t.dim() != 4:
             raise ValueError(f"{name} must be [batch, seq, heads, head_dim], got {tuple(t.shape)}")
@@ -464,20 +523,27 @@ def _check_grads(q, k, v, grad_out, lse, delta, dq, dk, dv) -> None:
     if grad_out.shape != q.shape:
         raise ValueError(f"grad_out {tuple(grad_out.shape)} is not q's shape {tuple(q.shape)}")
     b, sq, h, _ = q.shape
-    for name, t, shape in (("lse", lse, (b, h, sq)), ("delta", delta, (b, h, sq)),
-                           ("dq", dq, tuple(q.shape)), ("dk", dk, tuple(k.shape)),
-                           ("dv", dv, tuple(k.shape))):
-        if t is None or tuple(t.shape) != shape or t.dtype != torch.float32:
+    out_dtype = torch.float32 if mode == "accumulate" else q.dtype
+    for name, t, shape, dtype in (("lse", lse, (b, h, sq), torch.float32),
+                                  ("delta", delta, (b, h, sq), torch.float32),
+                                  ("dq", dq, tuple(q.shape), out_dtype),
+                                  ("dk", dk, tuple(k.shape), out_dtype),
+                                  ("dv", dv, tuple(k.shape), out_dtype)):
+        if t is None or tuple(t.shape) != shape or t.dtype != dtype:
             got = None if t is None else f"{t.dtype}{list(t.shape)}"
-            raise ValueError(f"{name} must be float32{list(shape)}, got {got}")
+            want = str(dtype).split(".")[-1]
+            raise ValueError(f"{name} must be {want}{list(shape)} in mode {mode!r}, got {got}")
     devices = {t.device for t in (q, k, v, grad_out, lse, delta, dq, dk, dv)}
     if len(devices) != 1:
         raise ValueError(f"the inputs and accumulators lie on different devices: {devices}")
 
 
 def _grads_route(q, k, v, grad_out) -> str:
-    """``flash_attention._route``'s rule over q, k, v and grad_out: the
-    wgmma backward kernel loads all four through TMA tensor maps."""
+    """``flash_attention._route``'s rule over q, k, v and grad_out, and
+    head_dim <= 128: the wgmma backward kernel loads all four through TMA
+    tensor maps."""
+    if q.shape[-1] > _MAX_GRADS_WGMMA_HEAD_DIM:
+        return "simt"
     aligned = [t.data_ptr() % 16 == 0 for t in (q, k, v, grad_out)]
     if (_fa._route(q, k, v, base_aligned=all(aligned[:3])) == "wgmma"
             and _fa._route(grad_out, grad_out, grad_out, base_aligned=aligned[3]) == "wgmma"):
@@ -486,14 +552,17 @@ def _grads_route(q, k, v, grad_out) -> str:
 
 
 def _block_grads_kernel(q, k, v, grad_out, lse, delta, dq, dk, dv, q_offset, k_offset, scale,
-                        causal) -> None:
-    """Launch the route's backward kernels (dK/dV, then dQ) on the current
-    stream (not synchronised). Raises on what they cannot take."""
+                        causal, mode: str, path: str) -> None:
+    """Launch the route's backward kernel (one launch: the dK/dV and dQ
+    items together) on the current stream (not synchronised). Raises on
+    what it cannot take."""
     b, s, h, d = q.shape
     if q.dtype not in _fa._DTYPE_CODES:
         raise ValueError(f"unsupported dtype {q.dtype} (float32, float16, bfloat16)")
-    if d > _MAX_HEAD_DIM:
-        raise ValueError(f"head_dim {d} > {_MAX_HEAD_DIM}: the ring block kernels take up to 128")
+    if d > _MAX_GRADS_HEAD_DIM:
+        raise ValueError(
+            f"head_dim {d} > {_MAX_GRADS_HEAD_DIM}: the backward block kernel takes up to 256"
+        )
     if k.shape != q.shape:
         raise ValueError(
             f"the backward block kernel takes K/V blocks of q's shape {tuple(q.shape)}, "
@@ -505,9 +574,10 @@ def _block_grads_kernel(q, k, v, grad_out, lse, delta, dq, dk, dv, q_offset, k_o
     for name, t in (("lse", lse), ("delta", delta)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    align = 16 if mode == "accumulate" else 4
     for name, t in (("dq", dq), ("dk", dk), ("dv", dv)):
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name} must be contiguous from a 16-byte aligned base")
+        if not t.is_contiguous() or t.data_ptr() % align:
+            raise ValueError(f"{name} must be contiguous from a {align}-byte aligned base")
     route = _grads_route(q, k, v, grad_out)
     fn = _load_grads()
     strides = (ctypes.c_int64 * 12)(*(t.stride(i) for t in (q, k, v, grad_out) for i in range(3)))
@@ -517,44 +587,104 @@ def _block_grads_kernel(q, k, v, grad_out, lse, delta, dq, dk, dv, q_offset, k_o
             q.data_ptr(), k.data_ptr(), v.data_ptr(), grad_out.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), strides, b, s, h, d,
             int(q_offset), int(k_offset), float(scale), 1 if causal else 0,
-            _fa._DTYPE_CODES[q.dtype], _fa._ROUTE_CODES[route], stream,
+            1 if mode == "store" else 0, _fa._DTYPE_CODES[q.dtype], _fa._ROUTE_CODES[route],
+            stream,
         )
     if err != 0:
         raise RuntimeError(
             f"ring backward block kernel launch failed: CUDA error {err} "
-            f"(route {route}, shape {tuple(q.shape)}, {q.dtype})"
+            f"(route {route}, mode {mode}, shape {tuple(q.shape)}, {q.dtype})"
         )
     backward_route_launches[route] += 1
+    backward_path_launches[path] += 1
 
 
 def attend_block_grads(
     q, k, v, grad_out, lse, delta, dq, dk, dv, q_offset: int, k_offset: int, scale: float,
-    causal: bool,
+    causal: bool, mode: str = "accumulate", path: str = "ring",
 ) -> bool:
     """One K/V block's share of attention's gradients against the local
-    queries, added in place into the f32 accumulators ``dq`` (q's shape),
-    ``dk`` and ``dv`` (k's shape): what ``block_grads`` returns, from the
-    rows' ``lse`` and ``delta`` (``[b, h, sq]`` f32). The Hopper kernels of
-    ``csrc/ring_block_bwd_wgmma.cu`` for CUDA tensors (or raise),
-    ``block_grads`` and three adds for CPU tensors. A causal block wholly in
-    the queries' future adds nothing and is skipped without a launch
-    (``backward_skips``); returns whether the block was computed."""
+    queries: what ``block_grads`` returns, from the rows' ``lse`` and
+    ``delta`` (``[b, h, sq]`` f32). ``mode="accumulate"`` adds it in place
+    into the f32 accumulators ``dq`` (q's shape), ``dk`` and ``dv`` (k's
+    shape); ``mode="store"`` writes it into outputs of q's dtype, read
+    never. The Hopper kernel of ``csrc/ring_block_bwd_wgmma.cu`` for CUDA
+    tensors (or raise), ``block_grads`` and three adds (or copies) for CPU
+    tensors. ``path`` names the user for ``backward_path_launches``. A
+    causal block wholly in the queries' future adds nothing and is skipped
+    without a launch (``backward_skips``; in store mode the outputs are
+    zeroed); returns whether the block was computed."""
     global backward_skips
-    _check_grads(q, k, v, grad_out, lse, delta, dq, dk, dv)
+    if path not in GRADS_PATHS:
+        raise ValueError(f"unknown backward path {path!r}: one of {GRADS_PATHS}")
+    _check_grads(q, k, v, grad_out, lse, delta, dq, dk, dv, mode)
     if causal and k_offset >= q_offset + q.shape[1]:
         backward_skips += 1  # every key is in every query's future: P = 0
+        if mode == "store":
+            for t in (dq, dk, dv):
+                t.zero_()
         return False
     if q.is_cuda:
         _block_grads_kernel(q, k, v, grad_out, lse, delta, dq, dk, dv, q_offset, k_offset, scale,
-                            causal)
+                            causal, mode, path)
         return True
     if q.device.type != "cpu":
         raise ValueError(f"unsupported device {q.device}")
     gq, gk, gv = block_grads(q, k, v, grad_out, lse, delta, q_offset, k_offset, scale, causal)
-    dq += gq
-    dk += gk
-    dv += gv
+    if mode == "store":
+        dq.copy_(gq)
+        dk.copy_(gk)
+        dv.copy_(gv)
+    else:
+        dq += gq
+        dk += gk
+        dv += gv
     return True
+
+
+def attention_delta_reference(grad_out: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """``rowsum(dO * O)`` of attention's backward in plain PyTorch:
+    ``[b, h, s]`` f32, contiguous, from ``[b, s, h, d]`` dO and O."""
+    return (grad_out.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def attention_delta(grad_out: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """``delta = rowsum(dO * O)`` (``[b, h, s]`` f32, contiguous): on CUDA
+    tensors one launch of the delta kernel of
+    ``csrc/ring_block_bwd_wgmma.cu`` (it reads dO and O once in their
+    type and sums in f32 in one fixed order) or raise; on CPU tensors
+    ``attention_delta_reference``."""
+    global delta_launches
+    if grad_out.dim() != 4 or grad_out.shape != out.shape or grad_out.dtype != out.dtype:
+        raise ValueError(f"grad_out {grad_out.dtype}{list(grad_out.shape)} and out "
+                         f"{out.dtype}{list(out.shape)} must be one [b, s, h, d] shape and dtype")
+    if grad_out.device != out.device:
+        raise ValueError(f"grad_out and out lie on different devices: {grad_out.device}, "
+                         f"{out.device}")
+    if not grad_out.is_cuda:
+        if grad_out.device.type != "cpu":
+            raise ValueError(f"unsupported device {grad_out.device}")
+        return attention_delta_reference(grad_out, out)
+    if grad_out.dtype not in _fa._DTYPE_CODES:
+        raise ValueError(f"unsupported dtype {grad_out.dtype} (float32, float16, bfloat16)")
+    for name, t in (("grad_out", grad_out), ("out", out)):
+        if t.shape[-1] > 1 and t.stride(-1) != 1:
+            raise ValueError(f"{name} must be contiguous in head_dim (stride {t.stride(-1)})")
+    b, s, h, d = grad_out.shape
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=grad_out.device)
+    if delta.numel() == 0:
+        return delta
+    fn = _load_delta()
+    strides = (ctypes.c_int64 * 6)(*(t.stride(i) for t in (grad_out, out) for i in range(3)))
+    with torch.cuda.device(grad_out.device):
+        stream = torch.cuda.current_stream(grad_out.device).cuda_stream
+        err = fn(grad_out.data_ptr(), out.data_ptr(), delta.data_ptr(), strides, b, s, h, d,
+                 _fa._DTYPE_CODES[grad_out.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"attention delta kernel launch failed: CUDA error {err} "
+                           f"(shape {tuple(grad_out.shape)}, {grad_out.dtype})")
+    delta_launches += 1
+    return delta
 
 
 def _init_carry(q: torch.Tensor):
@@ -607,24 +737,31 @@ def ring_attention_reference(q, k, v, causal: bool = True, scale: Optional[float
 
 
 class _RingBlock(torch.autograd.Function):
-    """Forward: one block through ``attend_block`` (``first+last``).
-    Backward: autograd of ``flash_attention_reference`` at the block's
-    scale, recomputed from q, k, v (one block from the empty carry is that
-    function, in fewer passes over the f32 scores)."""
+    """One block under grad (the ring of one). Forward: ``first`` and
+    ``_finish`` through ``attend_block``, keeping the carry (equal to the
+    ``first+last`` launch bit for bit), saving q, k, v, the output and the
+    row log-sum-exp. Backward: ``attention_delta`` and one
+    ``attend_block_grads`` call in ``store`` mode at offsets (0, 0)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):
+        b, sq, h, _ = q.shape
+        m = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+        l = torch.empty_like(m)
+        o = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+        attend_block(q, k, v, m, l, o, 0, 0, scale, causal, mode="first")
+        out = _finish(l, o, q.dtype)
         ctx.causal, ctx.scale = causal, scale
-        ctx.save_for_backward(q, k, v)
-        return _one_block(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, out, m + torch.log(l))
+        return out
 
     @staticmethod
     def backward(ctx, grad_out):
-        q, k, v = ctx.saved_tensors
-        with torch.enable_grad():
-            inputs = tuple(t.detach().requires_grad_(True) for t in (q, k, v))
-            out = _fa.flash_attention_reference(*inputs, ctx.causal, ctx.scale)
-            grads = torch.autograd.grad(out, inputs, grad_out)
+        q, k, v, out, lse = ctx.saved_tensors
+        grad_out = grad_out.contiguous()
+        grads = [torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(3)]
+        attend_block_grads(q, k, v, grad_out, lse, attention_delta(grad_out, out), *grads, 0, 0,
+                           ctx.scale, ctx.causal, mode="store", path="ring_of_one")
         return (*grads, None, None)
 
 
@@ -739,7 +876,7 @@ class _Ring(torch.autograd.Function):
         n, rank = dist.get_world_size(group), dist.get_rank(group)
         sq = q.shape[1]
         grad_out = grad_out.contiguous()
-        delta = (grad_out.float() * out.float()).sum(-1).transpose(1, 2).contiguous()  # [b, h, sq]
+        delta = attention_delta(grad_out, out)  # [b, h, sq]
         dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
         dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
         dv = torch.zeros_like(dk)
@@ -780,12 +917,14 @@ def ring_attention(
     rank's output block, q's shape and dtype."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if group is None:
-        return _RingBlock.apply(q, k, v, causal, scale)
-    import torch.distributed as dist
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    if group is not None:
+        import torch.distributed as dist
 
-    if dist.get_world_size(group) == 1:
+        if dist.get_world_size(group) > 1:
+            if grad:
+                return _Ring.apply(q, k, v, group, causal, scale)
+            return _ring_forward(q, k, v, group, causal, scale, keep_carry=False)[0]
+    if grad:
         return _RingBlock.apply(q, k, v, causal, scale)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return _Ring.apply(q, k, v, group, causal, scale)
-    return _ring_forward(q, k, v, group, causal, scale, keep_carry=False)[0]
+    return _one_block(q, k, v, causal, scale)

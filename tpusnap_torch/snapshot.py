@@ -1513,6 +1513,7 @@ def _start_observability(
             from . import fleet as _fleet
 
             _fleet.attach_to_take(progress_monitor)
+            _fleet.publish_at_take_start(progress_monitor)
         except Exception:
             logger.warning("Failed to attach fleet publisher (non-fatal)", exc_info=True)
     return progress_monitor
