@@ -1168,6 +1168,86 @@ def test_analyze_attributes_a_cuda_takes_dtoh_to_dtoh(gen, tmp_path):
     assert att["attributed_s"].get("dtoh", 0) > 0, att
 
 
+@pytest.mark.parametrize("kind", ["take", "async_take"])
+def test_take_counts_the_dtoh_split(gen, tmp_path, kind):
+    """Every staged byte of CUDA state crosses in a timed copy: a tensor's
+    own and the device slab's (the small leaves) count their bytes, their
+    pinned allocation and their time on the card."""
+    from tpusnap_torch import telemetry
+
+    state = {f"w{i}": torch.randn((4 << 20,), generator=gen, device="cuda") for i in range(3)}
+    state.update({f"b{i}": torch.randn((1000,), generator=gen, device="cuda") for i in range(4)})
+    torch.cuda.synchronize()
+    path = str(tmp_path / "snap")
+    if kind == "take":
+        Snapshot.take(path, {"s": StateDict(state)})
+    else:
+        Snapshot.async_take(path, {"s": StateDict(state)}).wait()
+    counters = telemetry.LAST_TAKE_SUMMARY["counters"]
+    assert counters["dtoh.bytes"] == sum(t.numel() * t.element_size() for t in state.values())
+    assert counters["dtoh.card_ns"] > 0
+    assert counters["dtoh.pin_alloc_ns"] >= 0
+    # The copies' card time is inside their spans' wall time.
+    busy = telemetry.LAST_TAKE_SUMMARY["stages"]["dtoh"]["busy_s"]
+    assert 0 < counters["dtoh.card_ns"] / 1e9 <= telemetry.LAST_TAKE_SUMMARY["stages"]["dtoh"]["total_s"]
+    assert busy > 0
+
+
+def _device_dtoh_copies_us(prof) -> list:
+    """Durations of the device-to-host copies in a profiler's device trace."""
+    from torch.autograd import DeviceType
+
+    return [
+        ev.duration_ns() / 1e3
+        for ev in prof.profiler.kineto_results.events()
+        if ev.device_type() == DeviceType.CUDA and "Memcpy DtoH" in ev.name()
+    ]
+
+
+def test_dtoh_card_time_is_the_profilers_copy_time_beside_a_gil_holder(gen, tmp_path):
+    """``dtoh.card_ns`` is the copies' time on the card, not the host's:
+    while a thread holds the GIL in 64 MiB ``bytes()`` copies beside the
+    take, so that every staging call waits to retake it, the counter
+    stays within 10 % (and 20 us a copy) of the copy time that the
+    profiler's device trace gives. (The four leaves cross in two device
+    slabs.) The pinned allocations are fresh after the allocator's cache
+    is emptied, and their time is counted."""
+    import threading
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpusnap_torch import telemetry
+
+    state = {f"w{i}": torch.randn((16 << 20,), generator=gen, device="cuda") for i in range(4)}
+    torch.cuda.synchronize()
+    torch._C._host_emptyCache()
+    stop = threading.Event()
+
+    def hold_the_gil():
+        buf = bytearray(64 << 20)
+        while not stop.is_set():
+            bytes(buf)
+
+    holder = threading.Thread(target=hold_the_gil, daemon=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        holder.start()
+        try:
+            Snapshot.take(str(tmp_path / "snap"), {"s": StateDict(state)})
+        finally:
+            stop.set()
+            holder.join()
+        torch.cuda.synchronize()
+    summary = telemetry.LAST_TAKE_SUMMARY
+    counters = summary["counters"]
+    assert summary["gauges"]["gil.wait_max_s"] >= 0.005, summary["gauges"]
+    copies = _device_dtoh_copies_us(prof)
+    assert copies, "the profiler saw no device-to-host copy"
+    card_us, traced_us = counters["dtoh.card_ns"] / 1e3, sum(copies)
+    assert abs(card_us - traced_us) <= 0.1 * traced_us + 20 * len(copies), (card_us, copies)
+    assert counters["dtoh.bytes"] == sum(t.numel() * t.element_size() for t in state.values())
+    assert 0 < counters["dtoh.pin_alloc_ns"] / 1e9 <= summary["stages"]["dtoh"]["total_s"]
+
+
 def test_restore_consume_spans_close_after_the_host_to_device_copy(gen, tmp_path):
     """A CUDA restore target receives its bytes in pinned memory and
     then a copy on the card: each ``consume`` span ends after that

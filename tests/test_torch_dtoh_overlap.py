@@ -47,15 +47,15 @@ def stage(spin_cycles):
     t0 = time.perf_counter()
     staged = [enqueue_dtoh(t, ready) for t in srcs]
     returned = time.perf_counter() - t0
-    pending = [not done.query() for _, done in staged]
-    for _, done in staged:
+    pending = [not done.query() for _, done, _ in staged]
+    for _, done, _ in staged:
         done.synchronize()
     return staged, returned, pending, time.perf_counter() - t0
 
 stage(0)  # warm the pinned allocator and the streams
 torch.cuda.synchronize()
 staged, returned_s, pending, _ = stage(200_000_000)
-exact = all(torch.equal(host.view(torch.float32), src.cpu()) for (host, _), src in zip(staged, srcs))
+exact = all(torch.equal(host.view(torch.float32), src.cpu()) for (host, _, _), src in zip(staged, srcs))
 del staged  # its pinned buffers go back to the allocator's cache
 
 torch.cuda.synchronize()

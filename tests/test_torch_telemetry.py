@@ -11,6 +11,7 @@ overhead is measured on the card (``chip_smoke.py``).
 import json
 import logging
 import os
+import statistics
 import threading
 import time
 
@@ -20,7 +21,11 @@ import torch
 
 from tpusnap_torch import PytreeState, Snapshot, StateDict, telemetry
 from tpusnap_torch.faults import FaultPlan
-from tpusnap_torch.knobs import is_telemetry_enabled, override_telemetry_enabled
+from tpusnap_torch.knobs import (
+    is_telemetry_enabled,
+    override_stage_threads,
+    override_telemetry_enabled,
+)
 from tpusnap_torch.telemetry import (
     MetricsSink,
     TakeTelemetry,
@@ -462,3 +467,198 @@ def test_distributed_take_produces_rank_traces(tmp_path):
     from tpusnap_torch.test_utils import run_subprocess_world
 
     run_subprocess_world(_world_telemetry_take, world_size=2, args=[str(tmp_path / "snap")])
+
+
+# ------------------------- busy time, GIL probe, profiler ranges (the port's)
+
+
+def _op_intervals(doc):
+    """(start_s, end_s) of each span name in a persisted rank trace."""
+    out = {}
+    for ev in doc["traceEvents"]:
+        if ev.get("ph") == "X":
+            start = ev["ts"] / 1e6
+            out.setdefault(ev["name"], []).append((start, start + ev["dur"] / 1e6))
+    return out
+
+
+def test_take_stage_busy_is_the_union_of_its_spans(tmp_path):
+    from tpusnap_torch.analyze import attribute_spans, spans_of_trace_doc, union_seconds
+
+    path = str(tmp_path / "snap")
+    Snapshot.take(path, {"m": PytreeState(_state(total_bytes=4 << 20, n=6))})
+    doc = json.load(open(_trace_file(path)))
+    stages = doc["summary"]["stages"]
+    intervals = _op_intervals(doc)
+    assert set(stages) == set(intervals)
+    for name, agg in stages.items():
+        assert agg["busy_s"] == pytest.approx(union_seconds(list(intervals[name])), abs=2e-6), name
+        assert agg["busy_s"] <= agg["total_s"], name
+    # analyze's busy view of a category with one span name is that name's busy time.
+    att = attribute_spans(spans_of_trace_doc(doc), doc["summary"]["take_wall_s"])
+    assert att.busy["storage_write"] == pytest.approx(stages["storage_write"]["busy_s"], abs=2e-6)
+    assert att.busy["stage"] == pytest.approx(stages["stage_buffer"]["busy_s"], abs=2e-6)
+
+
+def test_busy_s_of_overlapping_spans():
+    rec = TakeTelemetry(rank=0, enabled=True)
+    rec.record_span("w", 0.0, 1.0)
+    rec.record_span("w", 0.5, 1.0)
+    rec.record_span("w", 3.0, 0.5)
+    rec.finalize()
+    agg = rec.summary()["stages"]["w"]
+    assert agg["total_s"] == pytest.approx(2.5)
+    assert agg["busy_s"] == pytest.approx(2.0)
+
+
+def _gil_probes():
+    return [t for t in threading.enumerate() if t.name == "tpusnap-gil-probe"]
+
+
+class _ProbeWatch(MetricsSink):
+    """How many GIL probe threads were alive at each storage span (the
+    probe stops when the recorder is finalized, before the commit)."""
+
+    def __init__(self):
+        self.seen = []
+
+    def on_span(self, name, duration_s, attrs):
+        if name.startswith("storage_"):
+            self.seen.append(len(_gil_probes()))
+
+
+class _Boom:
+    def state_dict(self):
+        raise RuntimeError("state_dict failed")
+
+    def load_state_dict(self, sd):
+        pass
+
+
+def test_gil_probe_runs_only_while_a_take_or_restore_is_in_flight(tmp_path):
+    assert not _gil_probes()
+    path = str(tmp_path / "snap")
+    state = _state()
+    with metrics_sink(_ProbeWatch()) as watch:
+        Snapshot.take(path, {"m": StateDict(**state)})
+    assert watch.seen and min(watch.seen) >= 1
+    assert not _gil_probes()
+    summary = telemetry.LAST_TAKE_SUMMARY
+    assert summary["counters"]["gil.samples"] >= 0 and "gil.wait_ns" in summary["counters"]
+    assert summary["gauges"]["gil.wait_max_s"] >= 0.0
+
+    with metrics_sink(_ProbeWatch()) as watch:
+        Snapshot.async_take(str(tmp_path / "async"), {"m": StateDict(**state)}).wait()
+    assert watch.seen and min(watch.seen) >= 1
+    assert not _gil_probes()
+
+    target = {"m": StateDict(**{k: torch.zeros_like(v) for k, v in state.items()})}
+    with metrics_sink(_ProbeWatch()) as watch:
+        Snapshot(path).restore(target)
+    assert watch.seen and min(watch.seen) >= 1
+    assert not _gil_probes()
+    assert "gil.wait_ns" in telemetry.LAST_RESTORE_SUMMARY["counters"]
+
+    with pytest.raises(RuntimeError, match="state_dict failed"):
+        Snapshot.take(str(tmp_path / "aborted"), {"m": StateDict(**state), "boom": _Boom()})
+    assert not _gil_probes()
+    with pytest.raises(RuntimeError, match="state_dict failed"):
+        Snapshot.async_take(str(tmp_path / "aborted_async"), {"boom": _Boom()})
+    assert not _gil_probes()
+
+
+def test_gil_probe_off_with_span_capture(tmp_path):
+    with override_telemetry_enabled(False):
+        with metrics_sink(_ProbeWatch()) as watch:
+            Snapshot.take(str(tmp_path / "snap"), {"m": PytreeState(_state())})
+    assert "gil.wait_ns" not in telemetry.LAST_TAKE_SUMMARY["counters"]
+    assert not _gil_probes()
+
+
+def test_gil_probe_sees_a_thread_that_holds_the_gil(tmp_path):
+    """``bytes()`` of a 400 MB buffer copies it with the GIL held: the
+    probe, due every few ms, waits for the copy's end."""
+    buf = bytearray(400 << 20)
+    stop = threading.Event()
+    copies = []
+
+    def hog():
+        while not stop.is_set():
+            copies.append(len(bytes(buf)))
+
+    side = threading.Thread(target=hog, daemon=True)
+    side.start()
+    try:
+        while not copies:
+            time.sleep(0.001)
+        Snapshot.take(str(tmp_path / "snap"), {"m": PytreeState(_state(total_bytes=8 << 20, n=8))})
+    finally:
+        stop.set()
+        side.join()
+    summary = telemetry.LAST_TAKE_SUMMARY
+    assert summary["gauges"]["gil.wait_max_s"] >= 0.005, summary["gauges"]
+    assert summary["counters"]["gil.wait_ns"] >= 5_000_000
+    assert summary["counters"]["gil.samples"] >= 1
+
+
+def _profiled_take(path, state):
+    from torch.profiler import ProfilerActivity, profile
+
+    config = torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+    with profile(activities=[ProfilerActivity.CPU], experimental_config=config) as prof:
+        Snapshot.take(path, {"m": PytreeState(state)})
+    return prof
+
+
+def test_spans_are_profiler_ranges_on_the_profilers_clock(tmp_path, monkeypatch):
+    """A take under ``torch.profiler`` (all threads): its storage writes
+    are ``tpusnap.storage_write`` ranges that open with their spans (the
+    event loop holds them), on the profiler's clock, which is the wall
+    clock of ``started_at``; its staging is ``tpusnap.stage_buffer``
+    ranges on the staging threads, inside their spans (a range opens when
+    a thread picks the request up)."""
+    # One write request a tensor: a slab's members would be staged one
+    # after another inside the slab's one span.
+    monkeypatch.setenv("TPUSNAP_DISABLE_BATCHING", "1")
+    path = str(tmp_path / "snap")
+    with override_stage_threads(4):  # no request waits for a staging thread
+        prof = _profiled_take(path, _state(total_bytes=4 << 20, n=4))
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    trace = json.load(open(tmp_path / "trace.json"))
+    base_s = trace["baseTimeNanoseconds"] / 1e9
+    ranges = {}
+    for ev in trace["traceEvents"]:
+        name = str(ev.get("name", ""))
+        if ev.get("ph") == "X" and name.startswith("tpusnap."):
+            start = base_s + ev["ts"] / 1e6
+            ranges.setdefault(name[len("tpusnap."):], []).append((start, start + ev["dur"] / 1e6))
+    doc = json.load(open(_trace_file(path)))
+    started_at = doc["summary"]["started_at"]
+    spans = {name: sorted((started_at + s, started_at + e) for s, e in ivs)
+             for name, ivs in _op_intervals(doc).items()}
+    assert not set(ranges) - {"stage_buffer", "storage_write", "checksum", "checksum_late",
+                              "cow_verify", "dtoh", "compress"}
+    writes = sorted(ranges["storage_write"])
+    assert len(writes) == len(spans["storage_write"]) == 4
+    # The event loop opens each range, then reads the span's start: the
+    # range is never later, and the pairs sit within 1 ms (the median: a
+    # preemption between the two statements can part any one pair).
+    gaps = [s0 - r0 for (r0, _), (s0, _) in zip(writes, spans["storage_write"])]
+    assert min(gaps) > -1e-3, gaps
+    assert statistics.median(abs(g) for g in gaps) < 1e-3, gaps
+    stages = sorted(ranges["stage_buffer"])
+    assert len(stages) == len(spans["stage_buffer"]) == 4
+    for r0, r1 in stages:
+        assert any(s0 - 1e-3 < r0 and r1 < s1 + 1e-3 for s0, s1 in spans["stage_buffer"]), (r0, r1)
+
+
+def test_no_profiler_range_without_the_profiler(tmp_path, monkeypatch):
+    opened = []
+    monkeypatch.setattr(telemetry._torch_profiler, "record_function",
+                        lambda name: opened.append(name))
+    assert not torch.autograd.profiler._is_profiler_enabled
+    path = str(tmp_path / "snap")
+    state = _state()
+    Snapshot.take(path, {"m": StateDict(**state)})
+    Snapshot(path).restore({"m": StateDict(**{k: torch.zeros_like(v) for k, v in state.items()})})
+    assert opened == []

@@ -227,7 +227,10 @@ class Attribution:
         }
 
 
-def _union_seconds(intervals: List[Tuple[float, float]]) -> float:
+def union_seconds(intervals: List[Tuple[float, float]]) -> float:
+    """Length of the union of ``(start, end)`` intervals (sorted in
+    place): the time during which at least one was open. Shared with
+    the telemetry summary's ``busy_s``."""
     if not intervals:
         return 0.0
     intervals.sort()
@@ -270,7 +273,7 @@ def attribute_spans(
 
     att = Attribution(wall_s=max(wall_s, 0.0))
     for cat, ivs in by_cat.items():
-        att.busy[cat] = _union_seconds(list(ivs))
+        att.busy[cat] = union_seconds(list(ivs))
 
     # Sweep: +1/-1 events per category, slice between consecutive cuts.
     events: List[Tuple[float, int, str]] = []

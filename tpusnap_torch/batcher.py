@@ -50,6 +50,7 @@ from .io_preparers.array import (
     dedup_entries_match,
     enqueue_dtoh,
     event_on,
+    wait_dtoh,
 )
 from .io_types import (
     SKIP_WRITE,
@@ -192,12 +193,13 @@ class DeviceBatchedBufferStager(BufferStager):
     def _stage_blocking(self) -> BufferType:
         rec = telemetry.current()
         t0 = rec.now() if rec is not None and rec.enabled else None
-        with self._lock:
-            if self._packed is None:
-                self._packed = self._pack_on(torch.cuda.Stream(device=self.cuda_device))
-            host, done = enqueue_dtoh(*self._packed)
-            self._dtoh_done = done
-        done.synchronize()
+        with telemetry.profiler_range("dtoh"):
+            with self._lock:
+                if self._packed is None:
+                    self._packed = self._pack_on(torch.cuda.Stream(device=self.cuda_device))
+                host, done, timing = enqueue_dtoh(*self._packed)
+                self._dtoh_done = done
+            wait_dtoh(done, timing)
         if t0 is not None:
             rec.record_span("dtoh", t0, rec.now() - t0, bytes=host.numel())
         self._packed = None

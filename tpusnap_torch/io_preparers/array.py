@@ -68,6 +68,7 @@ staging. What differs from tpusnap and why:
 from __future__ import annotations
 
 import asyncio
+import ctypes
 import logging
 import math
 import threading
@@ -139,11 +140,22 @@ def enqueue_dtoh(
     t: torch.Tensor,
     ready: Optional["torch.cuda.Event"],
     transform: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
-) -> Tuple[torch.Tensor, "torch.cuda.Event"]:
+) -> Tuple[torch.Tensor, "torch.cuda.Event", Optional[tuple]]:
     """Start the device→host copy of ``t``'s bytes — of ``transform(t)``
     when given, computed on the card — into a pinned buffer on a side
-    stream; returns ``(pinned_u8, done_event)``. The caller must
-    ``done_event.synchronize()`` before reading the buffer."""
+    stream; returns ``(pinned_u8, done_event, timing)``. The caller hands
+    ``done_event`` and ``timing`` to :func:`wait_dtoh` before reading the
+    buffer.
+
+    While span capture is on, the copy is measured: ``dtoh.bytes``, and
+    ``dtoh.pin_alloc_ns`` from the pinned allocator's own clock
+    (:func:`_pinned_empty`). The copy is then submitted between two
+    timing events in calls that keep the GIL (:func:`_submit_timed_copy`),
+    so no host wait falls between the events, and ``timing`` lets
+    :func:`wait_dtoh` count the card's time between them. The transform
+    and a non-contiguous source's compaction run before the first event."""
+    rec = telemetry.current()
+    timed = rec is not None and rec.enabled
     stream = torch.cuda.Stream(device=t.device)
     with torch.cuda.stream(stream):
         if ready is not None:
@@ -152,14 +164,113 @@ def enqueue_dtoh(
         # here, on the side stream, after the ready event; their results
         # are allocated on this stream, so the allocator cannot reuse
         # them before the copy below has read them.
-        src = t if transform is None else transform(t)
-        host = torch.empty(array_nbytes(src), dtype=torch.uint8, pin_memory=True)
-        host.copy_(tensor_as_bytes(src), non_blocking=True)
+        src = tensor_as_bytes(t if transform is None else transform(t))
+        host = _pinned_empty(src.numel(), rec if timed else None)
+        timing = None
+        if timed:
+            telemetry.incr("dtoh.bytes", host.numel(), rec=rec)
+            events = _submit_timed_copy(host, src, stream)
+            if events is not None:
+                start, done = events
+                timing = (rec, start)
+        if timing is None:
+            host.copy_(src, non_blocking=True)
+            done = event_on(stream)
         # The caching allocator must not hand ``t``'s memory out again
         # before this copy has read it, even if the caller drops ``t``.
         t.record_stream(stream)
-        done = event_on(stream)
-    return host, done
+    return host, done, timing
+
+
+def wait_dtoh(done: "torch.cuda.Event", timing: Optional[tuple]) -> None:
+    """Wait for a copy :func:`enqueue_dtoh` started; when it was timed,
+    add the card's time between its two events to ``dtoh.card_ns``."""
+    done.synchronize()
+    if timing is not None:
+        rec, start = timing
+        telemetry.incr("dtoh.card_ns", int(start.elapsed_time(done) * 1e6), rec=rec)
+
+
+# Pinned allocations are measured one at a time, so that the allocator's
+# clock, which every thread shares, is read around one allocation alone.
+_pin_lock = threading.Lock()
+
+
+def _host_alloc_us() -> Optional[float]:
+    """Microseconds torch's pinned allocator has spent in CUDA's host
+    allocation, summed over the process; None where torch lacks it."""
+    stats = getattr(torch.cuda, "host_memory_stats", None)
+    return None if stats is None else stats().get("host_alloc_time.total")
+
+
+def _pinned_empty(nbytes: int, rec: Optional[telemetry.TakeTelemetry]) -> torch.Tensor:
+    """A pinned ``uint8`` buffer. With ``rec``, the allocator's time in
+    CUDA's host allocation for it goes to ``dtoh.pin_alloc_ns``: zero when
+    the request is served from the allocator's cache. The allocator times
+    the call itself, so the wait to retake the GIL after it is not
+    counted."""
+    if rec is None:
+        return torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    with _pin_lock:
+        before = _host_alloc_us()
+        host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+        after = _host_alloc_us()
+    if after is not None:
+        # The allocator reports no statistic before its first allocation.
+        telemetry.incr("dtoh.pin_alloc_ns", int((after - (before or 0)) * 1000), rec=rec)
+    return host
+
+
+_driver: Optional[object] = None  # libcuda through ctypes.PyDLL; False if absent
+
+
+def _cuda_driver():
+    """The CUDA driver library loaded with ``ctypes.PyDLL``, whose calls
+    keep the GIL, or None."""
+    global _driver
+    if _driver is None:
+        try:
+            lib = ctypes.PyDLL("libcuda.so.1")
+            lib.cuEventRecord.argtypes = (ctypes.c_void_p, ctypes.c_void_p)
+            lib.cuMemcpyDtoHAsync_v2.argtypes = (
+                ctypes.c_void_p, ctypes.c_uint64, ctypes.c_size_t, ctypes.c_void_p,
+            )
+            _driver = lib
+        except (OSError, AttributeError):
+            logger.warning("libcuda not loadable: device-to-host copies go untimed")
+            _driver = False
+    return _driver or None
+
+
+def _submit_timed_copy(
+    host: torch.Tensor, src: torch.Tensor, stream: "torch.cuda.Stream"
+) -> Optional[Tuple["torch.cuda.Event", "torch.cuda.Event"]]:
+    """Record a timing event, the copy of ``src`` into ``host`` and a
+    second timing event on ``stream``, in three driver calls that keep
+    the GIL: no other thread runs between them, so the events part only
+    by the copy (and by any wait for a copy engine that another stream
+    holds). Returns ``(start, done)``, or None with nothing submitted
+    where the driver is not loadable.
+
+    A ``torch.cuda.Event`` creates its handle at its first record; both
+    are recorded once through torch first, which the driver's records
+    then supersede."""
+    lib = _cuda_driver()
+    if lib is None:
+        return None
+    start = torch.cuda.Event(enable_timing=True)
+    done = torch.cuda.Event(enable_timing=True)
+    start.record(stream)
+    done.record(stream)
+    handle = stream.cuda_stream
+    err = lib.cuEventRecord(start.cuda_event, handle)
+    if not err:
+        err = lib.cuMemcpyDtoHAsync_v2(host.data_ptr(), src.data_ptr(), host.numel(), handle)
+        if not err:
+            err = lib.cuEventRecord(done.cuda_event, handle)
+    if err:
+        raise RuntimeError(f"CUDA driver error {err} in a device-to-host copy")
+    return start, done
 
 
 def event_on(stream: "torch.cuda.Stream") -> "torch.cuda.Event":
@@ -303,11 +414,12 @@ class ArrayBufferStager(BufferStager):
         transform = self._transformed if self.array_prepare_func is not None else None
         rec = telemetry.current()
         t0 = rec.now() if rec is not None and rec.enabled else None
-        with self._lock:
-            src, ready = self._frozen or (self.arr, self.ready)
-            host, done = enqueue_dtoh(src, ready, transform)
-            self._dtoh_done = done
-        done.synchronize()
+        with telemetry.profiler_range("dtoh"):
+            with self._lock:
+                src, ready = self._frozen or (self.arr, self.ready)
+                host, done, timing = enqueue_dtoh(src, ready, transform)
+                self._dtoh_done = done
+            wait_dtoh(done, timing)
         if t0 is not None:
             # The copy runs on a side stream: its span closes once its
             # event has completed, not at the enqueue.
@@ -352,10 +464,11 @@ class ArrayBufferStager(BufferStager):
             return SKIP_WRITE
         raw_nbytes = mv.nbytes
         t0 = rec.now() if rec is not None else 0.0
-        out, comp_sizes, crcs, xxhs = _native.compress_tiles(
-            mv, tile_nbytes, codec_elem(codec), want_dedup,
-            nthreads=get_native_copy_threads(),
-        )
+        with telemetry.profiler_range("compress"):
+            out, comp_sizes, crcs, xxhs = _native.compress_tiles(
+                mv, tile_nbytes, codec_elem(codec), want_dedup,
+                nthreads=get_native_copy_threads(),
+            )
         del mv  # a CUDA source's pinned buffer goes back to its pool here
         if rec is not None:
             rec.record_span(

@@ -273,7 +273,9 @@ class _WritePipeline:
         start = tele.now() if tele is not None else 0.0
         token = tele.op_enter("stage_buffer") if tele is not None else None
         try:
-            buf = await self.write_req.buffer_stager.stage_buffer(executor)
+            buf = await self.write_req.buffer_stager.stage_buffer(
+                telemetry.ranged_executor(executor, "stage_buffer")
+            )
         finally:
             if tele is not None:
                 tele.op_exit(token)
@@ -309,21 +311,26 @@ class _WritePipeline:
             # CPU tensor that a synchronous take does not let change (an
             # async take's COW stagers hashed at stage time).
             start = tele.now() if tele is not None else 0.0
-            await loop.run_in_executor(self.hash_executor, late, self.buf)
+            await loop.run_in_executor(
+                telemetry.ranged_executor(self.hash_executor, "checksum_late"), late, self.buf
+            )
             if tele is not None:
                 tele.record_span(
                     "checksum_late", start, tele.now() - start, bytes=self.buf_size
                 )
-        start = tele.now() if tele is not None else 0.0
-        token = tele.op_enter("storage_write") if tele is not None else None
-        try:
-            # A journaling storage layer hashes the buffer inside this
-            # call, so its evidence is final before the buffer goes back
-            # to the staging pool below.
-            await self.storage.write(WriteIO(path=self.write_req.path, buf=self.buf))
-        finally:
-            if tele is not None:
-                tele.op_exit(token)
+        # The plugin's own pool does the write; its profiler range is
+        # held here, by the event loop, over the span's interval.
+        with telemetry.profiler_range("storage_write"):
+            start = tele.now() if tele is not None else 0.0
+            token = tele.op_enter("storage_write") if tele is not None else None
+            try:
+                # A journaling storage layer hashes the buffer inside this
+                # call, so its evidence is final before the buffer goes
+                # back to the staging pool below.
+                await self.storage.write(WriteIO(path=self.write_req.path, buf=self.buf))
+            finally:
+                if tele is not None:
+                    tele.op_exit(token)
         if tele is not None:
             tele.record_span(
                 "storage_write", start, tele.now() - start,
@@ -336,7 +343,8 @@ class _WritePipeline:
             # against the stage-time value, failing the take on a change.
             start = tele.now() if tele is not None else 0.0
             await loop.run_in_executor(
-                self.hash_executor, stager.verify_cow_after_write, self.buf
+                telemetry.ranged_executor(self.hash_executor, "cow_verify"),
+                stager.verify_cow_after_write, self.buf,
             )
             if tele is not None:
                 tele.record_span(
@@ -942,13 +950,15 @@ class _ReadPipeline:
             want_crc=self.read_req.want_crc,
         )
         tele = self.tele
-        start = tele.now() if tele is not None else 0.0
-        token = tele.op_enter("storage_read") if tele is not None else None
-        try:
-            await self.storage.read(self.read_io)
-        finally:
-            if tele is not None:
-                tele.op_exit(token)
+        # As a write's: the range is held by the event loop.
+        with telemetry.profiler_range("storage_read"):
+            start = tele.now() if tele is not None else 0.0
+            token = tele.op_enter("storage_read") if tele is not None else None
+            try:
+                await self.storage.read(self.read_io)
+            finally:
+                if tele is not None:
+                    tele.op_exit(token)
         nbytes = self._read_nbytes()
         self.read_nbytes = nbytes
         if tele is not None:
@@ -996,7 +1006,9 @@ class _ReadPipeline:
         start = tele.now() if tele is not None else 0.0
         token = tele.op_enter("consume") if tele is not None else None
         try:
-            await self.read_req.buffer_consumer.consume_read_io(self.read_io, executor)
+            await self.read_req.buffer_consumer.consume_read_io(
+                self.read_io, telemetry.ranged_executor(executor, "consume")
+            )
         finally:
             if tele is not None:
                 tele.op_exit(token)

@@ -34,6 +34,19 @@ rank. This module is that instrument:
   segments the write scheduler interleaves between I/O windows; their
   samples land here and the summary derives a drift-immune
   ``roofline_fraction`` (see :mod:`tpusnap.analyze`).
+- **Busy time** — each summary's ``stages`` entry carries ``busy_s``,
+  the wall time during which at least one span of that name was open
+  (the union of its intervals; ``total_s`` sums spans that overlap).
+- **GIL probe** — while span capture is on, a take or restore runs one
+  daemon thread that sleeps :data:`GIL_PROBE_PERIOD_S` and counts its
+  lateness beyond the period (waits for the interpreter, over a floor
+  of the operating system's wake-up latency) into ``gil.wait_ns``,
+  ``gil.samples`` and the gauge ``gil.wait_max_s``.
+- **Profiler ranges** — while ``torch.profiler`` runs, the spans of the
+  analyze work categories are also ``record_function`` ranges named
+  ``tpusnap.<span>`` (:func:`profiler_range`, :func:`ranged_executor`),
+  so a device trace can put its idle gaps down to them. Pool threads
+  show up only under ``profile_all_threads=True``.
 - **TakeTelemetry** — the per-take aggregate. One is installed
   process-globally for the duration of a take (background drain
   threads re-install it thread-locally via :func:`use`); module-level
@@ -65,9 +78,12 @@ import logging
 import math
 import threading
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from typing import Any, Callable, Dict, Generator, List, Optional, Tuple
 
+from torch.autograd import profiler as _torch_profiler
+
+from .analyze import classify_span, union_seconds
 from .knobs import is_telemetry_enabled
 
 logger = logging.getLogger(__name__)
@@ -449,6 +465,104 @@ def merge_io_histograms(
     return {k: v.to_dict() for k, v in sorted(merged.items())}
 
 
+# ---------------------------------------------------- profiler ranges
+
+# The analyze categories whose spans are opened as profiler ranges: the
+# work of a take or a restore, not its waits or containers.
+_RANGE_CATEGORIES = frozenset(
+    {"stage", "dtoh", "checksum", "compress", "storage_write", "storage_read", "consume"}
+)
+_NO_RANGE = nullcontext()
+
+
+def profiler_range(name: str):
+    """A ``record_function`` range ``tpusnap.<name>`` while
+    ``torch.profiler`` runs and ``name`` is a span of a work category,
+    whether or not span capture is on; a shared no-op context otherwise
+    (one boolean read)."""
+    if not _torch_profiler._is_profiler_enabled or classify_span(name) not in _RANGE_CATEGORIES:
+        return _NO_RANGE
+    return _torch_profiler.record_function("tpusnap." + name)
+
+
+class _RangedExecutor:
+    """Runs each call submitted to ``executor`` inside a profiler range,
+    on the pool thread that runs it (``loop.run_in_executor`` submits)."""
+
+    def __init__(self, executor, name: str) -> None:
+        self._executor = executor
+        self._name = name
+
+    def submit(self, fn, *args, **kwargs):
+        return self._executor.submit(self._run, fn, *args, **kwargs)
+
+    def _run(self, fn, *args, **kwargs):
+        with profiler_range(self._name):
+            return fn(*args, **kwargs)
+
+
+def ranged_executor(executor, name: str):
+    """``executor`` itself, or, while ``torch.profiler`` runs, a view of
+    it whose calls run inside ``tpusnap.<name>`` ranges on their pool
+    threads (for spans that an event loop holds across an await while a
+    pool does the work)."""
+    if executor is None or not _torch_profiler._is_profiler_enabled:
+        return executor
+    return _RangedExecutor(executor, name)
+
+
+# ------------------------------------------------------------ GIL probe
+
+# The probe's sleep. Lateness beyond it is time the probe, a Python
+# thread, took to run again: waits for the interpreter, and the
+# operating system's wake-up latency, which an idle process reads alone
+# and which every reading holds as its floor (docs/design.md).
+GIL_PROBE_PERIOD_S = 0.005
+
+
+class _GilProbe:
+    """Daemon thread that sleeps :data:`GIL_PROBE_PERIOD_S` over and over
+    and sums its lateness; :meth:`stop` joins it and records the totals
+    into its recorder."""
+
+    def __init__(self, rec: "TakeTelemetry") -> None:
+        self._rec = rec
+        self._stop = threading.Event()
+        self._wait_ns = 0
+        self._samples = 0
+        self._max_ns = 0
+        self._until_ns = 0
+        self._thread = threading.Thread(target=self._run, name="tpusnap-gil-probe", daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        period_ns = int(GIL_PROBE_PERIOD_S * 1e9)
+        clock = time.perf_counter_ns
+        while True:
+            t = clock()
+            if self._stop.wait(GIL_PROBE_PERIOD_S):
+                return
+            now = clock()
+            if self._stop.is_set():
+                # A wake that outlived the recorder's freeze counts up to it.
+                now = min(now, self._until_ns)
+            late = max(now - t - period_ns, 0)
+            self._samples += 1
+            self._wait_ns += late
+            if late > self._max_ns:
+                self._max_ns = late
+
+    def stop(self) -> None:
+        """Called at the recorder's freeze: no lateness past now counts,
+        so the sum stays inside the take's wall time."""
+        self._until_ns = time.perf_counter_ns()
+        self._stop.set()
+        self._thread.join()
+        incr("gil.wait_ns", self._wait_ns, rec=self._rec)
+        incr("gil.samples", self._samples, rec=self._rec)
+        self._rec.gauge_max("gil.wait_max_s", self._max_ns / 1e9)
+
+
 # ------------------------------------------------------- TakeTelemetry
 
 
@@ -490,6 +604,7 @@ class TakeTelemetry:
         self._inflight: Dict[object, Tuple[str, str]] = {}
         self._last_phase: Optional[str] = None
         self._rss_sampler = None
+        self._gil_probe: Optional[_GilProbe] = None
         if self.enabled:
             try:
                 from .rss_profiler import RSSSampler
@@ -524,12 +639,14 @@ class TakeTelemetry:
         self, name: str, phase: bool = False, **attrs: Any
     ) -> Generator[None, None, None]:
         if not self.enabled:
-            yield
+            with profiler_range(name):
+                yield
             return
         start = self.now()
         token = self.op_enter(name)
         try:
-            yield
+            with profiler_range(name):
+                yield
         finally:
             self.op_exit(token)
             self.record_span(name, start, self.now() - start, phase=phase, **attrs)
@@ -637,13 +754,22 @@ class TakeTelemetry:
 
     # --- finalization ---------------------------------------------------
 
+    def start_gil_probe(self) -> None:
+        """Start the GIL probe (span capture on only); :meth:`finalize`
+        stops it."""
+        if self.enabled and self._gil_probe is None:
+            self._gil_probe = _GilProbe(self)
+
     def finalize(self) -> None:
-        """Freeze the take wall-clock and stop the RSS sampler.
-        Idempotent; spans recorded after this still reach sinks but are
-        not part of the persisted trace's coverage window."""
+        """Freeze the take wall-clock, stop the GIL probe and the RSS
+        sampler. Idempotent; spans recorded after this still reach sinks
+        but are not part of the persisted trace's coverage window."""
         if self._finalized_wall_s is not None:
             return
         self._finalized_wall_s = self.now()
+        if self._gil_probe is not None:
+            self._gil_probe.stop()
+            self._gil_probe = None
         if self._rss_sampler is not None:
             try:
                 self._rss_sampler.stop()
@@ -666,7 +792,9 @@ class TakeTelemetry:
 
     def summary(self) -> Dict[str, Any]:
         """Compact aggregate: per-span-name {count, total_s, p50_s,
-        max_s}, phase list (for wall-clock coverage), counters, gauges."""
+        max_s, busy_s}, phase list (for wall-clock coverage), counters,
+        gauges. ``busy_s`` is the union of the name's spans: the wall
+        time during which at least one of them was open."""
         with self._lock:
             spans = list(self._spans)
             counters = dict(self._counters)
@@ -674,20 +802,21 @@ class TakeTelemetry:
             events = list(self._events)
             io_hist = {k: v.to_dict() for k, v in sorted(self._io_hist.items())}
             probes = [dict(s) for s in self._probe_samples]
-        by_name: Dict[str, List[float]] = {}
+        by_name: Dict[str, List[Tuple[float, float]]] = {}
         phase_total: Dict[str, float] = {}
-        for name, _start, dur, _thread, phase, _attrs in spans:
-            by_name.setdefault(name, []).append(dur)
+        for name, start, dur, _thread, phase, _attrs in spans:
+            by_name.setdefault(name, []).append((start, dur))
             if phase:
                 phase_total[name] = phase_total.get(name, 0.0) + dur
         stages = {}
-        for name, durs in sorted(by_name.items()):
-            durs_sorted = sorted(durs)
+        for name, ivs in sorted(by_name.items()):
+            durs_sorted = sorted(dur for _, dur in ivs)
             stages[name] = {
-                "count": len(durs),
-                "total_s": round(sum(durs), 6),
+                "count": len(ivs),
+                "total_s": round(sum(durs_sorted), 6),
                 "p50_s": round(durs_sorted[len(durs_sorted) // 2], 6),
                 "max_s": round(durs_sorted[-1], 6),
+                "busy_s": round(union_seconds([(s, s + d) for s, d in ivs]), 6),
             }
         take_wall = self.take_wall_s
         phase_sum = sum(phase_total.values())
@@ -843,6 +972,7 @@ def begin_take(rank: int) -> TakeTelemetry:
     rec = TakeTelemetry(rank)
     rec.meta["kind"] = "take"
     rec.meta["job_id"] = _job_id()
+    rec.start_gil_probe()
     _global_current = rec
     return rec
 
@@ -855,6 +985,7 @@ def begin_restore(rank: int) -> TakeTelemetry:
     rec = TakeTelemetry(rank)
     rec.meta["kind"] = "restore"
     rec.meta["job_id"] = _job_id()
+    rec.start_gil_probe()
     return rec
 
 
@@ -928,7 +1059,8 @@ def span(name: str, phase: bool = False, **attrs: Any) -> Generator[None, None, 
     no take is in flight or span capture is knob-disabled."""
     rec = current()
     if rec is None or not rec.enabled:
-        yield
+        with profiler_range(name):
+            yield
         return
     with rec.span(name, phase=phase, **attrs):
         yield
