@@ -6,8 +6,11 @@ tests/test_storage.py, and the batcher's device-batching switch.
 - the fs plugin: round trips, the native write path, O_DIRECT writes and
   reads at unaligned sizes with the knob on and off, concurrent writes,
   the sync shims, ``write_atomic``'s durable flag;
-- ``_native``: ranged writes and reads, ``memcpy``, the CRC32C vector,
-  the fallback without the native build;
+- ``_native``: ranged writes and reads, ``memcpy``, ``copy_to_bytes``,
+  the CRC32C vector, the fallback without the native build;
+- the fsspec plugin: the memory store's one-copy write (a copy, sizes
+  read without copying, the GIL released), every byte of a view to
+  another backend, the counters of each path;
 - in-place reads (``read_range_into``, the plugin honouring ``into``, a
   restore landing in the target, a short read failing loudly) and the
   abort path (the original error surfaces, the loop stays reusable);
@@ -304,6 +307,212 @@ def test_fsspec_memory_roundtrip():
     _run(go())
 
 
+def _float32_view(nbytes: int, seed: int):
+    return np.frombuffer(_bytes(nbytes, seed), dtype=np.float32).copy()
+
+
+def _bf16_view(nbytes: int, seed: int):
+    t = torch.from_numpy(_float32_view(2 * nbytes, seed)).to(torch.bfloat16)
+    return t.view(torch.int16).numpy()
+
+
+_MEMORY_BLOB_SIZES = [0, 300_000, 8 * _MIB + 4096]
+
+
+@pytest.mark.parametrize("nbytes", _MEMORY_BLOB_SIZES, ids=["empty", "small", "large"])
+@pytest.mark.parametrize("make", [_float32_view, _bf16_view], ids=["float32", "bf16"])
+def test_fsspec_memory_write_is_a_copy(nbytes, make):
+    """A blob from a non-byte view lands whole in the memory store, as a
+    copy: changing the source afterwards leaves the store alone."""
+    from tpusnap_torch.storage_plugins.fsspec import FsspecStoragePlugin
+
+    root = f"copytest-{make.__name__}-{nbytes}"
+    plugin = FsspecStoragePlugin("memory", root)
+    src = make(nbytes, seed=11)
+    want = src.tobytes()
+    assert len(want) == nbytes and memoryview(src).format != "B"
+    try:
+        plugin.sync_write(WriteIO(path="a/blob", buf=src))
+        src.view(np.uint8)[:] += 1
+        stored = plugin._fs.store[f"/{root}/a/blob"]
+        assert stored.size == nbytes
+        assert stored.getvalue() == want
+        assert plugin._fs.cat_file(f"/{root}/a/blob") == want
+        read_io = ReadIO(path="a/blob")
+        plugin.sync_read(read_io)
+        assert read_io.buf.getvalue() == want
+        if nbytes:
+            read_io = ReadIO(path="a/blob", byte_range=(7, nbytes - 3))
+            plugin.sync_read(read_io)
+            assert read_io.buf.getvalue() == want[7 : nbytes - 3]
+    finally:
+        plugin._fs.rm(f"/{root}", recursive=True)
+        plugin.sync_close()
+
+
+def test_fsspec_memory_file_sizes_without_copy():
+    """The size a listing, ``info`` or a recursive delete reads from a
+    64 MiB stored blob allocates nothing near the blob's size, also while
+    a reader holds the blob (a whole read returns the stored object,
+    which the stored file then shares), and the stored file still takes
+    reads and later writes as any MemoryFile."""
+    import tracemalloc
+
+    from tpusnap_torch.storage_plugins.fsspec import FsspecStoragePlugin
+
+    root = "sizetest"
+    plugin = FsspecStoragePlugin("memory", root)
+    fs_ = plugin._fs
+    nbytes = 64 * _MIB
+    plugin.sync_write(WriteIO(path="d/blob", buf=np.ones(nbytes // 4, dtype=np.float32)))
+    plugin.sync_write(WriteIO(path="d/other", buf=b"tail"))
+    held = ReadIO(path="d/blob")
+    plugin.sync_read(held)
+    tracemalloc.start()
+    try:
+        assert fs_.info(f"/{root}/d/blob")["size"] == nbytes
+        sizes = {e["name"]: e["size"] for e in fs_.ls(f"/{root}/d", detail=True)}
+        assert sizes == {f"/{root}/d/blob": nbytes, f"/{root}/d/other": 4}
+        assert fs_.ls(f"/{root}/d/blob", detail=True)[0]["size"] == nbytes
+        # The plugin has no listing of its own (as tpusnap's), so the
+        # base class's None comes back.
+        assert plugin.sync_list_with_sizes() is None
+        fs_.rm(f"/{root}", recursive=True)
+        _, peak = tracemalloc.get_traced_memory()
+    finally:
+        tracemalloc.stop()
+    assert peak < _MIB, peak
+    assert not fs_.exists(f"/{root}/d/blob")
+    assert held.buf.getbuffer().nbytes == nbytes
+
+    # Later writes: appending to a stored blob changes its size.
+    plugin.sync_write(WriteIO(path="e/blob", buf=_bytes(2 * _MIB, seed=12)))
+    with fs_.open(f"/{root}/e/blob", "ab") as f:
+        f.write(b"xyz")
+    assert fs_.info(f"/{root}/e/blob")["size"] == 2 * _MIB + 3
+    assert fs_.cat_file(f"/{root}/e/blob", start=2 * _MIB) == b"xyz"
+    with fs_.open(f"/{root}/e/blob", "rb") as f:
+        assert f.read() == _bytes(2 * _MIB, seed=12) + b"xyz"
+    plugin.sync_write(WriteIO(path="e/blob", buf=b"new"))
+    assert fs_.cat_file(f"/{root}/e/blob") == b"new"
+    fs_.rm(f"/{root}", recursive=True)
+    plugin.sync_close()
+
+
+def test_fsspec_memory_write_leaves_the_gil():
+    """The copy into the memory store runs with the GIL released: a
+    thread sleeping 1 ms at a time beside a 64 MiB write runs late by
+    far less than the write takes. Holding the GIL through the copy, it
+    would be late by at least one whole copy, half the write or more.
+    Best of three writes, against scheduling noise on a loaded host."""
+    import threading
+    import time
+
+    from tpusnap_torch.storage_plugins.fsspec import FsspecStoragePlugin
+
+    if not _native.available():
+        pytest.skip("native library not loaded: the copy holds the GIL")
+    root = "giltest"
+    plugin = FsspecStoragePlugin("memory", root)
+    src = np.ones(16 * _MIB, dtype=np.float32)
+    ratios = []
+    try:
+        for i in range(3):
+            stop = threading.Event()
+            late = [0.0]
+
+            def probe():
+                while not stop.is_set():
+                    t = time.perf_counter()
+                    time.sleep(0.001)
+                    late[0] = max(late[0], time.perf_counter() - t - 0.001)
+
+            prober = threading.Thread(target=probe)
+            prober.start()
+            time.sleep(0.02)
+            t0 = time.perf_counter()
+            writer = threading.Thread(
+                target=plugin.sync_write, args=(WriteIO(path=f"w/{i}", buf=src),)
+            )
+            writer.start()
+            writer.join()
+            wall = time.perf_counter() - t0
+            stop.set()
+            prober.join()
+            assert plugin._fs.info(f"/{root}/w/{i}")["size"] == src.nbytes
+            ratios.append(late[0] / wall)
+            if ratios[-1] < 0.25:
+                break
+    finally:
+        plugin._fs.rm(f"/{root}", recursive=True)
+        plugin.sync_close()
+    assert min(ratios) < 0.25, ratios
+
+
+def test_fsspec_file_backend_writes_every_byte_of_a_view(tmp_path):
+    """Another backend gets the view's bytes, not its item count."""
+    from tpusnap_torch.storage_plugins.fsspec import FsspecStoragePlugin
+
+    plugin = FsspecStoragePlugin("file", str(tmp_path))
+    src = _float32_view(3 * _MIB + 8, seed=13)
+    plugin.sync_write(WriteIO(path="a/blob", buf=src))
+    plugin.sync_close()
+    assert os.path.getsize(tmp_path / "a" / "blob") == src.nbytes
+    assert (tmp_path / "a" / "blob").read_bytes() == src.tobytes()
+
+
+@pytest.mark.parametrize(
+    "protocol,counter",
+    [("memory", "fsspec.direct_bytes"), ("file", "fsspec.buffered_bytes")],
+)
+def test_fsspec_write_counters(tmp_path, protocol, counter):
+    """Each write counts its bytes under the path it took, and only there."""
+    from tpusnap_torch import telemetry
+    from tpusnap_torch.storage_plugins.fsspec import FsspecStoragePlugin
+
+    other = {"fsspec.direct_bytes", "fsspec.buffered_bytes"} - {counter}
+    root = str(tmp_path) if protocol == "file" else "countertest"
+    plugin = FsspecStoragePlugin(protocol, root)
+    before = telemetry.counter_value(counter), telemetry.counter_value(*other)
+    plugin.sync_write(WriteIO(path="a/blob", buf=_float32_view(2 * _MIB, seed=14)))
+    plugin.sync_write(WriteIO(path="a/small", buf=b"12345"))
+    after = telemetry.counter_value(counter), telemetry.counter_value(*other)
+    if protocol == "memory":
+        plugin._fs.rm(f"/{root}", recursive=True)
+    plugin.sync_close()
+    assert after[0] - before[0] == 2 * _MIB + 5
+    assert after[1] == before[1]
+
+
+@pytest.mark.parametrize("kind", ["take", "async_take"])
+def test_fsspec_memory_take_counts_direct_bytes(kind, capsys):
+    """A take to the memory store counts every byte it writes as
+    ``fsspec.direct_bytes`` in its rollup and the ``trace`` listing."""
+    import fsspec
+
+    from tpusnap_torch.__main__ import main
+
+    state = {f"w{i}": torch.arange(300_000, dtype=torch.float32) + i for i in range(3)}
+    url = f"fsspec+memory://direct-{kind}"
+    if kind == "take":
+        snap = Snapshot.take(url, {"m": StateDict(state)})
+    else:
+        snap = Snapshot.async_take(url, {"m": StateDict(state)}).wait()
+    try:
+        counters = snap.metadata.extras["telemetry"]["counters"]
+        assert counters["fsspec.direct_bytes"] >= 3 * 300_000 * 4
+        assert counters["fsspec.direct_bytes"] >= counters["storage.bytes_written"]
+        assert "fsspec.buffered_bytes" not in counters
+        assert main(["trace", url]) == 0
+        assert "fsspec.direct_bytes" in capsys.readouterr().out
+        out = StateDict({k: torch.zeros_like(v) for k, v in state.items()})
+        snap.restore({"m": out})
+        for k, v in state.items():
+            assert torch.equal(out[k], v)
+    finally:
+        fsspec.filesystem("memory").rm(f"/direct-{kind}", recursive=True)
+
+
 def test_sync_shims(tmp_path):
     plugin = FSStoragePlugin(root=str(tmp_path))
     plugin.sync_write(WriteIO(path="s", buf=b"sync"))
@@ -335,6 +544,14 @@ class TestNative:
         with pytest.raises(ValueError):
             _native.memcpy(bytearray(5), b"123")
 
+    @pytest.mark.parametrize("nbytes", [0, _MIB - 1, _MIB, _MIB + 1, 9 * _MIB + 5])
+    def test_copy_to_bytes(self, nbytes):
+        src = _bytes(nbytes, seed=15)
+        out = _native.copy_to_bytes(memoryview(src))
+        assert type(out) is bytes and out == src
+        view = np.frombuffer(src[: nbytes - nbytes % 4], dtype=np.float32)
+        assert _native.copy_to_bytes(view, nthreads=1) == bytes(view)
+
     def test_crc32c_known_vector(self):
         if not _native.available():
             pytest.skip("native unavailable")
@@ -353,6 +570,8 @@ class TestNative:
             "assert open(p,'rb').read()==b'abc';"
             "assert not _native.available();"
             "assert _native.checksum_algorithm() == 'zlib-crc32';"
+            "b=bytes(range(256))*8192;"
+            "assert _native.copy_to_bytes(memoryview(b))==b;"
             "print('fallback-ok')"
         )
         env = dict(os.environ, TPUSNAP_DISABLE_NATIVE="1")

@@ -545,6 +545,33 @@ def memcpy(dst, src, nthreads: int = 4) -> None:
     del dst_keep, src_keep
 
 
+# PyBytes_FromStringAndSize(NULL, n): a bytes object whose n bytes are
+# left unset, for the caller to fill before anything else can see it.
+# A prototype of its own, so no other user of ctypes.pythonapi sees
+# changed argtypes; PYFUNCTYPE keeps the GIL held for the allocation.
+_bytes_uninit = ctypes.PYFUNCTYPE(ctypes.py_object, ctypes.c_void_p, ctypes.c_ssize_t)(
+    ("PyBytes_FromStringAndSize", ctypes.pythonapi)
+)
+
+
+def copy_to_bytes(src, nthreads: int = 4) -> bytes:
+    """A new ``bytes`` object holding ``src``'s bytes: one copy, made
+    with the GIL released. The object is allocated uninitialised and
+    filled by the native memcpy before it is returned. Buffers under
+    1 MiB, and every buffer without the native library, go through
+    ``bytes()``."""
+    src_mv = memoryview(src).cast("B")
+    lib = _load()
+    if lib is None or src_mv.nbytes < (1 << 20):
+        return bytes(src_mv)
+    out = _bytes_uninit(None, src_mv.nbytes)
+    dst_ptr, dst_keep = _ptr(out)
+    src_ptr, src_keep = _ptr(src_mv)
+    lib.ts_memcpy_par(dst_ptr, src_ptr, src_mv.nbytes, nthreads)
+    del dst_keep, src_keep
+    return out
+
+
 def memcpy_crc_tiles(dst, src, tile_nbytes: int, nthreads: int = 4) -> list:
     """Copy ``src`` into ``dst`` while computing a seed-0 checksum per
     ``tile_nbytes`` bytes — one memory pass for the clone and the hash.
