@@ -1,6 +1,6 @@
-"""The training job a cell runs: the program's flagship model trained by
-its own ``train_step`` in a closed loop, with the checkpoint calls that
-the cell's mix asks for.
+"""The training job a cell runs: the program's model that the cell's
+configuration names (``model_of``), trained by its own ``train_step`` in
+a closed loop, with the checkpoint calls that the cell's mix asks for.
 
 Each step starts after the previous step's loss is on the host
 (``.item()``), as a training loop that logs its loss does. The mixes'
@@ -24,14 +24,16 @@ judge what comes back.
 
 from __future__ import annotations
 
+import dataclasses
 import shutil
 import tempfile
 import time
-from typing import Dict, List
+from typing import Dict, List, get_type_hints
 
 import torch
 
 from . import frozen
+from .harness import Refused
 from .trace import span
 
 MEMORY_ROOT = "portbench/run"
@@ -61,21 +63,56 @@ def mismatches(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a.contiguous().view(view) != b.contiguous().view(view)).sum()
 
 
+# The keys of a configuration's file that the harness reads itself; every
+# other key names a field of the model's config.
+HARNESS_KEYS = ("name", "reference", "source", "source_values", "notes", "departures",
+                "assumed", "reduced", "batch", "learning_rate", "flops_per_step",
+                "train_state_bytes", "limits", "model")
+DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16, "float32": torch.float32}
+
+
+def model_of(cfg: dict):
+    """The model class that the configuration names (``model``, a class
+    exported by ``tpusnap_torch.models``; ``Transformer`` when absent) and
+    its config (``<model>Config`` of the same module), built from every key
+    of the configuration that names a field of it, dtype fields mapped
+    from their names. A key that is neither the harness's nor a field is
+    refused, so that a misspelt width cannot take its default.
+
+    The job relies on ``cls(config, device=..., seed=...)``, ``params()``,
+    ``train_state()`` and ``train_step(tokens, learning_rate=...)``."""
+    from tpusnap_torch import models
+
+    name = cfg.get("model", "Transformer")
+    if name not in models.__all__ or f"{name}Config" not in models.__all__:
+        raise Refused(f"configuration {cfg.get('name')!r}: model {name!r} is not a class of "
+                      f"tpusnap_torch.models with a {name}Config beside it")
+    cls, config_cls = getattr(models, name), getattr(models, f"{name}Config")
+    types = get_type_hints(config_cls)
+    fields = {f.name for f in dataclasses.fields(config_cls)}
+    unplaced = sorted(set(cfg) - set(HARNESS_KEYS) - fields)
+    if unplaced:
+        raise Refused(f"configuration {cfg.get('name')!r}: keys {unplaced} are neither the "
+                      f"harness's nor fields of {config_cls.__name__}")
+    values = {}
+    for key in fields & set(cfg):
+        value = cfg[key]
+        if types[key] is torch.dtype:
+            if value not in DTYPES:
+                raise Refused(f"configuration {cfg.get('name')!r}: {key} {value!r} is not one "
+                              f"of {sorted(DTYPES)}")
+            value = DTYPES[value]
+        values[key] = value
+    return cls, config_cls(**values)
+
+
 class Job:
     """The model, its feed and its checkpoint policy for one run."""
 
     def __init__(self, cfg: dict, mix: dict, seed: int, device: torch.device, ref) -> None:
-        from tpusnap_torch.models import Transformer, TransformerConfig
-
-        self.cfg, self.device = cfg, device
-        dtypes = {"bfloat16": torch.bfloat16, "float16": torch.float16, "float32": torch.float32}
-        tcfg = TransformerConfig(
-            vocab_size=cfg["vocab_size"], d_model=cfg["d_model"], n_heads=cfg["n_heads"],
-            n_layers=cfg["n_layers"], d_ff=cfg["d_ff"], max_seq_len=cfg["max_seq_len"],
-            n_experts=cfg["n_experts"], rope_theta=cfg["rope_theta"],
-            dtype=dtypes[cfg["dtype"]], param_dtype=dtypes[cfg["param_dtype"]],
-        )
-        self.model = Transformer(tcfg, device=device, seed=0)
+        self.cfg, self.device, self.ref = cfg, device, ref
+        cls, model_cfg = model_of(cfg)
+        self.model = cls(model_cfg, device=device, seed=0)
         # The weights are the benchmark's, drawn on the device from the
         # seed, and copied into the program's parameters in place.
         self.start = ref.init_weights(cfg, seed, device)
@@ -106,11 +143,9 @@ class Job:
         """The program's readings of its first ``n`` steps: each loss, the
         first step's gradient per leaf as Adam holds it after one step
         (mu / (1 - b1)), and each parameter's change after ``n``."""
-        from .references.flagship_transformer import ADAM_B1
-
         losses = [self.step()]
         mu = dict(_leaves(self.model.train_state()["opt"]["mu"]))
-        grads = {k: _norm(v / (1 - ADAM_B1)) for k, v in mu.items()}
+        grads = {k: _norm(v / (1 - self.ref.ADAM_B1)) for k, v in mu.items()}
         losses += [self.step() for _ in range(n - 1)]
         params = dict(_leaves(self.model.params()))
         change = {k: _norm(params[k].detach() - self.start[k]) for k in params}

@@ -1,11 +1,13 @@
 """Helpers the metric readers share: means over a run's checkpoint
-records and sums of the program's span seconds by category."""
+records, sums of the program's span seconds by category, and the
+attention shape that the roofline readers count."""
 
 from __future__ import annotations
 
 import statistics
 from typing import Iterable, Optional
 
+from portbench import registry
 from portbench.frozen import classify_span
 
 
@@ -31,3 +33,14 @@ def rate_gb_s(pairs: Iterable[tuple]) -> Optional[float]:
         return None
     return sum(b for b, _ in pairs) / sum(s for _, s in pairs) / 1e9
 
+
+def attention_shape(cfg: dict) -> Optional[tuple]:
+    """The ``(batch, seq, heads, head_dim)`` that ``attention_bound`` and
+    ``flash_backward_bound`` count for the model's attention: from the
+    configuration's reference when it defines ``attention_shape(cfg)``
+    (None where the attention is not of that form, as latent attention's
+    unequal q/k and v heads), else heads of ``d_model // n_heads``."""
+    hook = getattr(registry.reference(cfg["reference"]), "attention_shape", None)
+    if hook is not None:
+        return hook(cfg)
+    return (cfg["batch"], cfg["max_seq_len"], cfg["n_heads"], cfg["d_model"] // cfg["n_heads"])

@@ -32,9 +32,9 @@ def test_p95_is_of_every_step_in_the_window():
 
 
 def test_stall_is_all_checkpoint_time_over_the_checkpoints():
-    got = registry.metric("ckpt_stall_ms")(_run([0.04] * 64, [0.15, 0.35, 0.1], 3.2))
+    got = registry.metric("take_stall_ms")(_run([0.04] * 64, [0.15, 0.35, 0.1], 3.2))
     assert got == pytest.approx(200.0)
-    assert registry.metric("ckpt_stall_ms")(_run([0.04] * 4, [], 0.16)) is None
+    assert registry.metric("take_stall_ms")(_run([0.04] * 4, [], 0.16)) is None
 
 
 def test_setup_is_read_as_measured():
@@ -74,3 +74,47 @@ def test_roofline_share_from_calls_and_device_time():
     # Four calls of 0.040 ms against the bound at the configuration's shape.
     assert registry.metric("flash_fwd_roofline")(run) == pytest.approx(100 * bound_ms / 0.040, rel=1e-9)
     assert round(bound_ms, 4) == 0.0200
+
+
+def _attention_trace():
+    us = 1000
+    device = [(i * 100 * us, i * 100 * us + 40 * us, "void flash_fwd_wgmma<bf16>") for i in range(4)]
+    device += [(i * 100 * us + 50 * us, i * 100 * us + 90 * us, "void ring_grads_wgmma<bf16>")
+               for i in range(4)]
+    return trace.summarize(device, [], 0, 400 * us)
+
+
+ROOFLINES = [("flash_fwd_roofline", frozen.attention_bound),
+             ("attn_bwd_roofline", frozen.flash_backward_bound)]
+
+
+@pytest.mark.parametrize("name,bound", ROOFLINES)
+def test_roofline_at_the_flagships_square_heads(name, bound):
+    """The flagship's reference has no ``attention_shape``: heads of
+    d_model / n_heads, as the readers always counted."""
+    cfg = registry.config("transformer-big")
+    assert not hasattr(registry.reference(cfg["reference"]), "attention_shape")
+    bound_ms = bound((8, 1024, 16, 64), "bfloat16", True)[0]
+    run = {"trace": _attention_trace(), "config": cfg}
+    assert registry.metric(name)(run) == pytest.approx(100 * bound_ms / 0.040, rel=1e-9)
+
+
+@pytest.mark.parametrize("name,bound", ROOFLINES)
+@pytest.mark.parametrize("shape", [(4, 2048, 8, 128), None])
+def test_roofline_at_the_references_attention_shape(name, bound, shape, monkeypatch):
+    """A reference that defines ``attention_shape`` sets the shape counted;
+    one whose attention has no such shape (None) leaves the metric
+    unread."""
+    import types
+
+    stub = types.SimpleNamespace(attention_shape=lambda cfg: shape)
+    real = registry.reference
+    monkeypatch.setattr(registry, "reference",
+                        lambda name, base=registry.HERE: stub if name == "stub" else real(name, base))
+    cfg = dict(registry.config("transformer-big"), reference="stub")
+    got = registry.metric(name)({"trace": _attention_trace(), "config": cfg})
+    if shape is None:
+        assert got is None
+    else:
+        bound_ms = bound(shape, "bfloat16", True)[0]
+        assert got == pytest.approx(100 * bound_ms / 0.040, rel=1e-9)
